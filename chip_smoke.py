@@ -1,0 +1,408 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA
+GPU: the quickest proof that the port builds, is right, and runs its main
+path on the card.
+
+    python3 chip_smoke.py
+
+Phases, each ending in ``torch.cuda.synchronize()`` so a fault shows where
+it happened; any failure ends the run with a non-zero exit code:
+  1. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (nvcc,
+     sm_90a) and print the build time and the card's name and power limit;
+  2. hold each kernel against its plain PyTorch version on the card at the
+     main path's shapes (a [20, 4671, 256] f32 commit stack for the fused
+     commit kernels, the [20*4096, 256] dense1_w leaf for the per-leaf
+     ones), and time kernel, plain version and library call with CUDA
+     events (median of 30 after 3 warm-up launches);
+  3. hold each launcher configuration's round on the card against the CPU
+     from the same params, batches and compression draws, to 1e-4: the
+     clients' deltas, the commit from the same deltas (the kernels against
+     their plain versions in place), and the whole round where the commit
+     has no compression (TF32 is off for convolutions and matmuls, so the
+     card computes in full float32 as the CPU does);
+  4. drive the main path, ``repro_torch.launch.train.main`` on cuda at the
+     full CIFAR CNN width (60-client pool, 20 clients per round, 5 local
+     steps, batch 16, 3 rounds, client lr 0.01), once for each of the four launcher
+     configurations that reach the four kernels, with the launch counts set
+     to 0 just before each run and read just after.
+The last lines are the kernels' JSON record, the nvidia-smi line, and
+``{"ok": true, "device": {...}}``.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import math
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
+from repro_torch.core import CompressionConfig, build_fl_round_step  # noqa: E402
+from repro_torch.kernels import launches, ref  # noqa: E402
+from repro_torch.kernels.fused_accum import fused_accum_blocks  # noqa: E402
+from repro_torch.kernels.fused_quant_mask import plain_commit_blocks  # noqa: E402
+from repro_torch.kernels.quantize import quantize_dequant_blocks  # noqa: E402
+from repro_torch.kernels.topk_sparsify import topk_sparsify_blocks  # noqa: E402
+from repro_torch.launch import train  # noqa: E402
+from repro_torch.models.cnn import CIFAR_CNN, CNN  # noqa: E402
+from repro_torch.optim import get_client_optimizer, get_server_optimizer  # noqa: E402
+
+SOURCE = "src/repro_torch/kernels/csrc/commit_kernels.cu"
+F32_PEAK = 67e12          # H100 SXM f32 outside the tensor cores, FLOP/s
+K_SLOTS, BUCKET_ROWS, BLOCK = 20, 4671, 256   # the CIFAR CNN's commit bucket
+LEAF_ROWS = 20 * 4096                          # dense1_w, 20 slots
+TOPK_K = CompressionConfig(quantize_bits=8, topk_frac=0.1).topk_k   # 26
+
+# Client lr 0.01: at the launcher's default of 0.08 local training on the
+# synthetic CIFAR task diverges in round 0 in the JAX reference as in the
+# port (mean round-0 loss ~66 in `python -m repro.launch.train` with the
+# q8_topk_deterministic flags), and how far it runs before overflowing
+# depends on the random init, so a finiteness check there would test the
+# init, not the port.
+MAIN_ARGS = ["--device", "cuda", "--dataset", "cifar10", "--clients-pool",
+             "60", "--clients-per-round", "20", "--local-steps", "5",
+             "--batch-size", "16", "--rounds", "3", "--lr", "0.01"]
+# The launcher configurations of the main path, the kernels each reaches,
+# and its launches in a 3-round run (one commit per round; the per-leaf
+# kernels run once per leaf, 8 leaves).
+CONFIGS = {
+    "default": ([], {"fused_accum": 3}),
+    "q8_topk_deterministic": (
+        ["--quantize-bits", "8", "--topk-frac", "0.1",
+         "--no-stochastic-rounding"], {"plain_commit": 3}),
+    "q8_topk_stochastic": (
+        ["--quantize-bits", "8", "--topk-frac", "0.1"],
+        {"topk_sparsify": 24, "fused_accum": 3}),
+    "dropout_q8_deterministic": (
+        ["--fed-dropout", "0.1", "--quantize-bits", "8",
+         "--no-stochastic-rounding"], {"quantize": 24, "fused_accum": 3}),
+}
+
+
+class SmokeFailure(Exception):
+    pass
+
+
+def check(cond, msg):
+    if not cond:
+        raise SmokeFailure(msg)
+
+
+def memory_rate(name: str) -> float:
+    """HBM bytes/s of the card, from its name (NVIDIA data sheets)."""
+    if "H200" in name:
+        return 4.8e12
+    if "H100" in name and "PCIe" in name:
+        return 2.0e12
+    if "H100" in name and "NVL" in name:
+        return 3.9e12
+    return 3.35e12                     # H100 SXM
+
+
+def nvidia_smi() -> str:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    check(out.returncode == 0 and out.stdout.strip(),
+          f"nvidia-smi failed: {out.stderr.strip()}")
+    return out.stdout.strip().splitlines()[0]
+
+
+def sync(device):
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def time_ms(fn, reps=30, warmup=3) -> float:
+    """Median device time of one call, from CUDA events around each call."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+# ---------------------------------------------------------------- phase 1
+def build():
+    from repro_torch.kernels import _build
+    t0 = time.perf_counter()
+    _build.library()
+    seconds = time.perf_counter() - t0
+    log = _build.BUILD_LOG.get("commit_kernels", "").splitlines()
+    regs = [line.split("Used")[1].split(",")[0].strip()
+            for line in log if "registers" in line]
+    spills = [line.strip() for line in log if "spill" in line
+              and "0 bytes spill stores, 0 bytes spill loads" not in line]
+    print(f"build: {seconds:.2f} s (nvcc {_build.BUILD_SECONDS}); ptxas: "
+          f"{len(regs)} entry functions, {regs}; spills: {spills or 'none'}")
+    return seconds
+
+
+# ---------------------------------------------------------------- phase 2
+def assert_quantized_close(got, want, step, what):
+    """Equal up to float32 noise, or at most one quantization step on rare
+    half-way rounding flips (tests/test_kernels.py's contract)."""
+    diff = (got - want).abs()
+    close = diff <= 1e-5 * want.abs() + 1e-6
+    check(bool((close | (diff <= step * 1.001)).all()),
+          f"{what}: differs from its plain version by more than one step")
+    check(close.float().mean().item() >= 0.99,
+          f"{what}: too many rounding flips")
+
+
+def kernel_specs(device, k_slots=K_SLOTS, rows=BUCKET_ROWS,
+                 leaf_rows=LEAF_ROWS, block=BLOCK, seed=0):
+    """Inputs made from a seed at the main path's shapes, and for each
+    kernel: its wrapper, its plain version, the library call computing the
+    same function (or None), the bytes it must move and the f32 operations
+    it does."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    xb = torch.randn(k_slots, rows, block, generator=gen, device=device) * 0.01
+    w = torch.rand(k_slots, generator=gen, device=device) * 1.5 + 0.5
+    s = torch.zeros(k_slots, device=device)       # a sync commit: no staleness
+    leaf = torch.randn(leaf_rows, block, generator=gen, device=device) * 0.01
+    n_stack, n_out, n_leaf = xb.numel(), rows * block, leaf.numel()
+    w_eff = ref.slot_weights(w, s, 0.0)
+    step_commit = (w_eff.max() * xb.abs().max() / 127).item()
+    return {
+        "fused_accum": dict(
+            replaces="src/repro/kernels/fused_accum.py:33",
+            kernel=lambda: fused_accum_blocks(xb, w, s, 0.0),
+            plain=lambda: ref.fused_accum_ref(xb, w[:, None], s[:, None], 0.0),
+            library=lambda: torch.einsum("k,krb->rb", w_eff, xb),
+            compare=lambda g, p: check(
+                torch.allclose(g, p, rtol=1e-5, atol=1e-6),
+                "fused_accum: differs from its plain version"),
+            bytes=4 * (n_stack + 2 * k_slots + n_out),
+            ops=2 * n_stack),
+        "plain_commit": dict(
+            replaces="src/repro/kernels/fused_quant_mask.py:154",
+            kernel=lambda: plain_commit_blocks(xb, w, s, 0.0, bits=8,
+                                               k=TOPK_K),
+            plain=lambda: ref.fused_plain_commit_ref(
+                xb, w[:, None], s[:, None], 0.0, 8, k=TOPK_K),
+            library=None,
+            compare=lambda g, p: assert_quantized_close(
+                g, p, step_commit, "plain_commit"),
+            bytes=4 * (n_stack + 2 * k_slots + n_out),
+            # per element: 32 select passes (compare + count), |x| and the
+            # keep test; max, divide, round, two clamps, multiply; and the
+            # weighted add
+            ops=(66 + 7 + 2) * n_stack),
+        "quantize": dict(
+            replaces="src/repro/kernels/quantize.py:32",
+            kernel=lambda: quantize_dequant_blocks(leaf, 8),
+            plain=lambda: ref.quantize_blocks(leaf, 8),
+            library=None,
+            compare=lambda g, p: assert_quantized_close(
+                g, p, (leaf.abs().max() / 127).item(), "quantize"),
+            bytes=4 * 2 * n_leaf,
+            ops=7 * n_leaf),
+        "topk_sparsify": dict(
+            replaces="src/repro/kernels/topk_sparsify.py:46",
+            kernel=lambda: topk_sparsify_blocks(leaf, TOPK_K),
+            plain=lambda: ref.topk_blocks(leaf, TOPK_K),
+            library=None,
+            compare=lambda g, p: check(
+                torch.equal(g, p), "topk_sparsify: threshold differs from "
+                                   "the sort threshold"),
+            bytes=4 * 2 * n_leaf,
+            ops=66 * n_leaf),
+    }
+
+
+def check_kernels(device="cuda", **shapes):
+    """Phase 2: each kernel against its plain version, and on the card its
+    times."""
+    timed = torch.device(device).type == "cuda"
+    rate = memory_rate(torch.cuda.get_device_name(0) if timed else "")
+    rows = {}
+    for kname, spec in kernel_specs(device, **shapes).items():
+        got = spec["kernel"]()
+        want = spec["plain"]()
+        sync(device)
+        spec["compare"](got, want)
+        err = (got - want).abs().max().item()
+        row = dict(name=kname, route="cuda", source=SOURCE,
+                   replaces=spec["replaces"], max_abs_err=err)
+        bytes_s = spec["bytes"] / rate
+        ops_s = spec["ops"] / F32_PEAK
+        row["bound_ms"] = max(bytes_s, ops_s) * 1e3
+        row["bound_by"] = "bytes" if bytes_s >= ops_s else "operations"
+        if timed:
+            row["ms"] = time_ms(spec["kernel"])
+            row["plain_ms"] = time_ms(spec["plain"])
+            row["library_ms"] = (time_ms(spec["library"])
+                                 if spec["library"] else None)
+        rows[kname] = row
+        print(f"kernel {kname}: max_abs_err={err:.3g} "
+              + " ".join(f"{k}={row[k]}" for k in
+                         ("ms", "plain_ms", "library_ms", "bound_ms",
+                          "bound_by") if k in row))
+        del got, want
+    sync(device)
+    return rows
+
+
+# ---------------------------------------------------------------- phase 3
+def round_inputs(C, H, B, seed=0):
+    rng = np.random.default_rng(seed)
+    batches = {
+        "image": rng.normal(size=(C, H, B) + CIFAR_CNN.in_shape
+                            ).astype(np.float32),
+        "label": rng.integers(0, CIFAR_CNN.num_classes, (C, H, B)
+                              ).astype(np.int32)}
+    weights = rng.uniform(100, 400, C).astype(np.float32)
+    mask = np.ones(C, np.float32)
+    mask[3] = 0.0                               # one straggler cut
+    return batches, weights, mask
+
+
+def check_round_parity(device="cuda", C=20, H=2, B=16, tol=1e-4):
+    """Phase 3: each configuration's round on the card against the CPU.
+
+    Local training is continuous in its inputs: the clients' deltas from the
+    card and from the CPU must agree to ``tol``.  The commit is not: top-k
+    and rounding can flip on a difference of one ulp in a delta, so the
+    commit (kernels, normalise, server step) runs on the card and on the
+    CPU from the card's deltas, and the new params must agree to ``tol``.
+    The whole round, card against CPU, must agree to ``tol`` where the
+    commit has no compression.  Compression randomness comes from CPU
+    generators with one seed on both sides, so stochastic rounding and
+    federated dropout draw the same numbers there."""
+    model = CNN(CIFAR_CNN)
+    params = model.init(torch.Generator().manual_seed(0), device="cpu")
+    b, w, m = round_inputs(C, H, B)
+    worst = {}
+
+    def on(dev, tree):
+        return {k: torch.as_tensor(v).to(dev) for k, v in tree.items()}
+
+    def gap(a, c):
+        return max((a[k].cpu() - c[k].cpu()).abs().max().item() for k in a)
+
+    for cname, (flags, expect) in CONFIGS.items():
+        fl = dataclasses.replace(
+            train.fl_config(train.build_parser().parse_args(MAIN_ARGS + flags)),
+            num_clients=C, local_steps=H)
+        step = build_fl_round_step(model.loss_fn, get_client_optimizer("sgd"),
+                                   get_server_optimizer("fedavg"), fl)
+        trained = {dev: step.train_clients(on(dev, params), on(dev, b))
+                   for dev in (device, "cpu")}
+        sync(device)
+        d_card, l_card = trained[device]
+        commits = {}
+        for dev in (device, "cpu"):
+            launches.reset()
+            new, _, met = step.commit(
+                on(dev, params), (), on(dev, d_card), l_card.to(dev),
+                torch.from_numpy(w).to(dev), torch.from_numpy(m).to(dev),
+                torch.Generator().manual_seed(7))
+            sync(dev)
+            check(math.isfinite(float(met["client_loss"])),
+                  f"{cname}: non-finite loss on {dev}")
+            if torch.device(dev).type == "cuda":
+                check(set(launches.KERNEL_LAUNCHES) == set(expect),
+                      f"{cname}: commit on the card launched "
+                      f"{dict(launches.KERNEL_LAUNCHES)}, expected the "
+                      f"kernels {sorted(expect)}")
+            commits[dev] = new
+        err = {"deltas": gap(d_card, trained["cpu"][0]),
+               "commit": gap(commits[device], commits["cpu"])}
+        if not fl.compression.enabled:
+            rounds = {dev: step(on(dev, params), (), on(dev, b),
+                                torch.from_numpy(w).to(dev),
+                                torch.from_numpy(m).to(dev),
+                                torch.Generator().manual_seed(7))[0]
+                      for dev in (device, "cpu")}
+            err["round"] = gap(rounds[device], rounds["cpu"])
+        worst[cname] = err
+        print(f"round parity {cname}: max |card - cpu| = {err}")
+        for part, e in err.items():
+            check(e <= tol, f"{cname}: {part} on the card differs from the "
+                            f"CPU by {e:.3g} > {tol}")
+    launches.reset()
+    return worst
+
+
+# ---------------------------------------------------------------- phase 4
+def drive_main_path():
+    """Phase 4: the launcher on the card, once per configuration."""
+    totals = {}
+    for cname, (flags, expect) in CONFIGS.items():
+        launches.reset()
+        t0 = time.perf_counter()
+        summary = train.main(MAIN_ARGS + flags)
+        torch.cuda.synchronize()
+        counts = dict(launches.KERNEL_LAUNCHES)
+        wall = time.perf_counter() - t0
+        losses = summary["client_loss"]
+        check(len(losses) == 3 and all(math.isfinite(x) for x in losses),
+              f"{cname}: losses {losses}")
+        check(summary["final_eval"] is not None
+              and 0.0 <= summary["final_eval"] <= 1.0,
+              f"{cname}: final eval {summary['final_eval']}")
+        check(counts == expect, f"{cname}: launches {counts}, expected "
+                                f"{expect}")
+        for k, n in counts.items():
+            totals[k] = totals.get(k, 0) + n
+        print(f"main path {cname}: launches={counts} round_wall_s="
+              f"{[round(x, 4) for x in summary['round_wall_s']]} "
+              f"final_eval={summary['final_eval']} wall={wall:.1f}s")
+    return totals
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available; this script needs an "
+              "NVIDIA GPU", file=sys.stderr)
+        return 2
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print("TF32 off for cuDNN convolutions and CUDA matmuls: the card "
+          "computes in float32 as the CPU does")
+    t_start = time.perf_counter()
+    try:
+        smi = nvidia_smi()
+        print(f"nvidia-smi: {smi}")
+        print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+              f"device {torch.cuda.get_device_name(0)}")
+        build()
+        rows = check_kernels()
+        check_round_parity()
+        totals = drive_main_path()
+        for kname, row in rows.items():
+            row["launches"] = totals.get(kname, 0)
+            check(row["launches"] > 0, f"{kname}: no launch on the main path")
+    except SmokeFailure as e:
+        print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+        return 1
+    print(f"total: {time.perf_counter() - t_start:.1f} s")
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    print(json.dumps({"kernels": [{k: r[k] for k in keys}
+                                  for r in rows.values()]}))
+    print(f"nvidia-smi: {smi}")
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,4 @@
+from repro_torch.core.round import FLConfig, build_fl_round_step, build_local_train  # noqa: F401
+from repro_torch.core.pipeline import UpdatePipeline, build_update_pipeline  # noqa: F401
+from repro_torch.core.compression import CompressionConfig, compress_tree, payload_bytes  # noqa: F401
+from repro_torch.core.convergence import ConvergenceMonitor  # noqa: F401

@@ -1,0 +1,156 @@
+"""Public entry points of the commit kernels, mirroring
+``repro/kernels/ops.py`` without its mesh layer.
+
+They handle the blocking (blocks along the LAST dim of each leaf, zero
+padded, leading dims collapsed to rows), the leaf bucketing, and the slot
+vectors, then call a kernel wrapper.  The device is explicit: a CPU tensor
+takes the kernel's plain PyTorch version, a CUDA tensor launches the CUDA
+kernel or raises.  Nothing falls back.
+
+Leaf bucketing: ``fused_*_tree`` concatenate every leaf's blocked rows into
+one ``[K, R_total, block]`` bucket, so a whole model costs one kernel
+launch per commit.  Rows are whole blocks of one leaf each, so per-block
+scales and top-k thresholds are the same as per-leaf calls.
+``KERNEL_LAUNCHES`` counts launches on the card by kernel name.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import fused_accum as _fa
+from repro_torch.kernels import fused_quant_mask as _fqm
+from repro_torch.kernels import quantize as _q
+from repro_torch.kernels import topk_sparsify as _tk
+from repro_torch.kernels.launches import KERNEL_LAUNCHES  # noqa: F401
+
+
+def _as_blocks(x, block):
+    """Blocks along the LAST dim (core.compression's grouping), then leading
+    dims collapsed to rows: ``([R, block] f32, meta)``."""
+    L = x.shape[-1] if x.ndim else 1
+    xx = x.reshape(tuple(x.shape) or (1,)).to(torch.float32)
+    pad = (-L) % block
+    if pad:
+        xx = F.pad(xx, (0, pad))
+    rows_shape = tuple(xx.shape[:-1]) + ((L + pad) // block,)
+    return xx.reshape(-1, block).contiguous(), (pad, rows_shape)
+
+
+def _from_blocks(b, meta, shape, dtype):
+    pad, rows_shape = meta
+    y = b.reshape(*rows_shape, -1).reshape(*rows_shape[:-1], -1)
+    if pad:
+        y = y[..., :-pad]
+    return y.reshape(shape).to(dtype)
+
+
+def quantize_dequant(x, *, bits: int = 8, block: int = 256):
+    xb, meta = _as_blocks(x, block)
+    return _from_blocks(_q.quantize_dequant_blocks(xb, bits), meta, x.shape,
+                        x.dtype)
+
+
+def topk_sparsify(x, *, k: int, block: int = 256):
+    # padded zero lanes are part of their block, as in the plain version
+    xb, meta = _as_blocks(x, block)
+    return _from_blocks(_tk.topk_sparsify_blocks(xb, k), meta, x.shape,
+                        x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# fused commit path: compress + discount + accumulate in one pass over a
+# slot-stacked [K, ...] leaf.  core/pipeline.py dispatches through the
+# bucketed fused_*_tree entry points; the per-leaf forms serve tests.
+# ---------------------------------------------------------------------------
+
+def _stack_blocks(x, block):
+    """[K, ...] slot-stacked leaf -> ([K, R, block] f32, meta), blocks along
+    the leaf's last dim per slot, leading dims collapsed into rows."""
+    K = x.shape[0]
+    lead = tuple(x.shape[1:])
+    xx = x.reshape((K,) + (lead or (1,))).to(torch.float32)
+    L = xx.shape[-1]
+    pad = (-L) % block
+    if pad:
+        xx = F.pad(xx, (0, pad))
+    return xx.reshape(K, -1, block), (pad, tuple(xx.shape[1:]), lead)
+
+
+def _unstack_sum(y, meta, dtype):
+    """[R, block] summed blocks -> the un-padded summed leaf."""
+    pad, padded_shape, lead = meta
+    y = y.reshape(*padded_shape[:-1], -1)
+    if pad:
+        y = y[..., :-pad]
+    return y.reshape(lead).to(dtype)
+
+
+def pack_blocks(leaves, block):
+    """Slot-stacked [K, ...] leaves -> ONE [K, R_total, block] bucket.
+    Returns (bucket, metas, row counts)."""
+    blocked, metas, rows = [], [], []
+    for leaf in leaves:
+        xb, meta = _stack_blocks(leaf, block)
+        blocked.append(xb)
+        metas.append(meta)
+        rows.append(xb.shape[1])
+    return torch.cat(blocked, dim=1).contiguous(), metas, rows
+
+
+def unpack_sums(y, metas, rows, dtype=torch.float32):
+    """[R_total, block] summed bucket -> the per-leaf summed leaves."""
+    out, r0 = [], 0
+    for meta, r in zip(metas, rows):
+        out.append(_unstack_sum(y[r0:r0 + r], meta, dtype))
+        r0 += r
+    return out
+
+
+def _slot_vectors(w, staleness, K, device):
+    """Per-slot weights and staleness as contiguous [K] f32.  Numbers and
+    arrays are made on ``device``; a tensor keeps its own device (the
+    kernel wrapper refuses operands on different devices)."""
+    vec = lambda v: torch.as_tensor(
+        v, dtype=torch.float32,
+        device=None if torch.is_tensor(v) else device).reshape(K).contiguous()
+    return vec(w), vec(staleness)
+
+
+def fused_accum_tree(leaves, w, staleness, exponent, *, block: int = 256):
+    """Bucketed fused accumulate over a flattened leaf list: one kernel
+    launch for the whole tree.  Returns the per-leaf f32 sums."""
+    xb, metas, rows = pack_blocks(list(leaves), block)
+    wv, sv = _slot_vectors(w, staleness, xb.shape[0], xb.device)
+    return unpack_sums(_fa.fused_accum_blocks(xb, wv, sv, exponent), metas,
+                       rows)
+
+
+def fused_plain_commit_tree(leaves, w, staleness, exponent, *, bits: int,
+                            k: int, block: int = 256):
+    """Bucketed one-pass plain commit (top-k + quantize + discounted sum)
+    over a flattened leaf list: one kernel launch for the whole tree."""
+    xb, metas, rows = pack_blocks(list(leaves), block)
+    wv, sv = _slot_vectors(w, staleness, xb.shape[0], xb.device)
+    return unpack_sums(_fqm.plain_commit_blocks(xb, wv, sv, exponent,
+                                                bits=bits, k=k), metas, rows)
+
+
+def fused_accum(x, w, staleness, exponent, *, block: int = 256):
+    """``sum_i w_i * (1+s_i)^(-exponent) * x_i`` over the slot dim of one
+    leaf in a single pass."""
+    xb, meta = _stack_blocks(x, block)
+    wv, sv = _slot_vectors(w, staleness, xb.shape[0], xb.device)
+    return _unstack_sum(_fa.fused_accum_blocks(xb.contiguous(), wv, sv,
+                                               exponent), meta, torch.float32)
+
+
+def fused_plain_commit(x, w, staleness, exponent, *, bits: int, k: int,
+                       block: int = 256):
+    """Per-slot top-k + deterministic quantize + discounted weighted sum
+    over the slot dim of one leaf, in one pass."""
+    xb, meta = _stack_blocks(x, block)
+    wv, sv = _slot_vectors(w, staleness, xb.shape[0], xb.device)
+    return _unstack_sum(_fqm.plain_commit_blocks(xb.contiguous(), wv, sv,
+                                                 exponent, bits=bits, k=k),
+                        meta, torch.float32)

@@ -1,0 +1,34 @@
+"""Blockwise symmetric quantize -> dequantize over [R, block] rows.
+
+Replaces the Pallas kernel ``repro/kernels/quantize.py:
+quantize_dequant_blocks`` (body ``_kernel``).  The CUDA kernel is
+``quantize_rows`` in ``csrc/commit_kernels.cu``, whose note gives its bound
+on the card and its design.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import launches, ref
+
+NAME = "quantize"
+_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+             ctypes.c_int]
+
+
+def quantize_dequant_blocks(xb, bits: int):
+    """xb: [R, block] f32 -> the same shape, each row quantized onto its own
+    symmetric int{bits} grid and dequantized."""
+    launches.check_shapes(NAME, xb, 2)
+    if launches.on_cpu(xb):
+        return ref.quantize_blocks(xb.to(torch.float32), bits)
+    from repro_torch.kernels import _build
+    launches.check_operands(NAME, xb)
+    R, block = xb.shape
+    out = torch.empty_like(xb)
+    _build.launch("quantize_rows", _ARGTYPES, xb.data_ptr(), out.data_ptr(), R,
+                  block, bits, device=xb.device)
+    launches.count(NAME)
+    return out

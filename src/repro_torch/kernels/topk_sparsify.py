@@ -1,0 +1,35 @@
+"""Per-row magnitude top-k over [R, block] rows: keep every entry whose |x|
+is >= the k-th largest |x| of its row (ties kept), zero the rest.
+
+Replaces the Pallas kernel ``repro/kernels/topk_sparsify.py:
+topk_sparsify_blocks`` (body ``_kernel``).  That kernel bisects on values
+for 32 steps; the CUDA kernel ``topk_rows`` in ``csrc/commit_kernels.cu``
+selects on the bits of |x| instead, which gives the sort threshold of the
+plain version exactly.  Its note gives its bound on the card and its design.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import launches, ref
+
+NAME = "topk_sparsify"
+_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+             ctypes.c_int]
+
+
+def topk_sparsify_blocks(xb, k: int):
+    """xb: [R, block] f32 -> the same shape, top-k per row kept."""
+    launches.check_shapes(NAME, xb, 2)
+    if launches.on_cpu(xb):
+        return ref.topk_blocks(xb.to(torch.float32), k)
+    from repro_torch.kernels import _build
+    launches.check_operands(NAME, xb)
+    R, block = xb.shape
+    out = torch.empty_like(xb)
+    _build.launch("topk_rows", _ARGTYPES, xb.data_ptr(), out.data_ptr(), R,
+                  block, k, device=xb.device)
+    launches.count(NAME)
+    return out

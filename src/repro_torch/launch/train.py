@@ -1,0 +1,271 @@
+"""Federated training launcher, sync regime, mirroring
+``repro/launch/train.py``:
+
+    PYTHONPATH=src python -m repro_torch.launch.train \
+        --dataset cifar10 --rounds 100 --clients-pool 60 \
+        --clients-per-round 20 --local-steps 5 --quantize-bits 8 \
+        --topk-frac 0.1
+
+Same flags as the reference plus ``--device`` (default ``cuda``; the
+launcher raises when CUDA is absent and ``--device cpu`` was not given).
+Flags whose branches are not ported yet raise NotImplementedError naming
+the ROADMAP item that will port them: ``--mode async``, ``--facilities``,
+``--secure-agg``, ``--checkpoint-dir``/``--resume``, ``--render-jobs``
+and ``--dataset shakespeare``.  Flags that only the async or hierarchical regimes read are
+parsed and, as in the reference's sync branch, not used.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+
+import numpy as np
+import torch
+
+from repro_torch.core import CompressionConfig, FLConfig, payload_bytes
+from repro_torch.data import (FederatedDataset, cifar10_like, medmnist_like,
+                              partition_by_class)
+from repro_torch.exec import BACKEND_NAMES, make_backend
+from repro_torch.models.cnn import CIFAR_CNN, CNN, MEDMNIST_CNN
+from repro_torch.orchestrator import (FaultConfig, Orchestrator,
+                                      StragglerPolicy,
+                                      equivalent_preempt_rate_per_min,
+                                      make_hybrid_fleet)
+from repro_torch.orchestrator.server import to_device
+from repro_torch.orchestrator.straggler import expected_attempt_s
+from repro_torch.sched import K8sAdapter, SlurmAdapter
+
+
+def _staleness_exp(v: str):
+    if v == "adaptive":
+        return v
+    try:
+        return float(v)
+    except ValueError:
+        raise argparse.ArgumentTypeError(
+            f"expected a float or 'adaptive', got {v!r}")
+
+
+def resolve_device(name: str) -> torch.device:
+    """The device a run uses; CUDA unless the caller asked for the CPU, and
+    an error (never a quiet CPU run) when CUDA was asked for and is absent."""
+    dev = torch.device(name)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"--device {name}: CUDA is not available; pass --device cpu to "
+            f"run on the CPU")
+    return dev
+
+
+def build_task(name: str, n_clients: int, seed: int, device):
+    """(federated data, model, initial params on device, eval fn).  The
+    params draw from a CPU generator seeded with ``seed``, so every device
+    starts from the same values."""
+    if name == "cifar10":
+        ds = cifar10_like(n=20_000, seed=seed)
+        parts = partition_by_class(ds.y, n_clients, 2, seed=seed)
+        model = CNN(CIFAR_CNN)
+    elif name == "medmnist":
+        ds = medmnist_like(n=12_000, seed=seed)
+        parts = partition_by_class(ds.y, n_clients, 3, seed=seed)
+        model = CNN(MEDMNIST_CNN)
+    elif name == "shakespeare":
+        raise NotImplementedError(
+            "--dataset shakespeare (paper-charlm) is not ported to "
+            "repro_torch yet: ROADMAP queue 1, still to port, item 7 (LM zoo)")
+    else:
+        raise ValueError(name)
+    fed = FederatedDataset(ds, parts, seed=seed)
+    params = model.init(torch.Generator().manual_seed(seed), device=device)
+    eval_batch = to_device(fed.eval_batch(1024), device)
+    eval_fn = lambda p: model.accuracy(p, eval_batch)
+    return fed, model, params, eval_fn
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--device", default="cuda",
+                    help="torch device of the run (default cuda; cpu must be "
+                         "asked for)")
+    ap.add_argument("--dataset", default="cifar10",
+                    choices=["cifar10", "medmnist", "shakespeare"])
+    ap.add_argument("--algo", default="fedavg", choices=["fedavg", "fedprox"])
+    ap.add_argument("--mode", default="sync", choices=["sync", "async"])
+    ap.add_argument("--exec-backend", default="closed-form",
+                    choices=list(BACKEND_NAMES))
+    ap.add_argument("--hpc-nodes", type=int, default=0)
+    ap.add_argument("--cloud-nodes", type=int, default=0)
+    ap.add_argument("--spot-preempt-per-min", type=float, default=0.0)
+    # read only by the async and hierarchical regimes (not ported yet)
+    ap.add_argument("--buffer-k", type=int, default=8)
+    ap.add_argument("--engine", default="auto",
+                    choices=["auto", "legacy", "batched", "window"])
+    ap.add_argument("--train-chunk", type=int, default=32)
+    ap.add_argument("--event-window", type=int, default=256)
+    ap.add_argument("--commit-chunk", type=int, default=0)
+    ap.add_argument("--staleness-exp", type=_staleness_exp, default=0.5)
+    ap.add_argument("--secure-agg", action="store_true")
+    ap.add_argument("--facilities", type=int, default=0)
+    ap.add_argument("--facility-backend", default="",
+                    choices=[""] + list(BACKEND_NAMES))
+    ap.add_argument("--inter-facility-mode", default="sync",
+                    choices=["sync", "async"])
+    ap.add_argument("--local-rounds", type=int, default=2)
+    ap.add_argument("--inter-buffer", type=int, default=1)
+    ap.add_argument("--wan-bw", type=float, default=6.25)
+    ap.add_argument("--wan-latency", type=float, default=1e-3)
+    ap.add_argument("--wan-jitter", type=float, default=0.0)
+    ap.add_argument("--max-staleness", type=int, default=20)
+    ap.add_argument("--commit-timeout", type=float, default=0.0)
+    ap.add_argument("--max-concurrency", type=int, default=16)
+    # the sync regime
+    ap.add_argument("--rounds", type=int, default=100)
+    ap.add_argument("--clients-pool", type=int, default=60)
+    ap.add_argument("--clients-per-round", type=int, default=20)
+    ap.add_argument("--local-steps", type=int, default=5)
+    ap.add_argument("--batch-size", type=int, default=16)
+    ap.add_argument("--lr", type=float, default=0.08)
+    ap.add_argument("--mu", type=float, default=0.02)
+    ap.add_argument("--quantize-bits", type=int, default=0)
+    ap.add_argument("--topk-frac", type=float, default=0.0)
+    ap.add_argument("--fed-dropout", type=float, default=0.0)
+    ap.add_argument("--use-fused", action=argparse.BooleanOptionalAction,
+                    default=True,
+                    help="fused CUDA commit path (compress + accumulate in "
+                         "one pass); --no-use-fused runs the plain stages")
+    ap.add_argument("--stochastic-rounding",
+                    action=argparse.BooleanOptionalAction, default=True)
+    ap.add_argument("--fastest-k", type=int, default=0)
+    ap.add_argument("--deadline-s", type=float, default=0.0)
+    ap.add_argument("--dropout-prob", type=float, default=0.0)
+    ap.add_argument("--spot-preempt-prob", type=float, default=0.0)
+    ap.add_argument("--partition-prob", type=float, default=0.0)
+    ap.add_argument("--recovery-policy", default="restart",
+                    choices=["restart", "resume", "discard", "adaptive"])
+    ap.add_argument("--recovery-overhead-s", type=float, default=0.0)
+    ap.add_argument("--server-opt", default="fedavg",
+                    choices=["fedavg", "fedadam", "fedyogi"])
+    ap.add_argument("--selection", default="adaptive",
+                    choices=["adaptive", "random"])
+    ap.add_argument("--checkpoint-dir", default="")
+    ap.add_argument("--checkpoint-every", type=int, default=10)
+    ap.add_argument("--resume", action="store_true")
+    ap.add_argument("--render-jobs", default="")
+    ap.add_argument("--seed", type=int, default=0)
+    return ap
+
+
+def _refuse_unported(args) -> None:
+    unported = [
+        (args.mode == "async", "--mode async",
+         "queue 1, still to port, item 5 (async regime)"),
+        (args.facilities, "--facilities", "queue 1, still to port, item 6 (hierarchy)"),
+        (args.secure_agg, "--secure-agg",
+         "queue 1, still to port, item 2 (secure aggregation)"),
+        (args.checkpoint_dir or args.resume, "--checkpoint-dir/--resume",
+         "queue 1, still to port, item 4 (checkpointing)"),
+        (args.render_jobs, "--render-jobs",
+         "queue 1, still to port, item 7 (worker.py, which the job scripts call)"),
+    ]
+    for bad, flag, item in unported:
+        if bad:
+            raise NotImplementedError(
+                f"{flag} is not ported to repro_torch yet: ROADMAP {item}")
+
+
+def fl_config(args) -> FLConfig:
+    """The round's FLConfig from parsed launcher flags."""
+    return FLConfig(
+        mode=args.mode,
+        num_clients=args.clients_per_round, local_steps=args.local_steps,
+        client_lr=args.lr, fedprox_mu=args.mu if args.algo == "fedprox" else 0.0,
+        secure_agg=args.secure_agg,
+        compression=CompressionConfig(quantize_bits=args.quantize_bits,
+                                      topk_frac=args.topk_frac,
+                                      dropout_frac=args.fed_dropout,
+                                      stochastic_rounding=args.stochastic_rounding,
+                                      use_fused=args.use_fused))
+
+
+def main(argv=None) -> dict:
+    args = build_parser().parse_args(argv)
+    _refuse_unported(args)
+    device = resolve_device(args.device)
+
+    fed, model, params, eval_fn = build_task(args.dataset, args.clients_pool,
+                                             args.seed, device)
+    n_hpc = args.clients_pool // 2
+    n_cloud = args.clients_pool - n_hpc
+    fl = fl_config(args)
+    fleet = make_hybrid_fleet(n_hpc, n_cloud, seed=args.seed,
+                              data_sizes=[fed.client_size(c)
+                                          for c in range(fed.num_clients)])
+
+    def build_backend():
+        if args.exec_backend != "scheduler":
+            return make_backend("closed-form")
+        spot_rate = args.spot_preempt_per_min
+        if args.spot_preempt_prob and not spot_rate:
+            # spot preemptions come from the K8s adapter's reclaim events:
+            # map the per-attempt probability onto the equivalent rate
+            mean_s = expected_attempt_s(
+                fleet, 3e12, payload_bytes(params, fl.compression),
+                StragglerPolicy())
+            spot_rate = equivalent_preempt_rate_per_min(
+                args.spot_preempt_prob, mean_s)
+            print(f"scheduler backend: mapped --spot-preempt-prob "
+                  f"{args.spot_preempt_prob:g}/attempt onto "
+                  f"{spot_rate:.4f} reclaims/min "
+                  f"(mean attempt {mean_s:.1f}s)")
+        elif args.spot_preempt_prob:
+            print("warning: --spot-preempt-per-min overrides the "
+                  "--spot-preempt-prob mapping under --exec-backend "
+                  "scheduler")
+        cloud = args.cloud_nodes or n_cloud
+        return make_backend(
+            "scheduler",
+            slurm=SlurmAdapter(total_nodes=args.hpc_nodes or n_hpc,
+                               seed=args.seed),
+            k8s=K8sAdapter(initial_nodes=max(1, cloud // 2), max_nodes=cloud,
+                           preempt_prob_per_min=spot_rate,
+                           seed=args.seed + 1))
+
+    faults = FaultConfig(dropout_prob=args.dropout_prob,
+                         spot_preempt_prob=args.spot_preempt_prob,
+                         partition_prob=args.partition_prob,
+                         recovery_policy=args.recovery_policy,
+                         recovery_overhead_s=args.recovery_overhead_s)
+    orch = Orchestrator(
+        fleet=fleet, fed_data=fed, loss_fn=model.loss_fn, fl=fl,
+        server_opt_name=args.server_opt, selection_name=args.selection,
+        straggler=StragglerPolicy(deadline_s=args.deadline_s,
+                                  fastest_k=args.fastest_k),
+        faults=faults,
+        batch_size=args.batch_size, flops_per_client_round=3e12,
+        eval_fn=eval_fn, eval_every=10, backend=build_backend(),
+        seed=args.seed, device=device)
+    orch.run(params, args.rounds, verbose=True)
+    summary = {
+        "dataset": args.dataset, "algo": args.algo, "mode": "sync",
+        "device": str(device),
+        "exec_backend": args.exec_backend,
+        "secure_agg": args.secure_agg,
+        "rounds": args.rounds,
+        "final_eval": orch.logs[-1].eval_metric if orch.logs else None,
+        "virtual_time_s": orch.virtual_clock,
+        "mean_bytes_per_client_round":
+            orch.comm.mean_bytes_per_client_round(),
+        "mean_queue_wait_s": (float(np.mean([l.mean_queue_wait_s
+                                             for l in orch.logs]))
+                              if orch.logs else 0.0),
+        "overflow_clients": sum(l.n_overflow for l in orch.logs),
+        "preempted_clients": sum(l.n_preempted for l in orch.logs),
+        "client_loss": [l.client_loss for l in orch.logs],
+        "round_wall_s": [l.wall_s for l in orch.logs],
+    }
+    print(json.dumps(summary, indent=1))
+    return summary
+
+
+if __name__ == "__main__":
+    main()
