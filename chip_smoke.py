@@ -7,24 +7,30 @@ path on the card.
 
 Phases, each ending in ``torch.cuda.synchronize()`` so a fault shows where
 it happened; any failure ends the run with a non-zero exit code:
-  1. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (nvcc,
-     sm_90a) and print the build time and the card's name and power limit;
+  1. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (one nvcc
+     per library, sm_90a, all started together) and print the build time
+     and the card's name and power limit;
   2. hold each kernel against its plain PyTorch version on the card at the
      main path's shapes (a [20, 4671, 256] f32 commit stack for the fused
-     commit kernels, the [20*4096, 256] dense1_w leaf for the per-leaf
-     ones), and time kernel, plain version and library call with CUDA
-     events (median of 30 after 3 warm-up launches);
-  3. hold each launcher configuration's round on the card against the CPU
-     from the same params, batches and compression draws, to 1e-4: the
-     clients' deltas, the commit from the same deltas (the kernels against
-     their plain versions in place), and the whole round where the commit
-     has no compression (TF32 is off for convolutions and matmuls, so the
-     card computes in full float32 as the CPU does);
+     and secure commit kernels, the [20*4096, 256] dense1_w leaf for the
+     per-leaf ones, 20 clients' dense1_w for the FedProx update; the
+     secure commit with cancelling and with non-cancelling pair
+     coefficients, both timed), and time kernel, plain version and library
+     call with CUDA events (median of 30 after 3 warm-up launches);
+  3. hold rounds on the card against the CPU from the same params, batches
+     and compression draws, to 1e-4: for each launcher configuration, the
+     secure float-mask round and the fused FedProx update, the clients'
+     deltas, the commit from the same deltas (the kernels against their
+     plain versions in place), and the whole round where the commit has no
+     compression; and whole sequential and pod_sequential rounds (TF32 is
+     off for convolutions and matmuls, so the card computes in full float32
+     as the CPU does);
   4. drive the main path, ``repro_torch.launch.train.main`` on cuda at the
      full CIFAR CNN width (60-client pool, 20 clients per round, 5 local
-     steps, batch 16, 3 rounds, client lr 0.01), once for each of the four launcher
-     configurations that reach the four kernels, with the launch counts set
-     to 0 just before each run and read just after.
+     steps, batch 16, 3 rounds, client lr 0.01), once for each launcher
+     configuration that reaches a commit kernel, and one Orchestrator run
+     built as the launcher builds it with the fused FedProx update, with
+     the launch counts set to 0 just before each run and read just after.
 The last lines are the kernels' JSON record, the nvidia-smi line, and
 ``{"ok": true, "device": {...}}``.
 """
@@ -46,20 +52,37 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from repro_torch.core import CompressionConfig, build_fl_round_step  # noqa: E402
+from repro_torch.core import secure_agg as sec  # noqa: E402
+from repro_torch.core.round import ParallelRound  # noqa: E402
 from repro_torch.kernels import launches, ref  # noqa: E402
+from repro_torch.kernels.fedprox_update import fedprox_update_flat  # noqa: E402
 from repro_torch.kernels.fused_accum import fused_accum_blocks  # noqa: E402
-from repro_torch.kernels.fused_quant_mask import plain_commit_blocks  # noqa: E402
+from repro_torch.kernels.fused_quant_mask import (  # noqa: E402
+    plain_commit_blocks, secure_commit_blocks)
 from repro_torch.kernels.quantize import quantize_dequant_blocks  # noqa: E402
 from repro_torch.kernels.topk_sparsify import topk_sparsify_blocks  # noqa: E402
 from repro_torch.launch import train  # noqa: E402
 from repro_torch.models.cnn import CIFAR_CNN, CNN  # noqa: E402
 from repro_torch.optim import get_client_optimizer, get_server_optimizer  # noqa: E402
 
-SOURCE = "src/repro_torch/kernels/csrc/commit_kernels.cu"
+CSRC = "src/repro_torch/kernels/csrc/"
 F32_PEAK = 67e12          # H100 SXM f32 outside the tensor cores, FLOP/s
+# H100 SXM 32-bit integer operations/s: 4 warp schedulers per SM, each
+# dispatching one 32-thread instruction per clock (Hopper architecture white
+# paper), x 132 SMs x 1.98 GHz (the boost clock behind F32_PEAK).  Integer
+# work splits over two pipes: the ALU (the white paper's 64 INT32 lanes per
+# SM) and the FMA-heavy pipe, which runs IMAD and IMUL (Nsight Compute
+# Kernel Profiling Guide, "Pipelines": the ALU executes integer
+# instructions "excluding IMAD and IMUL"), so dispatch is the ceiling.
+INT32_PEAK = 4 * 32 * 132 * 1.98e9
 K_SLOTS, BUCKET_ROWS, BLOCK = 20, 4671, 256   # the CIFAR CNN's commit bucket
 LEAF_ROWS = 20 * 4096                          # dense1_w, 20 slots
+DENSE1_W = 4096 * 256                          # dense1_w params per client
 TOPK_K = CompressionConfig(quantize_bits=8, topk_frac=0.1).topk_k   # 26
+# integer operations per PRF mask word of the secure commit, idx*G computed
+# once per element: the seed add, three shift-xor pairs, two multiplies and
+# the coefficient multiply-add
+OPS_PER_MASK_WORD = 10
 
 # Client lr 0.01: at the launcher's default of 0.08 local training on the
 # synthetic CIFAR task diverges in round 0 in the JAX reference as in the
@@ -84,7 +107,38 @@ CONFIGS = {
     "dropout_q8_deterministic": (
         ["--fed-dropout", "0.1", "--quantize-bits", "8",
          "--no-stochastic-rounding"], {"quantize": 24, "fused_accum": 3}),
+    "secure_q8_topk_deterministic": (
+        ["--secure-agg", "--quantize-bits", "8", "--topk-frac", "0.1",
+         "--no-stochastic-rounding"], {"secure_commit": 3}),
+    "secure_q8_stochastic": (
+        ["--secure-agg", "--quantize-bits", "8"], {"secure_commit": 3}),
 }
+# The Orchestrator run with the fused FedProx update (--algo fedprox): one
+# launch per leaf per local step (8 leaves x 5 steps x 3 rounds) and the
+# default commit's fused accumulate.
+FUSED_UPDATE_ARGS = ["--algo", "fedprox"]
+FUSED_UPDATE_EXPECT = {"fedprox_update": 120, "fused_accum": 3}
+# Phase 3 cases beyond the launcher configurations: (launcher flags,
+# FLConfig changes, n_pods, the kernels the card's round must launch).
+PARITY_EXTRA = {
+    "secure_float": (["--secure-agg"], {}, 1, set()),
+    "fedprox_fused_update": (FUSED_UPDATE_ARGS, {"use_fused_update": True}, 1,
+                             {"fedprox_update", "fused_accum"}),
+    "sequential_fused_update": (
+        FUSED_UPDATE_ARGS, {"use_fused_update": True,
+                            "client_exec": "sequential"}, 1,
+        {"fedprox_update"}),
+    "pod_sequential": ([], {"client_exec": "pod_sequential"}, 2,
+                       {"fused_accum"}),
+}
+
+
+SOURCES = {"fused_accum": "commit_kernels.cu",
+           "plain_commit": "commit_kernels.cu",
+           "quantize": "commit_kernels.cu",
+           "topk_sparsify": "commit_kernels.cu",
+           "secure_commit": "secure_commit.cu",
+           "fedprox_update": "fedprox_update.cu"}
 
 
 class SmokeFailure(Exception):
@@ -116,6 +170,28 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def mask_words(seeds, coef) -> int:
+    """PRF mask words per output element that the secure commit's data
+    needs.  A word depends only on its seed, so entries sharing a seed (both
+    slots of a pair, under symmetric seeds) need one word with their
+    coefficients summed, and a seed whose coefficients sum to 0 mod 2^32
+    needs none."""
+    s = seeds.flatten().cpu().to(torch.int64)
+    c = coef.flatten().cpu().to(torch.int64)
+    uniq, inv = torch.unique(s, return_inverse=True)
+    total = torch.zeros(len(uniq), dtype=torch.int64).index_add_(0, inv, c)
+    return int(((total & 0xFFFFFFFF) != 0).sum())
+
+
+def bound(nbytes, ops, int_ops, rate):
+    """The least time in ms and what bounds it: bytes over the memory rate,
+    or f32 and integer operations over their peaks."""
+    bytes_s = nbytes / rate
+    ops_s = max(ops / F32_PEAK, int_ops / INT32_PEAK)
+    return (max(bytes_s, ops_s) * 1e3,
+            "bytes" if bytes_s >= ops_s else "operations")
+
+
 def sync(device):
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize()
@@ -141,15 +217,19 @@ def time_ms(fn, reps=30, warmup=3) -> float:
 def build():
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
-    _build.library()
+    _build.build_all()
+    for name in _build.LIBRARIES:
+        _build.library(name)
     seconds = time.perf_counter() - t0
-    log = _build.BUILD_LOG.get("commit_kernels", "").splitlines()
-    regs = [line.split("Used")[1].split(",")[0].strip()
-            for line in log if "registers" in line]
-    spills = [line.strip() for line in log if "spill" in line
-              and "0 bytes spill stores, 0 bytes spill loads" not in line]
-    print(f"build: {seconds:.2f} s (nvcc {_build.BUILD_SECONDS}); ptxas: "
-          f"{len(regs)} entry functions, {regs}; spills: {spills or 'none'}")
+    print(f"build: {seconds:.2f} s (nvcc {_build.BUILD_SECONDS})")
+    for name in _build.LIBRARIES:
+        log = _build.BUILD_LOG.get(name, "").splitlines()
+        regs = [line.split("Used")[1].split(",")[0].strip()
+                for line in log if "registers" in line]
+        spills = [line.strip() for line in log if "spill" in line
+                  and "0 bytes spill stores, 0 bytes spill loads" not in line]
+        print(f"  {name}: ptxas: {len(regs)} entry functions, {regs}; "
+              f"spills: {spills or 'none'}")
     return seconds
 
 
@@ -166,11 +246,13 @@ def assert_quantized_close(got, want, step, what):
 
 
 def kernel_specs(device, k_slots=K_SLOTS, rows=BUCKET_ROWS,
-                 leaf_rows=LEAF_ROWS, block=BLOCK, seed=0):
+                 leaf_rows=LEAF_ROWS, block=BLOCK, leaf_params=DENSE1_W,
+                 seed=0):
     """Inputs made from a seed at the main path's shapes, and for each
     kernel: its wrapper, its plain version, the library call computing the
-    same function (or None), the bytes it must move and the f32 operations
-    it does."""
+    same function (or None), extra cases (label, kernel, plain, integer
+    operations) held and timed beside the main one, the bytes it must move,
+    the f32 operations it does and the integer operations its data needs."""
     gen = torch.Generator(device=device).manual_seed(seed)
     xb = torch.randn(k_slots, rows, block, generator=gen, device=device) * 0.01
     w = torch.rand(k_slots, generator=gen, device=device) * 1.5 + 0.5
@@ -179,6 +261,28 @@ def kernel_specs(device, k_slots=K_SLOTS, rows=BUCKET_ROWS,
     n_stack, n_out, n_leaf = xb.numel(), rows * block, leaf.numel()
     w_eff = ref.slot_weights(w, s, 0.0)
     step_commit = (w_eff.max() * xb.abs().max() / 127).item()
+    # secure commit: one straggler out, as on the main path; the reference
+    # coefficients cancel, the upper triangle alone does not
+    ids = torch.arange(k_slots, dtype=torch.int32)
+    part = torch.ones(k_slots)
+    part[3] = 0.0
+    seeds = sec.pair_seeds(sec.commit_key(seed), ids).to(device)
+    coef = sec.pair_coef_int(ids, part).to(device)
+    upper = torch.triu(torch.ones(k_slots, k_slots, dtype=torch.int32),
+                       1).to(device)
+    w_sec = (w * part.to(device)).contiguous()
+    secure = lambda c: (
+        lambda: secure_commit_blocks(xb, w_sec, seeds, c, 0, bits=8,
+                                     k=TOPK_K),
+        lambda: ref.fused_secure_commit_ref(xb, w_sec[:, None], seeds, c, 0,
+                                            8, k=TOPK_K))
+    # FedProx update: 20 clients' copies of dense1_w against the global one
+    wc = torch.randn(k_slots, leaf_params, generator=gen, device=device)
+    gc = torch.randn(k_slots, leaf_params, generator=gen, device=device)
+    w0 = torch.randn(leaf_params, generator=gen, device=device)
+    n_clients = wc.numel()
+    exact = lambda name: (lambda g, p: check(
+        torch.equal(g, p), f"{name}: differs from its plain version"))
     return {
         "fused_accum": dict(
             replaces="src/repro/kernels/fused_accum.py:33",
@@ -223,6 +327,29 @@ def kernel_specs(device, k_slots=K_SLOTS, rows=BUCKET_ROWS,
                                    "the sort threshold"),
             bytes=4 * 2 * n_leaf,
             ops=66 * n_leaf),
+        "secure_commit": dict(
+            replaces="src/repro/kernels/fused_quant_mask.py:179",
+            kernel=secure(coef)[0],
+            plain=secure(coef)[1],
+            library=None,
+            extra=[("upper-triangle coefficients", *secure(upper),
+                    OPS_PER_MASK_WORD * n_out * mask_words(seeds, upper))],
+            compare=exact("secure_commit"),
+            bytes=4 * (n_stack + k_slots + n_out) + 8 * k_slots ** 2,
+            # the top-k select, weighting, quantize and rounding as in
+            # plain_commit; the PRF words this data needs per output element
+            # (none where every pair's coefficients cancel)
+            ops=(66 + 7 + 2) * n_stack,
+            int_ops=OPS_PER_MASK_WORD * n_out * mask_words(seeds, coef)),
+        "fedprox_update": dict(
+            replaces="src/repro/kernels/fedprox_update.py:29",
+            kernel=lambda: fedprox_update_flat(wc, gc, w0, 0.01, 0.02),
+            plain=lambda: ref.fedprox_update_ref(wc, gc, w0[None], 0.01,
+                                                 0.02),
+            library=None,
+            compare=exact("fedprox_update"),
+            bytes=4 * (3 * n_clients + leaf_params),
+            ops=5 * n_clients),
     }
 
 
@@ -233,17 +360,25 @@ def check_kernels(device="cuda", **shapes):
     rate = memory_rate(torch.cuda.get_device_name(0) if timed else "")
     rows = {}
     for kname, spec in kernel_specs(device, **shapes).items():
+        for label, kernel, plain, int_ops in spec.get("extra", []):
+            g, p = kernel(), plain()
+            sync(device)
+            spec["compare"](g, p)
+            del g, p
+            extra_ms, extra_by = bound(spec["bytes"], spec["ops"], int_ops,
+                                       rate)
+            print(f"kernel {kname} ({label}): equal to its plain version "
+                  + (f"ms={time_ms(kernel)} " if timed else "")
+                  + f"bound_ms={extra_ms} bound_by={extra_by}")
         got = spec["kernel"]()
         want = spec["plain"]()
         sync(device)
         spec["compare"](got, want)
         err = (got - want).abs().max().item()
-        row = dict(name=kname, route="cuda", source=SOURCE,
+        row = dict(name=kname, route="cuda", source=CSRC + SOURCES[kname],
                    replaces=spec["replaces"], max_abs_err=err)
-        bytes_s = spec["bytes"] / rate
-        ops_s = spec["ops"] / F32_PEAK
-        row["bound_ms"] = max(bytes_s, ops_s) * 1e3
-        row["bound_by"] = "bytes" if bytes_s >= ops_s else "operations"
+        row["bound_ms"], row["bound_by"] = bound(
+            spec["bytes"], spec["ops"], spec.get("int_ops", 0), rate)
         if timed:
             row["ms"] = time_ms(spec["kernel"])
             row["plain_ms"] = time_ms(spec["plain"])
@@ -273,18 +408,36 @@ def round_inputs(C, H, B, seed=0):
     return batches, weights, mask
 
 
+def parity_cases():
+    """Phase 3's cases: name -> (the launcher's FLConfig, FLConfig changes,
+    n_pods, the kernels the card's round must launch)."""
+    cases = {}
+    for cname, (flags, expect) in CONFIGS.items():
+        cases[cname] = (flags, {}, 1, set(expect))
+    cases.update(PARITY_EXTRA)
+    out = {}
+    for cname, (flags, changes, n_pods, kernels) in cases.items():
+        fl = train.fl_config(train.build_parser().parse_args(MAIN_ARGS
+                                                             + flags))
+        out[cname] = (fl, changes, n_pods, kernels)
+    return out
+
+
 def check_round_parity(device="cuda", C=20, H=2, B=16, tol=1e-4):
-    """Phase 3: each configuration's round on the card against the CPU.
+    """Phase 3: rounds on the card against the CPU.
 
     Local training is continuous in its inputs: the clients' deltas from the
     card and from the CPU must agree to ``tol``.  The commit is not: top-k
     and rounding can flip on a difference of one ulp in a delta, so the
-    commit (kernels, normalise, server step) runs on the card and on the
-    CPU from the card's deltas, and the new params must agree to ``tol``.
-    The whole round, card against CPU, must agree to ``tol`` where the
-    commit has no compression.  Compression randomness comes from CPU
-    generators with one seed on both sides, so stochastic rounding and
-    federated dropout draw the same numbers there."""
+    parallel commit (kernels, normalise, server step) runs on the card and
+    on the CPU from the card's deltas, and the new params must agree to
+    ``tol``.  The whole round, card against CPU, must agree to ``tol`` where
+    the commit has no compression; the sequential modes, whose commit
+    streams through training, are held as whole rounds without compression.
+    Compression draws and commit keys come from CPU generators with one
+    seed on both sides, so stochastic rounding, federated dropout and the
+    integer mask stream draw the same numbers there.  The card's round must
+    launch exactly the case's kernels."""
     model = CNN(CIFAR_CNN)
     params = model.init(torch.Generator().manual_seed(0), device="cpu")
     b, w, m = round_inputs(C, H, B)
@@ -296,41 +449,44 @@ def check_round_parity(device="cuda", C=20, H=2, B=16, tol=1e-4):
     def gap(a, c):
         return max((a[k].cpu() - c[k].cpu()).abs().max().item() for k in a)
 
-    for cname, (flags, expect) in CONFIGS.items():
-        fl = dataclasses.replace(
-            train.fl_config(train.build_parser().parse_args(MAIN_ARGS + flags)),
-            num_clients=C, local_steps=H)
+    def whole_round(step, dev):
+        return step(on(dev, params), (), on(dev, b),
+                    torch.from_numpy(w).to(dev), torch.from_numpy(m).to(dev),
+                    torch.Generator().manual_seed(7))[0]
+
+    for cname, (fl, changes, n_pods, kernels) in parity_cases().items():
+        fl = dataclasses.replace(fl, num_clients=C, local_steps=H, **changes)
         step = build_fl_round_step(model.loss_fn, get_client_optimizer("sgd"),
-                                   get_server_optimizer("fedavg"), fl)
-        trained = {dev: step.train_clients(on(dev, params), on(dev, b))
-                   for dev in (device, "cpu")}
-        sync(device)
-        d_card, l_card = trained[device]
-        commits = {}
-        for dev in (device, "cpu"):
-            launches.reset()
-            new, _, met = step.commit(
-                on(dev, params), (), on(dev, d_card), l_card.to(dev),
-                torch.from_numpy(w).to(dev), torch.from_numpy(m).to(dev),
-                torch.Generator().manual_seed(7))
-            sync(dev)
-            check(math.isfinite(float(met["client_loss"])),
-                  f"{cname}: non-finite loss on {dev}")
-            if torch.device(dev).type == "cuda":
-                check(set(launches.KERNEL_LAUNCHES) == set(expect),
-                      f"{cname}: commit on the card launched "
-                      f"{dict(launches.KERNEL_LAUNCHES)}, expected the "
-                      f"kernels {sorted(expect)}")
-            commits[dev] = new
-        err = {"deltas": gap(d_card, trained["cpu"][0]),
-               "commit": gap(commits[device], commits["cpu"])}
+                                   get_server_optimizer("fedavg"), fl,
+                                   n_pods=n_pods)
+        launches.reset()
+        err = {}
+        if isinstance(step, ParallelRound):
+            trained = {dev: step.train_clients(on(dev, params), on(dev, b))
+                       for dev in (device, "cpu")}
+            sync(device)
+            d_card, l_card = trained[device]
+            commits = {}
+            for dev in (device, "cpu"):
+                new, _, met = step.commit(
+                    on(dev, params), (), on(dev, d_card), l_card.to(dev),
+                    torch.from_numpy(w).to(dev), torch.from_numpy(m).to(dev),
+                    torch.Generator().manual_seed(7))
+                sync(dev)
+                check(math.isfinite(float(met["client_loss"])),
+                      f"{cname}: non-finite loss on {dev}")
+                commits[dev] = new
+            err = {"deltas": gap(d_card, trained["cpu"][0]),
+                   "commit": gap(commits[device], commits["cpu"])}
+        launched = set(launches.KERNEL_LAUNCHES)
         if not fl.compression.enabled:
-            rounds = {dev: step(on(dev, params), (), on(dev, b),
-                                torch.from_numpy(w).to(dev),
-                                torch.from_numpy(m).to(dev),
-                                torch.Generator().manual_seed(7))[0]
-                      for dev in (device, "cpu")}
+            rounds = {dev: whole_round(step, dev) for dev in (device, "cpu")}
+            sync(device)
+            launched |= set(launches.KERNEL_LAUNCHES)
             err["round"] = gap(rounds[device], rounds["cpu"])
+        check(launched == kernels,
+              f"{cname}: the card launched {sorted(launched)}, expected the "
+              f"kernels {sorted(kernels)}")
         worst[cname] = err
         print(f"round parity {cname}: max |card - cpu| = {err}")
         for part, e in err.items():
@@ -341,8 +497,23 @@ def check_round_parity(device="cuda", C=20, H=2, B=16, tol=1e-4):
 
 
 # ---------------------------------------------------------------- phase 4
+def check_run(cname, summary, counts, expect, wall):
+    losses = summary["client_loss"]
+    check(len(losses) == 3 and all(math.isfinite(x) for x in losses),
+          f"{cname}: losses {losses}")
+    check(summary["final_eval"] is not None
+          and 0.0 <= summary["final_eval"] <= 1.0,
+          f"{cname}: final eval {summary['final_eval']}")
+    check(counts == expect, f"{cname}: launches {counts}, expected {expect}")
+    print(f"main path {cname}: launches={counts} round_wall_s="
+          f"{[round(x, 4) for x in summary['round_wall_s']]} "
+          f"final_eval={summary['final_eval']} wall={wall:.1f}s")
+
+
 def drive_main_path():
-    """Phase 4: the launcher on the card, once per configuration."""
+    """Phase 4: the launcher on the card, once per configuration, then an
+    Orchestrator built as the launcher builds it, with the fused FedProx
+    update."""
     totals = {}
     for cname, (flags, expect) in CONFIGS.items():
         launches.reset()
@@ -350,20 +521,21 @@ def drive_main_path():
         summary = train.main(MAIN_ARGS + flags)
         torch.cuda.synchronize()
         counts = dict(launches.KERNEL_LAUNCHES)
-        wall = time.perf_counter() - t0
-        losses = summary["client_loss"]
-        check(len(losses) == 3 and all(math.isfinite(x) for x in losses),
-              f"{cname}: losses {losses}")
-        check(summary["final_eval"] is not None
-              and 0.0 <= summary["final_eval"] <= 1.0,
-              f"{cname}: final eval {summary['final_eval']}")
-        check(counts == expect, f"{cname}: launches {counts}, expected "
-                                f"{expect}")
+        check_run(cname, summary, counts, expect, time.perf_counter() - t0)
         for k, n in counts.items():
             totals[k] = totals.get(k, 0) + n
-        print(f"main path {cname}: launches={counts} round_wall_s="
-              f"{[round(x, 4) for x in summary['round_wall_s']]} "
-              f"final_eval={summary['final_eval']} wall={wall:.1f}s")
+    args = train.build_parser().parse_args(MAIN_ARGS + FUSED_UPDATE_ARGS)
+    orch, params = train.build_run(args, dataclasses.replace(
+        train.fl_config(args), use_fused_update=True))
+    launches.reset()
+    t0 = time.perf_counter()
+    orch.run(params, args.rounds, verbose=True)
+    torch.cuda.synchronize()
+    counts = dict(launches.KERNEL_LAUNCHES)
+    check_run("fedprox_fused_update", train.summarize(args, orch), counts,
+              FUSED_UPDATE_EXPECT, time.perf_counter() - t0)
+    for k, n in counts.items():
+        totals[k] = totals.get(k, 0) + n
     return totals
 
 
@@ -382,10 +554,14 @@ def main() -> int:
         print(f"nvidia-smi: {smi}")
         print(f"torch {torch.__version__} cuda {torch.version.cuda} "
               f"device {torch.cuda.get_device_name(0)}")
-        build()
-        rows = check_kernels()
-        check_round_parity()
-        totals = drive_main_path()
+        phases = {}
+        for phase, run in (("build", build), ("kernels", check_kernels),
+                           ("round_parity", check_round_parity),
+                           ("main_path", drive_main_path)):
+            t0 = time.perf_counter()
+            phases[phase] = run()
+            print(f"phase {phase}: {time.perf_counter() - t0:.1f} s")
+        rows, totals = phases["kernels"], phases["main_path"]
         for kname, row in rows.items():
             row["launches"] = totals.get(kname, 0)
             check(row["launches"] > 0, f"{kname}: no launch on the main path")

@@ -2,3 +2,4 @@ from repro_torch.core.round import FLConfig, build_fl_round_step, build_local_tr
 from repro_torch.core.pipeline import UpdatePipeline, build_update_pipeline  # noqa: F401
 from repro_torch.core.compression import CompressionConfig, compress_tree, payload_bytes  # noqa: F401
 from repro_torch.core.convergence import ConvergenceMonitor  # noqa: F401
+from repro_torch.core.secure_agg import masked_payload_bytes  # noqa: F401

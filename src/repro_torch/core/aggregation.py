@@ -1,8 +1,9 @@
 """Aggregation strategies for federated updates (paper §4.4), mirroring
 ``repro/core/aggregation.py``.  Operates on stacked client deltas (a dict
-of tensors with a leading client dim C).  Ported here: fedavg (mask/weight
-normalised mean) and weighted (data size x inverse training loss).
-``trimmed_mean`` is not ported yet (ROADMAP queue 1)."""
+of tensors with a leading client dim C):
+  * fedavg        — mask/weight-normalised mean (weights = data sizes),
+  * weighted      — data size x inverse training loss,
+  * trimmed_mean  — coordinate-wise trimmed mean over clients."""
 from __future__ import annotations
 
 import torch
@@ -25,3 +26,20 @@ def weighted_mean(deltas: dict, w) -> dict:
         return (d * wb).sum(0) / denom.to(d.dtype)
 
     return {k: agg(d) for k, d in deltas.items()}
+
+
+def trimmed_mean(deltas: dict, mask, trim_frac: float = 0.1) -> dict:
+    """Coordinate-wise trimmed mean over clients.  Non-participating clients
+    (mask 0) contribute zero deltas, which the trimming largely discards for
+    the extreme coordinates; robust-aggregation callers should pass a full
+    mask."""
+    C = mask.shape[0]
+    k = int(trim_frac * C)
+
+    def agg(d):
+        s = torch.sort(d, dim=0).values
+        if k:
+            s = s[k:C - k]
+        return s.mean(0)
+
+    return {name: agg(d) for name, d in deltas.items()}

@@ -1,25 +1,53 @@
-"""The update pipeline, plain (unmasked) half, mirroring
-``repro/core/pipeline.py``.
+"""The update pipeline, mirroring ``repro/core/pipeline.py``: one stage
+stack, built once from ``FLConfig``, that every sync execution mode folds
+its client updates through.
 
 Stages over update dicts plus per-slot scalars; a "slot" is one client
-update in a batch of K (a sync cohort):
+update in a batch of K (a sync cohort, or the pods of a round):
 
-    compress -> weight -> aggregate -> normalise
+    compress -> weight -> secure_mask -> aggregate -> normalise
+
+Masking follows weighting: the server sums ``w_i * d_i + m_i`` and the
+``m_i`` cancel only if nothing scales them per slot afterwards.
+
+Execution-mode mapping:
+  * parallel — ``combine`` consumes the full [K, ...] stack (trimmed mean
+    and the hierarchical pod combine included);
+  * sequential — per-slot ``contribution`` folded with ``accum_add``, then
+    ``normalise``: the same algebra in streaming memory;
+  * pod_sequential / hierarchical — per-pod partial sums, compressed, then
+    combined across pods by ``combine_pods``.
 
 Fused commit path (``compression.use_fused``, default on): every stage
 between compress and normalise is elementwise or a slot reduction, so the
 batched combinator runs them as one CUDA kernel over a bucket of all leaves
 (``kernels/ops.fused_*_tree``):
   * deterministic quantize and/or top-k -> ``plain_commit`` (top-k +
-    per-slot-block quantize + discounted sum);
+    per-slot-block quantize + weighted sum);
   * no compression -> ``fused_accum``;
   * stochastic rounding or federated dropout need per-slot randomness, so
     compression runs per slot first (top-k and the deterministic quantize
-    through their CUDA kernels) and only the accumulate fuses.
-``--no-use-fused`` runs the plain stages.
+    through their CUDA kernels) and only the accumulate fuses;
+  * secure aggregation with quantization -> ``secure_commit`` (below), in
+    both rounding modes; without quantization the masks stay float-domain;
+  * the streaming and pod-local compress stages route per-slot top-k and
+    deterministic quantize through their kernels: there is no slot batch
+    to fuse across.
+``--no-use-fused`` runs the plain stages (and the secure commit's plain
+version).
 
-Not ported yet (ROADMAP queue 1), and refused when configured: secure
-aggregation, trimmed-mean aggregation, and the hierarchical pod combine.
+Secure aggregation (``cfg.secure_agg``, ``core/secure_agg.py``): each
+commit draws one uint32 commit key from the run's generator
+(``mask_key``); slot ids are the per-commit slot indices.  With
+``quantize_bits`` the commit quantizes every slot's weighted values onto
+ONE commit-common per-block grid, adds uint32 modular pairwise mask words
+to the int32 wire words, and sums: the masks cancel exactly and the sum
+dequantizes through the common scale (``_fused_secure``).  The streaming
+(sequential) and cross-pod paths keep float-domain masks: a stream sees one
+slot at a time and pods quantize on per-pod grids, so neither has a common
+grid.  ``secure_agg`` with ``trimmed_mean`` is refused when the pipeline is
+built: coordinate-wise trimming needs the individual updates that masking
+hides.
 """
 from __future__ import annotations
 
@@ -29,6 +57,7 @@ from typing import TYPE_CHECKING
 import torch
 
 from repro_torch.core import aggregation as agg
+from repro_torch.core import secure_agg as sec
 from repro_torch.core.compression import compress_tree
 from repro_torch.kernels import ops as kops
 
@@ -39,33 +68,24 @@ if TYPE_CHECKING:                       # avoid circular import with round.py
 def refuse_unported(cfg: "FLConfig") -> None:
     """Raise NotImplementedError for FLConfig values whose branches are not
     ported, naming the ROADMAP item that will port them."""
-    unported = [
-        (cfg.mode != "sync", f"mode={cfg.mode!r}",
-         "queue 1, still to port, item 5 (async regime)"),
-        (cfg.client_exec != "parallel", f"client_exec={cfg.client_exec!r}",
-         "queue 1, still to port, item 1 (sequential modes)"),
-        (cfg.hierarchical, "hierarchical=True",
-         "queue 1, still to port, item 1 (pod combine)"),
-        (cfg.aggregation == "trimmed_mean", "aggregation='trimmed_mean'",
-         "queue 1, still to port, item 1 (trimmed mean)"),
-        (cfg.secure_agg, "secure_agg=True",
-         "queue 1, still to port, item 2 (secure aggregation)"),
-        (cfg.use_fused_update, "use_fused_update=True",
-         "queue 1, still to port, item 3 (fused FedProx update)"),
-    ]
-    for bad, what, item in unported:
-        if bad:
-            raise NotImplementedError(
-                f"FLConfig({what}) is not ported to repro_torch yet: "
-                f"ROADMAP {item}")
+    if cfg.mode != "sync":
+        raise NotImplementedError(
+            f"FLConfig(mode={cfg.mode!r}) is not ported to repro_torch yet: "
+            f"ROADMAP queue 1, still to port, item 5 (async regime)")
 
 
 class UpdatePipeline:
     """The configured stage stack.  Stateless; one instance serves every
     round of a run."""
 
-    def __init__(self, cfg: "FLConfig", allow_fused: bool = True):
+    def __init__(self, cfg: "FLConfig", n_pods: int = 1,
+                 allow_fused: bool = True):
         refuse_unported(cfg)
+        if cfg.secure_agg and cfg.aggregation == "trimmed_mean":
+            raise ValueError(
+                "secure_agg is incompatible with aggregation='trimmed_mean': "
+                "coordinate-wise trimming needs the individual updates that "
+                "pairwise masking hides; use fedavg/weighted")
         comp = cfg.compression
         self.fused = bool(comp.use_fused) and allow_fused
         # fully-fusable compression: deterministic rounding, no per-slot
@@ -74,11 +94,13 @@ class UpdatePipeline:
                               and not (comp.quantize_bits
                                        and comp.stochastic_rounding))
         if self.fused and comp.enabled and not comp.use_kernels:
-            # per-slot compress stages route through the CUDA compress
-            # kernels under fusion
+            # per-slot compress stages (streaming, pod-local, stochastic)
+            # route through the CUDA compress kernels under fusion
             cfg = dataclasses.replace(
                 cfg, compression=dataclasses.replace(comp, use_kernels=True))
         self.cfg = cfg
+        self.n_pods = n_pods
+        self.accum_dtype = getattr(torch, cfg.accum_dtype)
 
     # ------------------------------------------------------------- stage 1
     def compress(self, tree: dict, generator) -> dict:
@@ -97,6 +119,24 @@ class UpdatePipeline:
         return agg.effective_weights(weights, mask, losses,
                                      self.cfg.aggregation)
 
+    def client_weight(self, w_c, m_c, loss_c):
+        """Scalar form for streaming callers."""
+        return agg.effective_weights(w_c[None], m_c[None], loss_c[None],
+                                     self.cfg.aggregation)[0]
+
+    # ------------------------------------------------------------- stage 3
+    def mask_key(self, generator) -> int:
+        """This commit's uint32 mask key: one draw from the run's generator,
+        folded with the mask domain tag.  Every commit draws a fresh key, so
+        replaying a run (or resuming it) needs the generator's state."""
+        draw = torch.randint(0, 2 ** 32, (), generator=generator,
+                             device=generator.device)
+        return sec.commit_key(int(draw))
+
+    def secure_mask(self, weighted_stack: dict, key: int, ids,
+                    participation) -> dict:
+        return sec.mask_batch(weighted_stack, key, ids, participation)
+
     # --------------------------------------------------------- stages 4/5
     def weighted_sum(self, stacked: dict, w) -> dict:
         """sum_i w_i * d_i over the slot dim, in float32."""
@@ -109,17 +149,57 @@ class UpdatePipeline:
         denom = torch.clamp(w_sum, min=1e-12)
         return {k: s / denom.to(s.dtype) for k, s in summed.items()}
 
+    # ----------------------------------------------------------- streaming
+    def accum_init(self, params_like: dict) -> dict:
+        return {k: torch.zeros(p.shape, dtype=self.accum_dtype,
+                               device=p.device)
+                for k, p in params_like.items()}
+
+    def contribution(self, delta: dict, wt, generator, idx=None, ids=None,
+                     participation=None, key=None) -> dict:
+        """One slot's contribution to the running sum: compress -> weight ->
+        (secure-mask).  The masked value is what crosses the wire; the masks
+        cancel once every participant's contribution is folded in.  The
+        weighting product is carried in ``accum_dtype``."""
+        dt = self.accum_dtype
+        d = self.compress(delta, generator)
+        pre = {k: wt.to(dt) * x.to(dt) for k, x in d.items()}
+        if self.cfg.secure_agg:
+            pre = sec.mask_slot(key, ids, participation, idx, pre)
+        return pre
+
+    def accum_add(self, acc: dict, contrib: dict) -> dict:
+        return {k: a + contrib[k].to(a.dtype) for k, a in acc.items()}
+
     # --------------------------------------------------------- combinators
     def combine_unnormalised(self, deltas: dict, weights, mask, losses,
-                             generator):
-        """compress -> weight -> weighted sum, WITHOUT the closing
-        normalise.  Returns (summed, w).  A sync commit has no staleness:
-        the fused kernels get zero staleness and exponent 0, a discount of
-        exactly 1."""
+                             generator, ids=None):
+        """compress -> weight -> (secure_mask) -> weighted sum, WITHOUT the
+        closing normalise.  Returns (summed, w).  A sync commit has no
+        staleness: the fused kernels get zero staleness and exponent 0, a
+        discount of exactly 1."""
+        if self.cfg.aggregation == "trimmed_mean":
+            raise ValueError(
+                "trimmed_mean is not a chunk-accumulable aggregate: "
+                "coordinate-wise trimming needs all slots at once")
         w = self.client_weights(weights, mask, losses)
         comp = self.cfg.compression
         names = sorted(deltas)
-        if self.fused:
+        if self.cfg.secure_agg:
+            if ids is None:
+                ids = torch.arange(mask.shape[0], dtype=torch.int32)
+            if comp.quantize_bits:
+                summed = self._fused_secure(deltas, w, mask, generator, ids)
+            else:
+                stacked = (self.compress_each(deltas, generator)
+                           if comp.enabled else deltas)
+                pre = {k: d.to(torch.float32) * w.reshape(
+                    (-1,) + (1,) * (d.ndim - 1)) for k, d in stacked.items()}
+                masked = self.secure_mask(pre, self.mask_key(generator), ids,
+                                          mask)
+                summed = {k: m.to(torch.float32).sum(0)
+                          for k, m in masked.items()}
+        elif self.fused:
             s = torch.zeros_like(w)
             if comp.enabled and self._fusable_comp:
                 # one pass: top-k + quantize + weight + sum, all leaves
@@ -141,16 +221,96 @@ class UpdatePipeline:
             summed = self.weighted_sum(stacked, w)
         return summed, w
 
-    def combine(self, deltas: dict, weights, mask, losses, generator):
-        """The full batched stack over [K, ...] slot deltas.
-        Returns (delta, w)."""
+    def _fused_secure(self, deltas: dict, w, participation, generator,
+                      ids) -> dict:
+        """Integer-domain secure commit (secure_agg + quantize_bits): one
+        bucketed ``secure_commit`` launch for the whole tree, or its plain
+        version with fusion off; both compute the same scheme."""
+        comp = self.cfg.compression
+        key = self.mask_key(generator)
+        seeds = sec.pair_seeds(key, ids)
+        coef = sec.pair_coef_int(ids, participation)
+        stacked, k_in = deltas, comp.topk_k
+        if comp.dropout_frac:
+            # dropout draws per-slot randomness and must precede top-k, so
+            # both run as per-slot pre-stages (the quantize stays in the
+            # integer-domain masked commit)
+            pre = dataclasses.replace(comp, quantize_bits=0)
+            stacked = compress_tree(stacked, pre, generator, batch_dims=1)
+            k_in = 0
+        names = sorted(stacked)
+        out = kops.fused_secure_commit_tree(
+            [stacked[n] for n in names], w, seeds, coef,
+            bits=comp.quantize_bits, k=k_in, block=comp.block,
+            use_kernel=self.fused,
+            noise_generator=generator if comp.stochastic_rounding else None)
+        return dict(zip(names, out))
+
+    def combine(self, deltas: dict, weights, mask, losses, generator,
+                ids=None):
+        """The full batched stack over [K, ...] slot deltas, the trimmed
+        mean and the hierarchical pod combine included.  Returns
+        (delta, w)."""
+        if self.cfg.aggregation == "trimmed_mean":
+            # robust trimming consumes the RAW per-slot deltas (no
+            # compression, no masking: refused at build time)
+            w = self.client_weights(weights, mask, losses)
+            return agg.trimmed_mean(deltas, mask), w
+        if self.cfg.hierarchical and self.n_pods > 1:
+            w = self.client_weights(weights, mask, losses)
+            return self._combine_hierarchical(deltas, w, generator), w
         summed, w = self.combine_unnormalised(deltas, weights, mask, losses,
-                                              generator)
+                                              generator, ids=ids)
         return self.normalise(summed, w.sum()), w
 
+    def _combine_hierarchical(self, deltas: dict, w, generator) -> dict:
+        """Pod-local weighted sums -> compress -> cross-pod combine: only
+        the compressed pod sums cross the slow cross-pod link."""
+        P = self.n_pods
+        per_pod = w.shape[0] // P
 
-def build_update_pipeline(cfg: "FLConfig",
+        def pod_sums(d):
+            wb = w.reshape((P, per_pod) + (1,) * (d.ndim - 1)).to(d.dtype)
+            return (d.reshape((P, per_pod) + tuple(d.shape[1:])) * wb).sum(1)
+
+        sums = {k: pod_sums(d) for k, d in deltas.items()}
+        return self.combine_pods(sums, w.sum(), generator)
+
+    def combine_pods(self, pod_sums: dict, w_total, generator,
+                     compressed: bool = False) -> dict:
+        """Cross-pod tail of the stack: compress each pod's partial sum
+        (unless the caller did), secure-mask BETWEEN PODS (each pod's
+        aggregate hidden from the others and the server), sum, normalise by
+        the total raw weight mass."""
+        names = sorted(pod_sums)
+        P = pod_sums[names[0]].shape[0]
+        sums = (pod_sums if compressed
+                else self.compress_each(pod_sums, generator))
+        if self.cfg.secure_agg:
+            # float-domain even under quantization: the pod sums were
+            # quantized on per-pod grids, so there is no common grid for
+            # integer masks to cancel on
+            ones = torch.ones(P, dtype=torch.float32)
+            masked = self.secure_mask(sums, self.mask_key(generator),
+                                      torch.arange(P, dtype=torch.int32),
+                                      ones)
+            summed = {k: m.to(torch.float32).sum(0)
+                      for k, m in masked.items()}
+        elif self.fused:
+            dev = sums[names[0]].device
+            out = kops.fused_accum_tree(
+                [sums[n] for n in names],
+                torch.ones(P, dtype=torch.float32, device=dev),
+                torch.zeros(P, dtype=torch.float32, device=dev), 0.0,
+                block=self.cfg.compression.block)
+            summed = dict(zip(names, out))
+        else:
+            summed = {k: s.to(torch.float32).sum(0) for k, s in sums.items()}
+        return self.normalise(summed, w_total)
+
+
+def build_update_pipeline(cfg: "FLConfig", n_pods: int = 1,
                           allow_fused: bool = True) -> UpdatePipeline:
     """Build the stage stack once from FLConfig.  ``allow_fused=False``
     forces the unfused stages."""
-    return UpdatePipeline(cfg, allow_fused=allow_fused)
+    return UpdatePipeline(cfg, n_pods=n_pods, allow_fused=allow_fused)

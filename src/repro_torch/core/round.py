@@ -1,5 +1,5 @@
 """The federated round step — the paper's Algorithm 1 lines 5-12, mirroring
-``repro/core/round.py`` in its parallel execution mode.
+``repro/core/round.py``.
 
 ``build_fl_round_step`` closes over the model loss, client/server
 optimizers, aggregation strategy, and compression config, and returns
@@ -9,16 +9,24 @@ optimizers, aggregation strategy, and compression config, and returns
 
 client_batches values are [C, H, ...] (C clients, H local steps).  ``mask``
 [C] (0/1) carries the host-side deadline cutoff / fastest-k / dropouts.
-``generator`` feeds the compression randomness (stochastic rounding,
-federated dropout); local training draws none.
+``generator`` feeds the commit's randomness (stochastic rounding, federated
+dropout, the secure-aggregation commit key); local training draws none.
 
-Parallel mode: ``torch.func.vmap`` over clients of a local-train function
-that takes H steps of ``torch.func.grad_and_value``; then the update
-pipeline (core/pipeline.py) folds the C deltas and the server optimizer
-applies the result.  The sequential and pod_sequential modes, the fused
-FedProx update kernel, and the other unported FLConfig values raise
-NotImplementedError when the round is built
-(core.pipeline.refuse_unported).
+Client execution modes:
+  * parallel — all C clients train together as one stacked [C, ...] copy
+    of every leaf: each local step is one ``torch.func.vmap`` of
+    ``grad_and_value`` over the stacked params, then one optimizer update
+    (or one fused ``fedprox_update`` kernel launch) per leaf on the whole
+    stack; the update pipeline's batched ``combine`` folds the C deltas.
+  * sequential — one client at a time, each folded into a running sum by
+    the pipeline's streaming ``contribution``/``accum_add``: memory for one
+    model replica instead of C.
+  * pod_sequential — clients pinned to ``n_pods`` pods (sites); each pod
+    streams its own clients, compresses its partial sum, and the pipeline's
+    ``combine_pods`` tail combines the pods.  One card has no mesh, so the
+    pods run one after another.
+All modes fold their client updates through the SAME stage stack
+(``core.pipeline.build_update_pipeline``).
 """
 from __future__ import annotations
 
@@ -47,7 +55,9 @@ class FLConfig:
     hierarchical: bool = False        # pod-local then compressed cross-pod agg
     accum_dtype: str = "float32"      # sequential-mode delta accumulator
     use_fused_update: bool = False    # fused fedprox_update kernel
-    secure_agg: bool = False          # commit-keyed pairwise masking
+    secure_agg: bool = False          # commit-keyed pairwise masking: the
+    #                                   server only sees masked updates whose
+    #                                   masks cancel per commit (core.pipeline)
 
 
 def global_norm(tree: dict):
@@ -56,31 +66,64 @@ def global_norm(tree: dict):
 
 
 def build_local_train(loss_fn: Callable, client_opt: Optimizer,
-                      cfg: FLConfig):
-    """Returns local_train(global_params, batches_H) -> (delta, mean_loss).
+                      cfg: FLConfig, stacked: bool = False):
+    """Returns local_train(global_params, batches) -> (delta, mean_loss).
+
+    ``stacked=False``: one client; batches are [H, ...].  ``stacked=True``:
+    C clients at once; batches are [C, H, ...], every leaf of the clients'
+    params is one [C, ...] tensor, each step's gradients are one ``vmap``
+    of ``grad_and_value`` over it, and delta and loss come back [C, ...].
+    The optimizer update runs on the stacked leaves directly, so a kernel
+    (which cannot run under ``vmap``) takes all C clients in one launch.
 
     FedProx (mu>0): the proximal term mu/2 ||w - w0||^2 enters as the exact
-    gradient correction mu (w - w0)."""
+    gradient correction mu (w - w0).  With ``use_fused_update`` and the sgd
+    client optimizer, the corrected step is the fused ``fedprox_update``
+    kernel, once per leaf per step."""
     step_grad = grad_and_value(loss_fn, has_aux=True)
+    if stacked:
+        step_grad = vmap(step_grad, in_dims=(0, 0))
+    fused = cfg.use_fused_update and client_opt.name == "sgd"
 
     def local_train(global_params: dict, batches: dict):
-        w = dict(global_params)
+        if stacked:
+            C = next(iter(batches.values())).shape[0]
+            w = {k: p.expand((C,) + tuple(p.shape)).contiguous()
+                 for k, p in global_params.items()}
+            step_batch = lambda h: {k: v[:, h] for k, v in batches.items()}
+        else:
+            w = dict(global_params)
+            step_batch = lambda h: {k: v[h] for k, v in batches.items()}
         opt_state = client_opt.init(w)
         loss_sum = 0.0
         for h in range(cfg.local_steps):
-            batch = {k: v[h] for k, v in batches.items()}
-            grads, (loss, _) = step_grad(w, batch)
-            if cfg.fedprox_mu:
-                grads = {k: g + cfg.fedprox_mu * (w[k] - global_params[k]
-                                                  ).to(g.dtype)
-                         for k, g in grads.items()}
-            w, opt_state = client_opt.update(grads, opt_state, w,
-                                             cfg.client_lr)
+            grads, (loss, _) = step_grad(w, step_batch(h))
+            if fused:
+                from repro_torch.kernels import ops as kops
+                w = {k: kops.fedprox_update(w[k], grads[k], global_params[k],
+                                            lr=cfg.client_lr,
+                                            mu=cfg.fedprox_mu)
+                     for k in w}
+            else:
+                if cfg.fedprox_mu:
+                    grads = {k: g + cfg.fedprox_mu * (
+                        w[k] - global_params[k]).to(g.dtype)
+                        for k, g in grads.items()}
+                w, opt_state = client_opt.update(grads, opt_state, w,
+                                                 cfg.client_lr)
             loss_sum = loss_sum + loss
         delta = {k: w[k] - global_params[k] for k in w}
         return delta, loss_sum / cfg.local_steps
 
     return local_train
+
+
+def _metrics(delta: dict, loss_sum, mask) -> dict:
+    return {
+        "client_loss": loss_sum / torch.clamp(mask.sum(), min=1),
+        "delta_norm": global_norm(delta),
+        "participation": mask.mean(),
+    }
 
 
 class ParallelRound:
@@ -90,11 +133,11 @@ class ParallelRound:
     rounding are not, so the same deltas must enter both commits."""
 
     def __init__(self, loss_fn: Callable, client_opt: Optimizer,
-                 server_opt: ServerOptimizer, cfg: FLConfig):
+                 server_opt: ServerOptimizer, cfg: FLConfig, n_pods: int = 1):
         self.server_opt = server_opt
-        self.pipe = build_update_pipeline(cfg)
-        self.train_clients = vmap(build_local_train(loss_fn, client_opt, cfg),
-                                  in_dims=(None, 0))
+        self.pipe = build_update_pipeline(cfg, n_pods=n_pods)
+        self.train_clients = build_local_train(loss_fn, client_opt, cfg,
+                                               stacked=True)
 
     def commit(self, global_params: dict, server_state, deltas: dict, losses,
                weights, mask, generator):
@@ -102,13 +145,8 @@ class ParallelRound:
                                      generator)
         new_params, new_state = self.server_opt.apply(global_params, delta,
                                                       server_state)
-        metrics = {
-            "client_loss": (losses * mask).sum() / torch.clamp(mask.sum(),
-                                                               min=1),
-            "delta_norm": global_norm(delta),
-            "participation": mask.mean(),
-        }
-        return new_params, new_state, metrics
+        return new_params, new_state, _metrics(delta, (losses * mask).sum(),
+                                               mask)
 
     def __call__(self, global_params: dict, server_state,
                  client_batches: dict, weights, mask, generator):
@@ -117,7 +155,91 @@ class ParallelRound:
                            weights, mask, generator)
 
 
+class SequentialRound:
+    """The sequential round step: one client at a time, streamed into the
+    pipeline's running sum (secure masks per slot under ``secure_agg``)."""
+
+    def __init__(self, loss_fn: Callable, client_opt: Optimizer,
+                 server_opt: ServerOptimizer, cfg: FLConfig, n_pods: int = 1):
+        self.cfg = cfg
+        self.server_opt = server_opt
+        self.pipe = build_update_pipeline(cfg, n_pods=n_pods)
+        self.local_train = build_local_train(loss_fn, client_opt, cfg)
+
+    def __call__(self, global_params: dict, server_state,
+                 client_batches: dict, weights, mask, generator):
+        pipe, C = self.pipe, self.cfg.num_clients
+        acc = pipe.accum_init(global_params)
+        key = pipe.mask_key(generator) if self.cfg.secure_agg else None
+        ids = torch.arange(C, dtype=torch.int32)
+        wsum = torch.zeros((), dtype=torch.float32, device=mask.device)
+        loss_sum = torch.zeros((), dtype=torch.float32, device=mask.device)
+        for c in range(C):
+            delta, loss = self.local_train(
+                global_params, {k: v[c] for k, v in client_batches.items()})
+            wt = pipe.client_weight(weights[c], mask[c], loss)
+            acc = pipe.accum_add(acc, pipe.contribution(
+                delta, wt, generator, idx=c, ids=ids, participation=mask,
+                key=key))
+            wsum = wsum + wt
+            loss_sum = loss_sum + loss * mask[c]
+        delta = pipe.normalise(acc, wsum)
+        new_params, new_state = self.server_opt.apply(global_params, delta,
+                                                      server_state)
+        return new_params, new_state, _metrics(delta, loss_sum, mask)
+
+
+class PodSequentialRound:
+    """The pod_sequential round step: clients pinned to ``n_pods`` pods, the
+    client dim split [P, C/P]; each pod streams its clients into a plain
+    weighted sum and compresses it (what would cross the slow cross-pod
+    link), then ``combine_pods`` masks (under ``secure_agg``), sums and
+    normalises across pods."""
+
+    def __init__(self, loss_fn: Callable, client_opt: Optimizer,
+                 server_opt: ServerOptimizer, cfg: FLConfig, n_pods: int = 1):
+        self.cfg = cfg
+        self.n_pods = n_pods
+        self.server_opt = server_opt
+        self.pipe = build_update_pipeline(cfg, n_pods=n_pods)
+        self.local_train = build_local_train(loss_fn, client_opt, cfg)
+
+    def __call__(self, global_params: dict, server_state,
+                 client_batches: dict, weights, mask, generator):
+        pipe, P = self.pipe, self.n_pods
+        Cp = self.cfg.num_clients // P
+        dt = pipe.accum_dtype
+        accs, wsum, loss_sum = [], 0.0, 0.0
+        for p in range(P):
+            acc = pipe.accum_init(global_params)
+            wsum_p = torch.zeros((), dtype=torch.float32, device=mask.device)
+            loss_p = torch.zeros((), dtype=torch.float32, device=mask.device)
+            for c in range(p * Cp, (p + 1) * Cp):
+                delta, loss = self.local_train(
+                    global_params,
+                    {k: v[c] for k, v in client_batches.items()})
+                wt = pipe.client_weight(weights[c], mask[c], loss)
+                acc = pipe.accum_add(acc, {k: wt.to(dt) * d.to(dt)
+                                           for k, d in delta.items()})
+                wsum_p = wsum_p + wt
+                loss_p = loss_p + loss * mask[c]
+            accs.append(pipe.compress(acc, generator))
+            wsum, loss_sum = wsum + wsum_p, loss_sum + loss_p
+        pod_sums = {k: torch.stack([a[k] for a in accs]) for k in accs[0]}
+        delta = pipe.combine_pods(pod_sums, wsum, generator, compressed=True)
+        new_params, new_state = self.server_opt.apply(global_params, delta,
+                                                      server_state)
+        return new_params, new_state, _metrics(delta, loss_sum, mask)
+
+
+ROUNDS = {"parallel": ParallelRound, "sequential": SequentialRound,
+          "pod_sequential": PodSequentialRound}
+
+
 def build_fl_round_step(loss_fn: Callable, client_opt: Optimizer,
-                        server_opt: ServerOptimizer,
-                        cfg: FLConfig) -> ParallelRound:
-    return ParallelRound(loss_fn, client_opt, server_opt, cfg)
+                        server_opt: ServerOptimizer, cfg: FLConfig,
+                        n_pods: int = 1):
+    """The round step of ``cfg.client_exec``.  ``n_pods`` splits the
+    clients into pods for pod_sequential and the hierarchical combine."""
+    return ROUNDS[cfg.client_exec](loss_fn, client_opt, server_opt, cfg,
+                                   n_pods=n_pods)

@@ -1,15 +1,18 @@
 """Build and load the CUDA kernels at first use.
 
-``kernels/csrc/<name>.cu`` has a plain C interface.  The first call on a
-CUDA tensor compiles it with ``nvcc`` for Hopper (``sm_90a``) into
+Each ``kernels/csrc/<name>.cu`` is one library with a plain C interface
+(the ``*.cuh`` headers beside it are shared).  The first call on a CUDA
+tensor compiles it with ``nvcc`` for Hopper (``sm_90a``) into
 ``kernels/build/`` (listed in ``.gitignore``), under a name keyed by a hash
-of the source and the flags, loads it with ``ctypes`` and reuses it for the
-life of the process.  A CPU tensor never reaches this module: the kernel
-wrappers import it inside their CUDA branch.
+of the sources and the flags, loads it with ``ctypes`` and reuses it for
+the life of the process.  ``build_all`` starts one ``nvcc`` per ``.cu``
+file, all at once, and waits for them together, so a caller that needs
+every library pays for the slowest build, not the sum.  A CPU tensor never reaches this
+module: the kernel wrappers import it inside their CUDA branch.
 
-Every C entry point returns ``cudaGetLastError()`` after its launch;
-``launch`` raises when that is not 0, so a refused launch never passes in
-silence.
+Every C entry point returns ``cudaGetLastError()`` after its launch, and
+every library exports ``<name>_error_string``; ``launch`` raises when the
+code is not 0, so a refused launch never passes in silence.
 """
 from __future__ import annotations
 
@@ -27,12 +30,13 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+LIBRARIES = tuple(sorted(p.stem for p in CSRC.glob("*.cu")))
 
 _LIBS: dict = {}
-BUILD_LOG: dict = {}        # source name -> nvcc's output (ptxas register
+BUILD_LOG: dict = {}        # library name -> nvcc's output (ptxas register
 #                             and spill report) when this process built it
-BUILD_SECONDS: dict = {}    # source name -> seconds nvcc took, or 0.0 if the
-#                             library was already built
+BUILD_SECONDS: dict = {}    # library name -> seconds nvcc took, or 0.0 if
+#                             the library was already built
 
 
 def _nvcc() -> str:
@@ -44,45 +48,76 @@ def _nvcc() -> str:
     return str(Path(home) / "bin" / "nvcc")
 
 
-def library(name: str = "commit_kernels") -> ctypes.CDLL:
+def _target(name: str) -> Path:
+    """The library's file: keyed by its source, the shared headers and the
+    flags, so any change to them builds anew."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def _start(name: str):
+    """Start nvcc on ``csrc/<name>.cu``, or return None when the library is
+    already built."""
+    so = _target(name)
+    BUILD_SECONDS.setdefault(name, 0.0)
+    if so.exists():
+        return None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+    proc = subprocess.Popen(
+        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return proc, tmp, so, time.perf_counter()
+
+
+def _finish(name: str, started) -> None:
+    if started is None:
+        return
+    proc, tmp, so, t0 = started
+    out, _ = proc.communicate()
+    if proc.returncode:
+        raise RuntimeError(f"nvcc failed on {CSRC / f'{name}.cu'}:\n{out}")
+    os.replace(tmp, so)        # atomic: a reader never sees half a file
+    BUILD_SECONDS[name] = time.perf_counter() - t0
+    BUILD_LOG[name] = out
+
+
+def build_all() -> None:
+    """Build every library that is not built yet, one nvcc each, all
+    started together."""
+    started = {name: _start(name) for name in LIBRARIES
+               if name not in _LIBS}
+    for name, s in started.items():
+        _finish(name, s)
+
+
+def library(name: str) -> ctypes.CDLL:
     """The loaded kernel library built from ``csrc/<name>.cu``."""
     lib = _LIBS.get(name)
     if lib is not None:
         return lib
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    so = BUILD_DIR / f"lib{name}-{digest}.so"
-    BUILD_SECONDS[name] = 0.0
-    if not so.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        t0 = time.perf_counter()
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
-                              capture_output=True, text=True)
-        if proc.returncode:
-            raise RuntimeError(f"nvcc failed on {src}:\n{proc.stdout}"
-                               f"{proc.stderr}")
-        os.replace(tmp, so)        # atomic: a reader never sees half a file
-        BUILD_SECONDS[name] = time.perf_counter() - t0
-        BUILD_LOG[name] = proc.stdout + proc.stderr
-    lib = ctypes.CDLL(str(so))
-    lib.commit_kernels_error_string.argtypes = [ctypes.c_int]
-    lib.commit_kernels_error_string.restype = ctypes.c_char_p
+    _finish(name, _start(name))
+    lib = ctypes.CDLL(str(_target(name)))
+    err = getattr(lib, f"{name}_error_string")
+    err.argtypes = [ctypes.c_int]
+    err.restype = ctypes.c_char_p
     _LIBS[name] = lib
     return lib
 
 
-def launch(symbol: str, argtypes: list, *args, device=None) -> None:
-    """Call C entry ``symbol`` with ``args`` on the current CUDA stream of
-    ``device``; raise if the launch was refused."""
-    lib = library()
-    fn = getattr(lib, symbol)
+def launch(lib: str, symbol: str, argtypes: list, *args, device=None) -> None:
+    """Call C entry ``symbol`` of library ``lib`` with ``args`` on the
+    current CUDA stream of ``device``; raise if the launch was refused."""
+    so = library(lib)
+    fn = getattr(so, symbol)
     if fn.argtypes is None:
         fn.argtypes = [*argtypes, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     with torch.cuda.device(device):
         err = fn(*args, torch.cuda.current_stream().cuda_stream)
     if err:
-        msg = lib.commit_kernels_error_string(err).decode()
+        msg = getattr(so, f"{lib}_error_string")(err).decode()
         raise RuntimeError(f"{symbol}: CUDA error {err} ({msg})")

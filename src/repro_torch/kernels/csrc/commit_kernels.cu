@@ -28,7 +28,8 @@
 //     lane holds NV4 float4 chunks (chunk i*32+lane, so every warp-wide load
 //     is 512 contiguous bytes) in registers, and the per-row max, count and
 //     select run as warp reductions (__reduce_*_sync) with no shared memory
-//     and no __syncthreads;
+//     and no __syncthreads (the helpers in row_ops.cuh, which
+//     secure_commit.cu shares);
 //   * plain_commit loops over the K slots inside the warp, so each slot's
 //     row is read once and only the reduced row is written;
 //   * fused_accum gives one float4 of the output to one thread and loops
@@ -50,89 +51,11 @@
 // and returns cudaGetLastError() (or cudaErrorInvalidValue for a shape it
 // does not take), which the Python wrapper turns into an exception.
 
-#include <cuda_runtime.h>
+#include "row_ops.cuh"
 
 namespace {
 
-constexpr unsigned kFull = 0xffffffffu;
-constexpr int kThreads = 256;              // 8 warps per thread block
-constexpr int kWarps = kThreads / 32;
 constexpr int kMaxSlots = 12288;           // 48 KB of slot weights
-
-// Max over the warp of non-negative floats, through their bit patterns.
-__device__ __forceinline__ float warp_max_nonneg(float v) {
-  return __uint_as_float(__reduce_max_sync(kFull, __float_as_uint(v)));
-}
-
-template <int NV4>
-__device__ __forceinline__ void load_row(const float* __restrict__ row,
-                                         float (&x)[4 * NV4], int lane) {
-  const float4* p = reinterpret_cast<const float4*>(row);
-#pragma unroll
-  for (int i = 0; i < NV4; ++i) {
-    const float4 t = p[i * 32 + lane];
-    x[4 * i] = t.x;
-    x[4 * i + 1] = t.y;
-    x[4 * i + 2] = t.z;
-    x[4 * i + 3] = t.w;
-  }
-}
-
-template <int NV4>
-__device__ __forceinline__ void store_row(float* __restrict__ row,
-                                          const float (&x)[4 * NV4],
-                                          int lane) {
-  float4* p = reinterpret_cast<float4*>(row);
-#pragma unroll
-  for (int i = 0; i < NV4; ++i) {
-    p[i * 32 + lane] =
-        make_float4(x[4 * i], x[4 * i + 1], x[4 * i + 2], x[4 * i + 3]);
-  }
-}
-
-// Zero every entry of the warp's row whose |x| is below the k-th largest
-// |x| of the row (1 <= k <= row length).  The threshold t is the largest
-// bit pattern with count(|x| >= t) >= k, built one bit at a time from the
-// top, which is exactly the k-th largest |x|.
-template <int N>
-__device__ __forceinline__ void topk_row(float (&x)[N], int k) {
-  unsigned u[N];
-#pragma unroll
-  for (int j = 0; j < N; ++j) u[j] = __float_as_uint(x[j]) & 0x7fffffffu;
-  unsigned t = 0;
-  for (int b = 31; b >= 0; --b) {
-    const unsigned cand = t | (1u << b);
-    unsigned c = 0;
-#pragma unroll
-    for (int j = 0; j < N; ++j) c += (u[j] >= cand) ? 1u : 0u;
-    c = __reduce_add_sync(kFull, c);
-    if (c >= static_cast<unsigned>(k)) t = cand;
-  }
-#pragma unroll
-  for (int j = 0; j < N; ++j) {
-    if (u[j] < t) x[j] = 0.0f;
-  }
-}
-
-// Symmetric per-row quantize -> dequantize with qmax = 2^(bits-1) - 1.
-template <int N>
-__device__ __forceinline__ void quantize_row(float (&x)[N], float qmax) {
-  float m = 0.0f;
-#pragma unroll
-  for (int j = 0; j < N; ++j) m = fmaxf(m, fabsf(x[j]));
-  m = warp_max_nonneg(m);
-  float scale = m / qmax;
-  if (scale == 0.0f) scale = 1.0f;
-#pragma unroll
-  for (int j = 0; j < N; ++j) {
-    const float q = fminf(fmaxf(rintf(x[j] / scale), -qmax - 1.0f), qmax);
-    x[j] = q * scale;
-  }
-}
-
-__device__ __forceinline__ float qmax_for(int bits) {
-  return static_cast<float>((1 << (bits - 1)) - 1);
-}
 
 // Discounted slot weights into shared memory; every thread of the block
 // must reach this (it ends in __syncthreads).
@@ -228,15 +151,6 @@ topk_rows_kernel(const float* __restrict__ x, float* __restrict__ y,
   load_row<NV4>(x + row * B, v, lane);
   topk_row<N>(v, k);
   store_row<NV4>(y + row * B, v, lane);
-}
-
-inline unsigned row_blocks(long long R) {
-  return static_cast<unsigned>((R + kWarps - 1) / kWarps);
-}
-
-inline bool rows_ok(long long R, int block) {
-  return R > 0 && (R + kWarps - 1) / kWarps <= 0x7fffffffLL &&
-         (block == 128 || block == 256 || block == 512 || block == 1024);
 }
 
 template <int NV4>

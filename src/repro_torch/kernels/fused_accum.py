@@ -29,8 +29,8 @@ def fused_accum_blocks(xb, w, s, alpha: float):
     from repro_torch.kernels import _build
     launches.check_operands(NAME, xb, w, s)
     out = torch.empty(xb.shape[1:], dtype=torch.float32, device=xb.device)
-    _build.launch(NAME, _ARGTYPES, xb.data_ptr(), w.data_ptr(), s.data_ptr(),
-                  float(alpha), out.data_ptr(), K, out.numel(),
-                  device=xb.device)
+    _build.launch("commit_kernels", NAME, _ARGTYPES, xb.data_ptr(),
+                  w.data_ptr(), s.data_ptr(), float(alpha), out.data_ptr(), K,
+                  out.numel(), device=xb.device)
     launches.count(NAME)
     return out

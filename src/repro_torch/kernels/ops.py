@@ -1,4 +1,4 @@
-"""Public entry points of the commit kernels, mirroring
+"""Public entry points of the port's kernels, mirroring
 ``repro/kernels/ops.py`` without its mesh layer.
 
 They handle the blocking (blocks along the LAST dim of each leaf, zero
@@ -11,16 +11,21 @@ Leaf bucketing: ``fused_*_tree`` concatenate every leaf's blocked rows into
 one ``[K, R_total, block]`` bucket, so a whole model costs one kernel
 launch per commit.  Rows are whole blocks of one leaf each, so per-block
 scales and top-k thresholds are the same as per-leaf calls.
-``KERNEL_LAUNCHES`` counts launches on the card by kernel name.
+The secure commit's mask stream is indexed by the bucket's row-major
+element index from 0, which equals the reference's per-leaf ``base``
+accumulation.  ``KERNEL_LAUNCHES`` counts launches on the card by kernel
+name.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import fedprox_update as _fp
 from repro_torch.kernels import fused_accum as _fa
 from repro_torch.kernels import fused_quant_mask as _fqm
 from repro_torch.kernels import quantize as _q
+from repro_torch.kernels import ref
 from repro_torch.kernels import topk_sparsify as _tk
 from repro_torch.kernels.launches import KERNEL_LAUNCHES  # noqa: F401
 
@@ -56,6 +61,22 @@ def topk_sparsify(x, *, k: int, block: int = 256):
     xb, meta = _as_blocks(x, block)
     return _from_blocks(_tk.topk_sparsify_blocks(xb, k), meta, x.shape,
                         x.dtype)
+
+
+def fedprox_update(w, g, w0, *, lr: float, mu: float = 0.0):
+    """``w - lr * (g + mu * (w - w0))`` for one leaf: ``w`` and ``g`` are
+    the leaf (``w0``'s shape) or C clients' copies of it ([C, *w0.shape]);
+    the kernel reads ``w0`` once for all of them."""
+    n = w0.numel()
+    C = w.numel() // max(n, 1)
+    if tuple(w.shape[w.ndim - w0.ndim:]) != tuple(w0.shape) or C * n != \
+            w.numel():
+        raise ValueError(f"fedprox_update: w {tuple(w.shape)} is not "
+                         f"[C, *{tuple(w0.shape)}]")
+    flat = lambda t, shape: t.reshape(shape).to(torch.float32).contiguous()
+    y = _fp.fedprox_update_flat(flat(w, (C, n)), flat(g, (C, n)),
+                                flat(w0, (n,)), lr, mu)
+    return y.reshape(w.shape).to(w.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -107,14 +128,38 @@ def unpack_sums(y, metas, rows, dtype=torch.float32):
     return out
 
 
-def _slot_vectors(w, staleness, K, device):
-    """Per-slot weights and staleness as contiguous [K] f32.  Numbers and
-    arrays are made on ``device``; a tensor keeps its own device (the
-    kernel wrapper refuses operands on different devices)."""
-    vec = lambda v: torch.as_tensor(
+def _slot_vector(v, K, device):
+    """A per-slot vector as contiguous [K] f32.  Numbers and arrays are made
+    on ``device``; a tensor keeps its own device (the kernel wrapper refuses
+    operands on different devices)."""
+    return torch.as_tensor(
         v, dtype=torch.float32,
         device=None if torch.is_tensor(v) else device).reshape(K).contiguous()
-    return vec(w), vec(staleness)
+
+
+def _slot_vectors(w, staleness, K, device):
+    """Per-slot weights and staleness as contiguous [K] f32."""
+    return _slot_vector(w, K, device), _slot_vector(staleness, K, device)
+
+
+def _secure_rows(xb, w_eff, seeds, coef, base, bits, k, use_kernel,
+                 noise_generator):
+    """The secure commit of a blocked [K, R, block] stack: the kernel, or
+    its plain version where the caller turned fusion off.  A
+    ``noise_generator`` switches on stochastic rounding: the uniform draws
+    are made on the generator's device and moved to the stack's."""
+    K = xb.shape[0]
+    wv = _slot_vector(w_eff, K, xb.device)
+    noise = None
+    if noise_generator is not None:
+        noise = torch.rand(xb.shape, generator=noise_generator,
+                           device=noise_generator.device).to(xb.device)
+    seeds, coef = seeds.to(xb.device), coef.to(xb.device)
+    if use_kernel:
+        return _fqm.secure_commit_blocks(xb, wv, seeds, coef, base, bits=bits,
+                                         k=k, noise=noise)
+    return ref.fused_secure_commit_ref(xb, wv[:, None], seeds, coef, base,
+                                       bits, k=k, noise=noise)
 
 
 def fused_accum_tree(leaves, w, staleness, exponent, *, block: int = 256):
@@ -136,6 +181,18 @@ def fused_plain_commit_tree(leaves, w, staleness, exponent, *, bits: int,
                                                 bits=bits, k=k), metas, rows)
 
 
+def fused_secure_commit_tree(leaves, w_eff, seeds, coef, *, bits: int,
+                             k: int = 0, block: int = 256,
+                             use_kernel: bool = True, noise_generator=None):
+    """Bucketed integer-domain secure commit over a flattened leaf list: one
+    kernel launch for the whole tree, the mask stream indexed from 0 over
+    the bucket.  ``seeds`` [K, K] uint32 values and ``coef`` [K, K] int
+    from ``core.secure_agg``.  Returns the per-leaf f32 sums."""
+    xb, metas, rows = pack_blocks(list(leaves), block)
+    return unpack_sums(_secure_rows(xb, w_eff, seeds, coef, 0, bits, k,
+                                    use_kernel, noise_generator), metas, rows)
+
+
 def fused_accum(x, w, staleness, exponent, *, block: int = 256):
     """``sum_i w_i * (1+s_i)^(-exponent) * x_i`` over the slot dim of one
     leaf in a single pass."""
@@ -154,3 +211,16 @@ def fused_plain_commit(x, w, staleness, exponent, *, bits: int, k: int,
     return _unstack_sum(_fqm.plain_commit_blocks(xb.contiguous(), wv, sv,
                                                  exponent, bits=bits, k=k),
                         meta, torch.float32)
+
+
+def fused_secure_commit(x, w_eff, seeds, coef, base, *, bits: int, k: int = 0,
+                        block: int = 256, use_kernel: bool = True,
+                        noise_generator=None):
+    """Integer-domain secure aggregation of one slot-stacked leaf: top-k,
+    commit-common-scale integer quantize, uint32 modular pairwise masks,
+    sum, dequantize.  ``base`` is the leaf's global element-index offset
+    into the commit-wide mask stream."""
+    xb, meta = _stack_blocks(x, block)
+    return _unstack_sum(_secure_rows(xb.contiguous(), w_eff, seeds, coef,
+                                     base, bits, k, use_kernel,
+                                     noise_generator), meta, torch.float32)

@@ -28,7 +28,7 @@ def quantize_dequant_blocks(xb, bits: int):
     launches.check_operands(NAME, xb)
     R, block = xb.shape
     out = torch.empty_like(xb)
-    _build.launch("quantize_rows", _ARGTYPES, xb.data_ptr(), out.data_ptr(), R,
-                  block, bits, device=xb.device)
+    _build.launch("commit_kernels", "quantize_rows", _ARGTYPES, xb.data_ptr(),
+                  out.data_ptr(), R, block, bits, device=xb.device)
     launches.count(NAME)
     return out

@@ -1,10 +1,16 @@
-"""Plain PyTorch versions of the commit-path kernels (the correctness
-contract), mirroring ``repro/kernels/ref.py``.
+"""Plain PyTorch versions of the port's kernels (the correctness contract),
+mirroring ``repro/kernels/ref.py`` and the PRF of
+``repro/kernels/fused_quant_mask.py``.
 
 A CPU tensor takes these in every kernel wrapper; on the card
 ``chip_smoke.py`` holds each CUDA kernel against them.  Top-k uses the sort
 threshold with ties kept, as the reference oracle does; rounding is
 ``torch.round`` (half to even, like ``jnp.round``).
+
+uint32 arithmetic (the secure commit's mask PRF) is computed in int64
+tensors that hold values in [0, 2^32), reduced with ``& 0xFFFFFFFF`` after
+every step; a product is split into 16-bit halves so that no int64
+intermediate overflows.
 """
 from __future__ import annotations
 
@@ -89,3 +95,89 @@ def fused_plain_commit_ref(xb, w, s, alpha, bits: int, k: int = 0):
     if bits:
         x = quantize_blocks(x, bits)
     return fused_accum_ref(x, w, s, alpha)
+
+
+# ---------------------------------------------------------------------------
+# uint32 mask PRF of the integer-domain secure commit (int64 holding uint32)
+# ---------------------------------------------------------------------------
+
+U32 = 0xFFFFFFFF
+GOLDEN = 0x9E3779B9             # element-index mixing constant
+
+
+def mul_u32(a, b):
+    """``a * b mod 2^32`` for int64 tensors (or ints) holding uint32
+    values; ``b`` split into 16-bit halves keeps every product < 2^49."""
+    lo = a * (b & 0xFFFF)
+    hi = ((a * (b >> 16)) & 0xFFFF) << 16
+    return (lo + hi) & U32
+
+
+def hash_u32(x):
+    """"lowbias32"-style avalanche hash, uint32 -> uint32."""
+    x = x ^ (x >> 16)
+    x = mul_u32(x, 0x7FEB352D)
+    x = x ^ (x >> 15)
+    x = mul_u32(x, 0x846CA68B)
+    return x ^ (x >> 16)
+
+
+def to_u32(x):
+    """Any integer tensor -> int64 holding its two's-complement uint32."""
+    return x.to(torch.int64) & U32
+
+
+def u32_to_i32(x):
+    """int64 holding uint32 -> the same bits read as int32 (an int64 value
+    in [-2^31, 2^31))."""
+    return torch.where(x >= 2 ** 31, x - 2 ** 32, x)
+
+
+def mask_total_u32(seeds_row, coef_row, idx):
+    """Slot i's summed pairwise masks over its K peers, uint32 modular:
+    ``sum_j coef[j] * hash_u32(idx * GOLDEN + seed[j])``.  ``idx`` is the
+    [rows, block] global element index; the coefficients enter as
+    two's-complement uint32, so the signed sum is exact under wraparound."""
+    cu = to_u32(coef_row)
+    bits = hash_u32((mul_u32(to_u32(idx)[None], GOLDEN)
+                     + to_u32(seeds_row)[:, None, None]) & U32)
+    return mul_u32(cu[:, None, None], bits).sum(0) & U32
+
+
+def fused_secure_commit_ref(xb, w_eff, seeds, coef, base, bits: int,
+                            k: int = 0, noise=None):
+    """Plain version of the integer-domain secure commit over a blocked
+    [K, R, block] stack: per-slot top-k, weighted values quantized onto ONE
+    commit-common per-row grid, int32 wire words plus uint32 modular
+    pairwise masks, summed with wraparound, dequantized through the common
+    scale.  ``w_eff`` is [K, 1]; ``seeds`` [K, K] uint32 values (any integer
+    dtype); ``coef`` [K, K] in {-1, 0, +1}; ``base`` the global element
+    index of row 0.  ``noise`` ([K, R, block] uniform [0, 1)) switches
+    ``round`` to stochastic rounding ``floor(y / scale + u)``."""
+    x = xb.to(torch.float32)
+    K, R, block = x.shape
+    if k:
+        x = topk_blocks(x, k)
+    y = x * w_eff.to(torch.float32)[:, :, None]
+    qmax = 2.0 ** (bits - 1) - 1
+    amax = y.abs().amax(dim=(0, 2), keepdim=True)            # [1, R, 1]
+    scale = amax / torch.full_like(amax, qmax)
+    scale = torch.where(scale == 0, torch.ones_like(scale), scale)
+    yq = y / scale
+    q = torch.floor(yq + noise) if noise is not None else torch.round(yq)
+    qu = to_u32(torch.clamp(q, -qmax - 1, qmax).to(torch.int64))
+    idx = (int(base) + torch.arange(R * block, dtype=torch.int64,
+                                    device=x.device).reshape(R, block)) & U32
+    seeds, coef = seeds.to(x.device), coef.to(x.device)
+    total = torch.zeros((R, block), dtype=torch.int64, device=x.device)
+    for i in range(K):
+        total = (total + qu[i] + mask_total_u32(seeds[i], coef[i], idx)) & U32
+    return u32_to_i32(total).to(torch.float32) * scale[0]
+
+
+def fedprox_update_ref(w, g, w0, lr: float, mu: float):
+    """``w - lr * (g + mu * (w - w0))`` in float32; ``w0`` broadcasts
+    against ``w`` (one global copy for a [C, ...] stack of clients)."""
+    wf = w.to(torch.float32)
+    return (wf - lr * (g.to(torch.float32)
+                       + mu * (wf - w0.to(torch.float32)))).to(w.dtype)

@@ -29,7 +29,7 @@ def topk_sparsify_blocks(xb, k: int):
     launches.check_operands(NAME, xb)
     R, block = xb.shape
     out = torch.empty_like(xb)
-    _build.launch("topk_rows", _ARGTYPES, xb.data_ptr(), out.data_ptr(), R,
-                  block, k, device=xb.device)
+    _build.launch("commit_kernels", "topk_rows", _ARGTYPES, xb.data_ptr(),
+                  out.data_ptr(), R, block, k, device=xb.device)
     launches.count(NAME)
     return out

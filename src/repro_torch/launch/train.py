@@ -10,8 +10,8 @@ Same flags as the reference plus ``--device`` (default ``cuda``; the
 launcher raises when CUDA is absent and ``--device cpu`` was not given).
 Flags whose branches are not ported yet raise NotImplementedError naming
 the ROADMAP item that will port them: ``--mode async``, ``--facilities``,
-``--secure-agg``, ``--checkpoint-dir``/``--resume``, ``--render-jobs``
-and ``--dataset shakespeare``.  Flags that only the async or hierarchical regimes read are
+``--checkpoint-dir``/``--resume``, ``--render-jobs`` and ``--dataset
+shakespeare``.  Flags that only the async or hierarchical regimes read are
 parsed and, as in the reference's sync branch, not used.
 """
 from __future__ import annotations
@@ -160,8 +160,6 @@ def _refuse_unported(args) -> None:
         (args.mode == "async", "--mode async",
          "queue 1, still to port, item 5 (async regime)"),
         (args.facilities, "--facilities", "queue 1, still to port, item 6 (hierarchy)"),
-        (args.secure_agg, "--secure-agg",
-         "queue 1, still to port, item 2 (secure aggregation)"),
         (args.checkpoint_dir or args.resume, "--checkpoint-dir/--resume",
          "queue 1, still to port, item 4 (checkpointing)"),
         (args.render_jobs, "--render-jobs",
@@ -174,7 +172,11 @@ def _refuse_unported(args) -> None:
 
 
 def fl_config(args) -> FLConfig:
-    """The round's FLConfig from parsed launcher flags."""
+    """The round's FLConfig from parsed launcher flags.  Under
+    ``--secure-agg`` every round's commit draws its mask key from the
+    orchestrator's generator (``UpdatePipeline.mask_key``): checkpointing
+    (ROADMAP queue 1, still to port, item 4) must store that generator's
+    state, or a resumed run would mask with other keys."""
     return FLConfig(
         mode=args.mode,
         num_clients=args.clients_per_round, local_steps=args.local_steps,
@@ -187,8 +189,9 @@ def fl_config(args) -> FLConfig:
                                       use_fused=args.use_fused))
 
 
-def main(argv=None) -> dict:
-    args = build_parser().parse_args(argv)
+def build_run(args, fl: FLConfig | None = None):
+    """(orchestrator, initial params) of a run from parsed launcher flags;
+    ``fl`` replaces the FLConfig the flags give (``fl_config(args)``)."""
     _refuse_unported(args)
     device = resolve_device(args.device)
 
@@ -196,7 +199,7 @@ def main(argv=None) -> dict:
                                              args.seed, device)
     n_hpc = args.clients_pool // 2
     n_cloud = args.clients_pool - n_hpc
-    fl = fl_config(args)
+    fl = fl_config(args) if fl is None else fl
     fleet = make_hybrid_fleet(n_hpc, n_cloud, seed=args.seed,
                               data_sizes=[fed.client_size(c)
                                           for c in range(fed.num_clients)])
@@ -244,25 +247,38 @@ def main(argv=None) -> dict:
         batch_size=args.batch_size, flops_per_client_round=3e12,
         eval_fn=eval_fn, eval_every=10, backend=build_backend(),
         seed=args.seed, device=device)
-    orch.run(params, args.rounds, verbose=True)
-    summary = {
+    return orch, params
+
+
+def summarize(args, orch) -> dict:
+    """The run's JSON summary (the reference's keys, plus the device and
+    the host seconds of each round)."""
+    logs = orch.logs
+    return {
         "dataset": args.dataset, "algo": args.algo, "mode": "sync",
-        "device": str(device),
+        "device": str(orch.device),
         "exec_backend": args.exec_backend,
         "secure_agg": args.secure_agg,
         "rounds": args.rounds,
-        "final_eval": orch.logs[-1].eval_metric if orch.logs else None,
+        "final_eval": logs[-1].eval_metric if logs else None,
         "virtual_time_s": orch.virtual_clock,
         "mean_bytes_per_client_round":
             orch.comm.mean_bytes_per_client_round(),
         "mean_queue_wait_s": (float(np.mean([l.mean_queue_wait_s
-                                             for l in orch.logs]))
-                              if orch.logs else 0.0),
-        "overflow_clients": sum(l.n_overflow for l in orch.logs),
-        "preempted_clients": sum(l.n_preempted for l in orch.logs),
-        "client_loss": [l.client_loss for l in orch.logs],
-        "round_wall_s": [l.wall_s for l in orch.logs],
+                                             for l in logs]))
+                              if logs else 0.0),
+        "overflow_clients": sum(l.n_overflow for l in logs),
+        "preempted_clients": sum(l.n_preempted for l in logs),
+        "client_loss": [l.client_loss for l in logs],
+        "round_wall_s": [l.wall_s for l in logs],
     }
+
+
+def main(argv=None) -> dict:
+    args = build_parser().parse_args(argv)
+    orch, params = build_run(args)
+    orch.run(params, args.rounds, verbose=True)
+    summary = summarize(args, orch)
     print(json.dumps(summary, indent=1))
     return summary
 

@@ -24,6 +24,7 @@ from repro_torch.comm.transport import CommAccountant, link_for_site
 from repro_torch.core.compression import payload_bytes
 from repro_torch.core.convergence import ConvergenceMonitor
 from repro_torch.core.round import FLConfig, build_fl_round_step
+from repro_torch.core.secure_agg import masked_payload_bytes
 from repro_torch.optim import get_client_optimizer, get_server_optimizer
 from repro_torch.orchestrator.fault import FaultConfig, FaultInjector
 from repro_torch.orchestrator.selection import get_selection
@@ -78,7 +79,8 @@ class Orchestrator:
                 f"FLConfig(mode={self.fl.mode!r}) is not ported to "
                 f"repro_torch yet: ROADMAP queue 1, still to port, item 5")
         self.rng = np.random.default_rng(self.seed)
-        # compression randomness (stochastic rounding, federated dropout)
+        # commit randomness (stochastic rounding, federated dropout, the
+        # secure-aggregation commit keys)
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(self.seed)
         if self.backend is None:
@@ -164,10 +166,16 @@ class Orchestrator:
         return params, server_state, log
 
     def _payload_bytes_cache(self, params):
-        """(down_bytes, up_bytes): the plain uplink equals the downlink."""
+        """(down_bytes, up_bytes): under secure_agg the uplink is the
+        MASKED update — dense f32 without quantization, finite-ring words
+        of quantize_bits + ceil(log2(cohort)) bits with it (integer-domain
+        masking, core.pipeline) — while the params downlink stays plain."""
         if not hasattr(self, "_pb"):
             down = payload_bytes(params, self.fl.compression)
-            self._pb = (down, down)
+            up = (masked_payload_bytes(params, self.fl.compression,
+                                       n_slots=self.fl.num_clients)
+                  if self.fl.secure_agg else down)
+            self._pb = (down, up)
         return self._pb
 
     def run(self, params, num_rounds: int, server_state=None,

@@ -111,7 +111,7 @@ def test_launcher_three_rounds_match_jax(monkeypatch, capsys):
 
 
 @pytest.mark.parametrize("flag", [["--mode", "async"], ["--facilities", "2"],
-                                  ["--secure-agg"], ["--checkpoint-dir", "x"],
+                                  ["--checkpoint-dir", "x"],
                                   ["--resume"], ["--render-jobs", "x"],
                                   ["--dataset", "shakespeare"]])
 def test_launcher_unported_flags_raise(flag):
