@@ -13,10 +13,13 @@ it happened; any failure ends the run with a non-zero exit code:
   2. hold each kernel against its plain PyTorch version on the card at the
      main path's shapes (a [20, 4671, 256] f32 commit stack for the fused
      and secure commit kernels, the [20*4096, 256] dense1_w leaf for the
-     per-leaf ones, 20 clients' dense1_w for the FedProx update; the
+     per-leaf ones, 20 clients' dense1_w for the FedProx update, the
+     full-width Jamba prefill's [1, 128, 16384, 16] chunk and a strided
+     batch-2 chunk view for the selective scan; the
      secure commit with cancelling and with non-cancelling pair
      coefficients, both timed), and time kernel, plain version and library
-     call with CUDA events (median of 30 after 3 warm-up launches);
+     call with CUDA events (median of 30 after 3 warm-up launches), and the
+     kernel also over 30 back-to-back launches (printed only);
   3. hold rounds on the card against the CPU from the same params, batches
      and compression draws, to 1e-4: for each launcher configuration, the
      secure float-mask round and the fused FedProx update, the clients'
@@ -30,7 +33,15 @@ it happened; any failure ends the run with a non-zero exit code:
      steps, batch 16, 3 rounds, client lr 0.01), once for each launcher
      configuration that reaches a commit kernel, and one Orchestrator run
      built as the launcher builds it with the fused FedProx update, with
-     the launch counts set to 0 just before each run and read just after.
+     the launch counts set to 0 just before each run and read just after;
+  5. serve an LM (``lm_serve``): the reduced Jamba on the card against the
+     CPU (f32: prefill logits, every decode-state leaf, 4 decode steps, to
+     1e-4); then Jamba-1.5-Large at every published width, cut to 8 layers
+     and 8 experts (below), in bf16 through ``repro_torch.launch.serve.run``:
+     a 2032-token prompt and 16 greedy decode steps, the selective scan's
+     launches counted exactly, decoding held against teacher-forced
+     prefill, the peak memory and one profiler pass of the prefill; then
+     the serving command line (reduced, on cuda) through ``serve.main``.
 The last lines are the kernels' JSON record, the nvidia-smi line, and
 ``{"ok": true, "device": {...}}``.
 """
@@ -51,6 +62,7 @@ sys.path.insert(0, str(ROOT / "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+from repro_torch.configs import get_config, reduced  # noqa: E402
 from repro_torch.core import CompressionConfig, build_fl_round_step  # noqa: E402
 from repro_torch.core import secure_agg as sec  # noqa: E402
 from repro_torch.core.round import ParallelRound  # noqa: E402
@@ -60,8 +72,12 @@ from repro_torch.kernels.fused_accum import fused_accum_blocks  # noqa: E402
 from repro_torch.kernels.fused_quant_mask import (  # noqa: E402
     plain_commit_blocks, secure_commit_blocks)
 from repro_torch.kernels.quantize import quantize_dequant_blocks  # noqa: E402
+from repro_torch.kernels.selective_scan import (  # noqa: E402
+    selective_scan_chunk_blocks)
 from repro_torch.kernels.topk_sparsify import topk_sparsify_blocks  # noqa: E402
-from repro_torch.launch import train  # noqa: E402
+from repro_torch.launch import serve, train  # noqa: E402
+from repro_torch.models import build_model, param_count  # noqa: E402
+from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models.cnn import CIFAR_CNN, CNN  # noqa: E402
 from repro_torch.optim import get_client_optimizer, get_server_optimizer  # noqa: E402
 
@@ -133,12 +149,44 @@ PARITY_EXTRA = {
 }
 
 
+# The LM serving phase.  Jamba-1.5-Large (arXiv:2403.19887) keeps every
+# published width (d_model 8192, 64 heads over 8 kv heads, d_ff and
+# d_expert 24576, vocab 65536, Mamba d_state 16, expand 2, chunk 128) and is
+# cut in two ways to fit one 80 GB card in bf16: depth 72 -> 8, one whole
+# period of its block pattern (7 Mamba slots and 1 attention slot, MoE in
+# slots 1, 3, 5, 7), and experts 16 -> 8, top-2 kept.  The port has no
+# expert-parallel MoE yet, so the 8 experts are a smaller router, not one
+# card's share of 16.  25,910,730,752 parameters, 51.8 GB in bf16.
+JAMBA = "jamba-1.5-large-398b"
+JAMBA_PARAMS = 25_910_730_752
+# 2032 = 15 x 128 + 112 prompt tokens exercise the scan's remainder chunk;
+# with 16 decode steps s_max is 2048, so the teacher-forced prefill of all
+# 2048 tokens stays on attend_full (attention.attend's threshold).  Batch 2:
+# the prefill's transients (a and b of a Mamba layer, [B, 2032, 16384, 16]
+# f32 each) grow with the batch, and at batch 2 the peak stays under 72 GB
+# (PERF.md); the scan then takes chunk views strided across batch rows.
+SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 2, 2032, 16
+SCAN_SHAPE = (1, 128, 16384, 16)     # the full-width prefill's scan chunk
+# Decoding against teacher-forced prefill in bf16, as max |diff| over the
+# largest |logit|.  The two paths round at different places (prefill's
+# matrix products against decode's matrix-vector products, a causal
+# convolution summed term by term against one over a window, one attention
+# over the sequence against one over a cache), and bf16 keeps 8
+# significant bits: at the largest logits (~4) one ulp is 2^-6 to 2^-5, or
+# 0.4-0.8% of the scale, and the gap sums such roundings over 8 layers.
+# tests/test_torch_lm.py holds the reduced Jamba in bf16 on the CPU to the
+# same bound, and the same comparison in float32 to 1e-4: the bound is
+# about bf16 rounding, while a wrong cache or state moves the logits by
+# their whole scale.
+SERVE_DECODE_TOL = 5e-2
+
 SOURCES = {"fused_accum": "commit_kernels.cu",
            "plain_commit": "commit_kernels.cu",
            "quantize": "commit_kernels.cu",
            "topk_sparsify": "commit_kernels.cu",
            "secure_commit": "secure_commit.cu",
-           "fedprox_update": "fedprox_update.cu"}
+           "fedprox_update": "fedprox_update.cu",
+           "selective_scan": "selective_scan.cu"}
 
 
 class SmokeFailure(Exception):
@@ -213,6 +261,23 @@ def time_ms(fn, reps=30, warmup=3) -> float:
     return statistics.median(times)
 
 
+def time_ms_queued(fn, reps=30, warmup=3) -> float:
+    """Device time of one call from one pair of CUDA events around ``reps``
+    back-to-back calls: while the host enqueues faster than the card runs,
+    the host's launch latency, which ``time_ms`` counts once per call,
+    falls out."""
+    for _ in range(warmup):
+        fn()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
+
+
 # ---------------------------------------------------------------- phase 1
 def build():
     from repro_torch.kernels import _build
@@ -245,13 +310,18 @@ def assert_quantized_close(got, want, step, what):
           f"{what}: too many rounding flips")
 
 
+def parts(x):
+    return x if isinstance(x, tuple) else (x,)
+
+
 def kernel_specs(device, k_slots=K_SLOTS, rows=BUCKET_ROWS,
                  leaf_rows=LEAF_ROWS, block=BLOCK, leaf_params=DENSE1_W,
-                 seed=0):
+                 scan_shape=SCAN_SHAPE, seed=0):
     """Inputs made from a seed at the main path's shapes, and for each
     kernel: its wrapper, its plain version, the library call computing the
-    same function (or None), extra cases (label, kernel, plain, integer
-    operations) held and timed beside the main one, the bytes it must move,
+    same function (or None), extra cases (label, kernel, plain, bytes,
+    integer operations) held and timed beside the main one, the bytes it
+    must move,
     the f32 operations it does and the integer operations its data needs."""
     gen = torch.Generator(device=device).manual_seed(seed)
     xb = torch.randn(k_slots, rows, block, generator=gen, device=device) * 0.01
@@ -281,8 +351,22 @@ def kernel_specs(device, k_slots=K_SLOTS, rows=BUCKET_ROWS,
     gc = torch.randn(k_slots, leaf_params, generator=gen, device=device)
     w0 = torch.randn(leaf_params, generator=gen, device=device)
     n_clients = wc.numel()
+    # selective scan: decays in (0.3, 1) as exp(dt * A) gives them; the
+    # main-path chunk, and a chunk view of a batch-2 sequence (strided
+    # across batch rows, as the Mamba block hands it over)
+    B, L, D, N = scan_shape
+    sa = torch.rand(scan_shape, generator=gen, device=device) * 0.7 + 0.3
+    sb = torch.randn(scan_shape, generator=gen, device=device) * 0.1
+    sh0 = torch.randn((B, D, N), generator=gen, device=device)
+    wa = torch.rand((2, 2 * L, D, N), generator=gen, device=device) * 0.7 + 0.3
+    wb = torch.randn((2, 2 * L, D, N), generator=gen, device=device) * 0.1
+    wh0 = torch.randn((2, D, N), generator=gen, device=device)
+    va, vb = wa[:, L:], wb[:, L:]
+    scan_bytes = lambda b: 4 * (3 * b * L * D * N + 2 * b * D * N)
+    secure_bytes = 4 * (n_stack + k_slots + n_out) + 8 * k_slots ** 2
     exact = lambda name: (lambda g, p: check(
-        torch.equal(g, p), f"{name}: differs from its plain version"))
+        all(torch.equal(x, y) for x, y in zip(parts(g), parts(p))),
+        f"{name}: differs from its plain version"))
     return {
         "fused_accum": dict(
             replaces="src/repro/kernels/fused_accum.py:33",
@@ -333,9 +417,10 @@ def kernel_specs(device, k_slots=K_SLOTS, rows=BUCKET_ROWS,
             plain=secure(coef)[1],
             library=None,
             extra=[("upper-triangle coefficients", *secure(upper),
+                    secure_bytes, (66 + 7 + 2) * n_stack,
                     OPS_PER_MASK_WORD * n_out * mask_words(seeds, upper))],
             compare=exact("secure_commit"),
-            bytes=4 * (n_stack + k_slots + n_out) + 8 * k_slots ** 2,
+            bytes=secure_bytes,
             # the top-k select, weighting, quantize and rounding as in
             # plain_commit; the PRF words this data needs per output element
             # (none where every pair's coefficients cancel)
@@ -350,6 +435,20 @@ def kernel_specs(device, k_slots=K_SLOTS, rows=BUCKET_ROWS,
             compare=exact("fedprox_update"),
             bytes=4 * (3 * n_clients + leaf_params),
             ops=5 * n_clients),
+        "selective_scan": dict(
+            replaces="src/repro/kernels/selective_scan.py:37",
+            kernel=lambda: selective_scan_chunk_blocks(sa, sb, sh0),
+            plain=lambda: ref.selective_scan_chunk_ref(sa, sb, sh0),
+            library=None,
+            extra=[("strided batch-2 chunk view",
+                    lambda: selective_scan_chunk_blocks(va, vb, wh0),
+                    lambda: ref.selective_scan_chunk_ref(va, vb, wh0),
+                    scan_bytes(2), 2 * va.numel(), 0)],
+            compare=exact("selective_scan"),
+            # a and b read, hs written, h0 read and h_last written once;
+            # one multiply and one add per element
+            bytes=scan_bytes(B),
+            ops=2 * sa.numel()),
     }
 
 
@@ -360,13 +459,13 @@ def check_kernels(device="cuda", **shapes):
     rate = memory_rate(torch.cuda.get_device_name(0) if timed else "")
     rows = {}
     for kname, spec in kernel_specs(device, **shapes).items():
-        for label, kernel, plain, int_ops in spec.get("extra", []):
+        for label, kernel, plain, nbytes, ops, int_ops in spec.get("extra",
+                                                                    []):
             g, p = kernel(), plain()
             sync(device)
             spec["compare"](g, p)
             del g, p
-            extra_ms, extra_by = bound(spec["bytes"], spec["ops"], int_ops,
-                                       rate)
+            extra_ms, extra_by = bound(nbytes, ops, int_ops, rate)
             print(f"kernel {kname} ({label}): equal to its plain version "
                   + (f"ms={time_ms(kernel)} " if timed else "")
                   + f"bound_ms={extra_ms} bound_by={extra_by}")
@@ -374,21 +473,23 @@ def check_kernels(device="cuda", **shapes):
         want = spec["plain"]()
         sync(device)
         spec["compare"](got, want)
-        err = (got - want).abs().max().item()
+        err = max((g - p).abs().max().item()
+                  for g, p in zip(parts(got), parts(want)))
         row = dict(name=kname, route="cuda", source=CSRC + SOURCES[kname],
                    replaces=spec["replaces"], max_abs_err=err)
         row["bound_ms"], row["bound_by"] = bound(
             spec["bytes"], spec["ops"], spec.get("int_ops", 0), rate)
         if timed:
             row["ms"] = time_ms(spec["kernel"])
+            row["queued_ms"] = time_ms_queued(spec["kernel"])
             row["plain_ms"] = time_ms(spec["plain"])
             row["library_ms"] = (time_ms(spec["library"])
                                  if spec["library"] else None)
         rows[kname] = row
         print(f"kernel {kname}: max_abs_err={err:.3g} "
               + " ".join(f"{k}={row[k]}" for k in
-                         ("ms", "plain_ms", "library_ms", "bound_ms",
-                          "bound_by") if k in row))
+                         ("ms", "queued_ms", "plain_ms", "library_ms",
+                          "bound_ms", "bound_by") if k in row))
         del got, want
     sync(device)
     return rows
@@ -539,6 +640,239 @@ def drive_main_path():
     return totals
 
 
+# ---------------------------------------------------------------- phase 5
+def rel_gap(got, want) -> float:
+    """max |got - want| / max |want|, in float32 on the CPU."""
+    got, want = got.detach().float().cpu(), want.detach().float().cpu()
+    return ((got - want).abs().max()
+            / want.abs().max().clamp_min(1e-30)).item()
+
+
+def state_gap(state, want) -> float:
+    return max(rel_gap(state[k][n], want[k][n]) for k in want
+               for n in want[k])
+
+
+def scan_launches(model, S: int) -> int:
+    """The selective scan's launches in one prefill of S tokens: one per
+    chunk (the remainder included) per Mamba layer."""
+    n_mamba = model.n_groups * sum(s.mixer == "mamba" for s in model.pattern)
+    return n_mamba * math.ceil(S / model.cfg.mamba.chunk)
+
+
+def check_lm_parity(device="cuda", B=2, S0=37, T=4, tol=1e-4):
+    """The reduced Jamba (f32) on the card against the CPU, from the same
+    params (drawn on the CPU) and tokens: prefill logits and every
+    decode-state leaf, then T decode steps' logits and states, each to
+    ``tol`` relative.  S0 = 37 at chunk 16 scans two whole chunks and a
+    remainder; the card must launch the scan once per chunk."""
+    model = build_model(reduced(get_config(JAMBA)))
+    params = model.init(torch.Generator().manual_seed(0))
+
+    def on(tree, dev):
+        return {k: on(v, dev) if isinstance(v, dict) else v.to(dev)
+                for k, v in tree.items()}
+
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, model.cfg.vocab, (B, S0 + T)))
+    devs = (device, "cpu")
+    p = {dev: on(params, dev) for dev in devs}
+    launches.reset()
+    gaps = {}
+    with torch.inference_mode():
+        out = {dev: model.prefill(p[dev], {"tokens": toks[:, :S0].to(dev)},
+                                  S0 + T) for dev in devs}
+        for i in range(T + 1):
+            name = "prefill" if i == 0 else f"decode{i - 1}"
+            gaps[name] = (rel_gap(out[device][0], out["cpu"][0]),
+                          state_gap(out[device][1], out["cpu"][1]))
+            if i < T:
+                out = {dev: model.decode_step(p[dev], out[dev][1],
+                                              toks[:, S0 + i].to(dev),
+                                              S0 + i) for dev in devs}
+    sync(device)
+    counts = dict(launches.KERNEL_LAUNCHES)
+    print(f"lm parity (reduced Jamba, f32, B={B}, prompt {S0}, {T} decode "
+          f"steps): max |card - cpu| / max |cpu| (logits, state) = {gaps}; "
+          f"launches {counts}")
+    check(counts == {"selective_scan": scan_launches(model, S0)},
+          f"lm parity: launches {counts}")
+    worst = max(max(g) for g in gaps.values())
+    check(worst <= tol, f"lm parity: card differs from the CPU by "
+                        f"{worst:.3g} > {tol}")
+    launches.reset()
+    return worst
+
+
+def jamba_cut():
+    """Jamba-1.5-Large at every published width, 8 layers (published 72)
+    and 8 experts (published 16): see JAMBA above."""
+    cfg = get_config(JAMBA)
+    return cfg.replace(n_layers=8,
+                       moe=dataclasses.replace(cfg.moe, num_experts=8))
+
+
+def profile_prefill(model, params, prompt, s_max):
+    """One warm prefill timed on the host clock, then one profiler pass of
+    it: the top 10 device kernels by time, the selective scan's share and
+    the device's busy share of the warm wall time.  Printed only; it gates
+    nothing."""
+    from torch.profiler import ProfilerActivity, profile
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.prefill(params, {"tokens": prompt}, s_max)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    with torch.inference_mode(), profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        model.prefill(params, {"tokens": prompt}, s_max)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if str(e.device_type).endswith("CUDA")]
+    total = sum(e.self_device_time_total for e in kernels)
+    if not total:
+        print("profile: no device time recorded")
+        return
+    scan = sum(e.self_device_time_total for e in kernels
+               if "selective_scan" in e.key)
+    print(f"profile of one prefill: {len(kernels)} kernels, device time "
+          f"{total / 1e3:.3f} ms against {wall_s * 1e3:.3f} ms of warm "
+          f"unprofiled wall time (busy share {total / 1e6 / wall_s:.3f}); "
+          f"selective_scan {scan / 1e3:.3f} ms, share {scan / total:.4f}")
+    for e in sorted(kernels, key=lambda e: e.self_device_time_total,
+                    reverse=True)[:10]:
+        print(f"  {e.self_device_time_total / 1e3:10.3f} ms "
+              f"{e.self_device_time_total / total:7.2%} x{e.count:<5d} "
+              f"{e.key[:110]}")
+
+
+def count_drops(fn):
+    """Run ``fn()`` and count, per MoE layer, the token assignments that
+    the capacity limit dropped.  A diagnostic: each count reads the device,
+    so timed runs do not use it."""
+    drops, orig = [], moe_mod._dispatch_indices
+
+    def dispatch(eid, gate, e_lo, e_n, capacity):
+        tok_idx, gates = orig(eid, gate, e_lo, e_n, capacity)
+        drops.append(eid.numel() - int((gates != 0).sum()))
+        return tok_idx, gates
+
+    moe_mod._dispatch_indices = dispatch
+    try:
+        fn()
+    finally:
+        moe_mod._dispatch_indices = orig
+    return drops
+
+
+def serve_full_width(device="cuda", cfg=None, batch=SERVE_BATCH,
+                     prompt_len=SERVE_PROMPT, gen=SERVE_GEN,
+                     n_params=JAMBA_PARAMS, tol=SERVE_DECODE_TOL):
+    """The cut Jamba in bf16 through ``serve.run``: a ``prompt_len``-token
+    prompt and ``gen`` greedy decode steps, with the scan's launches
+    counted exactly, the wall times and the peak memory; decoding held
+    against teacher-forced prefill at the first and the last decoded
+    positions; one profiler pass of the prefill."""
+    cfg = cfg or jamba_cut()
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    model, params = serve.build(cfg, device, seed=0)
+    sync(device)
+    n = param_count(params)
+    print(f"lm serve: {cfg.name} cut to {cfg.n_layers} layers, "
+          f"{cfg.moe.num_experts} experts: {n} params in {cfg.dtype}, built "
+          f"in {time.perf_counter() - t0:.1f} s")
+    check(n == n_params, f"lm serve: {n} params, expected {n_params}")
+    g = torch.Generator(device).manual_seed(1)
+    prompt = torch.randint(0, cfg.vocab, (batch, prompt_len), generator=g,
+                           device=device)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    launches.reset()
+    res = serve.run(model, params, prompt, gen, 0.0, g)
+    counts = dict(launches.KERNEL_LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() if cuda else 0
+    print(f"lm serve: batch {batch}, prompt {prompt_len}, {gen} greedy "
+          f"steps: prefill_s={res.prefill_s:.4f} decode_s={res.decode_s:.4f} "
+          f"({res.decode_s / gen * 1e3:.2f} ms/token) "
+          f"max_memory_allocated={peak} ({peak / 1e9:.2f} GB) "
+          f"launches={counts}")
+    check(all(lg.shape == (batch, cfg.vocab) and bool(torch.isfinite(lg).all())
+              for lg in res.logits), "lm serve: non-finite or misshapen logits")
+    check(res.ids.shape == (batch, gen)
+          and ((res.ids >= 0) & (res.ids < cfg.vocab)).all(),
+          f"lm serve: generated ids {res.ids}")
+    # one launch per chunk per Mamba layer in the prefill, none in decode
+    expect = {"selective_scan": scan_launches(model, prompt_len)}
+    check(counts == expect, f"lm serve: launches {counts}, expected {expect}")
+    with torch.inference_mode():
+        drops = count_drops(lambda: model.prefill(
+            params, {"tokens": prompt}, prompt_len + gen))
+    print(f"lm serve: MoE assignments dropped by the capacity limit "
+          f"(capacity_factor {cfg.moe.capacity_factor}) per MoE layer of the "
+          f"{prompt_len}-token prefill: {drops} of "
+          f"{batch * prompt_len * cfg.moe.top_k} each")
+    # Decoding equals teacher-forced prefill only where prefill drops no
+    # assignment: a decode step routes one token, which always fits, while
+    # a prefill drops the latest tokens of an expert beyond its capacity.
+    # So the comparison serves the same params with each expert's capacity
+    # at the token count (capacity_factor = experts / top_k), where nothing
+    # is dropped by construction.
+    nd = build_model(cfg.replace(moe=dataclasses.replace(
+        cfg.moe, capacity_factor=cfg.moe.num_experts / cfg.moe.top_k)))
+    res = serve.run(nd, params, prompt, gen, 0.0, g)
+    tokens = torch.cat([prompt, torch.from_numpy(res.ids).to(device)], dim=1)
+    gaps = {}
+    with torch.inference_mode():
+        for t in (0, gen - 1):
+            want, _ = nd.prefill(
+                params, {"tokens": tokens[:, :prompt_len + t + 1]},
+                prompt_len + gen)
+            gaps[prompt_len + t + 1] = rel_gap(res.logits[t + 1], want)
+            same = bool((res.logits[t + 1].argmax(-1) == want.argmax(-1))
+                        .all())
+            print(f"lm serve: decode step {t} against the teacher-forced "
+                  f"prefill of {prompt_len + t + 1} tokens (no drops): "
+                  f"max |diff| / max |logit| = "
+                  f"{gaps[prompt_len + t + 1]:.4g}, same argmax: {same}")
+    check(max(gaps.values()) <= tol,
+          f"lm serve: decoding differs from prefill by {gaps} > {tol}")
+    del res, tokens, want
+    if cuda:
+        profile_prefill(model, params, prompt, prompt_len + gen)
+    del model, nd, params
+    return counts
+
+
+def serve_cli():
+    """The serving command line, reduced Jamba on cuda, through
+    ``serve.main``: one scan launch per prefill chunk."""
+    argv = ["--arch", JAMBA, "--temperature", "0"]
+    args = serve.build_parser().parse_args(argv)
+    launches.reset()
+    res = serve.main(argv)
+    torch.cuda.synchronize()
+    counts = dict(launches.KERNEL_LAUNCHES)
+    model = build_model(reduced(get_config(JAMBA)))
+    expect = {"selective_scan": scan_launches(model, args.prompt_len)}
+    check(counts == expect, f"serve CLI: launches {counts}, expected {expect}")
+    check(res.ids.shape == (args.batch, args.gen), f"serve CLI: {res.ids}")
+    print(f"serve CLI: launches={counts}")
+    return counts
+
+
+def lm_serve():
+    """Phase 5: the LM serving path."""
+    check_lm_parity()
+    totals = dict(serve_full_width())
+    for k, n in serve_cli().items():
+        totals[k] = totals.get(k, 0) + n
+    return totals
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an "
@@ -557,11 +891,14 @@ def main() -> int:
         phases = {}
         for phase, run in (("build", build), ("kernels", check_kernels),
                            ("round_parity", check_round_parity),
-                           ("main_path", drive_main_path)):
+                           ("main_path", drive_main_path),
+                           ("lm_serve", lm_serve)):
             t0 = time.perf_counter()
             phases[phase] = run()
             print(f"phase {phase}: {time.perf_counter() - t0:.1f} s")
-        rows, totals = phases["kernels"], phases["main_path"]
+        rows, totals = phases["kernels"], dict(phases["main_path"])
+        for k, n in phases["lm_serve"].items():
+            totals[k] = totals.get(k, 0) + n
         for kname, row in rows.items():
             row["launches"] = totals.get(kname, 0)
             check(row["launches"] > 0, f"{kname}: no launch on the main path")

@@ -6,6 +6,9 @@ leaf names, so a conversion is a copy: ``{name: np.ndarray}`` (for example
 ``{k: np.asarray(v) for k, v in jax_params.items()}``) becomes ``{name:
 float32 Tensor}`` on the chosen device, in sorted-key order, and back.
 The same holds for the fedadam/fedyogi server state ``{"m": ..., "v": ...}``.
+The LM zoo's params and decode states are nested dicts;
+``tree_from_jax``/``tree_to_numpy`` copy those leaf by leaf and keep each
+leaf's dtype.
 """
 from __future__ import annotations
 
@@ -37,3 +40,34 @@ def server_state_to_numpy(state):
     if not state:
         return ()
     return {part: params_to_numpy(state[part]) for part in ("m", "v")}
+
+
+def _leaf_from_jax(x, device, dtype):
+    a = np.asarray(x)
+    if a.dtype.name == "bfloat16":
+        # JAX's bfloat16 reaches numpy as ml_dtypes.bfloat16, which torch
+        # does not read: go through float32 (exact) and cast back
+        t = torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.array(a))
+    if dtype is not None and t.is_floating_point():
+        t = t.to(dtype)
+    return t.to(device)
+
+
+def tree_from_jax(tree, device="cpu", dtype=None):
+    """A nested dict of arrays -> the same dict of Tensors on ``device``.
+    Each leaf keeps its dtype (bfloat16 included); a ``dtype`` casts the
+    floating-point leaves to it."""
+    return {k: tree_from_jax(v, device, dtype) if isinstance(v, dict)
+            else _leaf_from_jax(v, device, dtype) for k, v in tree.items()}
+
+
+def tree_to_numpy(tree):
+    """A nested dict of Tensors -> the same dict of numpy arrays, floats as
+    float32."""
+    def leaf(t):
+        t = t.detach().to("cpu")
+        return (t.to(torch.float32) if t.is_floating_point() else t).numpy()
+    return {k: tree_to_numpy(v) if isinstance(v, dict) else leaf(v)
+            for k, v in tree.items()}

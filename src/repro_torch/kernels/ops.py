@@ -13,8 +13,9 @@ launch per commit.  Rows are whole blocks of one leaf each, so per-block
 scales and top-k thresholds are the same as per-leaf calls.
 The secure commit's mask stream is indexed by the bucket's row-major
 element index from 0, which equals the reference's per-leaf ``base``
-accumulation.  ``KERNEL_LAUNCHES`` counts launches on the card by kernel
-name.
+accumulation.  ``selective_scan_chunk`` is the Mamba mixer's scan, an
+``autograd.Function`` whose backward is not ported yet.  ``KERNEL_LAUNCHES``
+counts launches on the card by kernel name.
 """
 from __future__ import annotations
 
@@ -26,6 +27,7 @@ from repro_torch.kernels import fused_accum as _fa
 from repro_torch.kernels import fused_quant_mask as _fqm
 from repro_torch.kernels import quantize as _q
 from repro_torch.kernels import ref
+from repro_torch.kernels import selective_scan as _ss
 from repro_torch.kernels import topk_sparsify as _tk
 from repro_torch.kernels.launches import KERNEL_LAUNCHES  # noqa: F401
 
@@ -224,3 +226,29 @@ def fused_secure_commit(x, w_eff, seeds, coef, base, *, bits: int, k: int = 0,
     return _unstack_sum(_secure_rows(xb.contiguous(), w_eff, seeds, coef,
                                      base, bits, k, use_kernel,
                                      noise_generator), meta, torch.float32)
+
+
+# ---------------------------------------------------------------------------
+# selective scan: the forward is the kernel (or its plain version on the
+# CPU); the backward (the reference's custom VJP, a reverse-time scan) is
+# the training slice's
+# ---------------------------------------------------------------------------
+
+class _SelectiveScanChunk(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, a, b, h0):
+        return _ss.selective_scan_chunk_blocks(a, b, h0)
+
+    @staticmethod
+    def backward(ctx, g_hs, g_hl):
+        raise NotImplementedError(
+            "the selective scan's backward is not ported to repro_torch yet: "
+            "ROADMAP queue 1, still to port, item 7b (LM training)")
+
+
+def selective_scan_chunk(a, b, h0):
+    """``h_t = a_t * h_{t-1} + b_t`` over one chunk.  a, b: [B, L, D, N]
+    f32 (each batch row contiguous; chunk views of a longer sequence are
+    taken as they are); h0: [B, D, N] f32.  Returns (hs [B, L, D, N],
+    h_last [B, D, N])."""
+    return _SelectiveScanChunk.apply(a, b, h0)

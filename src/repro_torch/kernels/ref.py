@@ -181,3 +181,17 @@ def fedprox_update_ref(w, g, w0, lr: float, mu: float):
     wf = w.to(torch.float32)
     return (wf - lr * (g.to(torch.float32)
                        + mu * (wf - w0.to(torch.float32)))).to(w.dtype)
+
+
+def selective_scan_chunk_ref(a, b, h0):
+    """``h_t = a_t * h_{t-1} + b_t`` over the chunk dim (axis 1), one step
+    at a time in float32 (one rounding per multiply and per add).
+    a, b: [B, L, D, N]; h0: [B, D, N].  Returns (hs [B, L, D, N], h_last
+    [B, D, N])."""
+    a, b = a.to(torch.float32), b.to(torch.float32)
+    h = h0.to(torch.float32)
+    hs = torch.empty(a.shape, dtype=torch.float32, device=a.device)
+    for t in range(a.shape[1]):
+        h = a[:, t] * h + b[:, t]
+        hs[:, t] = h
+    return hs, h

@@ -1,0 +1,60 @@
+"""One chunk of Mamba's selective scan, mirroring
+``repro/kernels/selective_scan.py``:
+
+    h_t = a_t * h_{t-1} + b_t   over the chunk's L steps
+
+Replaces the Pallas kernel ``selective_scan_chunk_kernel`` (body
+``_kernel``).  The CUDA kernel is ``selective_scan`` in
+``csrc/selective_scan.cu``, whose note gives its bound on the card and its
+design.  ``a`` and ``b`` may be chunk views of a whole ``[B, S, D, N]``
+tensor: each batch row must be contiguous, and the batch strides go to the
+kernel as they are, so no chunk is copied.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import launches, ref
+
+NAME = "selective_scan"
+_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+             ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong]
+
+
+def _check_row_major(t, what):
+    """Each batch row of ``t`` [B, L, D, N] is one contiguous block."""
+    _, L, D, N = t.shape
+    if t.dtype != torch.float32:
+        raise TypeError(f"{NAME}: expected float32 {what}, got {t.dtype}")
+    if L > 1 and t.stride(1) != D * N or D > 1 and t.stride(2) != N \
+            or N > 1 and t.stride(3) != 1:
+        raise ValueError(f"{NAME}: {what} is not contiguous within a batch "
+                         f"row (strides {t.stride()})")
+
+
+def selective_scan_chunk_blocks(a, b, h0):
+    """a, b: [B, L, D, N] f32; h0: [B, D, N] f32.
+    Returns (hs [B, L, D, N], h_last [B, D, N]) f32."""
+    if a.ndim != 4 or b.shape != a.shape or h0.shape != (a.shape[0],
+                                                          *a.shape[2:]):
+        raise ValueError(f"{NAME}: expected a, b [B, L, D, N] and h0 "
+                         f"[B, D, N], got {tuple(a.shape)}, "
+                         f"{tuple(b.shape)}, {tuple(h0.shape)}")
+    if launches.on_cpu(a, b, h0):
+        return ref.selective_scan_chunk_ref(a, b, h0)
+    from repro_torch.kernels import _build
+    _check_row_major(a, "a")
+    _check_row_major(b, "b")
+    launches.check_operands(NAME, h0)
+    B, L, D, N = a.shape
+    hs = torch.empty((B, L, D, N), dtype=torch.float32, device=a.device)
+    h_last = torch.empty((B, D, N), dtype=torch.float32, device=a.device)
+    _build.launch("selective_scan", NAME, _ARGTYPES, a.data_ptr(),
+                  b.data_ptr(), h0.data_ptr(), hs.data_ptr(),
+                  h_last.data_ptr(), B, L, D * N, a.stride(0), b.stride(0),
+                  device=a.device)
+    launches.count(NAME)
+    return hs, h_last

@@ -1,0 +1,120 @@
+"""Federated inference launcher, mirroring ``repro/launch/serve.py``: serve a
+model with batched autoregressive decoding (prefill, then one decode step
+per generated token).
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma-2b \
+        --batch 4 --prompt-len 16 --gen 8
+
+Same flags as the reference plus ``--device`` (default ``cuda``; the
+launcher raises when CUDA is absent and ``--device cpu`` was not given).
+As in the reference, ``--reduced`` is ``store_true`` with ``default=True``,
+so the command line always serves the reduced config; a full-width run
+calls ``build`` and ``run`` itself.  The dense, MoE and hybrid families
+serve; the others raise NotImplementedError naming their ROADMAP item.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from repro_torch.configs import get_config, reduced
+from repro_torch.launch.train import resolve_device
+from repro_torch.models import build_model
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="gemma-2b")
+    ap.add_argument("--reduced", action="store_true", default=True)
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=16)
+    ap.add_argument("--gen", type=int, default=8)
+    ap.add_argument("--temperature", type=float, default=1.0)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default="cuda")
+    return ap
+
+
+def build(cfg, device, seed: int):
+    """(model, params): random params drawn on ``device`` from a generator
+    seeded with ``seed``."""
+    device = torch.device(device)
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device).manual_seed(seed), device)
+    return model, params
+
+
+@dataclass
+class ServeResult:
+    ids: np.ndarray          # [B, gen] generated token ids
+    logits: list             # [B, vocab] logits from the prefill and from
+    #                          every decode step (gen + 1 entries)
+    prefill_s: float         # wall time of the prefill, synchronised
+    decode_s: float          # wall time of the gen decode steps
+
+
+def _sync(device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _sample(logits, temperature: float, generator):
+    if temperature > 0:
+        probs = torch.softmax(logits.to(torch.float32) / temperature, dim=-1)
+        return torch.multinomial(probs, 1, generator=generator)[:, 0]
+    return logits.argmax(-1)
+
+
+def run(model, params, prompt, gen: int, temperature: float,
+        generator) -> ServeResult:
+    """Prefill ``prompt`` [B, S0] (token ids), then ``gen`` decode steps,
+    each sampling one token from the last logits (``temperature`` 0 is
+    argmax; else ``torch.multinomial`` on ``softmax(logits / T)`` with
+    ``generator``) and feeding it back at the next position."""
+    device = params["embed"].device
+    prompt = torch.as_tensor(prompt).to(device=device, dtype=torch.long)
+    S0 = prompt.shape[1]
+    s_max = S0 + gen
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        logits, state = model.prefill(params, {"tokens": prompt}, s_max)
+        _sync(device)
+        t_prefill = time.perf_counter() - t0
+        out, toks = [logits], []
+        t0 = time.perf_counter()
+        for t in range(gen):
+            tok = _sample(logits, temperature, generator)
+            toks.append(tok)
+            logits, state = model.decode_step(params, state, tok, S0 + t)
+            out.append(logits)
+        _sync(device)
+        t_decode = time.perf_counter() - t0
+    ids = torch.stack(toks, dim=1).cpu().numpy()
+    return ServeResult(ids, out, t_prefill, t_decode)
+
+
+def main(argv=None) -> ServeResult:
+    args = build_parser().parse_args(argv)
+    device = resolve_device(args.device)
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = reduced(cfg)
+    model, params = build(cfg, device, args.seed)
+    B, S0, T = args.batch, args.prompt_len, args.gen
+    generator = torch.Generator(device).manual_seed(args.seed)
+    prompt = torch.randint(0, cfg.vocab, (B, S0), generator=generator,
+                           device=device)
+    res = run(model, params, prompt, T, args.temperature, generator)
+    print(f"arch={cfg.name} prefill({B}x{S0})={res.prefill_s*1e3:.1f}ms "
+          f"decode {T} steps={res.decode_s*1e3:.1f}ms "
+          f"({res.decode_s/max(T, 1)*1e3:.1f} ms/tok)")
+    print("generated token ids:\n", res.ids)
+    return res
+
+
+if __name__ == "__main__":
+    main()

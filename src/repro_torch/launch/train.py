@@ -72,7 +72,8 @@ def build_task(name: str, n_clients: int, seed: int, device):
     elif name == "shakespeare":
         raise NotImplementedError(
             "--dataset shakespeare (paper-charlm) is not ported to "
-            "repro_torch yet: ROADMAP queue 1, still to port, item 7 (LM zoo)")
+            "repro_torch yet: ROADMAP queue 1, still to port, item 7b (LM "
+            "training)")
     else:
         raise ValueError(name)
     fed = FederatedDataset(ds, parts, seed=seed)
@@ -163,7 +164,8 @@ def _refuse_unported(args) -> None:
         (args.checkpoint_dir or args.resume, "--checkpoint-dir/--resume",
          "queue 1, still to port, item 4 (checkpointing)"),
         (args.render_jobs, "--render-jobs",
-         "queue 1, still to port, item 7 (worker.py, which the job scripts call)"),
+         "queue 1, still to port, item 7c (worker.py, which the job scripts "
+         "call)"),
     ]
     for bad, flag, item in unported:
         if bad:

@@ -1,0 +1,116 @@
+"""Shared building blocks of the LM zoo, mirroring
+``repro/models/common.py``: parameter construction, norms, activations,
+RoPE and the embedding lookup (forward only; its backward is the training
+slice's).  The reference's logical sharding specs have no counterpart on
+one card and are left out.
+"""
+from __future__ import annotations
+
+import math
+from typing import Callable
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+class ParamBuilder:
+    """Builds a nested ``dict[str, Tensor]`` of parameters with the
+    reference's shapes, scales and ``init`` rules.  Every draw comes from
+    ``generator`` on the generator's device, in float32, and is then cast
+    to ``dtype`` on ``device``; a CUDA generator draws on the card."""
+
+    def __init__(self, generator: torch.Generator, dtype, device):
+        self.generator = generator
+        self.dtype = dtype
+        self.device = torch.device(device)
+        self.params: dict = {}
+
+    def _normal(self, shape):
+        return torch.randn(shape, generator=self.generator,
+                           device=self.generator.device, dtype=torch.float32)
+
+    def add(self, path: list[str], shape, init="normal",
+            scale: float | None = None):
+        """Create one parameter at params[path]."""
+        shape = tuple(shape)
+        if init == "zeros":
+            val = torch.zeros(shape, dtype=self.dtype, device=self.device)
+        elif init == "ones":
+            val = torch.ones(shape, dtype=self.dtype, device=self.device)
+        elif init == "normal":
+            fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
+            s = scale if scale is not None else 1.0 / math.sqrt(max(fan_in, 1))
+            val = self._normal(shape).mul_(s).to(self.device, self.dtype)
+        elif callable(init):
+            val = init(self.generator, shape).to(self.device, self.dtype)
+        else:
+            raise ValueError(init)
+        node = self.params
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = val
+        return val
+
+
+# ---------------------------------------------------------------------------
+# Norms & activations
+# ---------------------------------------------------------------------------
+
+def rms_norm(x, w, eps=1e-5):
+    x32 = x.to(torch.float32)
+    var = x32.square().mean(-1, keepdim=True)
+    return (x32 * torch.rsqrt(var + eps)).to(x.dtype) * w
+
+
+def _gelu(x):
+    # jax.nn.gelu defaults to the tanh approximation
+    return F.gelu(x, approximate="tanh")
+
+
+def act_fn(name: str) -> Callable:
+    return {"gelu": _gelu, "silu": F.silu, "relu": F.relu}[name]
+
+
+def glu_mlp(x, w1, w3, w2, act: str):
+    """Gated MLP. act in {swiglu, geglu}; w3 is the gate projection."""
+    inner = act_fn({"swiglu": "silu", "geglu": "gelu"}[act])
+    return (inner(x @ w1) * (x @ w3)) @ w2
+
+
+def plain_mlp(x, w1, w2, act: str):
+    return act_fn(act)(x @ w1) @ w2
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+def rope_freqs(head_dim: int, theta: float):
+    return 1.0 / (theta ** (np.arange(0, head_dim, 2, dtype=np.float32)
+                            / head_dim))
+
+
+def apply_rope(x, positions, theta: float):
+    """x: [B, T, H, hd]; positions: [T] or [B, T] integers."""
+    hd = x.shape[-1]
+    freqs = torch.from_numpy(rope_freqs(hd, theta)).to(x.device)   # [hd/2]
+    ang = positions.to(torch.float32)[..., None] * freqs  # [T,hd/2] or [B,T,hd/2]
+    while ang.ndim < x.ndim:                              # align to [B,T,H,hd/2]
+        ang = ang[..., None, :] if ang.ndim == x.ndim - 1 else ang[None]
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1, x2 = x.to(torch.float32).chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Embedding
+# ---------------------------------------------------------------------------
+
+def take_embedding(table, tokens):
+    """Rows of the [V, D] ``table`` at ``tokens`` (any shape) -> [*, D]."""
+    return table.index_select(0, tokens.reshape(-1)).reshape(
+        *tokens.shape, table.shape[-1])

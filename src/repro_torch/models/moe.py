@@ -1,0 +1,117 @@
+"""Mixture-of-Experts layer, mirroring ``repro/models/moe.py`` on one card:
+every expert is local (the reference's expert-parallel mesh layer, with
+its weight and token gathers and ``psum`` combines, is ROADMAP queue 1
+item 8).
+
+Dispatch is sort-based with a fixed capacity per expert: the token
+assignments are stably sorted by expert, each keeps its rank within its
+expert's segment, and ranks at or beyond the capacity are dropped.  No
+[T, E, C] one-hot dispatch tensor is built.  Empty capacity slots point at
+token 0 with gate 0.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import MoEConfig
+from repro_torch.models.common import act_fn
+
+
+def init_moe(pb, path, d_model: int, cfg: MoEConfig, n_groups: int):
+    E, Fd = cfg.num_experts, cfg.d_expert
+    g = (n_groups,) if n_groups else ()
+    pb.add(path + ["router"], g + (d_model, E))
+    pb.add(path + ["w1"], g + (E, d_model, Fd))
+    pb.add(path + ["w3"], g + (E, d_model, Fd))
+    pb.add(path + ["w2"], g + (E, Fd, d_model))
+
+
+def _route(x2d, router, cfg: MoEConfig):
+    """x2d [T, D] -> (expert ids [T,K], gate weights [T,K], aux loss)."""
+    logits = x2d.to(torch.float32) @ router.to(torch.float32)
+    probs = torch.softmax(logits, dim=-1)                         # [T, E]
+    gate, eid = torch.topk(probs, cfg.top_k, dim=-1)              # [T, K]
+    gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
+    # Switch-style load-balance loss: E * sum_e f_e * p_e
+    E = cfg.num_experts
+    hard = F.one_hot(eid[:, 0], E).to(torch.float32)
+    aux = E * torch.mean(hard.mean(0) * probs.mean(0))
+    return eid, gate.to(x2d.dtype), aux
+
+
+def _dispatch_indices(eid, gate, e_lo: int, e_n: int, capacity: int):
+    """Sort-based capacity dispatch for local experts [e_lo, e_lo+e_n).
+
+    Returns tok_idx [e_n, C] (into the flat token dim; slot 0 used for
+    dropped/empty with gate 0) and gates [e_n, C]."""
+    T, K = eid.shape
+    dev = eid.device
+    flat_e = eid.reshape(-1)                                       # [T*K]
+    flat_g = gate.reshape(-1)
+    flat_t = torch.arange(T, device=dev).repeat_interleave(K)
+    local = flat_e - e_lo
+    in_range = (local >= 0) & (local < e_n)
+    key = torch.where(in_range, local, torch.full_like(local, e_n))
+    order = torch.argsort(key, stable=True)
+    k_sorted = key[order]
+    # rank within each expert segment
+    seg_start = torch.searchsorted(
+        k_sorted, torch.arange(e_n + 1, device=dev, dtype=k_sorted.dtype))
+    rank = torch.arange(T * K, device=dev) - seg_start[k_sorted.clamp(0, e_n)]
+    keep = (k_sorted < e_n) & (rank < capacity)
+    e_slot = torch.where(keep, k_sorted, torch.full_like(k_sorted, e_n))
+    c_slot = torch.where(keep, rank, torch.zeros_like(rank))
+    # dropped assignments all land in row e_n, which is cut off below
+    tok_idx = torch.zeros((e_n + 1, capacity), dtype=torch.int64, device=dev)
+    tok_idx[e_slot, c_slot] = flat_t[order]
+    gates = torch.zeros((e_n + 1, capacity), dtype=flat_g.dtype, device=dev)
+    gates[e_slot, c_slot] = torch.where(keep, flat_g[order],
+                                        torch.zeros_like(flat_g))
+    return tok_idx[:e_n], gates[:e_n]
+
+
+def _expert_ffn(xs, w1, w3, w2, act: str):
+    """xs [E, C, D] through per-expert gated FFN."""
+    h1 = torch.einsum("ecd,edf->ecf", xs, w1)
+    if act in ("swiglu", "geglu"):
+        inner = act_fn({"swiglu": "silu", "geglu": "gelu"}[act])
+        h = inner(h1) * torch.einsum("ecd,edf->ecf", xs, w3)
+    else:
+        h = act_fn(act)(h1)
+    return torch.einsum("ecf,efd->ecd", h, w2)
+
+
+def _moe_local(x, router, w1, w3, w2, *, cfg: MoEConfig, act: str):
+    """The MoE body with every expert local (``e_lo = 0``).  x [B, S, D];
+    w1/w3 [E, D, F], w2 [E, F, D].  Returns (out [B, S, D], aux).
+
+    The combine is an ``index_add_`` over the flat token dim.  Each token
+    receives at most ``top_k`` nonzero terms plus exact zeros (empty
+    capacity slots point at token 0 with gate 0), so the order in which
+    the card's atomics add them does not change the result."""
+    B, S, D = x.shape
+    x2d = x.reshape(-1, D)
+    T = x2d.shape[0]
+    E = w1.shape[0]
+    eid, gate, aux = _route(x2d, router, cfg)
+    cap = max(int(T * cfg.top_k * cfg.capacity_factor / cfg.num_experts), 4)
+    tok_idx, gates = _dispatch_indices(eid, gate, 0, E, cap)
+    flat_idx = tok_idx.reshape(-1)
+    xs = x2d[flat_idx].reshape(E, cap, D)
+    ys = _expert_ffn(xs, w1, w3, w2, act)
+    out = torch.zeros_like(x2d).index_add_(
+        0, flat_idx, (gates[..., None] * ys).reshape(-1, D))
+    return out.reshape(B, S, D), aux
+
+
+def moe_apply(p, x, *, cfg: MoEConfig, act: str, mode: str = "gather_weights"):
+    """x [B, S, D]; p has router/w1/w3/w2 (already sliced to this layer).
+
+    Both of the reference's modes, ``gather_weights`` (train/prefill) and
+    ``gather_tokens`` (decode), differ only in which operand their mesh
+    gathers; on one card they are the same computation."""
+    if mode not in ("gather_weights", "gather_tokens"):
+        raise ValueError(mode)
+    return _moe_local(x, p["router"], p["w1"], p["w3"], p["w2"], cfg=cfg,
+                      act=act)

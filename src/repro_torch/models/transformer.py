@@ -1,0 +1,326 @@
+"""Composable decoder LM, mirroring ``repro/models/transformer.py`` for
+serving (prefill and batched decode) on one card.
+
+A config is compiled to a *block pattern* (list of slots, each slot =
+mixer + optional FFN); the ``n_layers / len(pattern)`` groups keep
+layer-stacked parameters with a leading ``[G, ...]`` dim, as in the
+reference, and ``_backbone`` loops over the groups in Python where the
+reference runs ``lax.scan``.
+
+Families served: dense (attn + mlp), moe (attn + moe) and hybrid
+(mamba/attn interleave + mlp/moe, Jamba).  Cross attention (vlm), the
+xLSTM mixers (ssm) and codebook embeddings (audio) raise
+NotImplementedError naming ROADMAP queue 1 item 7c, ``loss_fn`` item 7b.
+
+Decode states are written in place: ``prefill`` fills the state that
+``init_decode_state`` made, and ``decode_step`` updates the state it is
+given and returns it (JAX's arrays are immutable; a caller that needs the
+old state clones it).
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import attention as attn
+from repro_torch.models import mamba as mamba_mod
+from repro_torch.models import moe as moe_mod
+from repro_torch.models.common import (DTYPES, ParamBuilder, apply_rope,
+                                       glu_mlp, plain_mlp, rms_norm,
+                                       take_embedding)
+
+_UNPORTED = {
+    "cross": "cross attention (the VLM family)",
+    "mlstm": "the xLSTM mixers (mlstm)",
+    "slstm": "the xLSTM mixers (slstm)",
+}
+
+
+def _not_ported(what: str, item: str = "7c") -> NotImplementedError:
+    """Item 7b is LM training, 7c the rest of the zoo."""
+    return NotImplementedError(
+        f"{what} is not ported to repro_torch yet: ROADMAP queue 1, still "
+        f"to port, item {item}")
+
+
+@dataclass(frozen=True)
+class Slot:
+    mixer: str          # attn | cross | mamba | mlstm | slstm
+    ffn: str            # mlp | moe | none
+
+
+def block_pattern(cfg: ModelConfig) -> list[Slot]:
+    if cfg.xlstm is not None:
+        p = cfg.xlstm.slstm_every
+        return [Slot("slstm" if i % p == p - 1 else "mlstm", "none")
+                for i in range(p)]
+    period = 1
+    if cfg.attn_every:
+        period = cfg.attn_every
+    if cfg.cross_attn_every:
+        period = math.lcm(period, cfg.cross_attn_every)
+    if cfg.moe is not None:
+        period = math.lcm(period, cfg.moe.every)
+    slots = []
+    for i in range(period):
+        if cfg.attn_every:
+            mixer = "attn" if i % cfg.attn_every == cfg.attn_every - 1 else "mamba"
+        elif cfg.cross_attn_every:
+            mixer = "cross" if i % cfg.cross_attn_every == cfg.cross_attn_every - 1 else "attn"
+        else:
+            mixer = "attn"
+        ffn = "mlp"
+        if cfg.moe is not None and i % cfg.moe.every == cfg.moe.every - 1:
+            ffn = "moe"
+        slots.append(Slot(mixer, ffn))
+    return slots
+
+
+def _tree_index(tree, g):
+    return {k: _tree_index(v, g) if isinstance(v, dict) else v[g]
+            for k, v in tree.items()}
+
+
+class LM:
+    def __init__(self, cfg: ModelConfig):
+        self.cfg = cfg
+        self.pattern = block_pattern(cfg)
+        if cfg.n_layers % len(self.pattern):
+            raise ValueError(f"{cfg.name}: {cfg.n_layers} layers do not fill "
+                             f"whole groups of {len(self.pattern)}")
+        for slot in self.pattern:
+            if slot.mixer in _UNPORTED:
+                raise _not_ported(_UNPORTED[slot.mixer])
+        if cfg.n_codebooks:
+            raise _not_ported("codebook embeddings (the audio family)")
+        self.n_groups = cfg.n_layers // len(self.pattern)
+        self.dtype = DTYPES[cfg.dtype]
+
+    # ------------------------------------------------------------------ init
+    def init(self, generator: torch.Generator, device="cpu") -> dict:
+        """Random params with the reference's shapes, scales and init rules,
+        drawn from ``generator`` (on its own device) in the reference's
+        order and cast to the config's dtype on ``device``."""
+        cfg = self.cfg
+        pb = ParamBuilder(generator, self.dtype, device)
+        D, Vp = cfg.d_model, cfg.vocab_padded
+        H, KV, hd = cfg.n_heads, cfg.kv_heads, cfg.hd
+        G = self.n_groups
+        pb.add(["embed"], (cfg.vocab, D), scale=1.0 / math.sqrt(D))
+        pb.add(["unembed"], (D, Vp))
+        pb.add(["final_norm"], (D,), init="ones")
+        for si, slot in enumerate(self.pattern):
+            base = ["layers", f"slot{si}"]
+            pb.add(base + ["norm1"], (G, D), init="ones")
+            if slot.mixer == "attn":
+                pb.add(base + ["wq"], (G, D, H * hd))
+                pb.add(base + ["wk"], (G, D, KV * hd))
+                pb.add(base + ["wv"], (G, D, KV * hd))
+                pb.add(base + ["wo"], (G, H * hd, D))
+            elif slot.mixer == "mamba":
+                mamba_mod.init_mamba(pb, base + ["mamba"], D, cfg.mamba, G)
+            if slot.ffn != "none":
+                pb.add(base + ["norm2"], (G, D), init="ones")
+            if slot.ffn == "mlp":
+                F = cfg.d_ff
+                pb.add(base + ["w1"], (G, D, F))
+                if cfg.act in ("swiglu", "geglu"):
+                    pb.add(base + ["w3"], (G, D, F))
+                pb.add(base + ["w2"], (G, F, D))
+            elif slot.ffn == "moe":
+                moe_mod.init_moe(pb, base + ["moe"], D, cfg.moe, G)
+        return pb.params
+
+    # -------------------------------------------------------------- embedding
+    def embed(self, params, tokens):
+        return take_embedding(params["embed"], tokens)
+
+    def logits(self, params, x):
+        return x @ params["unembed"]
+
+    # ------------------------------------------------------------------ slots
+    def _attn(self, p, x, *, positions, window, mode, cache, pos=None):
+        cfg = self.cfg
+        B, S, D = x.shape
+        H, KV, hd = cfg.n_heads, cfg.kv_heads, cfg.hd
+        q = (x @ p["wq"]).reshape(B, S, H, hd)
+        k = (x @ p["wk"]).reshape(B, S, KV, hd)
+        v = (x @ p["wv"]).reshape(B, S, KV, hd)
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+
+        if mode == "decode":
+            S_c = cache["k"].shape[1]
+            slot = pos % S_c if window else pos
+            kc = attn.cache_write(cache["k"], k, slot)
+            vc = attn.cache_write(cache["v"], v, slot)
+            out = attn.decode_attend(q[:, 0], kc, vc, pos, window=window)
+            out = out[:, None]                       # [B,1,H,hd]
+        else:
+            gq = H // KV
+            ke = k.repeat_interleave(gq, dim=2)
+            ve = v.repeat_interleave(gq, dim=2)
+            out = attn.attend(q, ke, ve, causal=True, window=window)
+            del ke, ve
+            S_max = cache["k"].shape[1]
+            if window:
+                # fill the ring buffer with the last `window` positions,
+                # placed so that slot = pos % S_max lines up
+                start = S - S_max if S >= S_max else 0
+                n = S - start
+                roll = start % S_max
+                for c, src in ((cache["k"], k), (cache["v"], v)):
+                    c.zero_()
+                    c[:, :n] = src[:, start:].to(c.dtype)
+                    c.copy_(torch.roll(c, roll, dims=1))
+            else:
+                attn.cache_write(cache["k"], k, 0)
+                attn.cache_write(cache["v"], v, 0)
+        return out.reshape(B, S, H * hd) @ p["wo"]
+
+    def _ffn(self, slot, p, x, mode):
+        cfg = self.cfg
+        if slot.ffn == "mlp":
+            if cfg.act in ("swiglu", "geglu"):
+                return glu_mlp(x, p["w1"], p["w3"], p["w2"], cfg.act), 0.0
+            return plain_mlp(x, p["w1"], p["w2"], cfg.act), 0.0
+        moe_mode = "gather_tokens" if mode == "decode" else "gather_weights"
+        return moe_mod.moe_apply(p["moe"], x, cfg=cfg.moe, act=cfg.act,
+                                 mode=moe_mode)
+
+    def _apply_slot(self, slot: Slot, p, x, *, mode, positions=None,
+                    cache=None, pos=None):
+        """One slot.  ``cache`` is this slot's decode state for this group,
+        updated in place."""
+        cfg = self.cfg
+        h = rms_norm(x, p["norm1"], cfg.norm_eps)
+        if slot.mixer == "attn":
+            out = self._attn(p, h, positions=positions,
+                             window=cfg.sliding_window, mode=mode,
+                             cache=cache, pos=pos)
+        elif slot.mixer == "mamba":
+            out, new_state = mamba_mod.mamba_apply(
+                p["mamba"], h, cfg=cfg.mamba, mode=mode, state=cache)
+            for name, t in new_state.items():
+                cache[name].copy_(t)
+            del new_state
+        else:
+            raise ValueError(slot.mixer)
+        x = x + out
+        aux = 0.0
+        if slot.ffn != "none":
+            h = rms_norm(x, p["norm2"], cfg.norm_eps)
+            out, aux = self._ffn(slot, p, h, mode)
+            x = x + out
+        return x, aux
+
+    # ---------------------------------------------------------------- forward
+    def _backbone(self, params, x, *, mode, positions, caches, pos=None):
+        """Loop over layer groups, updating ``caches`` in place.  Returns
+        (x, aux mean)."""
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for g in range(self.n_groups):
+            gp = _tree_index(params["layers"], g)
+            gc = _tree_index(caches, g)
+            for si, slot in enumerate(self.pattern):
+                key = f"slot{si}"
+                x, a = self._apply_slot(slot, gp[key], x, mode=mode,
+                                        positions=positions,
+                                        cache=gc.get(key), pos=pos)
+                aux = aux + a
+        return x, aux / self.cfg.n_layers
+
+    def loss_fn(self, params, batch):
+        raise _not_ported("LM training (loss_fn)", "7b")
+
+    # ---------------------------------------------------------------- serving
+    def cache_len(self, s_max: int) -> int:
+        w = self.cfg.sliding_window
+        return min(w, s_max) if w else s_max
+
+    def decode_state_specs(self, B: int, s_max: int, dtype=None) -> dict:
+        """Nested dict of (shape, dtype) leaves, one per decode-state leaf."""
+        cfg = self.cfg
+        dt = dtype or self.dtype
+        KV, hd = cfg.kv_heads, cfg.hd
+        G = self.n_groups
+        S_c = self.cache_len(s_max)
+        slots = {}
+        for si, slot in enumerate(self.pattern):
+            key = f"slot{si}"
+            if slot.mixer == "attn":
+                slots[key] = {"k": ((G, B, S_c, KV, hd), dt),
+                              "v": ((G, B, S_c, KV, hd), dt)}
+            elif slot.mixer == "mamba":
+                di = cfg.mamba.expand * cfg.d_model
+                slots[key] = {"conv": ((G, B, cfg.mamba.d_conv - 1, di), dt),
+                              "h": ((G, B, di, cfg.mamba.d_state),
+                                    torch.float32)}
+        return slots
+
+    def init_decode_state(self, B: int, s_max: int, dtype=None,
+                          device="cpu") -> dict:
+        return {key: {name: torch.zeros(shape, dtype=dt, device=device)
+                      for name, (shape, dt) in leaves.items()}
+                for key, leaves in self.decode_state_specs(
+                    B, s_max, dtype).items()}
+
+    def prefill(self, params, batch, s_max: int):
+        """batch: {"tokens": [B, S] integer}.  Returns (last-position
+        logits [B, vocab], decode state)."""
+        cfg = self.cfg
+        tokens = batch["tokens"]
+        B, S = tokens.shape[0], tokens.shape[1]
+        if S > s_max:
+            raise ValueError(f"prefill of {S} tokens with s_max={s_max}")
+        device = params["embed"].device
+        x = self.embed(params, tokens)
+        positions = torch.arange(S, device=device)
+        caches = self.init_decode_state(B, s_max, device=device)
+        x, _ = self._backbone(params, x, mode="prefill", positions=positions,
+                              caches=caches)
+        x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+        lg = self.logits(params, x[:, -1:])[:, 0]
+        return lg[..., :cfg.vocab], caches
+
+    def decode_step(self, params, state, token, pos: int):
+        """token [B]; pos the current token's position.  Returns (logits
+        [B, vocab], state), the state updated in place."""
+        cfg = self.cfg
+        x = self.embed(params, token[:, None])      # [B,1,D]
+        positions = torch.tensor([pos], device=x.device)
+        x, _ = self._backbone(params, x, mode="decode", positions=positions,
+                              caches=state, pos=pos)
+        x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+        lg = self.logits(params, x[:, 0])
+        return lg[..., :cfg.vocab], state
+
+
+def build_model(cfg: ModelConfig) -> LM:
+    return LM(cfg)
+
+
+def _leaves(tree, path=()):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _leaves(v, path + (k,))
+        else:
+            yield path + (k,), v
+
+
+def param_count(params) -> int:
+    return sum(t.numel() for _, t in _leaves(params))
+
+
+def active_param_count(cfg: ModelConfig, params) -> int:
+    """Active params per token (MoE: top_k of num_experts)."""
+    total = param_count(params)
+    if cfg.moe is None:
+        return total
+    expert_total = sum(t.numel() for path, t in _leaves(params)
+                       if "moe" in path and path[-1] in ("w1", "w2", "w3"))
+    active_frac = cfg.moe.top_k / cfg.moe.num_experts
+    return total - expert_total + int(expert_total * active_frac)

@@ -1,6 +1,7 @@
 """Package rules of the PyTorch port: ``repro_torch`` and ``chip_smoke.py``
-import neither JAX nor the JAX package, the launcher refuses to run on the
-CPU unless asked to, and a CPU run never reaches the kernel builder."""
+import neither JAX nor the JAX package, the launchers (training and
+serving) refuse to run on the CPU unless asked to, and a CPU run, a round
+or a serve, never reaches the kernel builder."""
 import ast
 import os
 import subprocess
@@ -10,7 +11,7 @@ from pathlib import Path
 import pytest
 import torch
 
-from repro_torch.launch import train
+from repro_torch.launch import serve, train
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -60,6 +61,12 @@ for comp in (CompressionConfig(),
                                         compression=comp))
     step(params, (), batches, torch.ones(3), torch.ones(3),
          torch.Generator().manual_seed(0))
+import contextlib, io
+from repro_torch.launch import serve
+with contextlib.redirect_stdout(io.StringIO()):
+    res = serve.main(["--device", "cpu", "--arch", "jamba-1.5-large-398b",
+                      "--batch", "1", "--gen", "2", "--temperature", "0"])
+assert res.ids.shape == (1, 2)
 assert not [m for m in sys.modules if m.split(".")[0] in ("jax", "repro")
             and sys.modules[m] is not None]
 print("OK", len(mods))
@@ -98,6 +105,14 @@ def test_launcher_refuses_cuda_without_a_card():
         return
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         train.main(["--rounds", "1"])
+
+
+def test_serve_refuses_cuda_without_a_card():
+    if torch.cuda.is_available():
+        assert serve.resolve_device("cuda").type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        serve.main(["--arch", "paper-charlm", "--gen", "1"])
 
 
 def test_chip_smoke_refuses_to_run_without_a_card():
