@@ -1,0 +1,203 @@
+#!/usr/bin/env python3
+"""Measurements of the PyTorch/CUDA port's kernels on one NVIDIA GPU, beside
+``chip_smoke.py``: two trees' kernels in turns on one card, a profile of
+training rounds, and the host's cost of a kernel launch.
+
+    python3 chip_compare.py --parent DIR [--profile] [--host]
+
+``--parent DIR``: DIR is another checkout of the repository (for example a
+``git archive`` of the parent commit unpacked into a git-ignored
+directory).  Phases 1 and 2 of ``chip_smoke.py`` (``build()`` and
+``check_kernels()``) run four times, each in a process of its own, in the
+order parent, this tree, this tree, parent, so that the two trees meet the
+same card in turns.  Each run's build, ptxas and extra-case lines are
+printed, then a table of every kernel's times and one JSON line of all
+four runs' rows.
+
+``--profile``: this tree's launcher configurations ``default`` and
+``secure_q8_topk_deterministic`` (``chip_smoke.CONFIGS``), each built as
+``chip_smoke.py`` phase 4 builds it, run one round to warm up and then one
+round under ``torch.profiler``: the round's wall time, its device time,
+each kernel's device time and its share of the round's device time.
+
+``--host``: the host's time per call (the median of three runs of 1000
+calls) of each piece of a kernel wrapper's path into CUDA (its checks, the
+output's allocation, the stream's handle, the ctypes launch), of the whole
+``fused_accum`` wrapper, and of the ``einsum`` that computes the same sum,
+on a small stack.
+
+Every run prints the card's name and power limit (``nvidia-smi``).
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+KEYS = ("ms", "queued_ms", "plain_ms", "library_ms", "library_queued_ms",
+        "bound_ms")
+PHASES = """
+import json, sys
+sys.path.insert(0, {tree!r})
+import chip_smoke
+chip_smoke.build()
+rows = chip_smoke.check_kernels()
+print("ROWS " + json.dumps(rows))
+"""
+
+
+def run_phases(tree: Path, label: str) -> dict:
+    """Phases 1-2 of ``tree``'s chip_smoke.py in a process of its own."""
+    proc = subprocess.run([sys.executable, "-c", PHASES.format(tree=str(tree))],
+                          cwd=tree, capture_output=True, text=True,
+                          timeout=900)
+    if proc.returncode:
+        raise SystemExit(f"{label}: exit {proc.returncode}\n"
+                         f"{proc.stdout[-3000:]}{proc.stderr[-3000:]}")
+    for line in proc.stdout.splitlines():
+        if line.startswith("build:") or "ptxas" in line or (
+                line.startswith("kernel ") and "(" in line.split(":")[0]):
+            print(f"  [{label}] {line}")
+    rows = [line for line in proc.stdout.splitlines()
+            if line.startswith("ROWS ")]
+    return json.loads(rows[-1][5:])
+
+
+def compare(parent: Path) -> None:
+    runs = []
+    for i, (tree, name) in enumerate(((parent, "parent"), (ROOT, "this"),
+                                      (ROOT, "this"), (parent, "parent"))):
+        label = f"{i + 1}-{name}"
+        print(f"run {label}: {tree}")
+        runs.append((label, run_phases(tree, label)))
+    print("per kernel, the four runs in order (parent, this, this, parent):")
+    for kname in runs[1][1]:
+        print(f"kernel {kname}:")
+        for key in KEYS:
+            vals = [r.get(kname, {}).get(key) for _, r in runs]
+            if any(v is not None for v in vals):
+                print(f"  {key:18s} " + "  ".join(
+                    "-" if v is None else f"{v:.4f}" for v in vals))
+    print("COMPARE " + json.dumps({label: rows for label, rows in runs}))
+
+
+def profile_rounds() -> None:
+    sys.path.insert(0, str(ROOT))
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import chip_smoke as cs
+    from repro_torch.kernels import launches
+    from repro_torch.launch import train
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for cname in ("default", "secure_q8_topk_deterministic"):
+        flags, expect = cs.CONFIGS[cname]
+        args = train.build_parser().parse_args(cs.MAIN_ARGS + flags)
+        orch, params = train.build_run(args)
+        state = orch.init_server_state(params)
+        params, state, _ = orch.run_round(0, params, state)      # warm-up
+        torch.cuda.synchronize()
+        launches.reset()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            params, state, _ = orch.run_round(1, params, state)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        kernels = [e for e in prof.key_averages()
+                   if str(e.device_type).endswith("CUDA")]
+        total = sum(e.self_device_time_total for e in kernels)
+        print(f"profile {cname}: one round, wall {wall * 1e3:.3f} ms, "
+              f"device time {total / 1e3:.3f} ms in {len(kernels)} kernels "
+              f"(busy share {total / 1e6 / wall:.3f}); launches "
+              f"{dict(launches.KERNEL_LAUNCHES)} (a round of {expect})")
+        if not total:
+            continue
+        for e in sorted(kernels, key=lambda e: e.self_device_time_total,
+                        reverse=True):
+            mine = any(n in e.key for n in ("fused_accum", "secure_commit",
+                                            "secure_fold"))
+            if mine or e.self_device_time_total >= 0.01 * total:
+                print(f"  {e.self_device_time_total / 1e3:9.4f} ms "
+                      f"{e.self_device_time_total / total:7.2%} "
+                      f"x{e.count:<4d} {e.key[:100]}")
+
+
+def host_costs() -> None:
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+
+    from repro_torch.kernels import _build, launches, ref
+    from repro_torch.kernels.fused_accum import fused_accum_blocks
+    dev = torch.device("cuda", 0)
+    x = torch.randn(20, 8, 256, device=dev)
+    w = torch.rand(20, device=dev)
+    s = torch.zeros(20, device=dev)
+    out = torch.empty((8, 256), device=dev)
+    w_eff = ref.slot_weights(w, s, 0.0)
+    pieces = {
+        "launches.check_shapes": lambda: launches.check_shapes(
+            "fused_accum", x, 3, w, s),
+        "launches.on_cpu": lambda: launches.on_cpu(x, w, s),
+        "launches.check_operands": lambda: launches.check_operands(
+            "fused_accum", x, w, s),
+        "torch.empty": lambda: torch.empty((8, 256), dtype=torch.float32,
+                                           device=dev),
+        "torch.cuda.current_stream(dev).cuda_stream":
+            lambda: torch.cuda.current_stream(dev).cuda_stream,
+        "torch._C._cuda_getCurrentRawStream":
+            lambda: torch._C._cuda_getCurrentRawStream(0),
+        "torch.cuda.current_device": torch.cuda.current_device,
+        "_build.launch (fused_accum)": lambda: _build.launch(
+            "commit_kernels", "fused_accum", x.data_ptr(), w.data_ptr(),
+            s.data_ptr(), 0.0, out.data_ptr(), 20, out.numel(), device=dev),
+        "fused_accum_blocks": lambda: fused_accum_blocks(x, w, s, 0.0),
+        "torch.einsum('k,krb->rb')": lambda: torch.einsum("k,krb->rb", w_eff,
+                                                          x),
+    }
+    for name, fn in pieces.items():
+        for _ in range(200):
+            fn()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            for _ in range(1000):
+                fn()
+            times.append((time.perf_counter() - t0) * 1e3)   # us per call
+            torch.cuda.synchronize()
+        print(f"host {name}: {statistics.median(times):.2f} us per call")
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--parent", type=Path, help="another checkout to compare")
+    ap.add_argument("--profile", action="store_true")
+    ap.add_argument("--host", action="store_true")
+    args = ap.parse_args(argv)
+    sys.path.insert(0, str(ROOT))
+    import torch
+
+    import chip_smoke as cs
+    if not torch.cuda.is_available():
+        print("chip_compare: CUDA is not available", file=sys.stderr)
+        return 2
+    print(f"nvidia-smi: {cs.nvidia_smi()}")
+    if args.parent:
+        compare(args.parent.resolve())
+    if args.host:
+        host_costs()
+    if args.profile:
+        profile_rounds()
+    print(f"nvidia-smi: {cs.nvidia_smi()}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -15,11 +15,15 @@ it happened; any failure ends the run with a non-zero exit code:
      and secure commit kernels, the [20*4096, 256] dense1_w leaf for the
      per-leaf ones, 20 clients' dense1_w for the FedProx update, the
      full-width Jamba prefill's [1, 128, 16384, 16] chunk and a strided
-     batch-2 chunk view for the selective scan; the
-     secure commit with cancelling and with non-cancelling pair
-     coefficients, both timed), and time kernel, plain version and library
-     call with CUDA events (median of 30 after 3 warm-up launches), and the
-     kernel also over 30 back-to-back launches (printed only);
+     batch-2 chunk view for the selective scan), each with its extra
+     cases (the fused accumulate at other slot counts and block widths, the
+     secure commit past its register path, with non-cancelling and random
+     coefficients under asymmetric seeds, at 4 bits, with a noise operand
+     and with a zero-weight slot), and the secure commit's mask-word fold
+     against its plain version; and time kernel, plain version and library
+     call with CUDA events, each per call (median of 30 after 3 warm-up
+     launches) and the kernel and library call also over 30 back-to-back
+     launches;
   3. hold rounds on the card against the CPU from the same params, batches
      and compression draws, to 1e-4: for each launcher configuration, the
      secure float-mask round and the fused FedProx update, the clients'
@@ -50,6 +54,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -70,7 +75,7 @@ from repro_torch.kernels import launches, ref  # noqa: E402
 from repro_torch.kernels.fedprox_update import fedprox_update_flat  # noqa: E402
 from repro_torch.kernels.fused_accum import fused_accum_blocks  # noqa: E402
 from repro_torch.kernels.fused_quant_mask import (  # noqa: E402
-    plain_commit_blocks, secure_commit_blocks)
+    fold_mask_words, plain_commit_blocks, secure_commit_blocks)
 from repro_torch.kernels.quantize import quantize_dequant_blocks  # noqa: E402
 from repro_torch.kernels.selective_scan import (  # noqa: E402
     selective_scan_chunk_blocks)
@@ -288,14 +293,40 @@ def build():
     seconds = time.perf_counter() - t0
     print(f"build: {seconds:.2f} s (nvcc {_build.BUILD_SECONDS})")
     for name in _build.LIBRARIES:
-        log = _build.BUILD_LOG.get(name, "").splitlines()
-        regs = [line.split("Used")[1].split(",")[0].strip()
-                for line in log if "registers" in line]
-        spills = [line.strip() for line in log if "spill" in line
-                  and "0 bytes spill stores, 0 bytes spill loads" not in line]
-        print(f"  {name}: ptxas: {len(regs)} entry functions, {regs}; "
-              f"spills: {spills or 'none'}")
+        report = ptxas_report(_build.BUILD_LOG.get(name, ""))
+        print(f"  {name}: ptxas: {report}")
     return seconds
+
+
+def kernel_name(mangled: str) -> str:
+    """A kernel's name and integer template argument from its mangled
+    name: ``_ZN<n>_GLOBAL__N_<file>20secure_commit_kernelILi2EE...`` ->
+    ``secure_commit_kernel<2>`` (the last name of a nested name)."""
+    if not mangled.startswith("_Z"):
+        return mangled
+    rest, names = mangled[3:] if mangled.startswith("_ZN") else mangled[2:], []
+    while size := re.match(r"\d+", rest):
+        n = int(size.group())
+        names.append(rest[size.end():size.end() + n])
+        rest = rest[size.end() + n:]
+    if not names:
+        return mangled
+    arg = re.match(r"ILi(\d+)E", rest)
+    return names[-1] + (f"<{arg.group(1)}>" if arg else "")
+
+
+def ptxas_report(log: str) -> str:
+    """Each entry function's registers, and its spills where it has any,
+    from nvcc's ``-Xptxas -v`` output."""
+    out, fn = [], "?"
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            fn = kernel_name(line.split("'")[1])
+        elif "spill" in line and " 0 bytes spill stores" not in line:
+            out.append(f"{fn} spills ({line.strip()})")
+        elif "Used" in line and "registers" in line:
+            out.append(f"{fn} {line.split('Used')[1].split(',')[0].strip()}")
+    return "; ".join(out) or "(already built)"
 
 
 # ---------------------------------------------------------------- phase 2
@@ -314,15 +345,25 @@ def parts(x):
     return x if isinstance(x, tuple) else (x,)
 
 
+def secure_pairs(k_slots, seed, device, out=(3,)):
+    """The main path's pair seeds and cancelling coefficients for
+    ``k_slots`` slots with the slots ``out`` cut, and the participation."""
+    ids = torch.arange(k_slots, dtype=torch.int32)
+    part = torch.ones(k_slots)
+    part[list(out)] = 0.0
+    return (sec.pair_seeds(sec.commit_key(seed), ids).to(device),
+            sec.pair_coef_int(ids, part).to(device), part.to(device))
+
+
 def kernel_specs(device, k_slots=K_SLOTS, rows=BUCKET_ROWS,
                  leaf_rows=LEAF_ROWS, block=BLOCK, leaf_params=DENSE1_W,
                  scan_shape=SCAN_SHAPE, seed=0):
     """Inputs made from a seed at the main path's shapes, and for each
     kernel: its wrapper, its plain version, the library call computing the
     same function (or None), extra cases (label, kernel, plain, bytes,
-    integer operations) held and timed beside the main one, the bytes it
-    must move,
-    the f32 operations it does and the integer operations its data needs."""
+    f32 operations, integer operations) held and timed beside the main one,
+    the bytes it must move, the f32 operations it does and the integer
+    operations its data needs."""
     gen = torch.Generator(device=device).manual_seed(seed)
     xb = torch.randn(k_slots, rows, block, generator=gen, device=device) * 0.01
     w = torch.rand(k_slots, generator=gen, device=device) * 1.5 + 0.5
@@ -331,21 +372,71 @@ def kernel_specs(device, k_slots=K_SLOTS, rows=BUCKET_ROWS,
     n_stack, n_out, n_leaf = xb.numel(), rows * block, leaf.numel()
     w_eff = ref.slot_weights(w, s, 0.0)
     step_commit = (w_eff.max() * xb.abs().max() / 127).item()
+
+    def accum_case(K, shape_rows, shape_block):
+        """The fused accumulate on a [K, shape_rows, shape_block] stack."""
+        x = torch.randn(K, shape_rows, shape_block, generator=gen,
+                        device=device) * 0.01
+        wk = torch.rand(K, generator=gen, device=device) * 1.5 + 0.5
+        sk = torch.rand(K, generator=gen, device=device) * 4.0   # staleness
+        return (f"K={K}, block {shape_block}",
+                lambda: fused_accum_blocks(x, wk, sk, 0.5),
+                lambda: ref.fused_accum_ref(x, wk[:, None], sk[:, None], 0.5),
+                4 * (x.numel() + 2 * K + shape_rows * shape_block),
+                2 * x.numel(), 0)
+
     # secure commit: one straggler out, as on the main path; the reference
     # coefficients cancel, the upper triangle alone does not
-    ids = torch.arange(k_slots, dtype=torch.int32)
-    part = torch.ones(k_slots)
-    part[3] = 0.0
-    seeds = sec.pair_seeds(sec.commit_key(seed), ids).to(device)
-    coef = sec.pair_coef_int(ids, part).to(device)
+    seeds, coef, part = secure_pairs(k_slots, seed, device)
     upper = torch.triu(torch.ones(k_slots, k_slots, dtype=torch.int32),
                        1).to(device)
-    w_sec = (w * part.to(device)).contiguous()
-    secure = lambda c: (
-        lambda: secure_commit_blocks(xb, w_sec, seeds, c, 0, bits=8,
-                                     k=TOPK_K),
-        lambda: ref.fused_secure_commit_ref(xb, w_sec[:, None], seeds, c, 0,
-                                            8, k=TOPK_K))
+    w_sec = (w * part).contiguous()
+
+    def secure_case(label, x, wv, sd, c, *, bits=8, k=TOPK_K, noise=None):
+        """(label, kernel, plain, bytes, f32 operations, integer operations)
+        of the secure commit on the stack ``x``."""
+        K, R, B = x.shape
+        nbytes = (4 * (x.numel() * (1 if noise is None else 2) + K + R * B)
+                  + 8 * K * K)
+        return (label,
+                lambda: secure_commit_blocks(x, wv, sd, c, 0, bits=bits, k=k,
+                                             noise=noise),
+                lambda: ref.fused_secure_commit_ref(x, wv[:, None], sd, c, 0,
+                                                    bits, k=k, noise=noise),
+                nbytes, (66 + 7 + 2) * x.numel(),
+                OPS_PER_MASK_WORD * R * B * mask_words(sd, c))
+
+    def secure_extras():
+        """The secure commit's extra cases, each bit for bit."""
+        k64 = 64
+        x64 = torch.randn(k64, rows, block, generator=gen, device=device) * 0.01
+        s64, c64, p64 = secure_pairs(k64, seed + 1, device, out=(3, 40))
+        w64 = (torch.rand(k64, generator=gen, device=device) + 0.5) * p64
+        asym = torch.randint(0, 2 ** 32, (k_slots, k_slots), generator=gen,
+                             device=device, dtype=torch.int64)
+        rand_coef = torch.randint(-1, 2, (k_slots, k_slots), generator=gen,
+                                  device=device, dtype=torch.int32)
+        noise = torch.rand(xb.shape, generator=gen, device=device)
+        _, c_all, _ = secure_pairs(k_slots, seed, device, out=())
+        w_zero = w.clone()
+        w_zero[0] = 0.0
+        # few distinct magnitudes (ties across the k-th largest) and rows
+        # that are zero in every slot (a zero scale)
+        ties = torch.round(xb * 200) / 200
+        ties[:, :8] = 0.0
+        return [
+            secure_case("upper-triangle coefficients", xb, w_sec, seeds,
+                        upper),
+            secure_case(f"K={k64}, past the register path", x64, w64, s64,
+                        c64),
+            secure_case("random coefficients, asymmetric seeds", xb, w_sec,
+                        asym, rand_coef),
+            secure_case("4 bits", xb, w_sec, seeds, coef, bits=4),
+            secure_case("k=0 with a noise operand", xb, w_sec, seeds, coef,
+                        k=0, noise=noise),
+            secure_case("a zero-weight slot that still masks", xb, w_zero,
+                        seeds, c_all),
+            secure_case("ties and zero rows", ties, w_sec, seeds, coef)]
     # FedProx update: 20 clients' copies of dense1_w against the global one
     wc = torch.randn(k_slots, leaf_params, generator=gen, device=device)
     gc = torch.randn(k_slots, leaf_params, generator=gen, device=device)
@@ -363,7 +454,7 @@ def kernel_specs(device, k_slots=K_SLOTS, rows=BUCKET_ROWS,
     wh0 = torch.randn((2, D, N), generator=gen, device=device)
     va, vb = wa[:, L:], wb[:, L:]
     scan_bytes = lambda b: 4 * (3 * b * L * D * N + 2 * b * D * N)
-    secure_bytes = 4 * (n_stack + k_slots + n_out) + 8 * k_slots ** 2
+    main_secure = secure_case("main", xb, w_sec, seeds, coef)
     exact = lambda name: (lambda g, p: check(
         all(torch.equal(x, y) for x, y in zip(parts(g), parts(p))),
         f"{name}: differs from its plain version"))
@@ -373,6 +464,9 @@ def kernel_specs(device, k_slots=K_SLOTS, rows=BUCKET_ROWS,
             kernel=lambda: fused_accum_blocks(xb, w, s, 0.0),
             plain=lambda: ref.fused_accum_ref(xb, w[:, None], s[:, None], 0.0),
             library=lambda: torch.einsum("k,krb->rb", w_eff, xb),
+            extra=[accum_case(K, rows, block) for K in (1, 3, 64)]
+            + [accum_case(k_slots, -(-rows * block // b), b)
+               for b in (128, 1024)],
             compare=lambda g, p: check(
                 torch.allclose(g, p, rtol=1e-5, atol=1e-6),
                 "fused_accum: differs from its plain version"),
@@ -413,19 +507,16 @@ def kernel_specs(device, k_slots=K_SLOTS, rows=BUCKET_ROWS,
             ops=66 * n_leaf),
         "secure_commit": dict(
             replaces="src/repro/kernels/fused_quant_mask.py:179",
-            kernel=secure(coef)[0],
-            plain=secure(coef)[1],
+            kernel=main_secure[1],
+            plain=main_secure[2],
             library=None,
-            extra=[("upper-triangle coefficients", *secure(upper),
-                    secure_bytes, (66 + 7 + 2) * n_stack,
-                    OPS_PER_MASK_WORD * n_out * mask_words(seeds, upper))],
+            extra=secure_extras(),
             compare=exact("secure_commit"),
-            bytes=secure_bytes,
             # the top-k select, weighting, quantize and rounding as in
             # plain_commit; the PRF words this data needs per output element
             # (none where every pair's coefficients cancel)
-            ops=(66 + 7 + 2) * n_stack,
-            int_ops=OPS_PER_MASK_WORD * n_out * mask_words(seeds, coef)),
+            bytes=main_secure[3], ops=main_secure[4],
+            int_ops=main_secure[5]),
         "fedprox_update": dict(
             replaces="src/repro/kernels/fedprox_update.py:29",
             kernel=lambda: fedprox_update_flat(wc, gc, w0, 0.01, 0.02),
@@ -452,11 +543,48 @@ def kernel_specs(device, k_slots=K_SLOTS, rows=BUCKET_ROWS,
     }
 
 
+def check_fold(device="cuda", k_slots=K_SLOTS, seed=0):
+    """The secure commit's prologue, which folds the [K, K] pair seeds and
+    coefficients into the mask words that do not cancel, run alone on the
+    card against ``ref.fold_mask_words``: the same words (as multisets) and
+    the same mask total over the first rows, bit for bit; the main path's
+    coefficients fold to no word, the upper triangle to K(K-1)/2."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    seeds, coef, _ = secure_pairs(k_slots, seed, device)
+    upper = torch.triu(torch.ones_like(coef), 1)
+    shared = seeds.clone()               # two pairs that share one seed
+    shared[0, 1] = shared[1, 0] = shared[2, 3] = shared[3, 2] = 12345
+    n_pairs = k_slots * (k_slots - 1) // 2
+    cases = {
+        "main": (seeds, coef, 0),
+        "upper": (seeds, upper, n_pairs),
+        "upper, two pairs share a seed": (shared, upper, n_pairs),
+        "random, asymmetric seeds": (
+            torch.randint(0, 2 ** 32, seeds.shape, generator=gen,
+                          device=device, dtype=torch.int64),
+            torch.randint(-1, 2, coef.shape, generator=gen, device=device,
+                          dtype=torch.int32), None)}
+    idx = torch.arange(4 * BLOCK, dtype=torch.int64).reshape(4, BLOCK)
+    for label, (sd, c, expect) in cases.items():
+        got = [t.cpu() for t in fold_mask_words(sd, c)]
+        want = ref.fold_mask_words(sd.cpu(), c.cpu())
+        same = sorted(zip(*(t.tolist() for t in got))) == sorted(
+            zip(*(t.tolist() for t in want)))
+        check(same and torch.equal(ref.mask_total_u32(*got, idx),
+                                   ref.mask_total_u32(*want, idx)),
+              f"secure_fold ({label}): differs from its plain version")
+        check(expect is None or len(got[0]) == expect,
+              f"secure_fold ({label}): {len(got[0])} words, expected {expect}")
+        print(f"secure_fold ({label}): {len(got[0])} words, equal to its "
+              f"plain version")
+
+
 def check_kernels(device="cuda", **shapes):
     """Phase 2: each kernel against its plain version, and on the card its
     times."""
     timed = torch.device(device).type == "cuda"
     rate = memory_rate(torch.cuda.get_device_name(0) if timed else "")
+    check_fold(device, shapes.get("k_slots", K_SLOTS))
     rows = {}
     for kname, spec in kernel_specs(device, **shapes).items():
         for label, kernel, plain, nbytes, ops, int_ops in spec.get("extra",
@@ -467,7 +595,8 @@ def check_kernels(device="cuda", **shapes):
             del g, p
             extra_ms, extra_by = bound(nbytes, ops, int_ops, rate)
             print(f"kernel {kname} ({label}): equal to its plain version "
-                  + (f"ms={time_ms(kernel)} " if timed else "")
+                  + (f"ms={time_ms(kernel)} queued_ms={time_ms_queued(kernel)} "
+                     if timed else "")
                   + f"bound_ms={extra_ms} bound_by={extra_by}")
         got = spec["kernel"]()
         want = spec["plain"]()
@@ -483,13 +612,15 @@ def check_kernels(device="cuda", **shapes):
             row["ms"] = time_ms(spec["kernel"])
             row["queued_ms"] = time_ms_queued(spec["kernel"])
             row["plain_ms"] = time_ms(spec["plain"])
-            row["library_ms"] = (time_ms(spec["library"])
-                                 if spec["library"] else None)
+            lib = spec["library"]
+            row["library_ms"] = time_ms(lib) if lib else None
+            row["library_queued_ms"] = time_ms_queued(lib) if lib else None
         rows[kname] = row
         print(f"kernel {kname}: max_abs_err={err:.3g} "
               + " ".join(f"{k}={row[k]}" for k in
                          ("ms", "queued_ms", "plain_ms", "library_ms",
-                          "bound_ms", "bound_by") if k in row))
+                          "library_queued_ms", "bound_ms", "bound_by")
+                         if k in row))
         del got, want
     sync(device)
     return rows
@@ -907,7 +1038,8 @@ def main() -> int:
         return 1
     print(f"total: {time.perf_counter() - t_start:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+            "ms", "queued_ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "library_queued_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys}
                                   for r in rows.values()]}))
     print(f"nvidia-smi: {smi}")

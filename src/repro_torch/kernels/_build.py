@@ -13,6 +13,16 @@ module: the kernel wrappers import it inside their CUDA branch.
 Every C entry point returns ``cudaGetLastError()`` after its launch, and
 every library exports ``<name>_error_string``; ``launch`` raises when the
 code is not 0, so a refused launch never passes in silence.
+
+``SIGNATURES`` holds each C entry point's arguments.  Their ctypes
+``argtypes`` are set once, when the library loads, and the function objects
+are kept, so a launch costs one dictionary lookup, the current stream's
+handle and the ctypes call; the device is switched only when the operands
+are not on the current one.  The handle comes from
+``torch._C._cuda_getCurrentRawStream``, the pointer behind
+``torch.cuda.current_stream(device).cuda_stream`` without the ``Stream``
+object that call builds on every launch (``chip_compare.py --host`` times
+both).
 """
 from __future__ import annotations
 
@@ -32,7 +42,31 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LIBRARIES = tuple(sorted(p.stem for p in CSRC.glob("*.cu")))
 
+_P, _F, _I, _U, _LL = (ctypes.c_void_p, ctypes.c_float, ctypes.c_int,
+                       ctypes.c_uint, ctypes.c_longlong)
+# library -> C entry point -> its arguments before the trailing stream
+SIGNATURES = {
+    "commit_kernels": {
+        "fused_accum": [_P, _P, _P, _F, _P, _I, _LL],
+        "plain_commit": [_P, _P, _P, _F, _P, _I, _LL, _I, _I, _I],
+        "quantize_rows": [_P, _P, _LL, _I, _I],
+        "topk_rows": [_P, _P, _LL, _I, _I],
+    },
+    "secure_commit": {
+        "secure_commit": [_P, _P, _P, _P, _U, _P, _P, _P, _I, _LL, _I, _I,
+                          _I],
+        "secure_fold": [_P, _P, _P, _I],
+    },
+    "fedprox_update": {
+        "fedprox_update": [_P, _P, _P, _P, _F, _F, _I, _LL],
+    },
+    "selective_scan": {
+        "selective_scan": [_P, _P, _P, _P, _P, _I, _I, _LL, _LL, _LL],
+    },
+}
+
 _LIBS: dict = {}
+_FUNCS: dict = {}           # C entry point name -> its bound ctypes function
 BUILD_LOG: dict = {}        # library name -> nvcc's output (ptxas register
 #                             and spill report) when this process built it
 BUILD_SECONDS: dict = {}    # library name -> seconds nvcc took, or 0.0 if
@@ -95,7 +129,8 @@ def build_all() -> None:
 
 
 def library(name: str) -> ctypes.CDLL:
-    """The loaded kernel library built from ``csrc/<name>.cu``."""
+    """The loaded kernel library built from ``csrc/<name>.cu``, with the
+    ``argtypes`` of its entry points (``SIGNATURES``) set."""
     lib = _LIBS.get(name)
     if lib is not None:
         return lib
@@ -104,20 +139,28 @@ def library(name: str) -> ctypes.CDLL:
     err = getattr(lib, f"{name}_error_string")
     err.argtypes = [ctypes.c_int]
     err.restype = ctypes.c_char_p
+    for symbol, argtypes in SIGNATURES[name].items():
+        fn = getattr(lib, symbol)
+        fn.argtypes = [*argtypes, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _FUNCS[symbol] = fn
     _LIBS[name] = lib
     return lib
 
 
-def launch(lib: str, symbol: str, argtypes: list, *args, device=None) -> None:
+def launch(lib: str, symbol: str, *args, device: torch.device) -> None:
     """Call C entry ``symbol`` of library ``lib`` with ``args`` on the
     current CUDA stream of ``device``; raise if the launch was refused."""
-    so = library(lib)
-    fn = getattr(so, symbol)
-    if fn.argtypes is None:
-        fn.argtypes = [*argtypes, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    with torch.cuda.device(device):
-        err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    fn = _FUNCS.get(symbol)
+    if fn is None:
+        library(lib)
+        fn = _FUNCS[symbol]
+    stream = torch._C._cuda_getCurrentRawStream(device.index)
+    if device.index == torch.cuda.current_device():
+        err = fn(*args, stream)
+    else:
+        with torch.cuda.device(device):
+            err = fn(*args, stream)
     if err:
-        msg = getattr(so, f"{lib}_error_string")(err).decode()
+        msg = getattr(_LIBS[lib], f"{lib}_error_string")(err).decode()
         raise RuntimeError(f"{symbol}: CUDA error {err} ({msg})")

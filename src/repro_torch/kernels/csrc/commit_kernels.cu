@@ -21,21 +21,38 @@
 // plain_commit move ~100 MB (~30 us); a per-leaf quantize_rows/topk_rows
 // call on dense1_w, [20*4096, 256], moves 2 x 83.9 MB (~50 us).
 //
-// Design for that bound.  The TPU kernels keep a whole [K, rows, block]
-// tile in VMEM and walk rows on a sequential grid.  Here nothing carries
-// across thread blocks, so:
-//   * the row kernels give one warp to one block-row of 128*NV4 floats; each
-//     lane holds NV4 float4 chunks (chunk i*32+lane, so every warp-wide load
-//     is 512 contiguous bytes) in registers, and the per-row max, count and
-//     select run as warp reductions (__reduce_*_sync) with no shared memory
-//     and no __syncthreads (the helpers in row_ops.cuh, which
-//     secure_commit.cu shares);
-//   * plain_commit loops over the K slots inside the warp, so each slot's
-//     row is read once and only the reduced row is written;
-//   * fused_accum gives one float4 of the output to one thread and loops
-//     over the K slots inside the thread;
-//   * the discounted slot weights w_i * (1+s_i)^(-a) are computed once per
-//     thread block into shared memory.
+// fused_accum, designed for that bound on this card.  It is a pure stream:
+// K slot rows in, one row out, two flops per float read, so the only aim is
+// to keep the memory system full from the first cycle to the last.
+//   * Persistent grid: the SM count times the blocks an SM holds at once
+//     (cudaOccupancyMaxActiveBlocksPerMultiprocessor, queried once per
+//     device and cached here), so every block is resident from the start and
+//     there is no second, nearly empty wave.  Each block takes one
+//     contiguous share of the float4 columns (shares differ by at most one
+//     column) and its threads walk it with a stride of the block size, so
+//     every warp-wide load is 512 contiguous bytes of one slot.
+//   * Loads in flight: a thread issues the 16-byte loads of kAccumCols
+//     columns for a group of kAccumGroup slots before it does their
+//     multiply-adds (8 loads, 128 bytes, per thread; at 4 resident blocks
+//     of 256 threads that is 128 KB per SM in flight, where 3.35 TB/s at
+//     ~700 ns of latency needs ~18 KB).  The stack is read exactly once, so
+//     loads and stores use the streaming (evict-first) cache hints, __ldcs
+//     and __stcs.
+//   * The discounted slot weights are computed once per block into shared
+//     memory, with the block's first loads already issued before the
+//     barrier.
+// Each output's multiply-adds run in slot order, the plain version's order
+// of summation (phase 3 of chip_smoke.py holds card against CPU to 1e-4).
+//
+// The row kernels (plain_commit, quantize_rows, topk_rows) give one warp to
+// one block-row of 128*NV4 floats; each lane holds NV4 float4 chunks (chunk
+// i*32+lane, so every warp-wide load is 512 contiguous bytes) in registers,
+// and the per-row max, count and select run as warp reductions
+// (__reduce_*_sync) with no shared memory and no __syncthreads (the helpers
+// in row_ops.cuh).  plain_commit loops over the K slots inside the warp, so
+// each slot's row is read once and only the reduced row is written, with
+// the discounted slot weights computed once per thread block into shared
+// memory.
 //
 // Numerics match the plain PyTorch versions (kernels/ref.py): x / scale is
 // an IEEE division (no reciprocal multiply, built without fast math),
@@ -69,26 +86,104 @@ __device__ __forceinline__ void slot_weights(float* weff,
   __syncthreads();
 }
 
-__global__ void __launch_bounds__(kThreads)
+constexpr int kAccumThreads = 256;
+constexpr int kAccumCols = 2;              // float4 columns per thread
+constexpr int kAccumGroup = 4;             // slots whose loads fly together
+constexpr int kAccumMinBlocks = 4;         // resident blocks per SM (<= 64
+//                                            registers a thread)
+constexpr int kMaxDevices = 64;
+
+// The loads of slots [k0, k0 + kAccumGroup) of columns c + j *
+// kAccumThreads, each if its slot and its column (< end) exist.
+__device__ __forceinline__ void accum_loads(
+    float4 (&v)[kAccumGroup][kAccumCols], const float4* __restrict__ x,
+    long long n4, int K, int k0, long long c, long long end) {
+#pragma unroll
+  for (int g = 0; g < kAccumGroup; ++g) {
+#pragma unroll
+    for (int j = 0; j < kAccumCols; ++j) {
+      const long long col = c + static_cast<long long>(j) * kAccumThreads;
+      if (k0 + g < K && col < end) {
+        v[g][j] = __ldcs(x + static_cast<long long>(k0 + g) * n4 + col);
+      }
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kAccumThreads, kAccumMinBlocks)
 fused_accum_kernel(const float4* __restrict__ x, const float* __restrict__ w,
                    const float* __restrict__ s, float a,
                    float4* __restrict__ out, int K, long long n4) {
   extern __shared__ float weff[];
-  slot_weights(weff, w, s, a, K);
-  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
-                      threadIdx.x;
-  if (i >= n4) return;
-  float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-#pragma unroll 4
-  for (int k = 0; k < K; ++k) {
-    const float4 v = x[static_cast<long long>(k) * n4 + i];
-    const float c = weff[k];
-    acc.x = fmaf(c, v.x, acc.x);
-    acc.y = fmaf(c, v.y, acc.y);
-    acc.z = fmaf(c, v.z, acc.z);
-    acc.w = fmaf(c, v.w, acc.w);
+  // this block's contiguous share of the columns
+  const long long share = n4 / gridDim.x, left = n4 % gridDim.x;
+  const long long b = blockIdx.x;
+  const long long begin = b * share + (b < left ? b : left);
+  const long long end = begin + share + (b < left ? 1 : 0);
+  long long c = begin + threadIdx.x;
+  float4 v[kAccumGroup][kAccumCols];
+  accum_loads(v, x, n4, K, 0, c, end);       // in flight across the barrier
+  for (int i = threadIdx.x; i < K; i += kAccumThreads) {
+    weff[i] = w[i] * powf(1.0f + s[i], -a);
   }
-  out[i] = acc;
+  __syncthreads();
+  constexpr long long kStep = static_cast<long long>(kAccumThreads) *
+                              kAccumCols;
+  while (c < end) {
+    float4 acc[kAccumCols];
+#pragma unroll
+    for (int j = 0; j < kAccumCols; ++j) {
+      acc[j] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    }
+    for (int k0 = 0; k0 < K; k0 += kAccumGroup) {
+      if (k0) accum_loads(v, x, n4, K, k0, c, end);
+#pragma unroll
+      for (int g = 0; g < kAccumGroup; ++g) {
+        if (k0 + g < K) {
+          const float wk = weff[k0 + g];
+#pragma unroll
+          for (int j = 0; j < kAccumCols; ++j) {
+            acc[j].x = fmaf(wk, v[g][j].x, acc[j].x);
+            acc[j].y = fmaf(wk, v[g][j].y, acc[j].y);
+            acc[j].z = fmaf(wk, v[g][j].z, acc[j].z);
+            acc[j].w = fmaf(wk, v[g][j].w, acc[j].w);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kAccumCols; ++j) {
+      const long long col = c + static_cast<long long>(j) * kAccumThreads;
+      if (col < end) __stcs(out + col, acc[j]);
+    }
+    c += kStep;
+    if (c < end) accum_loads(v, x, n4, K, 0, c, end);
+  }
+}
+
+// Blocks of fused_accum_kernel resident at once on the current device: SMs
+// times blocks per SM, queried once per device (with the most slot weights'
+// shared memory; registers hold it to kAccumMinBlocks all the same).
+int accum_grid(int* grid) {
+  static int cached[kMaxDevices];
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (dev < kMaxDevices && cached[dev] > 0) {
+    *grid = cached[dev];
+    return 0;
+  }
+  int sms = 0, per_sm = 0;
+  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess) {
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, fused_accum_kernel, kAccumThreads,
+        kMaxSlots * sizeof(float));
+  }
+  if (e != cudaSuccess) return static_cast<int>(e);
+  *grid = sms * (per_sm > 0 ? per_sm : 1);
+  if (dev < kMaxDevices) cached[dev] = *grid;
+  return 0;
 }
 
 template <int NV4>
@@ -186,11 +281,14 @@ const char* commit_kernels_error_string(int code) {
 int fused_accum(const float* x, const float* w, const float* s, float a,
                 float* out, int K, long long n, void* stream) {
   if (K < 1 || K > kMaxSlots || n < 4 || n % 4) return cudaErrorInvalidValue;
+  int grid = 0;
+  const int err = accum_grid(&grid);
+  if (err) return err;
   const long long n4 = n / 4;
-  const long long grid = (n4 + kThreads - 1) / kThreads;
-  if (grid > 0x7fffffffLL) return cudaErrorInvalidValue;
-  fused_accum_kernel<<<static_cast<unsigned>(grid), kThreads,
-                       K * sizeof(float), static_cast<cudaStream_t>(stream)>>>(
+  const long long needed = (n4 + kAccumThreads - 1) / kAccumThreads;
+  if (needed < grid) grid = static_cast<int>(needed);
+  fused_accum_kernel<<<grid, kAccumThreads, K * sizeof(float),
+                       static_cast<cudaStream_t>(stream)>>>(
       reinterpret_cast<const float4*>(x), w, s, a,
       reinterpret_cast<float4*>(out), K, n4);
   return static_cast<int>(cudaGetLastError());

@@ -13,51 +13,75 @@
 //      + seeds[i,j]) in uint32 that wraps, idx = base + r * block + c the
 //      global element index;
 //   6. the wire words summed over slots, read as int32, times the scale.
-// Output [R, block] f32.  The masks cancel in the sum exactly when coef is
-// antisymmetric and seeds symmetric; the kernel does not rely on it and is
-// right for any coef (chip_smoke.py holds it against the plain version with
-// coefficients that do not cancel).
+// Output [R, block] f32.
 //
 // Bound on an H100 SXM.  Bytes: the stack is read once and the rows written
 // once, ~100 MB at the CIFAR CNN's [20, 4671, 256] commit (~30 us at
 // 3.35 TB/s; stochastic rounding adds the same again for the noise).
 // Integer operations: a PRF word costs 10 (the seed add, three shift-xor
 // pairs, two multiplies, the coefficient multiply-add; idx*G once per
-// element).  The function needs one word per distinct seed whose
-// coefficients do not sum to 0: under symmetric seeds, one per pair with
-// c_ij + c_ji != 0.  With cancelling coefficients that is none, and the
-// bound is the bytes; with the upper triangle alone at K=20 it is 190
+// element).  The function needs one word per seed whose coefficients do
+// not sum to 0 mod 2^32: with the main path's cancelling coefficients none,
+// and the bound is the bytes; with the upper triangle alone at K=20, 190
 // words, ~2.3e9 operations, ~0.07 ms at 33.4e12 integer operations/s (4 x
-// 32 lanes dispatched per SM per clock x 132 SMs x 1.98 GHz).  This kernel
-// computes one word per nonzero coefficient of each slot, as each client
-// would mask its own upload: 2x the pairs' words, or 342 words per element
-// that cancel on the main path (one slot out of 20).
+// 32 lanes dispatched per SM per clock x 132 SMs x 1.98 GHz).
 //
-// Design for that bound (simple and right first).  One warp per block-row
-// (row_ops.cuh), looping over the K slots inside the warp.  The common
-// scale needs every slot of a row before any slot quantizes, so the row is
-// read twice (20 KB at K=20, the second read mostly from L2): pass 1 runs
-// the exact radix select per slot and keeps its threshold in shared memory
-// (K words per warp), and takes the max |y|; pass 2 re-reads each slot,
-// applies its stored threshold (no second select), quantizes, and adds the
-// slot's wire word.  idx * 0x9E3779B9 is computed once per element; a zero
-// coefficient costs nothing (0 * word = 0 exactly, the diagonal and every
-// pair touching a non-participant).  uint32 multiplies wrap by definition;
-// a coefficient enters as its two's-complement uint32.
+// Design for that bound.
+//   * Fold the mask words before the element loop (secure_fold_kernel, one
+//     thread block on the same stream).  The [K, K] pair entries become a
+//     compact list of (seed, net coefficient) words whose net is nonzero
+//     mod 2^32: a diagonal entry stands alone; (i, j) and (j, i), i < j,
+//     merge when their seeds are equal; every other entry stays separate.
+//     Exact for any seeds and coefficients, since words with equal seeds
+//     are equal and the wrapped sum does not depend on order (the plain
+//     version is kernels/ref.py fold_mask_words).  On the main path the
+//     list is empty; the upper triangle gives K(K-1)/2 words.  The commit
+//     kernel reads the count from device memory: no host sync.
+//   * One thread block per block-row, kSecureWarps warps; warp w takes the
+//     slots w, w + kSecureWarps, ...  Each warp first stages its slots'
+//     rows in shared memory with cp.async (all copies in flight at once,
+//     no registers held), so every slot is read from device memory once
+//     and the kernel needs few registers: 4-5 blocks (32-40 warps) fit on
+//     an SM.  Where a warp has
+//     more slots than kStageBytes of shared memory holds, it reads the rest
+//     from memory again in the second phase and stays correct.
+//   * The scale needs no threshold: top-k keeps each slot's largest |x|,
+//     and |w x| rounds monotonically in |x|, so the max of |w x| over the
+//     kept entries equals the max over all entries, exactly.  Each warp
+//     takes its slots' max while it runs their selects; the block reduces
+//     the warps' maxima in shared memory at one barrier.
+//   * The exact k-th largest |x| per slot: digit_select (row_ops.cuh),
+//     four 8-bit digit passes, the top one by warp reductions over the few
+//     exponents present and the others over a warp-private histogram in
+//     shared memory, stopping early when a bin holds exactly the rank
+//     sought (typically after the second pass).
+//   * Each warp then quantizes its own slots onto the common grid (the
+//     noise row, with stochastic rounding, read once beside its slot) and
+//     adds its share of the folded mask words (word p goes to warp p mod
+//     kSecureWarps); idx * 0x9E3779B9 is computed once per element.  The
+//     warps' uint32 partial sums reduce in shared memory: they wrap, so the
+//     order does not matter and the result stays bit-exact.
 //
 // Numerics equal the plain version (kernels/ref.py fused_secure_commit_ref)
 // bit for bit: IEEE division (__fdiv_rn), rintf (half to even), the exact
 // k-th largest |x|, integer sums that are order-free under wraparound.
 //
-// The entry point launches on the caller's stream, allocates nothing, and
-// returns cudaGetLastError() (or cudaErrorInvalidValue for a shape it does
-// not take), which the Python wrapper turns into an exception.
+// The entry points launch on the caller's stream, allocate nothing (the
+// wrapper passes the word list's memory), and return cudaGetLastError()
+// (or cudaErrorInvalidValue for a shape they do not take), which the Python
+// wrapper turns into an exception.
 
 #include "row_ops.cuh"
 
 namespace {
 
-constexpr int kMaxSecureSlots = 1024;      // 32 KB of thresholds per block
+constexpr int kMaxSecureSlots = 1024;
+constexpr int kSecureWarps = 8;
+constexpr int kSecureThreads = 32 * kSecureWarps;
+constexpr int kFoldThreads = 1024;
+constexpr int kSecureMinBlocks = 4;  // resident blocks per SM (<= 64
+//                                      registers a thread)
+constexpr int kStageBytes = 32768;   // shared memory for staged slot rows
 constexpr unsigned kGolden = 0x9E3779B9u;
 
 // "lowbias32"-style avalanche hash, uint32 -> uint32.
@@ -70,106 +94,204 @@ __device__ __forceinline__ unsigned hash_u32(unsigned x) {
   return x;
 }
 
-template <int NV4>
-__global__ void __launch_bounds__(kThreads)
-secure_commit_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                     const unsigned* __restrict__ seeds,
-                     const int* __restrict__ coef, unsigned base,
-                     const float* __restrict__ noise, float* __restrict__ out,
-                     int K, long long R, int bits, int k) {
-  constexpr int N = 4 * NV4;
-  constexpr long long B = 128 * NV4;
-  extern __shared__ unsigned thresh_all[];     // [kWarps][K]
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const long long row = static_cast<long long>(blockIdx.x) * kWarps + warp;
-  if (row >= R) return;  // warp-uniform: the whole warp leaves together
-  unsigned* thresh = thresh_all + warp * K;
-  const float qmax = qmax_for(bits);
-
-  // pass 1: each slot's top-k threshold (0 keeps everything) and the
-  // commit-common max |w_i x_i| of the row
-  float m = 0.0f;
-  for (int slot = 0; slot < K; ++slot) {
-    float v[N];
-    load_row<NV4>(x + (static_cast<long long>(slot) * R + row) * B, v, lane);
-    unsigned t = 0;
-    if (k) {
-      unsigned u[N];
-#pragma unroll
-      for (int j = 0; j < N; ++j) u[j] = abs_bits(v[j]);
-      t = topk_threshold<N>(u, k);
+// words[0] = n, then n (seed, net coefficient) pairs: the mask words of the
+// [K, K] seeds (the low 32 bits of each int64) and coefficients that do not
+// cancel.  One thread block; the order of the words is not fixed.
+__global__ void __launch_bounds__(kFoldThreads)
+secure_fold_kernel(const long long* __restrict__ seeds,
+                   const int* __restrict__ coef, int K,
+                   unsigned* __restrict__ words) {
+  __shared__ unsigned n;
+  if (threadIdx.x == 0) n = 0;
+  __syncthreads();
+  for (int e = threadIdx.x; e < K * K; e += kFoldThreads) {
+    const int i = e / K, j = e % K;
+    const unsigned s = static_cast<unsigned>(seeds[e]);
+    unsigned c = static_cast<unsigned>(coef[e]);
+    if (i != j && s == static_cast<unsigned>(seeds[j * K + i])) {
+      if (i > j) continue;                  // merged into (j, i)
+      c += static_cast<unsigned>(coef[j * K + i]);
     }
-    if (lane == 0) thresh[slot] = t;
-    const float c = __ldg(w + slot);
-#pragma unroll
-    for (int j = 0; j < N; ++j) {
-      if (abs_bits(v[j]) >= t) m = fmaxf(m, fabsf(__fmul_rn(v[j], c)));
+    if (c) {
+      const unsigned p = atomicAdd(&n, 1u);
+      words[1 + 2 * p] = s;
+      words[2 + 2 * p] = c;
     }
   }
-  __syncwarp();
+  __syncthreads();
+  if (threadIdx.x == 0) words[0] = n;
+}
+
+// Copy a block-row (128*NV4 floats) from global to shared memory without
+// passing through registers (cp.async, cached in L2 only): lane copies the
+// float4 chunks i*32+lane, the ones it reads back itself.
+template <int NV4>
+__device__ __forceinline__ void stage_row(float* dst,
+                                          const float* __restrict__ src,
+                                          int lane) {
+#pragma unroll
+  for (int i = 0; i < NV4; ++i) {
+    const unsigned d = static_cast<unsigned>(
+        __cvta_generic_to_shared(dst + 4 * (i * 32 + lane)));
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+                 "l"(src + 4 * (i * 32 + lane)));
+  }
+}
+
+template <int NV4>
+__device__ __forceinline__ void shared_row(const float* src,
+                                           float (&x)[4 * NV4], int lane) {
+#pragma unroll
+  for (int i = 0; i < NV4; ++i) {
+    const float4 t = reinterpret_cast<const float4*>(src)[i * 32 + lane];
+    x[4 * i] = t.x;
+    x[4 * i + 1] = t.y;
+    x[4 * i + 2] = t.z;
+    x[4 * i + 3] = t.w;
+  }
+}
+
+// Quantize one slot's row onto the common grid and add it to acc.
+template <int N>
+__device__ __forceinline__ void quantize_add(const float (&v)[N],
+                                             const float* __restrict__ u_row,
+                                             unsigned t, float c, float scale,
+                                             float qmax, unsigned (&acc)[N],
+                                             int lane) {
+  float u[N];
+  if (u_row) load_row<N / 4>(u_row, u, lane);
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    const float y = abs_bits(v[j]) >= t ? __fmul_rn(v[j], c) : 0.0f;
+    const float r = __fdiv_rn(y, scale);
+    float q = u_row ? floorf(__fadd_rn(r, u[j])) : rintf(r);
+    q = fminf(fmaxf(q, -qmax - 1.0f), qmax);
+    acc[j] += static_cast<unsigned>(static_cast<int>(q));
+  }
+}
+
+// Slots per warp staged in shared memory: all of the warp's slots, up to
+// kStageBytes for the block.
+inline int staged_slots(int K, int block) {
+  const int per_warp = (K + kSecureWarps - 1) / kSecureWarps;
+  const int fit = kStageBytes / (kSecureWarps * block * 4);
+  return per_warp < fit ? per_warp : fit;
+}
+
+// One thread block per block-row.  Dynamic shared memory: kSecureWarps x
+// ``staged`` rows of slot values, warp w's first; after its quantize a warp
+// reuses the start of its own area for its partial sums.
+template <int NV4>
+__global__ void __launch_bounds__(kSecureThreads, kSecureMinBlocks)
+secure_commit_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                     const unsigned* __restrict__ words, unsigned base,
+                     const float* __restrict__ noise, float* __restrict__ out,
+                     int K, long long R, int bits, int k, int staged) {
+  constexpr int N = 4 * NV4;                 // floats a lane holds of a row
+  constexpr int B = 128 * NV4;
+  extern __shared__ __align__(16) float stage[];
+  __shared__ __align__(16) unsigned hist[kSecureWarps][256];
+  __shared__ unsigned thresh[kMaxSecureSlots];
+  __shared__ float wmax[kSecureWarps];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const long long row = blockIdx.x;
+  const float* xrow = x + row * B;           // slot i's row: xrow + i * R * B
+  const long long slot_stride = R * B;
+  float* mine = stage + warp * staged * B;   // this warp's staged rows
+  const float qmax = qmax_for(bits);
+
+  // phase 1: stage this warp's slots (all copies in flight at once), then
+  // each slot's threshold and the max of |w x|
+  for (int i = 0; i < staged; ++i) {
+    const int slot = warp + i * kSecureWarps;
+    if (slot < K) stage_row<NV4>(mine + i * B, xrow + slot * slot_stride, lane);
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  float m = 0.0f;
+  for (int slot = warp, i = 0; slot < K; slot += kSecureWarps, ++i) {
+    float v[N];
+    if (i < staged) {
+      shared_row<NV4>(mine + i * B, v, lane);
+    } else {
+      load_row<NV4>(xrow + slot * slot_stride, v, lane);
+    }
+    const float c = __ldg(w + slot);
+#pragma unroll
+    for (int j = 0; j < N; ++j) m = fmaxf(m, fabsf(__fmul_rn(v[j], c)));
+    const unsigned t = k ? digit_select<N>(v, k, hist[warp]) : 0u;
+    if (lane == 0) thresh[slot] = t;
+  }
   m = warp_max_nonneg(m);
+  if (lane == 0) wmax[warp] = m;
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < kSecureWarps; ++i) m = fmaxf(m, wmax[i]);
   float scale = __fdiv_rn(m, qmax);
   if (scale == 0.0f) scale = 1.0f;
 
-  // pass 2: quantize every slot onto the common grid and add its wire word
-  unsigned ig[N];                              // idx * golden, per element
+  // phase 2: this warp's slots onto the common grid, and its mask words
   unsigned acc[N];
-  const unsigned row0 = base + static_cast<unsigned>(row) *
-                                   static_cast<unsigned>(B);
 #pragma unroll
-  for (int i = 0; i < NV4; ++i) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const unsigned col = 4u * static_cast<unsigned>(i * 32 + lane) + e;
-      ig[4 * i + e] = (row0 + col) * kGolden;
-      acc[4 * i + e] = 0u;
-    }
-  }
-  for (int slot = 0; slot < K; ++slot) {
-    const long long off = (static_cast<long long>(slot) * R + row) * B;
+  for (int j = 0; j < N; ++j) acc[j] = 0u;
+  for (int slot = warp, i = 0; slot < K; slot += kSecureWarps, ++i) {
     float v[N];
-    load_row<NV4>(x + off, v, lane);
-    float u[N];
-    if (noise) load_row<NV4>(noise + off, u, lane);
-    const unsigned t = thresh[slot];
-    const float c = __ldg(w + slot);
-#pragma unroll
-    for (int j = 0; j < N; ++j) {
-      const float y = abs_bits(v[j]) >= t ? __fmul_rn(v[j], c) : 0.0f;
-      const float r = __fdiv_rn(y, scale);
-      float q = noise ? floorf(__fadd_rn(r, u[j])) : rintf(r);
-      q = fminf(fmaxf(q, -qmax - 1.0f), qmax);
-      acc[j] += static_cast<unsigned>(static_cast<int>(q));
+    if (i < staged) {
+      shared_row<NV4>(mine + i * B, v, lane);
+    } else {
+      load_row<NV4>(xrow + slot * slot_stride, v, lane);
     }
-    const unsigned* srow = seeds + static_cast<long long>(slot) * K;
-    const int* crow = coef + static_cast<long long>(slot) * K;
-    for (int p = 0; p < K; ++p) {
-      const int cf = __ldg(crow + p);
-      if (cf == 0) continue;                     // warp-uniform
-      const unsigned cu = static_cast<unsigned>(cf);
-      const unsigned s = __ldg(srow + p);
+    quantize_add<N>(v, noise ? noise + slot * slot_stride + row * B : nullptr,
+                    thresh[slot], __ldg(w + slot), scale, qmax, acc, lane);
+  }
+  const unsigned n_words = words[0];
+  if (static_cast<unsigned>(warp) < n_words) {
+    unsigned ig[N];                          // idx * golden, per element
+    const unsigned row0 = base + static_cast<unsigned>(row) *
+                                     static_cast<unsigned>(B);
+#pragma unroll
+    for (int i = 0; i < NV4; ++i) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const unsigned col = 4u * static_cast<unsigned>(i * 32 + lane) + e;
+        ig[4 * i + e] = (row0 + col) * kGolden;
+      }
+    }
+    for (unsigned p = warp; p < n_words; p += kSecureWarps) {
+      const unsigned s = words[1 + 2 * p], cu = words[2 + 2 * p];
 #pragma unroll
       for (int j = 0; j < N; ++j) acc[j] += cu * hash_u32(ig[j] + s);
     }
   }
-  float o[N];
+
+  // phase 3: the warps' partial sums, wrapped, then dequantized
+  __syncwarp();                  // this warp's staged rows are all read
+  unsigned* part = reinterpret_cast<unsigned*>(stage);    // [warp][staged*B]
 #pragma unroll
-  for (int j = 0; j < N; ++j) {
-    o[j] = __fmul_rn(static_cast<float>(static_cast<int>(acc[j])), scale);
+  for (int i = 0; i < NV4; ++i) {
+    reinterpret_cast<uint4*>(part + warp * staged * B)[i * 32 + lane] =
+        make_uint4(acc[4 * i], acc[4 * i + 1], acc[4 * i + 2], acc[4 * i + 3]);
   }
-  store_row<NV4>(out + row * B, o, lane);
+  __syncthreads();
+  for (int e = threadIdx.x; e < B; e += kSecureThreads) {
+    unsigned total = 0;
+#pragma unroll
+    for (int i = 0; i < kSecureWarps; ++i) total += part[i * staged * B + e];
+    out[row * B + e] =
+        __fmul_rn(static_cast<float>(static_cast<int>(total)), scale);
+  }
 }
 
 template <int NV4>
 void secure_commit_launch(const float* x, const float* w,
-                          const unsigned* seeds, const int* coef,
-                          unsigned base, const float* noise, float* out,
-                          int K, long long R, int bits, int k,
-                          cudaStream_t st) {
+                          const unsigned* words, unsigned base,
+                          const float* noise, float* out, int K, long long R,
+                          int bits, int k, cudaStream_t st) {
+  const int staged = staged_slots(K, 128 * NV4);
   secure_commit_kernel<NV4>
-      <<<row_blocks(R), kThreads, kWarps * K * sizeof(unsigned), st>>>(
-          x, w, seeds, coef, base, noise, out, K, R, bits, k);
+      <<<static_cast<unsigned>(R), kSecureThreads,
+         kSecureWarps * staged * 128 * NV4 * sizeof(float), st>>>(
+          x, w, words, base, noise, out, K, R, bits, k, staged);
 }
 
 }  // namespace
@@ -180,34 +302,49 @@ const char* secure_commit_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
+// seeds: [K, K] int64 (the low 32 bits are the uint32 seed); coef: [K, K]
+// int32; words: 1 + 2 K^2 uint32, filled with the count and the (seed, net
+// coefficient) words that do not cancel.
+int secure_fold(const long long* seeds, const int* coef, unsigned* words,
+                int K, void* stream) {
+  if (K < 1 || K > kMaxSecureSlots) return cudaErrorInvalidValue;
+  secure_fold_kernel<<<1, kFoldThreads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(seeds, coef, K,
+                                                            words);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // x: [K, R, block] f32; w: [K] f32 effective slot weights; seeds: [K, K]
-// uint32; coef: [K, K] int32; base: the global element index of row 0;
-// noise: [K, R, block] f32 uniform [0, 1) or null (round half to even);
+// int64 holding uint32; coef: [K, K] int32; base: the global element index
+// of row 0; noise: [K, R, block] f32 uniform [0, 1) or null (round half to
+// even); words: 1 + 2 K^2 uint32 of scratch for the folded mask words;
 // out: [R, block] f32.  bits in [2, 16]; 0 <= k <= block (0: no top-k).
-int secure_commit(const float* x, const float* w, const unsigned* seeds,
+int secure_commit(const float* x, const float* w, const long long* seeds,
                   const int* coef, unsigned base, const float* noise,
-                  float* out, int K, long long R, int block, int bits, int k,
-                  void* stream) {
-  if (K < 1 || K > kMaxSecureSlots || !rows_ok(R, block) || k < 0 ||
-      k > block || bits < 2 || bits > 16)
+                  unsigned* words, float* out, int K, long long R, int block,
+                  int bits, int k, void* stream) {
+  if (K < 1 || K > kMaxSecureSlots || R < 1 || R > 0x7fffffffLL || k < 0 ||
+      k > block || bits < 2 || bits > 16 ||
+      (block != 128 && block != 256 && block != 512 && block != 1024))
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  secure_fold_kernel<<<1, kFoldThreads, 0, st>>>(seeds, coef, K, words);
   switch (block) {
     case 128:
-      secure_commit_launch<1>(x, w, seeds, coef, base, noise, out, K, R, bits,
-                              k, st);
+      secure_commit_launch<1>(x, w, words, base, noise, out, K, R, bits, k,
+                              st);
       break;
     case 256:
-      secure_commit_launch<2>(x, w, seeds, coef, base, noise, out, K, R, bits,
-                              k, st);
+      secure_commit_launch<2>(x, w, words, base, noise, out, K, R, bits, k,
+                              st);
       break;
     case 512:
-      secure_commit_launch<4>(x, w, seeds, coef, base, noise, out, K, R, bits,
-                              k, st);
+      secure_commit_launch<4>(x, w, words, base, noise, out, K, R, bits, k,
+                              st);
       break;
     default:
-      secure_commit_launch<8>(x, w, seeds, coef, base, noise, out, K, R, bits,
-                              k, st);
+      secure_commit_launch<8>(x, w, words, base, noise, out, K, R, bits, k,
+                              st);
       break;
   }
   return static_cast<int>(cudaGetLastError());

@@ -11,16 +11,11 @@ client reads.
 """
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from repro_torch.kernels import launches, ref
 
 NAME = "fedprox_update"
-_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-             ctypes.c_void_p, ctypes.c_float, ctypes.c_float, ctypes.c_int,
-             ctypes.c_longlong]
 
 
 def fedprox_update_flat(w, g, w0, lr: float, mu: float):
@@ -35,7 +30,7 @@ def fedprox_update_flat(w, g, w0, lr: float, mu: float):
     launches.check_operands(NAME, w, g, w0)
     C, N = w.shape
     out = torch.empty_like(w)
-    _build.launch("fedprox_update", NAME, _ARGTYPES, w.data_ptr(),
+    _build.launch("fedprox_update", NAME, w.data_ptr(),
                   g.data_ptr(), w0.data_ptr(), out.data_ptr(), float(lr),
                   float(mu), C, N, device=w.device)
     launches.count(NAME)

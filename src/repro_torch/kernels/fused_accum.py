@@ -8,15 +8,9 @@ note gives its bound on the card and its design.
 """
 from __future__ import annotations
 
-import ctypes
-
-import torch
-
 from repro_torch.kernels import launches, ref
 
 NAME = "fused_accum"
-_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float,
-             ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong]
 
 
 def fused_accum_blocks(xb, w, s, alpha: float):
@@ -28,9 +22,9 @@ def fused_accum_blocks(xb, w, s, alpha: float):
         return ref.fused_accum_ref(xb, w.reshape(K, 1), s.reshape(K, 1), alpha)
     from repro_torch.kernels import _build
     launches.check_operands(NAME, xb, w, s)
-    out = torch.empty(xb.shape[1:], dtype=torch.float32, device=xb.device)
-    _build.launch("commit_kernels", NAME, _ARGTYPES, xb.data_ptr(),
-                  w.data_ptr(), s.data_ptr(), float(alpha), out.data_ptr(), K,
-                  out.numel(), device=xb.device)
+    out = xb.new_empty(xb.shape[1:])          # float32, on xb's device
+    _build.launch("commit_kernels", NAME, xb.data_ptr(), w.data_ptr(),
+                  s.data_ptr(), float(alpha), out.data_ptr(), K, out.numel(),
+                  device=xb.device)
     launches.count(NAME)
     return out

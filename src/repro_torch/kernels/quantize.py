@@ -7,15 +7,11 @@ on the card and its design.
 """
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from repro_torch.kernels import launches, ref
 
 NAME = "quantize"
-_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-             ctypes.c_int]
 
 
 def quantize_dequant_blocks(xb, bits: int):
@@ -28,7 +24,7 @@ def quantize_dequant_blocks(xb, bits: int):
     launches.check_operands(NAME, xb)
     R, block = xb.shape
     out = torch.empty_like(xb)
-    _build.launch("commit_kernels", "quantize_rows", _ARGTYPES, xb.data_ptr(),
+    _build.launch("commit_kernels", "quantize_rows", xb.data_ptr(),
                   out.data_ptr(), R, block, bits, device=xb.device)
     launches.count(NAME)
     return out

@@ -144,6 +144,27 @@ def mask_total_u32(seeds_row, coef_row, idx):
     return mul_u32(cu[:, None, None], bits).sum(0) & U32
 
 
+def fold_mask_words(seeds, coef):
+    """The mask words of a whole [K, K] commit that do not cancel, as
+    (seeds, net coefficients), int64 holding uint32, in row-major order of
+    the entries that carry them.  A word depends only on its seed, so entry
+    (i, j), i < j, takes in (j, i) when their seeds are equal (net
+    ``c_ij + c_ji``, and (j, i) is dropped); a diagonal entry and every
+    other entry stand alone; a word whose net is 0 mod 2^32 is dropped.
+    Exact for any seeds and coefficients: ``mask_total_u32`` over the
+    folded words equals the sum over i of ``mask_total_u32(seeds[i],
+    coef[i], idx)`` under wraparound.  The plain version of the secure
+    commit kernel's prologue; the commit's plain version does not use it."""
+    s, c = to_u32(seeds), to_u32(coef)
+    K = s.shape[0]
+    i = torch.arange(K, device=s.device)[:, None]
+    j = torch.arange(K, device=s.device)[None, :]
+    merged = (s == s.T) & (i != j)
+    net = torch.where(merged, (c + c.T) & U32, c)
+    keep = (net != 0) & ~(merged & (i > j))
+    return s[keep], net[keep]
+
+
 def fused_secure_commit_ref(xb, w_eff, seeds, coef, base, bits: int,
                             k: int = 0, noise=None):
     """Plain version of the integer-domain secure commit over a blocked

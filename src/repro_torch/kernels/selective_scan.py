@@ -12,16 +12,11 @@ kernel as they are, so no chunk is copied.
 """
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from repro_torch.kernels import launches, ref
 
 NAME = "selective_scan"
-_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-             ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong]
 
 
 def _check_row_major(t, what):
@@ -52,7 +47,7 @@ def selective_scan_chunk_blocks(a, b, h0):
     B, L, D, N = a.shape
     hs = torch.empty((B, L, D, N), dtype=torch.float32, device=a.device)
     h_last = torch.empty((B, D, N), dtype=torch.float32, device=a.device)
-    _build.launch("selective_scan", NAME, _ARGTYPES, a.data_ptr(),
+    _build.launch("selective_scan", NAME, a.data_ptr(),
                   b.data_ptr(), h0.data_ptr(), hs.data_ptr(),
                   h_last.data_ptr(), B, L, D * N, a.stride(0), b.stride(0),
                   device=a.device)

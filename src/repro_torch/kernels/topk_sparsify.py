@@ -9,15 +9,11 @@ plain version exactly.  Its note gives its bound on the card and its design.
 """
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from repro_torch.kernels import launches, ref
 
 NAME = "topk_sparsify"
-_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-             ctypes.c_int]
 
 
 def topk_sparsify_blocks(xb, k: int):
@@ -29,7 +25,7 @@ def topk_sparsify_blocks(xb, k: int):
     launches.check_operands(NAME, xb)
     R, block = xb.shape
     out = torch.empty_like(xb)
-    _build.launch("commit_kernels", "topk_rows", _ARGTYPES, xb.data_ptr(),
+    _build.launch("commit_kernels", "topk_rows", xb.data_ptr(),
                   out.data_ptr(), R, block, k, device=xb.device)
     launches.count(NAME)
     return out

@@ -35,7 +35,8 @@ from repro_torch.kernels import launches
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.fedprox_update import fedprox_update_flat
-from repro_torch.kernels.fused_quant_mask import secure_commit_blocks
+from repro_torch.kernels.fused_quant_mask import (fold_mask_words,
+                                                  secure_commit_blocks)
 from repro_torch.models.cnn import CIFAR_CNN, CNN
 
 K = 5
@@ -103,6 +104,62 @@ def test_mask_total_u32_matches_jax_bit_for_bit():
         got = tref.mask_total_u32(u32(seeds[i]), t(coef[i]), u32(idx))
         np.testing.assert_array_equal(got.numpy(),
                                       np.asarray(want).astype(np.int64))
+
+
+def fold_case(kind):
+    """[K, K] pair seeds (uint32 values) and int32 coefficients for the
+    fold: the reference's symmetric seeds with its cancelling, upper or
+    random coefficients; random coefficients under asymmetric seeds; and
+    the upper triangle where two pairs share one seed."""
+    if kind == "random, asymmetric seeds":
+        rng = np.random.default_rng(3)
+        return (rng.integers(0, 2 ** 32, (K, K), dtype=np.uint64)
+                .astype(np.uint32), coefficients("random"))
+    seeds = np.array(seeds_for(4))
+    if kind == "upper, two pairs share a seed":
+        seeds[0, 1] = seeds[1, 0] = seeds[2, 3] = seeds[3, 2] = 12345
+        return seeds, coefficients("upper")
+    return seeds, coefficients(kind)
+
+
+@pytest.mark.parametrize("kind", ["cancelling", "upper", "random",
+                                  "random, asymmetric seeds",
+                                  "upper, two pairs share a seed"])
+def test_folded_mask_words_total_matches_jax_bit_for_bit(kind):
+    """The folded words' mask total equals the sum over slots of the JAX
+    reference's ``mask_total_u32``, bit for bit under wraparound."""
+    seeds, coef = fold_case(kind)
+    idx = (np.uint32(2 ** 32 - 700)
+           + np.arange(6 * 256, dtype=np.uint32).reshape(6, 256))
+    want = np.zeros(idx.shape, np.uint32)
+    for i in range(K):
+        want += np.asarray(jfqm.mask_total_u32(
+            jnp.asarray(seeds[i]), jnp.asarray(coef[i]), jnp.asarray(idx)))
+    fs, fc = fold_mask_words(u32(seeds), t(coef))
+    got = tref.mask_total_u32(fs, fc, u32(idx))
+    np.testing.assert_array_equal(got.numpy(), want.astype(np.int64))
+    assert len(fs) <= K * K
+
+
+@pytest.mark.parametrize("n_slots", [5, 20])
+def test_fold_counts_the_words_that_do_not_cancel(n_slots):
+    """The main path's coefficients (antisymmetric under symmetric seeds,
+    a straggler out) fold to no word; the upper triangle alone to one word
+    per pair; a diagonal entry stands alone."""
+    ids = torch.arange(n_slots, dtype=torch.int32)
+    part = torch.ones(n_slots)
+    part[3] = 0.0
+    seeds = sec.pair_seeds(sec.commit_key(9), ids)
+    fs, _ = fold_mask_words(seeds, sec.pair_coef_int(ids, part))
+    assert len(fs) == 0
+    upper = torch.triu(torch.ones(n_slots, n_slots, dtype=torch.int32), 1)
+    fs, fc = fold_mask_words(seeds, upper)
+    assert len(fs) == n_slots * (n_slots - 1) // 2
+    assert bool((fc == 1).all())
+    diag = torch.eye(n_slots, dtype=torch.int32) * -1
+    fs, fc = fold_mask_words(seeds, diag)
+    assert torch.equal(fs, tref.to_u32(seeds.diagonal()))
+    assert bool((fc == 2 ** 32 - 1).all())
 
 
 @pytest.mark.parametrize("against", ["oracle", "pallas"])
