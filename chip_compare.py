@@ -10,9 +10,14 @@ training rounds, and the host's cost of a kernel launch.
 directory).  Phases 1 and 2 of ``chip_smoke.py`` (``build()`` and
 ``check_kernels()``) run four times, each in a process of its own, in the
 order parent, this tree, this tree, parent, so that the two trees meet the
-same card in turns.  Each run's build, ptxas and extra-case lines are
-printed, then a table of every kernel's times and one JSON line of all
-four runs' rows.
+same card in turns.  Each run also hashes every kernel's output on the
+main-path inputs of ``kernel_specs`` (made from one seed, so both trees
+see the same inputs), and times topk_sparsify on the seven small leaves
+of the main path (this tree's ``chip_smoke.SMALL_LEAVES``) from a
+CUDA graph of 20 calls, the launch path left out.  Each run's build,
+ptxas and extra-case lines are printed, then a table of every kernel's
+times with its output digest in each run, and one JSON line of all four
+runs' rows.
 
 ``--profile``: this tree's launcher configurations ``default`` and
 ``secure_q8_topk_deterministic`` (``chip_smoke.CONFIGS``), each built as
@@ -42,18 +47,55 @@ ROOT = Path(__file__).resolve().parent
 KEYS = ("ms", "queued_ms", "plain_ms", "library_ms", "library_queued_ms",
         "bound_ms")
 PHASES = """
-import json, sys
+import hashlib, json, sys
 sys.path.insert(0, {tree!r})
 import chip_smoke
+import torch
 chip_smoke.build()
 rows = chip_smoke.check_kernels()
 print("ROWS " + json.dumps(rows))
+# each kernel's output on the main-path inputs, hashed
+digests = {{}}
+for name, spec in chip_smoke.kernel_specs("cuda").items():
+    out = spec["kernel"]()
+    h = hashlib.sha256()
+    for t in (out if isinstance(out, tuple) else (out,)):
+        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    digests[name] = h.hexdigest()[:16]
+print("DIGESTS " + json.dumps(digests))
+# the top-k of the seven small leaves as the main path blocks them (20
+# clients, last dim zero-padded to 256 lanes), device time per call from a
+# CUDA graph of 20 calls, so that the host's launch path falls out
+from repro_torch.kernels.topk_sparsify import topk_sparsify_blocks
+gen = torch.Generator(device="cuda").manual_seed(5)
+small = {{}}
+for name, R, live in {leaves}:
+    x = torch.zeros(R, 256, device="cuda")
+    x[:, :live] = torch.randn(R, live, generator=gen, device="cuda") * 0.01
+    topk_sparsify_blocks(x, chip_smoke.TOPK_K)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(20):
+            topk_sparsify_blocks(x, chip_smoke.TOPK_K)
+    graph.replay()
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    a.record()
+    for _ in range(5):
+        graph.replay()
+    b.record()
+    b.synchronize()
+    small[name] = a.elapsed_time(b) / 100
+print("SMALL " + json.dumps(small))
 """
 
 
 def run_phases(tree: Path, label: str) -> dict:
     """Phases 1-2 of ``tree``'s chip_smoke.py in a process of its own."""
-    proc = subprocess.run([sys.executable, "-c", PHASES.format(tree=str(tree))],
+    import chip_smoke
+    script = PHASES.format(tree=str(tree),
+                           leaves=repr(chip_smoke.SMALL_LEAVES))
+    proc = subprocess.run([sys.executable, "-c", script],
                           cwd=tree, capture_output=True, text=True,
                           timeout=900)
     if proc.returncode:
@@ -63,9 +105,16 @@ def run_phases(tree: Path, label: str) -> dict:
         if line.startswith("build:") or "ptxas" in line or (
                 line.startswith("kernel ") and "(" in line.split(":")[0]):
             print(f"  [{label}] {line}")
-    rows = [line for line in proc.stdout.splitlines()
-            if line.startswith("ROWS ")]
-    return json.loads(rows[-1][5:])
+    found = {}
+    for line in proc.stdout.splitlines():
+        for key in ("ROWS ", "DIGESTS ", "SMALL "):
+            if line.startswith(key):
+                found[key] = json.loads(line[len(key):])
+    rows = found["ROWS "]
+    for name, digest in found["DIGESTS "].items():
+        rows.setdefault(name, {})["digest"] = digest
+    rows["topk_sparsify"]["small_leaves_ms"] = found["SMALL "]
+    return rows
 
 
 def compare(parent: Path) -> None:
@@ -83,6 +132,15 @@ def compare(parent: Path) -> None:
             if any(v is not None for v in vals):
                 print(f"  {key:18s} " + "  ".join(
                     "-" if v is None else f"{v:.4f}" for v in vals))
+        digests = [r.get(kname, {}).get("digest") for _, r in runs]
+        same = len(set(digests)) == 1
+        print(f"  {'output digest':18s} " + "  ".join(map(str, digests))
+              + ("  (equal in all four runs)" if same else "  (DIFFERENT)"))
+    print("topk_sparsify on the small leaves, device ms per call (a CUDA "
+          "graph of 20 calls):")
+    for leaf in runs[1][1]["topk_sparsify"]["small_leaves_ms"]:
+        vals = [r["topk_sparsify"]["small_leaves_ms"][leaf] for _, r in runs]
+        print(f"  {leaf:18s} " + "  ".join(f"{v:.4f}" for v in vals))
     print("COMPARE " + json.dumps({label: rows for label, rows in runs}))
 
 

@@ -16,14 +16,19 @@ it happened; any failure ends the run with a non-zero exit code:
      per-leaf ones, 20 clients' dense1_w for the FedProx update, the
      full-width Jamba prefill's [1, 128, 16384, 16] chunk and a strided
      batch-2 chunk view for the selective scan), each with its extra
-     cases (the fused accumulate at other slot counts and block widths, the
-     secure commit past its register path, with non-cancelling and random
-     coefficients under asymmetric seeds, at 4 bits, with a noise operand
-     and with a zero-weight slot), and the secure commit's mask-word fold
-     against its plain version; and time kernel, plain version and library
-     call with CUDA events, each per call (median of 30 after 3 warm-up
-     launches) and the kernel and library call also over 30 back-to-back
-     launches;
+     cases (the fused accumulate at other slot counts and block widths; the
+     plain commit at K=1 and K=64 past its staged slots, without quantize,
+     without top-k, at 4 bits, with a zero-weight slot, ties and zero rows,
+     other block widths and half-way quotients; the top-k at k=1 and
+     k=block, ties across the k-th value with all-zero rows, subnormals, one
+     exponent, other block widths and the small leaves as the main path
+     pads them; the secure commit past its register path, with
+     non-cancelling and random coefficients under asymmetric seeds, at 4
+     bits, with a noise operand and with a zero-weight slot), and the secure
+     commit's mask-word fold against its plain version; and time kernel,
+     plain version and library call with CUDA events, each per call (median
+     of 30 after 3 warm-up launches) and the kernel and library call also
+     over 30 back-to-back launches;
   3. hold rounds on the card against the CPU from the same params, batches
      and compression draws, to 1e-4: for each launcher configuration, the
      secure float-mask round and the fused FedProx update, the clients'
@@ -104,6 +109,9 @@ TOPK_K = CompressionConfig(quantize_bits=8, topk_frac=0.1).topk_k   # 26
 # once per element: the seed add, three shift-xor pairs, two multiplies and
 # the coefficient multiply-add
 OPS_PER_MASK_WORD = 10
+# integer operations per element of an exact top-k with a scale: |x|, its
+# share of the selection (one comparison), the keep test and the row max
+SELECT_INT_OPS = 4
 
 # Client lr 0.01: at the launcher's default of 0.08 local training on the
 # synthetic CIFAR task diverges in round 0 in the JAX reference as in the
@@ -184,6 +192,14 @@ SCAN_SHAPE = (1, 128, 16384, 16)     # the full-width prefill's scan chunk
 # about bf16 rounding, while a wrong cache or state moves the logits by
 # their whole scale.
 SERVE_DECODE_TOL = 5e-2
+
+# The CIFAR CNN's leaves other than dense1_w as the per-leaf kernels see
+# them, 20 clients blocked by 256 (last dim zero-padded): name, rows, live
+# lanes.  q8_topk_stochastic runs topk_sparsify once on each per round.
+SMALL_LEAVES = (("conv0_w", 540, 32), ("conv0_b", 20, 32),
+                ("conv1_w", 5760, 64), ("conv1_b", 20, 64),
+                ("dense1_b", 20, 256), ("dense2_w", 5120, 10),
+                ("dense2_b", 20, 10))
 
 SOURCES = {"fused_accum": "commit_kernels.cu",
            "plain_commit": "commit_kernels.cu",
@@ -355,6 +371,14 @@ def secure_pairs(k_slots, seed, device, out=(3,)):
             sec.pair_coef_int(ids, part).to(device), part.to(device))
 
 
+def exact_one(name):
+    """A compare that holds a kernel's outputs equal to its plain
+    version's."""
+    return lambda g, p: check(
+        all(torch.equal(x, y) for x, y in zip(parts(g), parts(p))),
+        f"{name}: differs from its plain version")
+
+
 def kernel_specs(device, k_slots=K_SLOTS, rows=BUCKET_ROWS,
                  leaf_rows=LEAF_ROWS, block=BLOCK, leaf_params=DENSE1_W,
                  scan_shape=SCAN_SHAPE, seed=0):
@@ -364,6 +388,7 @@ def kernel_specs(device, k_slots=K_SLOTS, rows=BUCKET_ROWS,
     f32 operations, integer operations) held and timed beside the main one,
     the bytes it must move, the f32 operations it does and the integer
     operations its data needs."""
+    exact = exact_one
     gen = torch.Generator(device=device).manual_seed(seed)
     xb = torch.randn(k_slots, rows, block, generator=gen, device=device) * 0.01
     w = torch.rand(k_slots, generator=gen, device=device) * 1.5 + 0.5
@@ -403,8 +428,9 @@ def kernel_specs(device, k_slots=K_SLOTS, rows=BUCKET_ROWS,
                                              noise=noise),
                 lambda: ref.fused_secure_commit_ref(x, wv[:, None], sd, c, 0,
                                                     bits, k=k, noise=noise),
-                nbytes, (66 + 7 + 2) * x.numel(),
-                OPS_PER_MASK_WORD * R * B * mask_words(sd, c))
+                nbytes, 7 * x.numel(),
+                SELECT_INT_OPS * x.numel()
+                + OPS_PER_MASK_WORD * R * B * mask_words(sd, c))
 
     def secure_extras():
         """The secure commit's extra cases, each bit for bit."""
@@ -437,6 +463,103 @@ def kernel_specs(device, k_slots=K_SLOTS, rows=BUCKET_ROWS,
             secure_case("a zero-weight slot that still masks", xb, w_zero,
                         seeds, c_all),
             secure_case("ties and zero rows", ties, w_sec, seeds, coef)]
+    # plain_commit and topk_sparsify: their extra cases draw from a
+    # generator of their own, so every other case keeps its inputs
+    g2 = torch.Generator(device=device).manual_seed(seed + 1)
+
+    def plain_case(label, x, wv, *, bits=8, k=TOPK_K, exact=False):
+        """The plain commit on the stack ``x``, by assert_quantized_close
+        (or torch.equal where ``exact``)."""
+        K, R, B = x.shape
+        sk = torch.zeros(K, device=device)
+        q = 2 ** (bits - 1) - 1 if bits else 1
+        step = (wv.max() * x.abs().max() / q).item()
+        compare = (exact_one("plain_commit") if exact else
+                   lambda g, p: assert_quantized_close(
+                       g, p, step, f"plain_commit ({label})"))
+        return (label,
+                lambda: plain_commit_blocks(x, wv, sk, 0.0, bits=bits, k=k),
+                lambda: ref.fused_plain_commit_ref(
+                    x, wv[:, None], sk[:, None], 0.0, bits, k=k),
+                4 * (x.numel() + 2 * K + R * B), 7 * x.numel(),
+                SELECT_INT_OPS * x.numel(), compare)
+
+    def half_way(R, B):
+        """One slot whose entries' quotients by their row's scale (row max
+        / 127, not a power of two) lie on half-integers or one ulp off: the
+        quantize's reciprocal product must fall back to the division there
+        and agree with it exactly."""
+        m = torch.rand(1, R, 1, generator=g2, device=device) * 0.1 + 0.9
+        scale = m / torch.full_like(m, 127.0)
+        n = torch.randint(-127, 127, (1, R, B), generator=g2, device=device)
+        x = (n.float() + 0.5) * scale
+        nudge = torch.randint(0, 3, x.shape, generator=g2, device=device)
+        x = torch.where(nudge == 1, torch.nextafter(x, x * 2), x)
+        x = torch.where(nudge == 2, torch.nextafter(x, torch.zeros_like(x)),
+                        x)
+        x[..., :1] = m
+        return x
+
+    def plain_extras():
+        x1 = torch.randn(1, rows, block, generator=g2, device=device) * 0.01
+        x64 = torch.randn(64, rows, block, generator=g2,
+                          device=device) * 0.01
+        w64 = torch.rand(64, generator=g2, device=device) * 1.5 + 0.5
+        w_zero = w.clone()
+        w_zero[0] = 0.0
+        ties = torch.round(xb * 200) / 200
+        ties[:, :8] = 0.0
+        one = torch.ones(1, device=device)
+        cases = [
+            plain_case("K=1", x1, one[:1] * 1.25),
+            plain_case("K=64, past the staged slots (32 at block 256)",
+                       x64, w64),
+            plain_case("bits=0 with top-k", xb, w, bits=0),
+            plain_case("k=0 with 8 bits", xb, w, k=0),
+            plain_case("k=0, bits=0: staging and the slot sum alone", xb, w,
+                       bits=0, k=0),
+            plain_case("4 bits", xb, w, bits=4),
+            plain_case("a zero-weight slot", xb, w_zero),
+            plain_case("ties and zero rows", ties, w),
+            plain_case("half-way quotients, K=1", half_way(rows, block), one,
+                       k=0, exact=True)]
+        for b in (128, 1024):
+            xr = torch.randn(k_slots, -(-rows * block // b), b, generator=g2,
+                             device=device) * 0.01
+            cases.append(plain_case(f"block {b}", xr, w,
+                                    k=math.ceil(0.1 * b)))
+        return cases
+
+    def topk_case(label, x, k):
+        return (label, lambda: topk_sparsify_blocks(x, k),
+                lambda: ref.topk_blocks(x, k), 4 * 2 * x.numel(), 0,
+                3 * x.numel())
+
+    def padded_leaf(R, live):
+        x = torch.zeros(R, block, device=device)
+        x[:, :live] = torch.randn(R, live, generator=g2,
+                                  device=device) * 0.01
+        return x
+
+    def topk_extras():
+        ties = torch.round(leaf * 200) / 200
+        ties[::7] = 0.0                                   # all-zero rows
+        cases = [topk_case("k=1", leaf, 1),
+                 topk_case(f"k={block}", leaf, block),
+                 topk_case("ties across the k-th value, all-zero rows",
+                           ties, TOPK_K),
+                 topk_case("subnormals", leaf * 1e-36, TOPK_K),
+                 topk_case("one exponent", torch.sign(leaf)
+                           * (1.0 + leaf.abs() * 30), TOPK_K)]
+        for b in (128, 512, 1024):
+            cases.append(topk_case(f"block {b}", leaf.reshape(-1, b),
+                                   math.ceil(0.1 * b)))
+        for name, R, live in SMALL_LEAVES:
+            R = max(1, leaf_rows * R // LEAF_ROWS)
+            cases.append(topk_case(f"{name} [{R}, {block}], {live} live "
+                                   "lanes", padded_leaf(R, live), TOPK_K))
+        return cases
+
     # FedProx update: 20 clients' copies of dense1_w against the global one
     wc = torch.randn(k_slots, leaf_params, generator=gen, device=device)
     gc = torch.randn(k_slots, leaf_params, generator=gen, device=device)
@@ -455,9 +578,7 @@ def kernel_specs(device, k_slots=K_SLOTS, rows=BUCKET_ROWS,
     va, vb = wa[:, L:], wb[:, L:]
     scan_bytes = lambda b: 4 * (3 * b * L * D * N + 2 * b * D * N)
     main_secure = secure_case("main", xb, w_sec, seeds, coef)
-    exact = lambda name: (lambda g, p: check(
-        all(torch.equal(x, y) for x, y in zip(parts(g), parts(p))),
-        f"{name}: differs from its plain version"))
+
     return {
         "fused_accum": dict(
             replaces="src/repro/kernels/fused_accum.py:33",
@@ -479,13 +600,13 @@ def kernel_specs(device, k_slots=K_SLOTS, rows=BUCKET_ROWS,
             plain=lambda: ref.fused_plain_commit_ref(
                 xb, w[:, None], s[:, None], 0.0, 8, k=TOPK_K),
             library=None,
+            extra=plain_extras(),
             compare=lambda g, p: assert_quantized_close(
                 g, p, step_commit, "plain_commit"),
             bytes=4 * (n_stack + 2 * k_slots + n_out),
-            # per element: 32 select passes (compare + count), |x| and the
-            # keep test; max, divide, round, two clamps, multiply; and the
-            # weighted add
-            ops=(66 + 7 + 2) * n_stack),
+            # per element: divide, round, two clamps, multiply and the
+            # weighted multiply-add in f32; the select's integer work
+            ops=7 * n_stack, int_ops=SELECT_INT_OPS * n_stack),
         "quantize": dict(
             replaces="src/repro/kernels/quantize.py:32",
             kernel=lambda: quantize_dequant_blocks(leaf, 8),
@@ -500,11 +621,14 @@ def kernel_specs(device, k_slots=K_SLOTS, rows=BUCKET_ROWS,
             kernel=lambda: topk_sparsify_blocks(leaf, TOPK_K),
             plain=lambda: ref.topk_blocks(leaf, TOPK_K),
             library=None,
+            extra=topk_extras(),
             compare=lambda g, p: check(
                 torch.equal(g, p), "topk_sparsify: threshold differs from "
                                    "the sort threshold"),
             bytes=4 * 2 * n_leaf,
-            ops=66 * n_leaf),
+            # per element: |x|, its share of the selection (one comparison)
+            # and the keep test, in integers
+            ops=0, int_ops=3 * n_leaf),
         "secure_commit": dict(
             replaces="src/repro/kernels/fused_quant_mask.py:179",
             kernel=main_secure[1],
@@ -549,6 +673,7 @@ def check_fold(device="cuda", k_slots=K_SLOTS, seed=0):
     card against ``ref.fold_mask_words``: the same words (as multisets) and
     the same mask total over the first rows, bit for bit; the main path's
     coefficients fold to no word, the upper triangle to K(K-1)/2."""
+    exact = exact_one
     gen = torch.Generator(device=device).manual_seed(seed)
     seeds, coef, _ = secure_pairs(k_slots, seed, device)
     upper = torch.triu(torch.ones_like(coef), 1)
@@ -587,11 +712,11 @@ def check_kernels(device="cuda", **shapes):
     check_fold(device, shapes.get("k_slots", K_SLOTS))
     rows = {}
     for kname, spec in kernel_specs(device, **shapes).items():
-        for label, kernel, plain, nbytes, ops, int_ops in spec.get("extra",
-                                                                    []):
+        for label, kernel, plain, nbytes, ops, int_ops, *compare in spec.get(
+                "extra", []):
             g, p = kernel(), plain()
             sync(device)
-            spec["compare"](g, p)
+            (compare[0] if compare else spec["compare"])(g, p)
             del g, p
             extra_ms, extra_by = bound(nbytes, ops, int_ops, rate)
             print(f"kernel {kname} ({label}): equal to its plain version "

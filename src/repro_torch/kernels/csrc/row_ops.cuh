@@ -1,8 +1,8 @@
 // Row helpers shared by the hand-written Hopper (sm_90a) kernels: one warp
 // owns one block-row of 128*NV4 floats, each lane NV4 float4 chunks (chunk
 // i*32+lane, so every warp-wide load is 512 contiguous bytes), and per-row
-// reductions are warp reductions (__reduce_*_sync); only digit_select's
-// histogram lives in shared memory.
+// reductions are warp reductions (__reduce_*_sync); digit_select ranks its
+// last candidates in 32 words of shared memory.
 // Included by exactly one translation unit per library; everything here
 // has internal linkage.
 #pragma once
@@ -46,149 +46,285 @@ __device__ __forceinline__ void store_row(float* __restrict__ row,
   }
 }
 
-// The k-th largest |x| of the warp's row (1 <= k <= row length), as the
-// uint32 bit pattern of |x| (monotone for non-negative floats): the largest
-// pattern t with count(|x| >= t) >= k, built one bit at a time from the
-// top.  ``u`` holds each lane's |x| bit patterns.
-template <int N>
-__device__ __forceinline__ unsigned topk_threshold(const unsigned (&u)[N],
-                                                   int k) {
-  unsigned t = 0;
-  for (int b = 31; b >= 0; --b) {
-    const unsigned cand = t | (1u << b);
-    unsigned c = 0;
-#pragma unroll
-    for (int j = 0; j < N; ++j) c += (u[j] >= cand) ? 1u : 0u;
-    c = __reduce_add_sync(kFull, c);
-    if (c >= static_cast<unsigned>(k)) t = cand;
-  }
-  return t;
-}
-
 __device__ __forceinline__ unsigned abs_bits(float v) {
   return __float_as_uint(v) & 0x7fffffffu;
 }
 
-// Zero every entry of the warp's row whose |x| is below the k-th largest
-// |x| of the row, ties kept.
-template <int N>
-__device__ __forceinline__ void topk_row(float (&x)[N], int k) {
-  unsigned u[N];
+// Copy a block-row (128*NV4 floats) from global to shared memory without
+// passing through registers (cp.async, cached in L2 only): lane copies the
+// float4 chunks i*32+lane, the ones it reads back itself.
+template <int NV4>
+__device__ __forceinline__ void stage_row(float* dst,
+                                          const float* __restrict__ src,
+                                          int lane) {
 #pragma unroll
-  for (int j = 0; j < N; ++j) u[j] = abs_bits(x[j]);
-  const unsigned t = topk_threshold<N>(u, k);
-#pragma unroll
-  for (int j = 0; j < N; ++j) {
-    if (u[j] < t) x[j] = 0.0f;
+  for (int i = 0; i < NV4; ++i) {
+    const unsigned d = static_cast<unsigned>(
+        __cvta_generic_to_shared(dst + 4 * (i * 32 + lane)));
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+                 "l"(src + 4 * (i * 32 + lane)));
   }
 }
 
-// The least candidate (an entry whose bits above ``shift`` equal
-// ``prefix``) of the warp's row.
+template <int NV4>
+__device__ __forceinline__ void shared_row(const float* src,
+                                           float (&x)[4 * NV4], int lane) {
+#pragma unroll
+  for (int i = 0; i < NV4; ++i) {
+    const float4 t = reinterpret_cast<const float4*>(src)[i * 32 + lane];
+    x[4 * i] = t.x;
+    x[4 * i + 1] = t.y;
+    x[4 * i + 2] = t.z;
+    x[4 * i + 3] = t.w;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The exact k-th largest |x| of a warp's row: digit_select.
+//
+// |x| is taken as the uint32 bit pattern of |x|, which is monotone for
+// non-negative floats, so the k-th largest pattern is the sort threshold bit
+// for bit (ties kept; 0 when fewer than k entries are nonzero).  The
+// candidates are the entries whose higher bits equal those chosen so far,
+// and ``rank`` is the rank still sought among them.  The select is bound by
+// the integer pipe (half the FP32 rate) and its warp reductions, so each
+// step is chosen for few integer instructions:
+//   1. The top 8-bit digit (the sign bit, 0, and seven exponent bits): float
+//      magnitudes crowd into a few exponents, so the walk goes down the top
+//      digits present, each step a count and, where the rank lies lower,
+//      the next digit present (typically one step).  A row whose rank lies
+//      below its first digit is checked for fewer than k nonzero entries (a
+//      padded block): its threshold is 0.
+//   2. While more than 32 candidates are left, one bit at a time halves
+//      them (a count and a warp reduction per bit); a bit that splits none
+//      off sends the select to the highest bit at which the candidates
+//      differ (their minimum and maximum), or ends it where they are all
+//      equal (ties).  When exactly ``rank`` are left, the answer is the
+//      least of them.
+//   3. The last <= 32 candidates are compacted into 32 words of shared
+//      memory and each lane counts the candidates greater than its own; the
+//      answer is the least candidate with fewer than ``rank`` greater.
+// Where the row holds normal finite floats, the walk's first count, the
+// bit passes' counts and step 3's comparisons are saturated fused
+// multiply-adds on the FP32 pipe, exact for patterns within one top digit.
+// ``s`` is 32 words of shared memory private to the warp, 16-byte aligned.
+// Every lane must call with the same k, 1 <= k <= row length.
+// ---------------------------------------------------------------------------
+
+// The largest |x| pattern of the warp's row.
 template <int N>
-__device__ __forceinline__ unsigned least_candidate(const float (&x)[N],
+__device__ __forceinline__ unsigned row_max(const unsigned (&u)[N]) {
+  unsigned m = 0;
+#pragma unroll
+  for (int j = 0; j < N; ++j) m = max(m, u[j]);
+  return __reduce_max_sync(kFull, m);
+}
+
+// This lane's entries whose bits above ``shift`` equal prefix.
+template <int N>
+__device__ __forceinline__ unsigned count_candidates(const unsigned (&u)[N],
+                                                     unsigned prefix,
+                                                     int shift) {
+  const unsigned mask = kFull << shift;
+  unsigned c = 0;
+#pragma unroll
+  for (int j = 0; j < N; ++j) c += (u[j] & mask) == prefix ? 1u : 0u;
+  return c;
+}
+
+template <int N>
+__device__ __forceinline__ unsigned least_candidate(const unsigned (&u)[N],
                                                    unsigned prefix,
                                                    int shift) {
   const unsigned mask = kFull << shift;
   unsigned least = kFull;
 #pragma unroll
   for (int j = 0; j < N; ++j) {
-    const unsigned u = abs_bits(x[j]);
-    if ((u & mask) == prefix) least = min(least, u);
+    if ((u[j] & mask) == prefix) least = min(least, u[j]);
   }
   return __reduce_min_sync(kFull, least);
 }
 
-// The k-th largest |x| of the warp's row (1 <= k <= row length), as the
-// uint32 bit pattern of |x|, exactly: the same value as topk_threshold, in
-// four 8-bit digit passes from the top instead of 32 one-bit passes.  The
-// candidates are the entries whose higher digits equal those chosen so
-// far; each pass picks the digit that holds the rank still sought among
-// them, and when that digit's candidates number exactly that rank, the
-// answer is the least of them and the passes stop.
-//   * The top digit: float magnitudes crowd into a few exponents, where a
-//     histogram's atomics would collide, so the pass walks down the top
-//     digits present with warp reductions (typically one or two digits).
-//   * The other three: a 256-bin histogram in ``hist`` (256 words of shared
-//     memory, 16-byte aligned, private to the warp), then a warp scan over
-//     the bins from the highest.
-// Every lane of the warp must call this with the same k.
+// 2^(24-e) for the top digit whose binades are [2^e, 2^(e+2)),
+// e = 2 digit - 127; a normal float for 12 <= digit <= 126.
+__device__ __forceinline__ float digit_scale(unsigned digit) {
+  return __uint_as_float((278u - 2u * digit) << 23);
+}
+
+// This lane's entries whose pattern is >= m, for m in the binades of the
+// top digit that ``scale`` (digit_scale) belongs to and no entry NaN or
+// infinite, counted on the FP32 pipe: the entries in those binades are
+// multiples of 2^(e-23) and pred(m) is one of them or 2^e - 2^(e-24), so
+// (x - pred(m)) 2^(24-e), formed by one fused multiply-add, is >= 1 where
+// x >= m (at least 4 above the binades) and <= 0 elsewhere, and saturates
+// to exactly 1 or 0.
 template <int N>
-__device__ __forceinline__ unsigned digit_select(const float (&x)[N], int k,
-                                                 unsigned* hist) {
+__device__ __forceinline__ unsigned count_at_least(const unsigned (&u)[N],
+                                                   unsigned m, float scale) {
+  const float base = -__fmul_rn(__uint_as_float(m - 1), scale);
+  float g0 = 0.0f, g1 = 0.0f;
+#pragma unroll
+  for (int j = 0; j < N; j += 2) {
+    g0 += __saturatef(__fmaf_rn(__uint_as_float(u[j]), scale, base));
+    g1 += __saturatef(__fmaf_rn(__uint_as_float(u[j + 1]), scale, base));
+  }
+  return static_cast<unsigned>(g0 + g1);
+}
+
+// Step 3: the rank-th largest of the n <= 32 candidates (bits above shift
+// equal prefix), c of them in this lane.
+template <int N>
+__device__ __forceinline__ unsigned rank_candidates(const unsigned (&u)[N],
+                                                   unsigned prefix, int shift,
+                                                   unsigned c, unsigned n,
+                                                   unsigned rank,
+                                                   unsigned* s) {
   const int lane = threadIdx.x & 31;
-  unsigned rank = static_cast<unsigned>(k);  // sought among the candidates
-  unsigned top = 0;
+  const unsigned mask = kFull << shift;
+  unsigned pos = c;                          // inclusive scan of c
 #pragma unroll
-  for (int j = 0; j < N; ++j) top = max(top, abs_bits(x[j]) >> 24);
-  unsigned digit = __reduce_max_sync(kFull, top), in_bin;
-  while (true) {
-    unsigned c = 0, below = 0;             // below: the next digit down, + 1
+  for (int o = 1; o < 32; o <<= 1) {
+    const unsigned v = __shfl_up_sync(kFull, pos, o);
+    if (lane >= o) pos += v;
+  }
+  pos -= c;
+  s[lane] = kFull;                           // filler, below every candidate
+  __syncwarp();
 #pragma unroll
-    for (int j = 0; j < N; ++j) {
-      const unsigned d = abs_bits(x[j]) >> 24;
-      c += d == digit ? 1u : 0u;
-      if (d < digit) below = max(below, d + 1);
+  for (int j = 0; j < N; ++j) {
+    const bool mine = (u[j] & mask) == prefix;
+    if (mine) s[pos] = u[j];
+    pos += mine ? 1u : 0u;
+  }
+  __syncwarp();
+  // t is the least candidate v with fewer than ``rank`` candidates > v
+  const unsigned v = s[lane];
+  const unsigned top = prefix >> 24;
+  unsigned gt;
+  if (top >= 12 && top <= 126) {
+    // Candidates share a top digit, so they lie in [2^e, 2^(e+2)) with
+    // e = 2 top - 127, as multiples of 2^(e-23): (a - v) 2^(23-e) is an
+    // integer, formed exactly by one fused multiply-add, and saturates to
+    // 1 for a > v, else 0 (the NaN filler to 0 too).
+    const float scale = __uint_as_float((277u - 2u * top) << 23);
+    const float base = -__fmul_rn(__uint_as_float(v), scale);
+    const float4* s4 = reinterpret_cast<const float4*>(s);
+    float g[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+    for (int m = 0; m < 8; ++m) {
+      const float4 q = s4[m];
+      g[0] += __saturatef(__fmaf_rn(q.x, scale, base));
+      g[1] += __saturatef(__fmaf_rn(q.y, scale, base));
+      g[2] += __saturatef(__fmaf_rn(q.z, scale, base));
+      g[3] += __saturatef(__fmaf_rn(q.w, scale, base));
+    }
+    gt = static_cast<unsigned>((g[0] + g[1]) + (g[2] + g[3]));
+  } else {
+    // as int, candidates (< 2^31) are >= 0 and the filler is -1
+    const int iv = static_cast<int>(v);
+    const int4* s4 = reinterpret_cast<const int4*>(s);
+    unsigned g[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+    for (int m = 0; m < 8; ++m) {
+      const int4 q = s4[m];
+      g[0] += q.x > iv ? 1u : 0u;
+      g[1] += q.y > iv ? 1u : 0u;
+      g[2] += q.z > iv ? 1u : 0u;
+      g[3] += q.w > iv ? 1u : 0u;
+    }
+    gt = g[0] + g[1] + g[2] + g[3];
+  }
+  const bool win = static_cast<unsigned>(lane) < n && gt < rank;
+  return __reduce_min_sync(kFull, win ? v : kFull);
+}
+
+// The k-th largest |x| pattern of the warp's row: u holds this lane's N
+// patterns, top the row_max.
+template <int N>
+__device__ __forceinline__ unsigned digit_select(const unsigned (&u)[N],
+                                                 unsigned top, int k,
+                                                 unsigned* s) {
+  if (top == 0) return 0u;               // an all-zero row
+  unsigned rank = static_cast<unsigned>(k), digit = top >> 24, in_bin, c;
+  unsigned above = 0;                    // this lane's entries above them
+  for (bool first = true;; first = false) {
+    // c: this lane's entries in ``digit`` (on the first step, all entries
+    // at or above its lowest pattern)
+    if (first && digit >= 12 && digit <= 126) {
+      c = count_at_least<N>(u, digit << 24, digit_scale(digit));
+    } else {
+      unsigned c0 = 0, c1 = 0;
+#pragma unroll
+      for (int j = 0; j < N; j += 2) {
+        c0 += u[j] >> 24 == digit ? 1u : 0u;
+        c1 += u[j + 1] >> 24 == digit ? 1u : 0u;
+      }
+      c = c0 + c1;
     }
     in_bin = __reduce_add_sync(kFull, c);
     if (in_bin >= rank) break;
+    if (first && __reduce_add_sync(kFull, N - count_candidates<N>(u, 0u, 0)) <
+                     static_cast<unsigned>(k)) {
+      return 0u;                         // fewer than k nonzero entries
+    }
+    // the next digit present below: digit - 1 - min(digit - 1 - d) over
+    // the entries, in uint32 (entries at or above digit wrap high)
+    const unsigned dm1 = digit - 1;
+    unsigned g0 = kFull, g1 = kFull;
+#pragma unroll
+    for (int j = 0; j < N; j += 2) {
+      g0 = min(g0, dm1 - (u[j] >> 24));
+      g1 = min(g1, dm1 - (u[j + 1] >> 24));
+    }
     rank -= in_bin;
-    digit = __reduce_max_sync(kFull, below) - 1;
+    above += c;
+    digit = dm1 - __reduce_min_sync(kFull, min(g0, g1));
   }
-  unsigned prefix = digit << 24;            // the digits chosen so far
-  if (in_bin == rank) return least_candidate<N>(x, prefix, 24);
-  uint4* h4 = reinterpret_cast<uint4*>(hist);
-  for (int shift = 16; shift >= 0; shift -= 8) {
-    const unsigned above = kFull << (shift + 8);
-    h4[lane] = make_uint4(0u, 0u, 0u, 0u);
-    h4[lane + 32] = make_uint4(0u, 0u, 0u, 0u);
-    __syncwarp();
+  // one bit at a time below the top digit while more than 32 candidates
+  // are left: those with the bit set, and this lane's share of them
+  unsigned prefix = digit << 24;
+  int shift = 24;
+  // no NaN or infinity in the row (its largest pattern is below digit 127)
+  const bool fp = digit >= 12 && top >> 24 <= 126;
+  const float scale = digit_scale(digit);
+  while (in_bin > 32 && in_bin != rank && shift > 0) {
+    const unsigned mid = prefix | (1u << --shift);
+    const unsigned hi = fp ? count_at_least<N>(u, mid, scale) - above
+                           : count_candidates<N>(u, mid, shift);
+    const unsigned upper = __reduce_add_sync(kFull, hi);
+    if (upper == 0 || upper == in_bin) {
+      // the bit does not split them (ties, sparse mantissas): go to the
+      // highest bit at which the candidates differ, if any
+      const unsigned fixed = kFull << (shift + 1);
+      unsigned lo = kFull, hi_u = 0;
 #pragma unroll
-    for (int j = 0; j < N; ++j) {
-      const unsigned u = abs_bits(x[j]);
-      if ((u & above) == prefix) atomicAdd(hist + ((u >> shift) & 0xffu), 1u);
-    }
-    __syncwarp();
-    // lane l owns bins 255 - 8l down to 248 - 8l; c[0] is the highest
-    const uint4 lo = h4[62 - 2 * lane], hi = h4[63 - 2 * lane];
-    const unsigned c[8] = {hi.w, hi.z, hi.y, hi.x, lo.w, lo.z, lo.y, lo.x};
-    unsigned sum = 0;
-#pragma unroll
-    for (int i = 0; i < 8; ++i) sum += c[i];
-    unsigned incl = sum;                 // candidates in the bins >= mine
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const unsigned t = __shfl_up_sync(kFull, incl, o);
-      if (lane >= o) incl += t;
-    }
-    const unsigned excl = incl - sum;
-    const int owner =
-        __ffs(__ballot_sync(kFull, excl < rank && rank <= incl)) - 1;
-    unsigned higher = 0, run = excl;
-    bool found = false;
-    digit = 0;
-    in_bin = 0;
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      if (!found && run + c[i] >= rank) {
-        found = true;
-        digit = 255u - 8u * lane - i;
-        higher = run;
-        in_bin = c[i];
+      for (int j = 0; j < N; ++j) {
+        if ((u[j] & fixed) == prefix) {
+          lo = min(lo, u[j]);
+          hi_u = max(hi_u, u[j]);
+        }
       }
-      run += c[i];
+      lo = __reduce_min_sync(kFull, lo);
+      hi_u = __reduce_max_sync(kFull, hi_u);
+      if (lo == hi_u) return lo;           // all candidates are equal
+      shift = 32 - __clz(lo ^ hi_u);       // the next pass splits there
+      prefix = hi_u & (kFull << shift);
+      continue;
     }
-    digit = __shfl_sync(kFull, digit, owner);
-    higher = __shfl_sync(kFull, higher, owner);
-    in_bin = __shfl_sync(kFull, in_bin, owner);
-    prefix |= digit << shift;
-    rank -= higher;
-    __syncwarp();                        // the bins are read before reuse
-    if (in_bin == rank && shift > 0) {
-      return least_candidate<N>(x, prefix, shift);
+    if (upper >= rank) {
+      prefix = mid;
+      in_bin = upper;
+      c = hi;
+    } else {
+      rank -= upper;
+      in_bin -= upper;
+      c -= hi;
+      above += hi;
     }
   }
-  return prefix;
+  if (in_bin == rank) return least_candidate<N>(u, prefix, shift);
+  if (in_bin > 32) return prefix;       // all bits fixed: the candidates tie
+  return rank_candidates<N>(u, prefix, shift, c, in_bin, rank, s);
 }
 
 // Symmetric per-row quantize -> dequantize with qmax = 2^(bits-1) - 1.

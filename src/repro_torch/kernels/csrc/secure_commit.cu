@@ -51,10 +51,10 @@
 //     takes its slots' max while it runs their selects; the block reduces
 //     the warps' maxima in shared memory at one barrier.
 //   * The exact k-th largest |x| per slot: digit_select (row_ops.cuh),
-//     four 8-bit digit passes, the top one by warp reductions over the few
-//     exponents present and the others over a warp-private histogram in
-//     shared memory, stopping early when a bin holds exactly the rank
-//     sought (typically after the second pass).
+//     the top 8-bit digit by warp reductions over the few exponents
+//     present, then at most 32 candidates ranked against each other in
+//     shared memory (8-bit histogram passes first where more share the top
+//     digit).
 //   * Each warp then quantizes its own slots onto the common grid (the
 //     noise row, with stochastic rounding, read once beside its slot) and
 //     adds its share of the folded mask words (word p goes to warp p mod
@@ -122,35 +122,6 @@ secure_fold_kernel(const long long* __restrict__ seeds,
   if (threadIdx.x == 0) words[0] = n;
 }
 
-// Copy a block-row (128*NV4 floats) from global to shared memory without
-// passing through registers (cp.async, cached in L2 only): lane copies the
-// float4 chunks i*32+lane, the ones it reads back itself.
-template <int NV4>
-__device__ __forceinline__ void stage_row(float* dst,
-                                          const float* __restrict__ src,
-                                          int lane) {
-#pragma unroll
-  for (int i = 0; i < NV4; ++i) {
-    const unsigned d = static_cast<unsigned>(
-        __cvta_generic_to_shared(dst + 4 * (i * 32 + lane)));
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
-                 "l"(src + 4 * (i * 32 + lane)));
-  }
-}
-
-template <int NV4>
-__device__ __forceinline__ void shared_row(const float* src,
-                                           float (&x)[4 * NV4], int lane) {
-#pragma unroll
-  for (int i = 0; i < NV4; ++i) {
-    const float4 t = reinterpret_cast<const float4*>(src)[i * 32 + lane];
-    x[4 * i] = t.x;
-    x[4 * i + 1] = t.y;
-    x[4 * i + 2] = t.z;
-    x[4 * i + 3] = t.w;
-  }
-}
-
 // Quantize one slot's row onto the common grid and add it to acc.
 template <int N>
 __device__ __forceinline__ void quantize_add(const float (&v)[N],
@@ -190,7 +161,7 @@ secure_commit_kernel(const float* __restrict__ x, const float* __restrict__ w,
   constexpr int N = 4 * NV4;                 // floats a lane holds of a row
   constexpr int B = 128 * NV4;
   extern __shared__ __align__(16) float stage[];
-  __shared__ __align__(16) unsigned hist[kSecureWarps][256];
+  __shared__ __align__(16) unsigned scratch[kSecureWarps][32];
   __shared__ unsigned thresh[kMaxSecureSlots];
   __shared__ float wmax[kSecureWarps];
   const int lane = threadIdx.x & 31;
@@ -219,8 +190,15 @@ secure_commit_kernel(const float* __restrict__ x, const float* __restrict__ w,
     const float c = __ldg(w + slot);
 #pragma unroll
     for (int j = 0; j < N; ++j) m = fmaxf(m, fabsf(__fmul_rn(v[j], c)));
-    const unsigned t = k ? digit_select<N>(v, k, hist[warp]) : 0u;
-    if (lane == 0) thresh[slot] = t;
+    if (k) {
+      unsigned u[N];
+#pragma unroll
+      for (int j = 0; j < N; ++j) u[j] = abs_bits(v[j]);
+      const unsigned t = digit_select<N>(u, row_max<N>(u), k, scratch[warp]);
+      if (lane == 0) thresh[slot] = t;
+    } else if (lane == 0) {
+      thresh[slot] = 0u;
+    }
   }
   m = warp_max_nonneg(m);
   if (lane == 0) wmax[warp] = m;

@@ -5,7 +5,9 @@
   per-block symmetric quantize, then the staleness-discounted weighted sum
   over slots.  Replaces the Pallas kernel ``plain_commit_blocks`` (body
   ``_plain_kernel``); the CUDA kernel is ``plain_commit`` in
-  ``csrc/commit_kernels.cu``.
+  ``csrc/commit_kernels.cu``: one thread block per block-row stages its
+  slot rows in shared memory once, selects and quantizes each in place,
+  and sums them in slot order.
 * ``secure_commit_blocks``: per-slot top-k, ONE commit-common per-block
   scale, integer quantize, uint32 modular pairwise masks on the int32 wire
   words, sum, dequantize.  Replaces the Pallas kernel
@@ -27,7 +29,8 @@ from repro_torch.kernels import launches, ref
 
 NAME = "plain_commit"
 SECURE = "secure_commit"
-MAX_SECURE_SLOTS = 1024          # the CUDA kernel's limit on K
+MAX_PLAIN_SLOTS = 12288          # the CUDA kernels' limits on K
+MAX_SECURE_SLOTS = 1024
 
 
 def plain_commit_blocks(xb, w, s, alpha: float, *, bits: int, k: int):
@@ -40,6 +43,9 @@ def plain_commit_blocks(xb, w, s, alpha: float, *, bits: int, k: int):
                                           alpha, bits, k=k)
     from repro_torch.kernels import _build
     launches.check_operands(NAME, xb, w, s)
+    if K > MAX_PLAIN_SLOTS:
+        raise ValueError(f"{NAME}: {K} slots, the kernel takes at most "
+                         f"{MAX_PLAIN_SLOTS}")
     out = torch.empty((R, block), dtype=torch.float32, device=xb.device)
     _build.launch("commit_kernels", NAME, xb.data_ptr(), w.data_ptr(),
                   s.data_ptr(), float(alpha), out.data_ptr(), K, R, block, bits,

@@ -4,8 +4,13 @@ is >= the k-th largest |x| of its row (ties kept), zero the rest.
 Replaces the Pallas kernel ``repro/kernels/topk_sparsify.py:
 topk_sparsify_blocks`` (body ``_kernel``).  That kernel bisects on values
 for 32 steps; the CUDA kernel ``topk_rows`` in ``csrc/commit_kernels.cu``
-selects on the bits of |x| instead, which gives the sort threshold of the
-plain version exactly.  Its note gives its bound on the card and its design.
+selects on the bits of |x| instead (``digit_select`` in ``row_ops.cuh``:
+the top exponent digit by warp reductions, one bit at a time while more
+than 32 candidates are left, then the last candidates ranked against each
+other), which gives the sort threshold of the plain version exactly.  One
+warp per row with streaming loads and stores; bound by the bytes it moves,
+one read and one write of the rows, since the selects' instructions
+overlap the other warps' loads.
 """
 from __future__ import annotations
 
