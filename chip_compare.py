@@ -20,10 +20,13 @@ times with its output digest in each run, and one JSON line of all four
 runs' rows.
 
 ``--profile``: this tree's launcher configurations ``default`` and
-``secure_q8_topk_deterministic`` (``chip_smoke.CONFIGS``), each built as
-``chip_smoke.py`` phase 4 builds it, run one round to warm up and then one
-round under ``torch.profiler``: the round's wall time, its device time,
-each kernel's device time and its share of the round's device time.
+``secure_q8_topk_deterministic`` (``chip_smoke.CONFIGS``) and the char-LM's
+``lm_default`` (``chip_smoke.LM_CONFIGS``, ``--dataset shakespeare``), each
+built as ``chip_smoke.py`` phase 4 builds it, run one round to warm up, one
+round timed on the host clock, and then one round under
+``torch.profiler``: the rounds' wall times, the profiled round's device
+time, each kernel's device time and its share of the round's device
+time.
 
 ``--host``: the host's time per call (the median of three runs of 1000
 calls) of each piece of a kernel wrapper's path into CUDA (its checks, the
@@ -103,7 +106,8 @@ def run_phases(tree: Path, label: str) -> dict:
                          f"{proc.stdout[-3000:]}{proc.stderr[-3000:]}")
     for line in proc.stdout.splitlines():
         if line.startswith("build:") or "ptxas" in line or (
-                line.startswith("kernel ") and "(" in line.split(":")[0]):
+                line.startswith("kernel ") and ("(" in line.split(":")[0]
+                                                or "slot limit" in line)):
             print(f"  [{label}] {line}")
     found = {}
     for line in proc.stdout.splitlines():
@@ -154,24 +158,32 @@ def profile_rounds() -> None:
     from repro_torch.launch import train
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    for cname in ("default", "secure_q8_topk_deterministic"):
-        flags, expect = cs.CONFIGS[cname]
-        args = train.build_parser().parse_args(cs.MAIN_ARGS + flags)
+    runs = [(c, cs.CONFIGS[c], cs.MAIN_ARGS)
+            for c in ("default", "secure_q8_topk_deterministic")]
+    runs.append(("lm_default", cs.LM_CONFIGS["lm_default"], cs.LM_ARGS))
+    for cname, (flags, expect), base in runs:
+        args = train.build_parser().parse_args(base + flags)
         orch, params = train.build_run(args)
         state = orch.init_server_state(params)
         params, state, _ = orch.run_round(0, params, state)      # warm-up
         torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, _ = orch.run_round(1, params, state)
+        torch.cuda.synchronize()
+        unprofiled = time.perf_counter() - t0
         launches.reset()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            params, state, _ = orch.run_round(1, params, state)
+            params, state, _ = orch.run_round(2, params, state)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         kernels = [e for e in prof.key_averages()
                    if str(e.device_type).endswith("CUDA")]
         total = sum(e.self_device_time_total for e in kernels)
-        print(f"profile {cname}: one round, wall {wall * 1e3:.3f} ms, "
+        print(f"profile {cname}: a warm round unprofiled "
+              f"{unprofiled * 1e3:.3f} ms; one profiled round, wall "
+              f"{wall * 1e3:.3f} ms, "
               f"device time {total / 1e3:.3f} ms in {len(kernels)} kernels "
               f"(busy share {total / 1e6 / wall:.3f}); launches "
               f"{dict(launches.KERNEL_LAUNCHES)} (a round of {expect})")
@@ -180,7 +192,8 @@ def profile_rounds() -> None:
         for e in sorted(kernels, key=lambda e: e.self_device_time_total,
                         reverse=True):
             mine = any(n in e.key for n in ("fused_accum", "secure_commit",
-                                            "secure_fold"))
+                                            "secure_fold", "plain_commit",
+                                            "topk_rows"))
             if mine or e.self_device_time_total >= 0.01 * total:
                 print(f"  {e.self_device_time_total / 1e3:9.4f} ms "
                       f"{e.self_device_time_total / total:7.2%} "

@@ -28,7 +28,12 @@ it happened; any failure ends the run with a non-zero exit code:
      commit's mask-word fold against its plain version; and time kernel,
      plain version and library call with CUDA events, each per call (median
      of 30 after 3 warm-up launches) and the kernel and library call also
-     over 30 back-to-back launches;
+     over 30 back-to-back launches; then the commit kernels past their old
+     slot limits, bit for bit against their plain versions and timed over
+     a few calls: fused_accum and plain_commit at K=12289 (past the 12288
+     slot weights staged in shared memory) over 8 block-rows, secure_commit
+     at K=1025 (past the 1024 thresholds kept in shared memory) and K=4096
+     under the upper-triangle coefficients;
   3. hold rounds on the card against the CPU from the same params, batches
      and compression draws, to 1e-4: for each launcher configuration, the
      secure float-mask round and the fused FedProx update, the clients'
@@ -36,13 +41,20 @@ it happened; any failure ends the run with a non-zero exit code:
      plain versions in place), and the whole round where the commit has no
      compression; and whole sequential and pod_sequential rounds (TF32 is
      off for convolutions and matmuls, so the card computes in full float32
-     as the CPU does);
+     as the CPU does); then paper-charlm at full width (8 clients, 2 local
+     steps, batch 16 of 64 tokens): its deltas, its uncompressed, q8 +
+     top-k and secure q8 + top-k commits from the same deltas, and its
+     uncompressed round;
   4. drive the main path, ``repro_torch.launch.train.main`` on cuda at the
      full CIFAR CNN width (60-client pool, 20 clients per round, 5 local
      steps, batch 16, 3 rounds, client lr 0.01), once for each launcher
      configuration that reaches a commit kernel, and one Orchestrator run
      built as the launcher builds it with the fused FedProx update, with
      the launch counts set to 0 just before each run and read just after;
+     the same with ``--dataset shakespeare`` at full paper-charlm width;
+     a checkpointed CIFAR run cut after 2 rounds and resumed to 3 on the
+     card and, from the same checkpoint, on the CPU; and ``python -m
+     repro_torch.worker --once`` on the card against the CPU worker;
   5. serve an LM (``lm_serve``): the reduced Jamba on the card against the
      CPU (f32: prefill logits, every decode-state leaf, 4 decode steps, to
      1e-4); then Jamba-1.5-Large at every published width, cut to 8 layers
@@ -56,13 +68,17 @@ The last lines are the kernels' JSON record, the nvidia-smi line, and
 """
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import json
 import math
+import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -72,6 +88,8 @@ sys.path.insert(0, str(ROOT / "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+from repro_torch import worker  # noqa: E402
+from repro_torch.checkpoint import load_pytree, save_pytree  # noqa: E402
 from repro_torch.configs import get_config, reduced  # noqa: E402
 from repro_torch.core import CompressionConfig, build_fl_round_step  # noqa: E402
 from repro_torch.core import secure_agg as sec  # noqa: E402
@@ -90,6 +108,7 @@ from repro_torch.models import build_model, param_count  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models.cnn import CIFAR_CNN, CNN  # noqa: E402
 from repro_torch.optim import get_client_optimizer, get_server_optimizer  # noqa: E402
+from repro_torch.pytree import flat_dict  # noqa: E402
 
 CSRC = "src/repro_torch/kernels/csrc/"
 F32_PEAK = 67e12          # H100 SXM f32 outside the tensor cores, FLOP/s
@@ -147,6 +166,8 @@ CONFIGS = {
 # default commit's fused accumulate.
 FUSED_UPDATE_ARGS = ["--algo", "fedprox"]
 FUSED_UPDATE_EXPECT = {"fedprox_update": 120, "fused_accum": 3}
+# The resumed run of check_resume: its one round's default commit.
+RESUME_EXPECT = {"fused_accum": 1}
 # Phase 3 cases beyond the launcher configurations: (launcher flags,
 # FLConfig changes, n_pods, the kernels the card's round must launch).
 PARITY_EXTRA = {
@@ -160,6 +181,52 @@ PARITY_EXTRA = {
     "pod_sequential": ([], {"client_exec": "pod_sequential"}, 2,
                        {"fused_accum"}),
 }
+
+# The char-LM's main path: the launcher with --dataset shakespeare and the
+# CNN runs' pool, clients per round, local steps, batch, rounds and lr, at
+# paper-charlm's full width (4 layers, d_model 256, 4 heads, d_ff 1024,
+# vocab 128 padded to 256, f32: 3,246,336 params in 11 leaves).  Each
+# configuration's launches in 3 rounds: one commit per round, the per-leaf
+# kernels once per leaf (11), the FedProx update once per leaf per local
+# step (11 x 5 x 3).
+LM_ARGS = [a if a != "cifar10" else "shakespeare" for a in MAIN_ARGS]
+LM_PARAMS, LM_LEAVES = 3_246_336, 11
+LM_BUCKET_ROWS = 12681            # its 11 leaves blocked by 256, one bucket
+LM_CONFIGS = {
+    "lm_default": ([], {"fused_accum": 3}),
+    "lm_q8_topk_deterministic": (
+        ["--quantize-bits", "8", "--topk-frac", "0.1",
+         "--no-stochastic-rounding"], {"plain_commit": 3}),
+    "lm_q8_topk_stochastic": (
+        ["--quantize-bits", "8", "--topk-frac", "0.1"],
+        {"topk_sparsify": 3 * LM_LEAVES, "fused_accum": 3}),
+    "lm_secure_q8_topk_deterministic": (
+        ["--secure-agg", "--quantize-bits", "8", "--topk-frac", "0.1",
+         "--no-stochastic-rounding"], {"secure_commit": 3}),
+}
+LM_FUSED_UPDATE_EXPECT = {"fedprox_update": 3 * 5 * LM_LEAVES,
+                          "fused_accum": 3}
+# Phase 3's char-LM commits (launcher flags, the kernel the card's commit
+# must launch).
+LM_PARITY = {
+    "lm_default": ([], "fused_accum"),
+    "lm_q8_topk_deterministic": (LM_CONFIGS["lm_q8_topk_deterministic"][0],
+                                 "plain_commit"),
+    "lm_secure_q8_topk_deterministic": (
+        LM_CONFIGS["lm_secure_q8_topk_deterministic"][0], "secure_commit"),
+}
+# The commit kernels past their old slot limits (phase 2), as (kernel, K,
+# block-rows, the secure commit's coefficients): fused_accum and
+# plain_commit past the 12288 slot weights fused_accum stages in shared
+# memory; secure_commit past its old 1024 slots, under the upper-triangle
+# coefficients (K(K-1)/2 mask words that do not cancel) on one block-row,
+# and under the main path's cancelling ones (no mask word left) over
+# several, so that each block-row's thresholds have their own place.
+SLOT_LIMIT_CASES = (("fused_accum", 12289, 8, None),
+                    ("plain_commit", 12289, 8, None),
+                    ("secure_commit", 1025, 1, "triu"),
+                    ("secure_commit", 1025, 8, "cancel"),
+                    ("secure_commit", 4096, 1, "triu"))
 
 
 # The LM serving phase.  Jamba-1.5-Large (arXiv:2403.19887) keeps every
@@ -560,6 +627,13 @@ def kernel_specs(device, k_slots=K_SLOTS, rows=BUCKET_ROWS,
                                    "lanes", padded_leaf(R, live), TOPK_K))
         return cases
 
+    # the char-LM's commit bucket, from a generator of its own
+    g3 = torch.Generator(device=device).manual_seed(seed + 2)
+    lm_rows = max(1, LM_BUCKET_ROWS * rows // BUCKET_ROWS)
+    xlm = torch.randn(k_slots, lm_rows, block, generator=g3,
+                      device=device) * 0.01
+    lm_label = f"the char-LM's bucket [{k_slots}, {lm_rows}, {block}]"
+
     # FedProx update: 20 clients' copies of dense1_w against the global one
     wc = torch.randn(k_slots, leaf_params, generator=gen, device=device)
     gc = torch.randn(k_slots, leaf_params, generator=gen, device=device)
@@ -587,7 +661,12 @@ def kernel_specs(device, k_slots=K_SLOTS, rows=BUCKET_ROWS,
             library=lambda: torch.einsum("k,krb->rb", w_eff, xb),
             extra=[accum_case(K, rows, block) for K in (1, 3, 64)]
             + [accum_case(k_slots, -(-rows * block // b), b)
-               for b in (128, 1024)],
+               for b in (128, 1024)]
+            + [(lm_label, lambda: fused_accum_blocks(xlm, w, s, 0.0),
+                lambda: ref.fused_accum_ref(xlm, w[:, None], s[:, None],
+                                            0.0),
+                4 * (xlm.numel() + 2 * k_slots + lm_rows * block),
+                2 * xlm.numel(), 0)],
             compare=lambda g, p: check(
                 torch.allclose(g, p, rtol=1e-5, atol=1e-6),
                 "fused_accum: differs from its plain version"),
@@ -600,7 +679,7 @@ def kernel_specs(device, k_slots=K_SLOTS, rows=BUCKET_ROWS,
             plain=lambda: ref.fused_plain_commit_ref(
                 xb, w[:, None], s[:, None], 0.0, 8, k=TOPK_K),
             library=None,
-            extra=plain_extras(),
+            extra=plain_extras() + [plain_case(lm_label, xlm, w)],
             compare=lambda g, p: assert_quantized_close(
                 g, p, step_commit, "plain_commit"),
             bytes=4 * (n_stack + 2 * k_slots + n_out),
@@ -634,7 +713,8 @@ def kernel_specs(device, k_slots=K_SLOTS, rows=BUCKET_ROWS,
             kernel=main_secure[1],
             plain=main_secure[2],
             library=None,
-            extra=secure_extras(),
+            extra=secure_extras() + [secure_case(lm_label, xlm, w_sec, seeds,
+                                                 coef)],
             compare=exact("secure_commit"),
             # the top-k select, weighting, quantize and rounding as in
             # plain_commit; the PRF words this data needs per output element
@@ -704,12 +784,96 @@ def check_fold(device="cuda", k_slots=K_SLOTS, seed=0):
               f"plain version")
 
 
+def exact_slots(K, R, device, seed):
+    """A [K, R, 256] stack, weights and staleness on which any slot order
+    sums exactly, so a kernel equals its plain version bit for bit: every
+    row holds integers over 128 with one entry at 127/128 (a quantize scale
+    of exactly 1/128, q = the integer), the discounted weights are 1, 1/2
+    or 1/4 (w in {1/2, 1}, s in {0, 1}, exponent 1), and every partial sum
+    is a multiple of 2^-9 below 2^14, inside float32's 24 bits."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    n = torch.randint(-127, 128, (K, R, BLOCK), generator=g, device=device)
+    n[..., 0] = 127
+    x = n.float() / 128
+    w = torch.randint(1, 3, (K,), generator=g, device=device).float() / 2
+    s = torch.randint(0, 2, (K,), generator=g, device=device).float()
+    return x, w, s
+
+
+def check_slot_limits(device="cuda", cases=SLOT_LIMIT_CASES, seed=5):
+    """The commit kernels past their old slot limits, each held bit for bit
+    (max_abs_err 0) against its plain version and timed (a few calls: the
+    secure cases' mask words make each call long)."""
+    timed = torch.device(device).type == "cuda"
+    rate = memory_rate(torch.cuda.get_device_name(0) if timed else "")
+    out = {}
+    for kname, K, rows, coefs in cases:
+        if kname == "secure_commit":
+            g = torch.Generator(device=device).manual_seed(seed + K)
+            x = torch.randn(K, rows, BLOCK, generator=g, device=device) * 0.01
+            wv = torch.rand(K, generator=g, device=device) + 0.5
+            if coefs == "triu":
+                sd = sec.pair_seeds(sec.commit_key(seed), torch.arange(
+                    K, dtype=torch.int32)).to(device)
+                c = torch.triu(torch.ones(K, K, dtype=torch.int32),
+                               1).to(device)
+            else:
+                sd, c, _ = secure_pairs(K, seed, device)
+            kernel = lambda: secure_commit_blocks(x, wv, sd, c, 0, bits=8,
+                                                  k=TOPK_K)
+            plain = lambda: ref.fused_secure_commit_ref(x, wv[:, None], sd, c,
+                                                        0, 8, k=TOPK_K)
+            nbytes = 4 * (x.numel() + K + rows * BLOCK) + 8 * K * K
+            ops = 7 * x.numel()
+            int_ops = (SELECT_INT_OPS * x.numel()
+                       + OPS_PER_MASK_WORD * rows * BLOCK
+                       * mask_words(sd, c))
+        else:
+            x, wv, sv = exact_slots(K, rows, device, seed)
+            if kname == "fused_accum":
+                kernel = lambda: fused_accum_blocks(x, wv, sv, 1.0)
+                plain = lambda: ref.fused_accum_ref(x, wv[:, None],
+                                                    sv[:, None], 1.0)
+                ops, int_ops = 2 * x.numel(), 0
+            else:
+                kernel = lambda: plain_commit_blocks(x, wv, sv, 1.0, bits=8,
+                                                     k=TOPK_K)
+                plain = lambda: ref.fused_plain_commit_ref(
+                    x, wv[:, None], sv[:, None], 1.0, 8, k=TOPK_K)
+                ops, int_ops = 7 * x.numel(), SELECT_INT_OPS * x.numel()
+            nbytes = 4 * (x.numel() + 2 * K + rows * BLOCK)
+        got, want = kernel(), plain()
+        sync(device)
+        err = (got - want).abs().max().item()
+        check(torch.equal(got, want), f"{kname} at K={K}: differs from its "
+                                      f"plain version by {err:.3g}")
+        del got, want
+        row = dict(K=K, rows=rows, max_abs_err=err)
+        if coefs:
+            row["coefficients"] = coefs
+        row["bound_ms"], row["bound_by"] = bound(nbytes, ops, int_ops, rate)
+        if timed:
+            row["ms"] = time_ms(kernel, reps=3, warmup=1)
+            row["queued_ms"] = time_ms_queued(kernel, reps=3, warmup=0)
+        print(f"kernel {kname} past its old slot limit: "
+              + " ".join(f"{k}={v}" for k, v in row.items()))
+        out[f"{kname} K={K} rows={rows}"] = row
+        del x
+    sync(device)
+    return out
+
+
 def check_kernels(device="cuda", **shapes):
     """Phase 2: each kernel against its plain version, and on the card its
-    times."""
+    times; the secure fold and the commit kernels past their old slot
+    limits."""
     timed = torch.device(device).type == "cuda"
     rate = memory_rate(torch.cuda.get_device_name(0) if timed else "")
     check_fold(device, shapes.get("k_slots", K_SLOTS))
+    check_slot_limits(device, **({} if timed else dict(
+        cases=tuple((kname, K, 1, coefs)
+                    for kname, K, _, coefs in SLOT_LIMIT_CASES
+                    if K < 4096))))
     rows = {}
     for kname, spec in kernel_specs(device, **shapes).items():
         for label, kernel, plain, nbytes, ops, int_ops, *compare in spec.get(
@@ -853,35 +1017,139 @@ def check_round_parity(device="cuda", C=20, H=2, B=16, tol=1e-4):
     return worst
 
 
+def check_lm_round_parity(device="cuda", C=8, H=2, B=16, S=64, tol=1e-4,
+                          rel_tol=1e-3, cfg=None, n_params=LM_PARAMS):
+    """Phase 3 for the char-LM at full width: the clients' deltas from
+    local training on the card and on the CPU, from the same params (drawn
+    on the CPU) and tokens, agree to ``tol``; then each LM commit
+    (LM_PARITY) runs on the card and on the CPU from the card's deltas, and
+    the new params agree to ``tol`` (the "discontinuous commits" rule), the
+    card's commit launching exactly its kernel; and the uncompressed round,
+    each device from its own deltas, agrees to ``tol``.  The changes are
+    small (lr 0.01), so each gap is also held to ``rel_tol`` of the largest
+    change on the CPU (the deltas, or the new params minus the params),
+    which must not be 0: a commit that left the params as they were, or
+    moved them wrongly, fails."""
+    model = build_model(cfg or get_config("paper-charlm"))
+    params = flat_dict(model.init(torch.Generator().manual_seed(0)))
+    n = sum(v.numel() for v in params.values())
+    check(n == n_params and len(params) == LM_LEAVES,
+          f"lm round parity: {n} params in {len(params)} leaves")
+    toks = np.random.default_rng(0).integers(
+        0, model.cfg.vocab, (C, H, B, S + 1)).astype(np.int32)
+    batches = {"tokens": toks[..., :-1], "targets": toks[..., 1:]}
+    _, w, m = round_inputs(C, 1, 1)
+
+    def on(dev, tree):
+        return {k: torch.as_tensor(v).to(dev) for k, v in tree.items()}
+
+    def gap(a, c):
+        return max((a[k].cpu() - c[k].cpu()).abs().max().item() for k in a)
+
+    def change(new):
+        return max((new[k].cpu() - params[k]).abs().max().item()
+                   for k in params)
+
+    devs = (device, "cpu")
+    steps = {}
+    for cname, (flags, kernel) in LM_PARITY.items():
+        fl = train.fl_config(train.build_parser().parse_args(LM_ARGS + flags))
+        steps[cname] = build_fl_round_step(
+            model.loss_fn, get_client_optimizer("sgd"),
+            get_server_optimizer("fedavg"),
+            dataclasses.replace(fl, num_clients=C, local_steps=H))
+    launches.reset()
+    trained = {dev: steps["lm_default"].train_clients(on(dev, params),
+                                                      on(dev, batches))
+               for dev in devs}
+    sync(device)
+    check(not launches.KERNEL_LAUNCHES, "lm round parity: local training "
+          f"launched {dict(launches.KERNEL_LAUNCHES)}")
+    d_cpu = trained["cpu"][0]
+    errs = {"deltas": gap(trained[device][0], d_cpu)}
+    sizes = {"deltas": max(v.abs().max().item() for v in d_cpu.values())}
+
+    def commit(cname, dev, deltas, losses):
+        new, _, met = steps[cname].commit(
+            on(dev, params), (), on(dev, deltas), losses.to(dev),
+            torch.from_numpy(w).to(dev), torch.from_numpy(m).to(dev),
+            torch.Generator().manual_seed(7))
+        sync(dev)
+        check(math.isfinite(float(met["client_loss"])),
+              f"lm round parity {cname}: non-finite loss on {dev}")
+        return new
+
+    d_card, l_card = trained[device]
+    for cname, (_, kernel) in LM_PARITY.items():
+        launches.reset()
+        card = commit(cname, device, d_card, l_card)
+        counts = dict(launches.KERNEL_LAUNCHES)
+        check(counts == {kernel: 1}, f"lm round parity {cname}: the card's "
+                                     f"commit launched {counts}")
+        cpu = commit(cname, "cpu", d_card, l_card)
+        errs[cname], sizes[cname] = gap(card, cpu), change(cpu)
+    cpu = commit("lm_default", "cpu", *trained["cpu"])
+    errs["round lm_default"] = gap(
+        commit("lm_default", device, *trained[device]), cpu)
+    sizes["round lm_default"] = change(cpu)
+    launches.reset()
+    print(f"lm round parity (paper-charlm, {n} params, C={C}, H={H}, B={B}, "
+          f"S={S}): max |card - cpu| = {errs}; largest change on the CPU = "
+          f"{sizes}")
+    for part, e in errs.items():
+        check(e <= tol, f"lm round parity: {part} on the card differs from "
+                        f"the CPU by {e:.3g} > {tol}")
+        check(0 < sizes[part] and e <= rel_tol * sizes[part],
+              f"lm round parity: {part} on the card differs from the CPU by "
+              f"{e:.3g}, against a largest change of {sizes[part]:.3g}")
+    return errs
+
+
+def round_parity():
+    """Phase 3: the CNN's rounds, then the char-LM's."""
+    return {"cnn": check_round_parity(), "lm": check_lm_round_parity()}
+
+
 # ---------------------------------------------------------------- phase 4
 def check_run(cname, summary, counts, expect, wall):
     losses = summary["client_loss"]
     check(len(losses) == 3 and all(math.isfinite(x) for x in losses),
           f"{cname}: losses {losses}")
-    check(summary["final_eval"] is not None
-          and 0.0 <= summary["final_eval"] <= 1.0,
-          f"{cname}: final eval {summary['final_eval']}")
+    if summary["dataset"] == "shakespeare":
+        # the char-LM has no accuracy: no eval fn, as in the reference, so
+        # the eval metric stays NaN
+        check(summary["final_eval"] is None
+              or math.isnan(summary["final_eval"]),
+              f"{cname}: final eval {summary['final_eval']}")
+    else:
+        check(summary["final_eval"] is not None
+              and 0.0 <= summary["final_eval"] <= 1.0,
+              f"{cname}: final eval {summary['final_eval']}")
     check(counts == expect, f"{cname}: launches {counts}, expected {expect}")
     print(f"main path {cname}: launches={counts} round_wall_s="
           f"{[round(x, 4) for x in summary['round_wall_s']]} "
           f"final_eval={summary['final_eval']} wall={wall:.1f}s")
 
 
-def drive_main_path():
-    """Phase 4: the launcher on the card, once per configuration, then an
+def add_counts(totals, counts):
+    for k, n in counts.items():
+        totals[k] = totals.get(k, 0) + n
+
+
+def drive_configs(base_args, configs, fused_expect):
+    """The launcher on the card once per configuration, then an
     Orchestrator built as the launcher builds it, with the fused FedProx
-    update."""
+    update; each run's launches counted from 0."""
     totals = {}
-    for cname, (flags, expect) in CONFIGS.items():
+    for cname, (flags, expect) in configs.items():
         launches.reset()
         t0 = time.perf_counter()
-        summary = train.main(MAIN_ARGS + flags)
+        summary = train.main(base_args + flags)
         torch.cuda.synchronize()
         counts = dict(launches.KERNEL_LAUNCHES)
         check_run(cname, summary, counts, expect, time.perf_counter() - t0)
-        for k, n in counts.items():
-            totals[k] = totals.get(k, 0) + n
-    args = train.build_parser().parse_args(MAIN_ARGS + FUSED_UPDATE_ARGS)
+        add_counts(totals, counts)
+    args = train.build_parser().parse_args(base_args + FUSED_UPDATE_ARGS)
     orch, params = train.build_run(args, dataclasses.replace(
         train.fl_config(args), use_fused_update=True))
     launches.reset()
@@ -889,10 +1157,94 @@ def drive_main_path():
     orch.run(params, args.rounds, verbose=True)
     torch.cuda.synchronize()
     counts = dict(launches.KERNEL_LAUNCHES)
-    check_run("fedprox_fused_update", train.summarize(args, orch), counts,
-              FUSED_UPDATE_EXPECT, time.perf_counter() - t0)
-    for k, n in counts.items():
-        totals[k] = totals.get(k, 0) + n
+    prefix = "lm_" if args.dataset == "shakespeare" else ""
+    check_run(f"{prefix}fedprox_fused_update", train.summarize(args, orch),
+              counts, fused_expect, time.perf_counter() - t0)
+    add_counts(totals, counts)
+    return totals
+
+
+def check_resume(tmp, base_args=MAIN_ARGS, tol=1e-4):
+    """A checkpointed run on the card (``--checkpoint-every 1``) cut one
+    round short, then ``--resume`` for the last round on the card and, from
+    a copy of the same checkpoint, on the CPU: the final params agree to
+    ``tol``, and the card's resumed run launches the default commit's
+    fused accumulate once, counted from 0 just before it."""
+    ckpt = tmp / "ckpt"
+    argv = base_args + ["--checkpoint-dir", str(ckpt), "--checkpoint-every",
+                        "1"]
+    args = train.build_parser().parse_args(argv)
+
+    def with_args(**changes):
+        return argparse.Namespace(**{**vars(args), **changes})
+
+    train.run(with_args(rounds=args.rounds - 1))
+    shutil.copytree(ckpt, tmp / "ckpt_cpu")
+    launches.reset()
+    _, card, _ = train.run(with_args(resume=True))
+    torch.cuda.synchronize()
+    counts = dict(launches.KERNEL_LAUNCHES)
+    saved = sorted(d.name for d in ckpt.iterdir() if d.is_dir())
+    _, cpu, _ = train.run(with_args(resume=True, device="cpu",
+                                    checkpoint_dir=str(tmp / "ckpt_cpu")))
+    err = max((card[k].cpu() - cpu[k]).abs().max().item() for k in card)
+    print(f"checkpoint and resume ({args.dataset}, {args.rounds - 1} rounds, "
+          f"then --resume to {args.rounds}): checkpoints {saved}; final "
+          f"params max |card - cpu| = {err:.3g}; launches {counts}")
+    check(saved == [f"round_{r:06d}" for r in range(args.rounds)],
+          f"resume: checkpoints {saved}")
+    check(err <= tol, f"resume: the card's resumed run differs from the "
+                      f"CPU's by {err:.3g} > {tol}")
+    check(counts == RESUME_EXPECT, f"resume: the card's resumed run launched "
+                                   f"{counts}, expected {RESUME_EXPECT}")
+
+
+def check_worker(tmp, client=3, tol=1e-4):
+    """``python -m repro_torch.worker --once`` on the card for one client,
+    and the same worker in this process on the CPU, from one global model
+    file: their update files agree to ``tol``.  The worker's process runs
+    with NVIDIA_TF32_OVERRIDE=0, so its cuDNN convolutions compute in
+    float32, as this process's do with TF32 turned off."""
+    params = CNN(CIFAR_CNN).init(torch.Generator().manual_seed(0))
+    dirs = {dev: tmp / f"worker_{dev}" for dev in ("cuda", "cpu")}
+    for d in dirs.values():
+        d.mkdir()
+        save_pytree(d / "global_round_0000.bin", params)
+    argv = ["--client-id", str(client), "--once", "--timeout-s", "120"]
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.worker", "--device", "cuda",
+         "--workdir", str(dirs["cuda"])] + argv,
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+                 NVIDIA_TF32_OVERRIDE="0"),
+        capture_output=True, text=True, timeout=300)
+    wall = time.perf_counter() - t0
+    check(out.returncode == 0, f"worker on the card: exit {out.returncode}: "
+                               f"{out.stderr[-2000:]}")
+    worker.main(["--device", "cpu", "--workdir", str(dirs["cpu"])] + argv)
+    stem = f"update_0000_client_{client:03d}"
+    got = load_pytree(dirs["cuda"] / f"{stem}.bin", params)
+    want = load_pytree(dirs["cpu"] / f"{stem}.bin", params)
+    err = max((got[k] - want[k]).abs().max().item() for k in want)
+    meta = [json.loads((d / f"{stem}.json").read_text())
+            for d in dirs.values()]
+    print(f"worker --once on the card ({wall:.1f} s with its start): "
+          f"{out.stdout.strip()}; update max |card - cpu| = {err:.3g}; "
+          f"metadata {meta}")
+    check(err <= tol and meta[0]["data_size"] == meta[1]["data_size"],
+          f"worker: the card's update differs from the CPU's by {err:.3g}")
+
+
+def drive_main_path():
+    """Phase 4: the main path at full CIFAR CNN width, then at full
+    paper-charlm width (--dataset shakespeare), then a checkpointed CIFAR
+    run resumed on the card and on the CPU, and the worker."""
+    totals = drive_configs(MAIN_ARGS, CONFIGS, FUSED_UPDATE_EXPECT)
+    add_counts(totals, drive_configs(LM_ARGS, LM_CONFIGS,
+                                     LM_FUSED_UPDATE_EXPECT))
+    with tempfile.TemporaryDirectory() as tmp:
+        check_resume(Path(tmp))
+        check_worker(Path(tmp))
     return totals
 
 
@@ -1146,7 +1498,7 @@ def main() -> int:
               f"device {torch.cuda.get_device_name(0)}")
         phases = {}
         for phase, run in (("build", build), ("kernels", check_kernels),
-                           ("round_parity", check_round_parity),
+                           ("round_parity", round_parity),
                            ("main_path", drive_main_path),
                            ("lm_serve", lm_serve)):
             t0 = time.perf_counter()

@@ -28,6 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ref as _ref
+from repro_torch.pytree import ordered
 
 
 @dataclass(frozen=True)
@@ -120,7 +121,7 @@ def federated_dropout(x, frac: float, generator, batch_dims: int = 0):
 
 
 # ---------------------------------------------------------------------------
-# tree-level API (trees are dict[str, Tensor], walked in sorted-key order)
+# tree-level API (trees are dict[str, Tensor], walked in jax.tree order)
 # ---------------------------------------------------------------------------
 
 def compress_tree(tree: dict, cfg: CompressionConfig, generator,
@@ -129,7 +130,7 @@ def compress_tree(tree: dict, cfg: CompressionConfig, generator,
     if not cfg.enabled:
         return tree
     out = {}
-    for name in sorted(tree):
+    for name in ordered(tree):
         leaf = tree[name]
         y = leaf
         if cfg.dropout_frac:
@@ -154,7 +155,7 @@ def payload_bytes(tree: dict, cfg: Optional[CompressionConfig]) -> int:
     block survive.  Dropout removes a frac of columns entirely.
     """
     total = 0
-    for name in sorted(tree):
+    for name in ordered(tree):
         leaf = tree[name]
         n = int(np.prod(tuple(leaf.shape)))
         itemsize = leaf.element_size()

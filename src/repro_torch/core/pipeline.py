@@ -60,6 +60,7 @@ from repro_torch.core import aggregation as agg
 from repro_torch.core import secure_agg as sec
 from repro_torch.core.compression import compress_tree
 from repro_torch.kernels import ops as kops
+from repro_torch.pytree import ordered
 
 if TYPE_CHECKING:                       # avoid circular import with round.py
     from repro_torch.core.round import FLConfig
@@ -184,7 +185,7 @@ class UpdatePipeline:
                 "coordinate-wise trimming needs all slots at once")
         w = self.client_weights(weights, mask, losses)
         comp = self.cfg.compression
-        names = sorted(deltas)
+        names = ordered(deltas)
         if self.cfg.secure_agg:
             if ids is None:
                 ids = torch.arange(mask.shape[0], dtype=torch.int32)
@@ -238,7 +239,7 @@ class UpdatePipeline:
             pre = dataclasses.replace(comp, quantize_bits=0)
             stacked = compress_tree(stacked, pre, generator, batch_dims=1)
             k_in = 0
-        names = sorted(stacked)
+        names = ordered(stacked)
         out = kops.fused_secure_commit_tree(
             [stacked[n] for n in names], w, seeds, coef,
             bits=comp.quantize_bits, k=k_in, block=comp.block,
@@ -282,7 +283,7 @@ class UpdatePipeline:
         (unless the caller did), secure-mask BETWEEN PODS (each pod's
         aggregate hidden from the others and the server), sum, normalise by
         the total raw weight mass."""
-        names = sorted(pod_sums)
+        names = ordered(pod_sums)
         P = pod_sums[names[0]].shape[0]
         sums = (pod_sums if compressed
                 else self.compress_each(pod_sums, generator))

@@ -39,6 +39,7 @@ from torch.func import grad_and_value, vmap
 from repro_torch.core.compression import CompressionConfig
 from repro_torch.core.pipeline import build_update_pipeline
 from repro_torch.optim import Optimizer, ServerOptimizer
+from repro_torch.pytree import ordered
 
 
 @dataclass(frozen=True)
@@ -62,7 +63,7 @@ class FLConfig:
 
 def global_norm(tree: dict):
     return torch.sqrt(sum(torch.sum(tree[k].to(torch.float32).square())
-                          for k in sorted(tree)))
+                          for k in ordered(tree)))
 
 
 def build_local_train(loss_fn: Callable, client_opt: Optimizer,

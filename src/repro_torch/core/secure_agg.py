@@ -35,6 +35,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.ref import U32, hash_u32
+from repro_torch.pytree import ordered
 
 MASK_DOMAIN_TAG = 0x5EC_A66   # domain separator: secure-agg mask keys
 
@@ -181,7 +182,7 @@ def masked_payload_bytes(tree: dict, cfg=None, n_slots: int = 2) -> int:
     ring_bits = bits + max(1, int(np.ceil(np.log2(max(n_slots, 2)))))
     block = int(getattr(cfg, "block", 256))
     total = 0
-    for name in sorted(tree):
+    for name in ordered(tree):
         n = int(np.prod(tuple(tree[name].shape)))
         total += int(n * ring_bits / 8 + np.ceil(n / block) * 4)
     return total

@@ -41,7 +41,10 @@
 //     and __stcs.
 //   * The discounted slot weights are computed once per block into shared
 //     memory, with the block's first loads already issued before the
-//     barrier.
+//     barrier.  Shared memory holds the first kStagedWeights of them (48
+//     KB); a slot past those takes its weight from w and s in device
+//     memory, computed by the same expression, so K has no limit and every
+//     weight is the same float either way.
 // Each output's multiply-adds run in slot order, the plain version's order
 // of summation (phase 3 of chip_smoke.py holds card against CPU to 1e-4).
 //
@@ -78,7 +81,9 @@
 //     q = rint(x / scale) uses the correctly rounded reciprocal and falls
 //     back to the IEEE division where the product could round differently
 //     (quantize_kept).  Slots beyond kCommitStageBytes of staging are taken
-//     in further chunks, their running sums kept in shared memory.  It is
+//     in further chunks, each with its own slot weights, their running sums
+//     kept in shared memory, so K has no limit and the slot order of the
+//     sum is the same for every K.  It is
 //     bound by the selects' integer instructions, not by bytes: the run
 //     with k = 0 moves the same bytes in about half the time.
 //
@@ -99,7 +104,7 @@
 
 namespace {
 
-constexpr int kMaxSlots = 12288;           // 48 KB of slot weights
+constexpr int kStagedWeights = 12288;      // 48 KB of slot weights
 
 constexpr int kAccumThreads = 256;
 constexpr int kAccumCols = 2;              // float4 columns per thread
@@ -125,6 +130,16 @@ __device__ __forceinline__ void accum_loads(
   }
 }
 
+// Slot k's discounted weight: staged in shared memory for the first
+// kStagedWeights slots, computed from device memory past them.
+__device__ __forceinline__ float accum_weight(const float* weff,
+                                              const float* __restrict__ w,
+                                              const float* __restrict__ s,
+                                              float a, int k) {
+  if (k < kStagedWeights) return weff[k];
+  return __ldg(w + k) * powf(1.0f + __ldg(s + k), -a);
+}
+
 __global__ void __launch_bounds__(kAccumThreads, kAccumMinBlocks)
 fused_accum_kernel(const float4* __restrict__ x, const float* __restrict__ w,
                    const float* __restrict__ s, float a,
@@ -138,7 +153,8 @@ fused_accum_kernel(const float4* __restrict__ x, const float* __restrict__ w,
   long long c = begin + threadIdx.x;
   float4 v[kAccumGroup][kAccumCols];
   accum_loads(v, x, n4, K, 0, c, end);       // in flight across the barrier
-  for (int i = threadIdx.x; i < K; i += kAccumThreads) {
+  const int staged = K < kStagedWeights ? K : kStagedWeights;
+  for (int i = threadIdx.x; i < staged; i += kAccumThreads) {
     weff[i] = w[i] * powf(1.0f + s[i], -a);
   }
   __syncthreads();
@@ -155,7 +171,7 @@ fused_accum_kernel(const float4* __restrict__ x, const float* __restrict__ w,
 #pragma unroll
       for (int g = 0; g < kAccumGroup; ++g) {
         if (k0 + g < K) {
-          const float wk = weff[k0 + g];
+          const float wk = accum_weight(weff, w, s, a, k0 + g);
 #pragma unroll
           for (int j = 0; j < kAccumCols; ++j) {
             acc[j].x = fmaf(wk, v[g][j].x, acc[j].x);
@@ -193,7 +209,7 @@ int accum_grid(int* grid) {
   if (e == cudaSuccess) {
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
         &per_sm, fused_accum_kernel, kAccumThreads,
-        kMaxSlots * sizeof(float));
+        kStagedWeights * sizeof(float));
   }
   if (e != cudaSuccess) return static_cast<int>(e);
   *grid = sms * (per_sm > 0 ? per_sm : 1);
@@ -443,14 +459,15 @@ const char* commit_kernels_error_string(int code) {
 // x: [K, n] f32 (n % 4 == 0, 16-byte aligned), w, s: [K] f32 -> out: [n].
 int fused_accum(const float* x, const float* w, const float* s, float a,
                 float* out, int K, long long n, void* stream) {
-  if (K < 1 || K > kMaxSlots || n < 4 || n % 4) return cudaErrorInvalidValue;
+  if (K < 1 || n < 4 || n % 4) return cudaErrorInvalidValue;
   int grid = 0;
   const int err = accum_grid(&grid);
   if (err) return err;
   const long long n4 = n / 4;
   const long long needed = (n4 + kAccumThreads - 1) / kAccumThreads;
   if (needed < grid) grid = static_cast<int>(needed);
-  fused_accum_kernel<<<grid, kAccumThreads, K * sizeof(float),
+  const int staged = K < kStagedWeights ? K : kStagedWeights;
+  fused_accum_kernel<<<grid, kAccumThreads, staged * sizeof(float),
                        static_cast<cudaStream_t>(stream)>>>(
       reinterpret_cast<const float4*>(x), w, s, a,
       reinterpret_cast<float4*>(out), K, n4);
@@ -462,7 +479,7 @@ int fused_accum(const float* x, const float* w, const float* s, float a,
 int plain_commit(const float* x, const float* w, const float* s, float a,
                  float* out, int K, long long R, int block, int bits, int k,
                  void* stream) {
-  if (K < 1 || K > kMaxSlots || !rows_ok(R, block) || k < 0 || k > block ||
+  if (K < 1 || !rows_ok(R, block) || k < 0 || k > block ||
       (bits && (bits < 2 || bits > 16)))
     return cudaErrorInvalidValue;
   const auto launch = block == 128   ? plain_commit_launch<1>

@@ -27,16 +27,21 @@
 // 32 lanes dispatched per SM per clock x 132 SMs x 1.98 GHz).
 //
 // Design for that bound.
-//   * Fold the mask words before the element loop (secure_fold_kernel, one
-//     thread block on the same stream).  The [K, K] pair entries become a
+//   * Fold the mask words before the element loop (secure_fold_kernel on
+//     the same stream, a grid over the K^2 entries with one atomic per
+//     warp for the count, which a memset zeroes first).  The [K, K] pair
+//     entries become a
 //     compact list of (seed, net coefficient) words whose net is nonzero
 //     mod 2^32: a diagonal entry stands alone; (i, j) and (j, i), i < j,
 //     merge when their seeds are equal; every other entry stays separate.
 //     Exact for any seeds and coefficients, since words with equal seeds
 //     are equal and the wrapped sum does not depend on order (the plain
 //     version is kernels/ref.py fold_mask_words).  On the main path the
-//     list is empty; the upper triangle gives K(K-1)/2 words.  The commit
-//     kernel reads the count from device memory: no host sync.
+//     list is empty; the upper triangle gives K(K-1)/2 words.  The list
+//     holds at most K^2 words (all seeds distinct, no coefficient zero), so
+//     the wrapper gives it 1 + 2 K^2 words of scratch: 134 MB at K = 4096,
+//     beside the 134 MB of int64 seeds the caller already holds.  The
+//     commit kernel reads the count from device memory: no host sync.
 //   * One thread block per block-row, kSecureWarps warps; warp w takes the
 //     slots w, w + kSecureWarps, ...  Each warp first stages its slots'
 //     rows in shared memory with cp.async (all copies in flight at once,
@@ -54,7 +59,10 @@
 //     the top 8-bit digit by warp reductions over the few exponents
 //     present, then at most 32 candidates ranked against each other in
 //     shared memory (8-bit histogram passes first where more share the top
-//     digit).
+//     digit).  A warp keeps its slots' thresholds from phase 1 to phase 2
+//     in the [R, K] scratch array in device memory that the wrapper passes
+//     (4 bytes per slot per block-row, 1/block of the stack), so K has no
+//     limit.
 //   * Each warp then quantizes its own slots onto the common grid (the
 //     noise row, with stochastic rounding, read once beside its slot) and
 //     adds its share of the folded mask words (word p goes to warp p mod
@@ -75,10 +83,13 @@
 
 namespace {
 
-constexpr int kMaxSecureSlots = 1024;
 constexpr int kSecureWarps = 8;
 constexpr int kSecureThreads = 32 * kSecureWarps;
-constexpr int kFoldThreads = 1024;
+constexpr int kFoldThreads = 256;
+constexpr int kFoldMaxBlocks = 1024;
+// The word count is one uint32 and the list holds up to K^2 words, so K^2
+// must stay below 2^32; the [K, K] int64 seeds alone are 34 GB there.
+constexpr int kMaxPairSlots = 65535;
 constexpr int kSecureMinBlocks = 4;  // resident blocks per SM (<= 64
 //                                      registers a thread)
 constexpr int kStageBytes = 32768;   // shared memory for staged slot rows
@@ -94,32 +105,56 @@ __device__ __forceinline__ unsigned hash_u32(unsigned x) {
   return x;
 }
 
-// words[0] = n, then n (seed, net coefficient) pairs: the mask words of the
-// [K, K] seeds (the low 32 bits of each int64) and coefficients that do not
-// cancel.  One thread block; the order of the words is not fixed.
+// words[0] += n, then n (seed, net coefficient) pairs after the words
+// already there: the mask words of the [K, K] seeds (the low 32 bits of each
+// int64) and coefficients that do not cancel.  words[0] must be 0 at the
+// launch.  Each warp walks 32 consecutive entries at a time and takes its
+// words' places with one atomic; the order of the words is not fixed.
 __global__ void __launch_bounds__(kFoldThreads)
 secure_fold_kernel(const long long* __restrict__ seeds,
                    const int* __restrict__ coef, int K,
                    unsigned* __restrict__ words) {
-  __shared__ unsigned n;
-  if (threadIdx.x == 0) n = 0;
-  __syncthreads();
-  for (int e = threadIdx.x; e < K * K; e += kFoldThreads) {
-    const int i = e / K, j = e % K;
-    const unsigned s = static_cast<unsigned>(seeds[e]);
-    unsigned c = static_cast<unsigned>(coef[e]);
-    if (i != j && s == static_cast<unsigned>(seeds[j * K + i])) {
-      if (i > j) continue;                  // merged into (j, i)
-      c += static_cast<unsigned>(coef[j * K + i]);
+  const int lane = threadIdx.x & 31;
+  const long long n = static_cast<long long>(K) * K;
+  const long long stride = static_cast<long long>(gridDim.x) * kFoldThreads;
+  for (long long e0 = static_cast<long long>(blockIdx.x) * kFoldThreads +
+                      (threadIdx.x & ~31);
+       e0 < n; e0 += stride) {                 // warp-uniform
+    const long long e = e0 + lane;
+    unsigned s = 0, c = 0;
+    if (e < n) {
+      const long long i = e / K, j = e % K;
+      s = static_cast<unsigned>(seeds[e]);
+      c = static_cast<unsigned>(coef[e]);
+      if (i != j && s == static_cast<unsigned>(seeds[j * K + i])) {
+        // merged into (j, i) when i > j
+        c = i > j ? 0u : c + static_cast<unsigned>(coef[j * K + i]);
+      }
     }
+    const unsigned emit = __ballot_sync(kFull, c != 0u);
+    if (!emit) continue;
+    unsigned p0 = 0;
+    if (lane == 0) p0 = atomicAdd(words, static_cast<unsigned>(__popc(emit)));
+    p0 = __shfl_sync(kFull, p0, 0);
     if (c) {
-      const unsigned p = atomicAdd(&n, 1u);
+      const size_t p = p0 + __popc(emit & ((1u << lane) - 1u));
       words[1 + 2 * p] = s;
       words[2 + 2 * p] = c;
     }
   }
-  __syncthreads();
-  if (threadIdx.x == 0) words[0] = n;
+}
+
+// Zero the count, then fold: both on the caller's stream.
+int fold_launch(const long long* seeds, const int* coef, int K,
+                unsigned* words, cudaStream_t st) {
+  cudaError_t e = cudaMemsetAsync(words, 0, sizeof(unsigned), st);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const long long n = static_cast<long long>(K) * K;
+  const long long need = (n + kFoldThreads - 1) / kFoldThreads;
+  const int grid = need < kFoldMaxBlocks ? static_cast<int>(need)
+                                         : kFoldMaxBlocks;
+  secure_fold_kernel<<<grid, kFoldThreads, 0, st>>>(seeds, coef, K, words);
+  return 0;
 }
 
 // Quantize one slot's row onto the common grid and add it to acc.
@@ -156,17 +191,18 @@ template <int NV4>
 __global__ void __launch_bounds__(kSecureThreads, kSecureMinBlocks)
 secure_commit_kernel(const float* __restrict__ x, const float* __restrict__ w,
                      const unsigned* __restrict__ words, unsigned base,
-                     const float* __restrict__ noise, float* __restrict__ out,
+                     const float* __restrict__ noise,
+                     unsigned* __restrict__ thresh, float* __restrict__ out,
                      int K, long long R, int bits, int k, int staged) {
   constexpr int N = 4 * NV4;                 // floats a lane holds of a row
   constexpr int B = 128 * NV4;
   extern __shared__ __align__(16) float stage[];
   __shared__ __align__(16) unsigned scratch[kSecureWarps][32];
-  __shared__ unsigned thresh[kMaxSecureSlots];
   __shared__ float wmax[kSecureWarps];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const long long row = blockIdx.x;
+  thresh += row * K;     // each slot's top-k threshold, phase 1 to phase 2
   const float* xrow = x + row * B;           // slot i's row: xrow + i * R * B
   const long long slot_stride = R * B;
   float* mine = stage + warp * staged * B;   // this warp's staged rows
@@ -236,7 +272,8 @@ secure_commit_kernel(const float* __restrict__ x, const float* __restrict__ w,
       }
     }
     for (unsigned p = warp; p < n_words; p += kSecureWarps) {
-      const unsigned s = words[1 + 2 * p], cu = words[2 + 2 * p];
+      const unsigned s = words[1 + 2 * size_t{p}];
+      const unsigned cu = words[2 + 2 * size_t{p}];
 #pragma unroll
       for (int j = 0; j < N; ++j) acc[j] += cu * hash_u32(ig[j] + s);
     }
@@ -263,13 +300,14 @@ secure_commit_kernel(const float* __restrict__ x, const float* __restrict__ w,
 template <int NV4>
 void secure_commit_launch(const float* x, const float* w,
                           const unsigned* words, unsigned base,
-                          const float* noise, float* out, int K, long long R,
-                          int bits, int k, cudaStream_t st) {
+                          const float* noise, unsigned* thresh, float* out,
+                          int K, long long R, int bits, int k,
+                          cudaStream_t st) {
   const int staged = staged_slots(K, 128 * NV4);
   secure_commit_kernel<NV4>
       <<<static_cast<unsigned>(R), kSecureThreads,
          kSecureWarps * staged * 128 * NV4 * sizeof(float), st>>>(
-          x, w, words, base, noise, out, K, R, bits, k, staged);
+          x, w, words, base, noise, thresh, out, K, R, bits, k, staged);
 }
 
 }  // namespace
@@ -285,44 +323,45 @@ const char* secure_commit_error_string(int code) {
 // coefficient) words that do not cancel.
 int secure_fold(const long long* seeds, const int* coef, unsigned* words,
                 int K, void* stream) {
-  if (K < 1 || K > kMaxSecureSlots) return cudaErrorInvalidValue;
-  secure_fold_kernel<<<1, kFoldThreads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(seeds, coef, K,
-                                                            words);
-  return static_cast<int>(cudaGetLastError());
+  if (K < 1 || K > kMaxPairSlots) return cudaErrorInvalidValue;
+  const int err = fold_launch(seeds, coef, K, words,
+                              static_cast<cudaStream_t>(stream));
+  return err ? err : static_cast<int>(cudaGetLastError());
 }
 
 // x: [K, R, block] f32; w: [K] f32 effective slot weights; seeds: [K, K]
 // int64 holding uint32; coef: [K, K] int32; base: the global element index
 // of row 0; noise: [K, R, block] f32 uniform [0, 1) or null (round half to
 // even); words: 1 + 2 K^2 uint32 of scratch for the folded mask words;
-// out: [R, block] f32.  bits in [2, 16]; 0 <= k <= block (0: no top-k).
+// thresh: [R, K] uint32 of scratch for the per-slot thresholds; out: [R,
+// block] f32.  bits in [2, 16]; 0 <= k <= block (0: no top-k).
 int secure_commit(const float* x, const float* w, const long long* seeds,
                   const int* coef, unsigned base, const float* noise,
-                  unsigned* words, float* out, int K, long long R, int block,
-                  int bits, int k, void* stream) {
-  if (K < 1 || K > kMaxSecureSlots || R < 1 || R > 0x7fffffffLL || k < 0 ||
+                  unsigned* words, unsigned* thresh, float* out, int K,
+                  long long R, int block, int bits, int k, void* stream) {
+  if (K < 1 || K > kMaxPairSlots || R < 1 || R > 0x7fffffffLL || k < 0 ||
       k > block || bits < 2 || bits > 16 ||
       (block != 128 && block != 256 && block != 512 && block != 1024))
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  secure_fold_kernel<<<1, kFoldThreads, 0, st>>>(seeds, coef, K, words);
+  const int err = fold_launch(seeds, coef, K, words, st);
+  if (err) return err;
   switch (block) {
     case 128:
-      secure_commit_launch<1>(x, w, words, base, noise, out, K, R, bits, k,
-                              st);
+      secure_commit_launch<1>(x, w, words, base, noise, thresh, out, K, R,
+                              bits, k, st);
       break;
     case 256:
-      secure_commit_launch<2>(x, w, words, base, noise, out, K, R, bits, k,
-                              st);
+      secure_commit_launch<2>(x, w, words, base, noise, thresh, out, K, R,
+                              bits, k, st);
       break;
     case 512:
-      secure_commit_launch<4>(x, w, words, base, noise, out, K, R, bits, k,
-                              st);
+      secure_commit_launch<4>(x, w, words, base, noise, thresh, out, K, R,
+                              bits, k, st);
       break;
     default:
-      secure_commit_launch<8>(x, w, words, base, noise, out, K, R, bits, k,
-                              st);
+      secure_commit_launch<8>(x, w, words, base, noise, thresh, out, K, R,
+                              bits, k, st);
       break;
   }
   return static_cast<int>(cudaGetLastError());

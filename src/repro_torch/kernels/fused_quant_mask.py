@@ -19,6 +19,8 @@
   operand of uniform [0, 1) draws, so both rounding modes launch it on the
   card.
 
+Both take any number of slots K, as the Pallas kernels do.
+
 Each CUDA source's note gives its bound on the card and its design.
 """
 from __future__ import annotations
@@ -29,8 +31,6 @@ from repro_torch.kernels import launches, ref
 
 NAME = "plain_commit"
 SECURE = "secure_commit"
-MAX_PLAIN_SLOTS = 12288          # the CUDA kernels' limits on K
-MAX_SECURE_SLOTS = 1024
 
 
 def plain_commit_blocks(xb, w, s, alpha: float, *, bits: int, k: int):
@@ -43,9 +43,6 @@ def plain_commit_blocks(xb, w, s, alpha: float, *, bits: int, k: int):
                                           alpha, bits, k=k)
     from repro_torch.kernels import _build
     launches.check_operands(NAME, xb, w, s)
-    if K > MAX_PLAIN_SLOTS:
-        raise ValueError(f"{NAME}: {K} slots, the kernel takes at most "
-                         f"{MAX_PLAIN_SLOTS}")
     out = torch.empty((R, block), dtype=torch.float32, device=xb.device)
     _build.launch("commit_kernels", NAME, xb.data_ptr(), w.data_ptr(),
                   s.data_ptr(), float(alpha), out.data_ptr(), K, R, block, bits,
@@ -79,7 +76,9 @@ def secure_commit_blocks(xb, w_eff, seeds, coef, base: int, *, bits: int,
     [K, K] integers (in {-1, 0, +1} from ``core.secure_agg``); ``base`` the
     global element index of row 0; ``noise`` None (round half to even) or
     [K, R, block] uniform [0, 1) f32 (stochastic rounding).  Returns
-    [R, block] f32."""
+    [R, block] f32.  The kernel's scratch: the folded mask words, 1 + 2K^2
+    int32 (134 MB at K = 4096), and the per-slot top-k thresholds, [R, K]
+    int32."""
     launches.check_shapes(SECURE, xb, 3, w_eff)
     K, R, block = xb.shape
     _check_pairs(seeds, coef, K)
@@ -92,16 +91,15 @@ def secure_commit_blocks(xb, w_eff, seeds, coef, base: int, *, bits: int,
                                            coef, base, bits, k=k, noise=noise)
     from repro_torch.kernels import _build
     launches.check_operands(SECURE, xb, w_eff, *extra)
-    if K > MAX_SECURE_SLOTS:
-        raise ValueError(f"{SECURE}: {K} slots, the kernel takes at most "
-                         f"{MAX_SECURE_SLOTS}")
     seeds, coef = _pair_operands(seeds, coef)
     # the folded mask words: a count, then (seed, net coefficient) pairs
     words = xb.new_empty(1 + 2 * K * K, dtype=torch.int32)
+    thresh = xb.new_empty((R, K), dtype=torch.int32)
     out = xb.new_empty((R, block))            # float32, on xb's device
     _build.launch("secure_commit", SECURE, xb.data_ptr(), w_eff.data_ptr(),
                   seeds.data_ptr(), coef.data_ptr(), int(base) & ref.U32,
                   noise.data_ptr() if extra else None, words.data_ptr(),
+                  thresh.data_ptr(),
                   out.data_ptr(), K, R, block, bits, k, device=xb.device)
     launches.count(SECURE)
     return out

@@ -4,28 +4,38 @@
     PYTHONPATH=src python -m repro_torch.launch.train \
         --dataset cifar10 --rounds 100 --clients-pool 60 \
         --clients-per-round 20 --local-steps 5 --quantize-bits 8 \
-        --topk-frac 0.1
+        --topk-frac 0.1 --checkpoint-dir ckpts/run1 --render-jobs jobs/
 
 Same flags as the reference plus ``--device`` (default ``cuda``; the
 launcher raises when CUDA is absent and ``--device cpu`` was not given).
-Flags whose branches are not ported yet raise NotImplementedError naming
-the ROADMAP item that will port them: ``--mode async``, ``--facilities``,
-``--checkpoint-dir``/``--resume``, ``--render-jobs`` and ``--dataset
-shakespeare``.  Flags that only the async or hierarchical regimes read are
-parsed and, as in the reference's sync branch, not used.
+``--dataset shakespeare`` trains the paper's char-LM (``paper-charlm``) on
+the synthetic Shakespeare task; ``--checkpoint-dir``/``--checkpoint-every``
+snapshot the run and ``--resume`` continues from the latest snapshot, with
+the reference's semantics (params, server state, round, clock and backend
+state restored; selection, faults and the generators re-seeded from
+``--seed``); ``--render-jobs`` writes the scheduler artifacts that run
+``python -m repro_torch.worker``.  ``--mode async`` and ``--facilities``
+raise NotImplementedError naming the ROADMAP item that will port them.
+Flags that only the async or hierarchical regimes read are parsed and, as
+in the reference's sync branch, not used.
 """
 from __future__ import annotations
 
 import argparse
 import json
+from pathlib import Path
 
 import numpy as np
 import torch
 
+from repro_torch.checkpoint import CheckpointManager
+from repro_torch.configs import get_config
 from repro_torch.core import CompressionConfig, FLConfig, payload_bytes
 from repro_torch.data import (FederatedDataset, cifar10_like, medmnist_like,
-                              partition_by_class)
+                              partition_by_class, partition_by_group,
+                              shakespeare_like)
 from repro_torch.exec import BACKEND_NAMES, make_backend
+from repro_torch.models import build_model
 from repro_torch.models.cnn import CIFAR_CNN, CNN, MEDMNIST_CNN
 from repro_torch.orchestrator import (FaultConfig, Orchestrator,
                                       StragglerPolicy,
@@ -33,7 +43,8 @@ from repro_torch.orchestrator import (FaultConfig, Orchestrator,
                                       make_hybrid_fleet)
 from repro_torch.orchestrator.server import to_device
 from repro_torch.orchestrator.straggler import expected_attempt_s
-from repro_torch.sched import K8sAdapter, SlurmAdapter
+from repro_torch.pytree import flat_dict
+from repro_torch.sched import HybridAdapter, JobSpec, K8sAdapter, SlurmAdapter
 
 
 def _staleness_exp(v: str):
@@ -60,7 +71,9 @@ def resolve_device(name: str) -> torch.device:
 def build_task(name: str, n_clients: int, seed: int, device):
     """(federated data, model, initial params on device, eval fn).  The
     params draw from a CPU generator seeded with ``seed``, so every device
-    starts from the same values."""
+    starts from the same values.  The char-LM's params are its flat view
+    (``/``-joined leaf paths); it has no accuracy, so its eval fn is None,
+    as in the reference."""
     if name == "cifar10":
         ds = cifar10_like(n=20_000, seed=seed)
         parts = partition_by_class(ds.y, n_clients, 2, seed=seed)
@@ -70,17 +83,38 @@ def build_task(name: str, n_clients: int, seed: int, device):
         parts = partition_by_class(ds.y, n_clients, 3, seed=seed)
         model = CNN(MEDMNIST_CNN)
     elif name == "shakespeare":
-        raise NotImplementedError(
-            "--dataset shakespeare (paper-charlm) is not ported to "
-            "repro_torch yet: ROADMAP queue 1, still to port, item 7b (LM "
-            "training)")
+        ds = shakespeare_like(n_seqs=8000, seq_len=64,
+                              n_speakers=2 * n_clients, seed=seed)
+        parts = partition_by_group(ds.y, n_clients, seed=seed)
+        model = build_model(get_config("paper-charlm"))
     else:
         raise ValueError(name)
     fed = FederatedDataset(ds, parts, seed=seed)
     params = model.init(torch.Generator().manual_seed(seed), device=device)
+    if not hasattr(model, "accuracy"):
+        return fed, model, flat_dict(params), None
     eval_batch = to_device(fed.eval_batch(1024), device)
     eval_fn = lambda p: model.accuracy(p, eval_batch)
     return fed, model, params, eval_fn
+
+
+def render_jobs(fleet, out_dir: Path) -> int:
+    """The sbatch script (HPC clients) or pod manifest (cloud clients) the
+    scheduler adapters would submit for each client, one file each; every
+    job runs ``python -m repro_torch.worker``."""
+    hy = HybridAdapter()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    for c in fleet:
+        spec = JobSpec(
+            name=f"fl-client-{c.cid}",
+            command=f"python -m repro_torch.worker --client-id {c.cid}",
+            gpus_per_node=1 if c.profile.compute_tflops > 4 else 0,
+            mem_gb=int(c.profile.memory_gb), site=c.site,
+            preemptible=c.profile.spot)
+        h = hy.submit(spec)
+        ext = "sbatch" if c.site == "hpc" else "json"
+        (out_dir / f"client{c.cid:03d}.{ext}").write_text(h.artifact)
+    return len(fleet)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -161,11 +195,6 @@ def _refuse_unported(args) -> None:
         (args.mode == "async", "--mode async",
          "queue 1, still to port, item 5 (async regime)"),
         (args.facilities, "--facilities", "queue 1, still to port, item 6 (hierarchy)"),
-        (args.checkpoint_dir or args.resume, "--checkpoint-dir/--resume",
-         "queue 1, still to port, item 4 (checkpointing)"),
-        (args.render_jobs, "--render-jobs",
-         "queue 1, still to port, item 7c (worker.py, which the job scripts "
-         "call)"),
     ]
     for bad, flag, item in unported:
         if bad:
@@ -176,9 +205,11 @@ def _refuse_unported(args) -> None:
 def fl_config(args) -> FLConfig:
     """The round's FLConfig from parsed launcher flags.  Under
     ``--secure-agg`` every round's commit draws its mask key from the
-    orchestrator's generator (``UpdatePipeline.mask_key``): checkpointing
-    (ROADMAP queue 1, still to port, item 4) must store that generator's
-    state, or a resumed run would mask with other keys."""
+    orchestrator's generator (``UpdatePipeline.mask_key``).  A checkpoint
+    stores no generator state, as in the reference: whatever keys the
+    resumed run's re-seeded generator draws, the masks cancel in each
+    commit's sum; beyond them the generator feeds only the
+    stochastic-rounding and dropout draws."""
     return FLConfig(
         mode=args.mode,
         num_clients=args.clients_per_round, local_steps=args.local_steps,
@@ -195,6 +226,8 @@ def build_run(args, fl: FLConfig | None = None):
     """(orchestrator, initial params) of a run from parsed launcher flags;
     ``fl`` replaces the FLConfig the flags give (``fl_config(args)``)."""
     _refuse_unported(args)
+    if args.resume and not args.checkpoint_dir:
+        raise SystemExit("--resume requires --checkpoint-dir")
     device = resolve_device(args.device)
 
     fed, model, params, eval_fn = build_task(args.dataset, args.clients_pool,
@@ -247,9 +280,37 @@ def build_run(args, fl: FLConfig | None = None):
                                   fastest_k=args.fastest_k),
         faults=faults,
         batch_size=args.batch_size, flops_per_client_round=3e12,
-        eval_fn=eval_fn, eval_every=10, backend=build_backend(),
+        eval_fn=eval_fn, eval_every=10,
+        checkpoint_mgr=(CheckpointManager(args.checkpoint_dir)
+                        if args.checkpoint_dir else None),
+        checkpoint_every=args.checkpoint_every, backend=build_backend(),
         seed=args.seed, device=device)
     return orch, params
+
+
+def restore(args, orch, params):
+    """(params, server state, first round) of the run: under ``--resume``
+    with a checkpoint, the latest one's params, server state, round, clock
+    and backend state (on the run's device); else the initial params from
+    round 0.  A checkpoint written under another ``--exec-backend`` ends
+    the run."""
+    mgr = orch.checkpoint_mgr
+    if not (args.resume and mgr.latest_round() is not None):
+        return params, None, 0
+    server_state = orch.init_server_state(params)
+    params, server_state, meta = mgr.restore(params, server_state)
+    start_round = meta["round"] + 1
+    orch.virtual_clock = meta.get("clock", 0.0)
+    if meta.get("exec_backend", "closed-form") != args.exec_backend:
+        raise SystemExit(
+            f"checkpoint was written under --exec-backend "
+            f"{meta.get('exec_backend', 'closed-form')}; resume "
+            f"with the same backend")
+    if meta.get("backend_state"):
+        orch.backend.set_state(meta["backend_state"])
+    print(f"resumed sync run at round {start_round} "
+          f"(sim t={orch.virtual_clock:.1f}s)")
+    return params, server_state, start_round
 
 
 def summarize(args, orch) -> dict:
@@ -276,10 +337,24 @@ def summarize(args, orch) -> dict:
     }
 
 
+def run(args, fl: FLConfig | None = None):
+    """Build, render the job artifacts if asked, restore if asked, and run
+    ``args.rounds`` rounds.  Returns (orchestrator, final params, server
+    state)."""
+    orch, params = build_run(args, fl)
+    if args.render_jobs:
+        n = render_jobs(orch.fleet, Path(args.render_jobs))
+        print(f"rendered {n} scheduler artifacts -> {args.render_jobs}")
+    params, server_state, start_round = restore(args, orch, params)
+    params, server_state = orch.run(params, args.rounds,
+                                    server_state=server_state,
+                                    start_round=start_round, verbose=True)
+    return orch, params, server_state
+
+
 def main(argv=None) -> dict:
     args = build_parser().parse_args(argv)
-    orch, params = build_run(args)
-    orch.run(params, args.rounds, verbose=True)
+    orch, _, _ = run(args)
     summary = summarize(args, orch)
     print(json.dumps(summary, indent=1))
     return summary

@@ -44,8 +44,9 @@ def attend_full(q, k, v, *, causal=True, window=0):
     B, S, H, hd = q.shape
     KV, T = k.shape[2], k.shape[1]
     qg = _group(q, KV)                                   # [B,S,KV,G,hd]
+    # not in place: training runs this under vmap(grad)
     scores = torch.einsum("bsngd,btnd->bngst", qg, k).to(torch.float32)
-    scores *= hd ** -0.5
+    scores = scores * hd ** -0.5
     mask = _scores_mask(torch.arange(S, device=q.device),
                         torch.arange(T, device=q.device), causal, window)
     scores = _where_masked(scores, mask[None, None, None])

@@ -1,8 +1,7 @@
 """Shared building blocks of the LM zoo, mirroring
 ``repro/models/common.py``: parameter construction, norms, activations,
-RoPE and the embedding lookup (forward only; its backward is the training
-slice's).  The reference's logical sharding specs have no counterpart on
-one card and are left out.
+RoPE, the embedding lookup and the cross-entropy loss.  The reference's
+logical sharding specs have no counterpart on one card and are left out.
 """
 from __future__ import annotations
 
@@ -110,7 +109,49 @@ def apply_rope(x, positions, theta: float):
 # Embedding
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# Losses
+# ---------------------------------------------------------------------------
+
+def cross_entropy_logits(logits, targets, vocab: int, chunk: int = 0):
+    """Mean next-token CE.  logits [B, S, Vp] (Vp >= vocab; the padded
+    columns get -1e9), targets [B, S] integers.  The log-softmax is taken
+    in float32.  With ``chunk`` > 0 the S dim is taken ``chunk`` positions
+    at a time, their sums added in order, to bound the float32 workspace
+    (vocab-heavy archs)."""
+    vp = logits.shape[-1]
+
+    def ce(lg, tg):
+        lg = lg.to(torch.float32)
+        if vp > vocab:
+            pad = torch.arange(vp, device=lg.device) >= vocab
+            lg = lg + pad.to(torch.float32) * -1e9
+        lse = torch.logsumexp(lg, dim=-1)
+        # gather takes int64 indices; the data's targets are int32
+        picked = torch.gather(lg, -1, tg.to(torch.int64)[..., None])[..., 0]
+        return lse - picked
+
+    S = logits.shape[1]
+    if chunk and S > chunk:
+        n = S // chunk
+        tot = torch.zeros((), dtype=torch.float32, device=logits.device)
+        for i in range(n):
+            sl = slice(i * chunk, (i + 1) * chunk)
+            tot = tot + ce(logits[:, sl], targets[:, sl]).sum()
+        if S - n * chunk:
+            tot = tot + ce(logits[:, n * chunk:],
+                           targets[:, n * chunk:]).sum()
+        return tot / math.prod(targets.shape)
+    return ce(logits, targets).mean()
+
+
 def take_embedding(table, tokens):
-    """Rows of the [V, D] ``table`` at ``tokens`` (any shape) -> [*, D]."""
+    """Rows of the [V, D] ``table`` at ``tokens`` (any shape) -> [*, D].
+    Its backward is ``index_select``'s, a scatter-add into the table's
+    gradient: the transpose of ``jnp.take`` that the reference takes on one
+    device (its one-hot contraction serves only a model-sharded mesh).  On
+    the card the scatter adds with atomics, so a token seen twice sums its
+    rows' gradients in no fixed order: equal to the CPU to float32
+    rounding, not bit for bit."""
     return table.index_select(0, tokens.reshape(-1)).reshape(
         *tokens.shape, table.shape[-1])

@@ -8,7 +8,7 @@ CUDA tensor the hand-written kernel.  The decay ``a`` and drive ``b`` are
 materialised as [B, S, d_inner, d_state] float32, as in the reference, and
 each chunk is a view of them that the kernel reads in place.  Decode is one
 recurrence step with no scan.  Training (the scan's backward) is ROADMAP
-queue 1 item 7b.
+queue 1 item 7b (7b-ii).
 """
 from __future__ import annotations
 
@@ -93,8 +93,9 @@ def mamba_apply(p, x, *, cfg: MambaConfig, mode: str = "prefill",
     decode: x [B,1,D] with state {"conv": [B,d_conv-1,di], "h": [B,di,N]}."""
     if mode not in ("prefill", "decode"):
         raise NotImplementedError(
-            f"mamba_apply mode={mode!r}: training is not ported to "
-            f"repro_torch yet: ROADMAP queue 1, still to port, item 7b")
+            f"mamba_apply mode={mode!r}: Mamba's train mode (with the "
+            f"scan's backward kernel) is not ported to repro_torch yet: "
+            f"ROADMAP queue 1, still to port, item 7b (7b-ii)")
     B, S, D = x.shape
     di = cfg.expand * D
     N = cfg.d_state

@@ -1,5 +1,6 @@
-"""Composable decoder LM, mirroring ``repro/models/transformer.py`` for
-serving (prefill and batched decode) on one card.
+"""Composable decoder LM, mirroring ``repro/models/transformer.py``:
+training (``loss_fn``) and serving (prefill and batched decode) on one
+card.
 
 A config is compiled to a *block pattern* (list of slots, each slot =
 mixer + optional FFN); the ``n_layers / len(pattern)`` groups keep
@@ -8,9 +9,16 @@ reference, and ``_backbone`` loops over the groups in Python where the
 reference runs ``lax.scan``.
 
 Families served: dense (attn + mlp), moe (attn + moe) and hybrid
-(mamba/attn interleave + mlp/moe, Jamba).  Cross attention (vlm), the
-xLSTM mixers (ssm) and codebook embeddings (audio) raise
-NotImplementedError naming ROADMAP queue 1 item 7c, ``loss_fn`` item 7b.
+(mamba/attn interleave + mlp/moe, Jamba); the dense and MoE families also
+train.  Cross attention (vlm), the xLSTM mixers (ssm) and codebook
+embeddings (audio) raise NotImplementedError naming ROADMAP queue 1 item
+7c; Mamba's train mode raises naming item 7b (7b-ii).
+
+``loss_fn`` takes the nested params or their flat view
+(``repro_torch.pytree.flat_dict``: ``/``-joined leaf paths in ``jax.tree``
+order, the layout the round, the update pipeline and the checkpoints use)
+and writes nothing in place, so the parallel round can run it under
+``vmap(grad_and_value)`` over the clients' stacked params.
 
 Decode states are written in place: ``prefill`` fills the state that
 ``init_decode_state`` made, and ``decode_step`` updates the state it is
@@ -29,8 +37,9 @@ from repro_torch.models import attention as attn
 from repro_torch.models import mamba as mamba_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.common import (DTYPES, ParamBuilder, apply_rope,
-                                       glu_mlp, plain_mlp, rms_norm,
-                                       take_embedding)
+                                       cross_entropy_logits, glu_mlp,
+                                       plain_mlp, rms_norm, take_embedding)
+from repro_torch.pytree import nest
 
 _UNPORTED = {
     "cross": "cross attention (the VLM family)",
@@ -165,6 +174,7 @@ class LM:
             ve = v.repeat_interleave(gq, dim=2)
             out = attn.attend(q, ke, ve, causal=True, window=window)
             del ke, ve
+        if mode == "prefill":
             S_max = cache["k"].shape[1]
             if window:
                 # fill the ring buffer with the last `window` positions,
@@ -194,7 +204,7 @@ class LM:
     def _apply_slot(self, slot: Slot, p, x, *, mode, positions=None,
                     cache=None, pos=None):
         """One slot.  ``cache`` is this slot's decode state for this group,
-        updated in place."""
+        updated in place; in ``mode="train"`` there is none."""
         cfg = self.cfg
         h = rms_norm(x, p["norm1"], cfg.norm_eps)
         if slot.mixer == "attn":
@@ -219,8 +229,11 @@ class LM:
 
     # ---------------------------------------------------------------- forward
     def _backbone(self, params, x, *, mode, positions, caches, pos=None):
-        """Loop over layer groups, updating ``caches`` in place.  Returns
-        (x, aux mean)."""
+        """Loop over layer groups, updating ``caches`` in place (``{}`` in
+        ``mode="train"``, which writes nothing in place).  Returns (x, aux
+        mean).  The reference rematerialises each group in train mode
+        (``jax.checkpoint``); that saves memory only, and the char-LM's
+        activations fit, so the port keeps them."""
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for g in range(self.n_groups):
             gp = _tree_index(params["layers"], g)
@@ -233,8 +246,48 @@ class LM:
                 aux = aux + a
         return x, aux / self.cfg.n_layers
 
+    # ------------------------------------------------------------------ train
     def loss_fn(self, params, batch):
-        raise _not_ported("LM training (loss_fn)", "7b")
+        """batch: tokens [B, S] and targets [B, S] integers.  Returns
+        (loss, {"ce", "aux"}); the MoE load-balance term is in the loss and,
+        as in the reference, in "ce" too."""
+        cfg = self.cfg
+        params = nest(params)      # the flat view's tensors, not copies
+        tokens = batch["tokens"]
+        x = self.embed(params, tokens)
+        S = tokens.shape[1]
+        positions = torch.arange(S, device=x.device)
+        x, aux = self._backbone(params, x, mode="train", positions=positions,
+                                caches={})
+        x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+        # chunked CE fused with the unembedding (bounds the f32 workspace)
+        chunk = 512 if S * cfg.vocab_padded > (1 << 24) else 0
+        loss = self._ce_from_hidden(params, x, batch["targets"], chunk)
+        if cfg.moe is not None:
+            loss = loss + cfg.moe.load_balance_coef * aux
+        return loss, {"ce": loss, "aux": aux}
+
+    def _ce_from_hidden(self, params, x, targets, chunk):
+        """Mean CE of the hidden states' logits; with ``chunk``, the logits
+        of ``chunk`` positions at a time, averaged as the reference does."""
+        cfg = self.cfg
+        if not chunk or x.shape[1] <= chunk:
+            return cross_entropy_logits(self.logits(params, x), targets,
+                                        cfg.vocab)
+        S = targets.shape[1]
+        n = S // chunk
+        tot = torch.zeros((), dtype=torch.float32, device=x.device)
+        for i in range(n):
+            sl = slice(i * chunk, (i + 1) * chunk)
+            tot = tot + cross_entropy_logits(self.logits(params, x[:, sl]),
+                                             targets[:, sl], cfg.vocab)
+        loss = tot / n
+        rem = S - n * chunk
+        if rem:
+            lg = self.logits(params, x[:, n * chunk:])
+            loss = (loss * n * chunk + cross_entropy_logits(
+                lg, targets[:, n * chunk:], cfg.vocab) * rem) / S
+        return loss
 
     # ---------------------------------------------------------------- serving
     def cache_len(self, s_max: int) -> int:

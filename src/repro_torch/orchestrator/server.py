@@ -1,15 +1,16 @@
 """The Central Orchestrator (paper §3.2): the sync round loop of Algorithm 1
 with adaptive selection, straggler mitigation, fault injection and comm
-accounting, mirroring ``repro/orchestrator/server.py``.
+accounting and checkpointing, mirroring ``repro/orchestrator/server.py``.
 
 Host-side only: the heavy math is the round step from
 ``repro_torch.core.round`` on ``device``; the orchestrator decides who
 participates, charges simulated wall-clock and bytes, and carries state
 across rounds.  Selection, the straggler model and faults are numpy draws
-from the same seeds as the reference, so they replay identically.
-Checkpointing is not ported yet (ROADMAP queue 1, still to port, item 4),
-so the reference's ``checkpoint_mgr``/``checkpoint_every`` fields are
-absent.
+from the same seeds as the reference, so they replay identically.  With a
+``checkpoint_mgr``, ``run`` saves the params, the server state and the meta
+``clock``, ``exec_backend`` and ``backend_state`` every
+``checkpoint_every`` rounds, as the reference does; like the reference it
+stores no generator state, so a resumed run re-seeds them from ``seed``.
 """
 from __future__ import annotations
 
@@ -69,6 +70,8 @@ class Orchestrator:
     flops_per_client_round: float = 1e12
     eval_fn: Optional[Callable] = None     # (params) -> float metric
     eval_every: int = 10
+    checkpoint_mgr: object = None     # checkpoint.CheckpointManager
+    checkpoint_every: int = 0
     backend: object = None            # ExecutionBackend (None -> closed form)
     seed: int = 0
     device: str = "cuda"
@@ -193,6 +196,13 @@ class Orchestrator:
                 print(f"round {rnd:4d} loss={log.client_loss:.4f} "
                       f"dur={log.duration_s:.1f}s part={log.participated} "
                       f"eval={log.eval_metric:.4f} wall={log.wall_s:.3f}s")
+            if self.checkpoint_mgr and self.checkpoint_every and \
+                    rnd % self.checkpoint_every == 0:
+                self.checkpoint_mgr.save(
+                    rnd, params, server_state,
+                    {"clock": self.virtual_clock,
+                     "exec_backend": self.backend.name,
+                     "backend_state": self.backend.state()})
             if monitor and monitor.update(log.delta_norm):
                 break
         return params, server_state

@@ -1,7 +1,7 @@
 """Package rules of the PyTorch port: ``repro_torch`` and ``chip_smoke.py``
 import neither JAX nor the JAX package, the launchers (training and
-serving) refuse to run on the CPU unless asked to, and a CPU run, a round
-or a serve, never reaches the kernel builder."""
+serving) and the worker refuse to run on the CPU unless asked to, and a
+CPU run, a round or a serve, never reaches the kernel builder."""
 import ast
 import os
 import subprocess
@@ -11,6 +11,7 @@ from pathlib import Path
 import pytest
 import torch
 
+from repro_torch import worker
 from repro_torch.launch import serve, train
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -105,6 +106,15 @@ def test_launcher_refuses_cuda_without_a_card():
         return
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         train.main(["--rounds", "1"])
+
+
+def test_worker_refuses_cuda_without_a_card(tmp_path):
+    if torch.cuda.is_available():
+        assert train.resolve_device("cuda").type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        worker.main(["--client-id", "0", "--workdir", str(tmp_path),
+                     "--once"])
 
 
 def test_serve_refuses_cuda_without_a_card():

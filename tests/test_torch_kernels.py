@@ -16,6 +16,8 @@ from repro_torch.core.compression import CompressionConfig
 from repro_torch.kernels import launches
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
+from repro_torch.kernels.fused_accum import fused_accum_blocks
+from repro_torch.kernels.fused_quant_mask import plain_commit_blocks
 
 SHAPES = [(64,), (8, 32), (3, 1000), (2, 7, 129), (4096,)]   # test_kernels
 ODD_SHAPES = [(17,), (2, 5, 9), (3, 300), (1,), (2049,)]     # test_fused_kernels
@@ -180,3 +182,29 @@ def test_wrappers_refuse_mismatched_shapes():
                            torch.zeros(3), 0.0)
     with pytest.raises(ValueError, match="2-d blocks"):
         quantize_dequant_blocks(torch.zeros(3, 2, 128), 8)
+
+
+@pytest.mark.parametrize("bits,k", [(0, 0), (8, 13)])
+def test_commit_wrappers_take_more_slots_than_staged_weights(bits, k):
+    """K = 12289, past the 12288 slot weights the CUDA fused accumulate
+    stages in shared memory: the wrappers take it, and on the CPU their
+    plain versions agree with the reference's oracles."""
+    n = 12289
+    rng = np.random.default_rng(22)
+    x = (rng.normal(size=(n, 1, 128)) * 0.01).astype(np.float32)
+    w = rng.uniform(0.5, 2.0, n).astype(np.float32)
+    s = rng.integers(0, 5, n).astype(np.float32)
+    want = np.asarray(jref.fused_plain_commit_ref(
+        jnp.asarray(x), jnp.asarray(w)[:, None], jnp.asarray(s)[:, None],
+        0.5, bits, k=k))
+    got = plain_commit_blocks(t(x), t(w), t(s), 0.5, bits=bits, k=k).numpy()
+    if bits:
+        w_eff = w * (1 + s) ** -0.5
+        assert_quantize_contract(got, want, w_eff.max() * np.abs(x).max()
+                                 / 127)
+    else:
+        np.testing.assert_allclose(got, want, rtol=1e-5,
+                                   atol=1e-6 * np.abs(want).max())
+        acc = fused_accum_blocks(t(x), t(w), t(s), 0.5).numpy()
+        np.testing.assert_allclose(acc, want, rtol=1e-5,
+                                   atol=1e-6 * np.abs(want).max())

@@ -362,3 +362,24 @@ def test_new_wrappers_take_the_plain_version_on_cpu_and_refuse_bad_shapes():
     with pytest.raises(ValueError, match="no kernel for device meta"):
         fedprox_update_flat(*(torch.empty(s, device="meta")
                               for s in ((2, 8), (2, 8), (8,))), 0.1, 0.0)
+
+
+def test_secure_commit_takes_more_than_1024_slots():
+    """K = 1025, past the 1024 slots the CUDA kernel once took: the wrapper
+    takes it, and on the CPU its plain version equals the reference's
+    oracle bit for bit,
+    with the upper-triangle coefficients (K(K-1)/2 mask words that do not
+    cancel)."""
+    n = 1025
+    rng = np.random.default_rng(21)
+    x = (rng.normal(size=(n, 1, 128)) * 0.01).astype(np.float32)
+    w = rng.uniform(0.5, 2.0, n).astype(np.float32)
+    seeds = jsec.pair_seeds(jax.random.PRNGKey(3),
+                            jnp.arange(n, dtype=jnp.int32))
+    coef = np.triu(np.ones((n, n), np.int32), 1)
+    got = secure_commit_blocks(t(x), t(w), u32(seeds), t(coef), 0, bits=8,
+                               k=13).numpy()
+    want = jref.fused_secure_commit_ref(
+        jnp.asarray(x), jnp.asarray(w)[:, None], seeds, jnp.asarray(coef),
+        jnp.uint32(0), 8, k=13)
+    np.testing.assert_array_equal(got, np.asarray(want))
