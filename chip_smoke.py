@@ -16,8 +16,11 @@ it happened; any failure ends the run with a non-zero exit code:
      per-leaf ones, 20 clients' dense1_w for the FedProx update, the
      full-width Jamba prefill's [1, 128, 16384, 16] chunk and a strided
      batch-2 chunk view for the selective scan), each with its extra
-     cases (the fused accumulate at other slot counts and block widths; the
-     plain commit at K=1 and K=64 past its staged slots, without quantize,
+     cases (the fused accumulate at other slot counts and block widths;
+     the fused accumulate and the plain commit at the async buffer's
+     [8, 4671, 256] under the async phase's staleness, and the fused
+     accumulate at the char-LM's [8, 12681, 256]; the plain commit at K=1
+     and K=64 past its staged slots, without quantize,
      without top-k, at 4 bits, with a zero-weight slot, ties and zero rows,
      other block widths and half-way quotients; the top-k at k=1 and
      k=block, ties across the k-th value with all-zero rows, subnormals, one
@@ -55,7 +58,22 @@ it happened; any failure ends the run with a non-zero exit code:
      a checkpointed CIFAR run cut after 2 rounds and resumed to 3 on the
      card and, from the same checkpoint, on the CPU; and ``python -m
      repro_torch.worker --once`` on the card against the CPU worker;
-  5. serve an LM (``lm_serve``): the reduced Jamba on the card against the
+  5. the async path (``async_path``): (a) the async buffer commit on the
+     card against the CPU from the same full-width CIFAR params and K=8
+     deltas, staleness [0, 1, 2, 3, 0, 5, 1, 20], the exponent 0.5 and the
+     adaptive controller's first alpha, for the default, q8 + top-k
+     (deterministic and stochastic, the same generator draws), secure q8 +
+     top-k and chunked (4 of 8) commits and two partial buffers, to 1e-4;
+     (b) ``train.run`` with ``--mode async`` on cuda at full CIFAR width
+     (60-client pool, 16 in flight, buffer 8, 5 local steps, batch 16, 6
+     commits) for the default, q8 + top-k, secure q8 + top-k, chunked,
+     adaptive-exponent-with-timeout and batched-engine configurations,
+     each run's launches counted from 0 and held against its commits, every
+     commit's wall time and phase_wall printed; then the char-LM at full
+     paper-charlm width; (c) a checkpointed async run cut after 4 commits
+     and resumed to 6 on the card and, from a copy, on the CPU, and against
+     the card's uninterrupted run;
+  6. serve an LM (``lm_serve``): the reduced Jamba on the card against the
      CPU (f32: prefill logits, every decode-state leaf, 4 decode steps, to
      1e-4); then Jamba-1.5-Large at every published width, cut to 8 layers
      and 8 experts (below), in bf16 through ``repro_torch.launch.serve.run``:
@@ -80,6 +98,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -91,7 +110,9 @@ import torch  # noqa: E402
 from repro_torch import worker  # noqa: E402
 from repro_torch.checkpoint import load_pytree, save_pytree  # noqa: E402
 from repro_torch.configs import get_config, reduced  # noqa: E402
-from repro_torch.core import CompressionConfig, build_fl_round_step  # noqa: E402
+from repro_torch.core import (AdaptiveStalenessController,  # noqa: E402
+                              CompressionConfig, build_buffer_commit_step,
+                              build_chunked_commit_steps, build_fl_round_step)
 from repro_torch.core import secure_agg as sec  # noqa: E402
 from repro_torch.core.round import ParallelRound  # noqa: E402
 from repro_torch.kernels import launches, ref  # noqa: E402
@@ -228,6 +249,52 @@ SLOT_LIMIT_CASES = (("fused_accum", 12289, 8, None),
                     ("secure_commit", 1025, 8, "cancel"),
                     ("secure_commit", 4096, 1, "triu"))
 
+# The async path (phase async_path).  A commit buffer of K=8 updates with a
+# spread of staleness (the last one 20 commits stale, the default
+# max_staleness) and the launcher's default exponent; the launcher's async
+# runs at full CIFAR CNN width: the 60-client pool, 16 clients in flight,
+# 5 local steps of batch 16, 6 commits (--rounds counts commits), client lr
+# 0.01 as in MAIN_ARGS.
+ASYNC_K, ASYNC_EXPONENT = 8, 0.5
+ASYNC_STALENESS = [0, 1, 2, 3, 0, 5, 1, 20]
+ASYNC_ARGS = ["--device", "cuda", "--dataset", "cifar10", "--mode", "async",
+              "--clients-pool", "60", "--buffer-k", "8",
+              "--max-concurrency", "16", "--local-steps", "5",
+              "--batch-size", "16", "--rounds", "6", "--lr", "0.01"]
+LM_ASYNC_ARGS = [a if a != "cifar10" else "shakespeare" for a in ASYNC_ARGS]
+# The async launcher configurations and each one's launches per commit: a
+# full buffer under --commit-chunk 4 is two chunks; the adaptive run's
+# --commit-timeout T comes from the default run's attempt times, and each
+# of its commits, timeout or not, launches the kernel once.
+ASYNC_CONFIGS = {
+    "async_default": ([], {"fused_accum": 1}),
+    "async_q8_topk_deterministic": (CONFIGS["q8_topk_deterministic"][0],
+                                    {"plain_commit": 1}),
+    "async_secure_q8_topk_deterministic": (
+        CONFIGS["secure_q8_topk_deterministic"][0], {"secure_commit": 1}),
+    "async_commit_chunk_4": (["--commit-chunk", "4"], {"fused_accum": 2}),
+    "async_adaptive_timeout": (["--staleness-exp", "adaptive"],
+                               {"fused_accum": 1}),
+    "async_batched": (["--engine", "batched"], {"fused_accum": 1}),
+}
+# Part (a), the commit on the card against the CPU: launcher flags, the
+# card's launches, and the live slots (a timeout commit pads the rest).
+# q8_topk_stochastic runs topk_sparsify once per leaf (8) before the
+# accumulate.
+ASYNC_PARITY = {
+    "default": ([], {"fused_accum": 1}, ASYNC_K),
+    "default, 6 of 8 slots live": ([], {"fused_accum": 1}, 6),
+    "q8_topk_deterministic": (CONFIGS["q8_topk_deterministic"][0],
+                              {"plain_commit": 1}, ASYNC_K),
+    "q8_topk_stochastic": (CONFIGS["q8_topk_stochastic"][0],
+                           {"topk_sparsify": 8, "fused_accum": 1}, ASYNC_K),
+    "secure_q8_topk_deterministic": (
+        CONFIGS["secure_q8_topk_deterministic"][0], {"secure_commit": 1},
+        ASYNC_K),
+    "secure_q8_topk_deterministic, 6 of 8 slots live": (
+        CONFIGS["secure_q8_topk_deterministic"][0], {"secure_commit": 1}, 6),
+    "commit_chunk_4": (["--commit-chunk", "4"], {"fused_accum": 2}, ASYNC_K),
+}
 
 # The LM serving phase.  Jamba-1.5-Large (arXiv:2403.19887) keeps every
 # published width (d_model 8192, 64 heads over 8 kv heads, d_ff and
@@ -534,20 +601,24 @@ def kernel_specs(device, k_slots=K_SLOTS, rows=BUCKET_ROWS,
     # generator of their own, so every other case keeps its inputs
     g2 = torch.Generator(device=device).manual_seed(seed + 1)
 
-    def plain_case(label, x, wv, *, bits=8, k=TOPK_K, exact=False):
-        """The plain commit on the stack ``x``, by assert_quantized_close
-        (or torch.equal where ``exact``)."""
+    def plain_case(label, x, wv, *, bits=8, k=TOPK_K, exact=False, sk=None,
+                   alpha=0.0):
+        """The plain commit on the stack ``x`` (staleness ``sk``, exponent
+        ``alpha``), by assert_quantized_close (or torch.equal where
+        ``exact``)."""
         K, R, B = x.shape
-        sk = torch.zeros(K, device=device)
+        sk = torch.zeros(K, device=device) if sk is None else sk
         q = 2 ** (bits - 1) - 1 if bits else 1
-        step = (wv.max() * x.abs().max() / q).item()
+        step = (ref.slot_weights(wv, sk, alpha).max() * x.abs().max()
+                / q).item()
         compare = (exact_one("plain_commit") if exact else
                    lambda g, p: assert_quantized_close(
                        g, p, step, f"plain_commit ({label})"))
         return (label,
-                lambda: plain_commit_blocks(x, wv, sk, 0.0, bits=bits, k=k),
+                lambda: plain_commit_blocks(x, wv, sk, alpha, bits=bits,
+                                            k=k),
                 lambda: ref.fused_plain_commit_ref(
-                    x, wv[:, None], sk[:, None], 0.0, bits, k=k),
+                    x, wv[:, None], sk[:, None], alpha, bits, k=k),
                 4 * (x.numel() + 2 * K + R * B), 7 * x.numel(),
                 SELECT_INT_OPS * x.numel(), compare)
 
@@ -633,6 +704,22 @@ def kernel_specs(device, k_slots=K_SLOTS, rows=BUCKET_ROWS,
     xlm = torch.randn(k_slots, lm_rows, block, generator=g3,
                       device=device) * 0.01
     lm_label = f"the char-LM's bucket [{k_slots}, {lm_rows}, {block}]"
+    # the async commit buffer: the first K=8 slots of the main stack and of
+    # the char-LM's bucket, discounted by the async phase's staleness
+    ka = min(ASYNC_K, k_slots)
+    x_async, xlm_async, w_async = xb[:ka], xlm[:ka], w[:ka]
+    s_async = torch.tensor(ASYNC_STALENESS[:ka], dtype=torch.float32,
+                           device=device)
+
+    def async_accum(label, x):
+        return (f"{label} [{ka}, {x.shape[1]}, {block}], staleness "
+                f"{ASYNC_STALENESS[:ka]}, exponent {ASYNC_EXPONENT}",
+                lambda: fused_accum_blocks(x, w_async, s_async,
+                                           ASYNC_EXPONENT),
+                lambda: ref.fused_accum_ref(x, w_async[:, None],
+                                            s_async[:, None], ASYNC_EXPONENT),
+                4 * (x.numel() + 2 * ka + x.shape[1] * block),
+                2 * x.numel(), 0)
 
     # FedProx update: 20 clients' copies of dense1_w against the global one
     wc = torch.randn(k_slots, leaf_params, generator=gen, device=device)
@@ -666,7 +753,9 @@ def kernel_specs(device, k_slots=K_SLOTS, rows=BUCKET_ROWS,
                 lambda: ref.fused_accum_ref(xlm, w[:, None], s[:, None],
                                             0.0),
                 4 * (xlm.numel() + 2 * k_slots + lm_rows * block),
-                2 * xlm.numel(), 0)],
+                2 * xlm.numel(), 0),
+               async_accum("the async buffer", x_async),
+               async_accum("the char-LM's async buffer", xlm_async)],
             compare=lambda g, p: check(
                 torch.allclose(g, p, rtol=1e-5, atol=1e-6),
                 "fused_accum: differs from its plain version"),
@@ -679,7 +768,12 @@ def kernel_specs(device, k_slots=K_SLOTS, rows=BUCKET_ROWS,
             plain=lambda: ref.fused_plain_commit_ref(
                 xb, w[:, None], s[:, None], 0.0, 8, k=TOPK_K),
             library=None,
-            extra=plain_extras() + [plain_case(lm_label, xlm, w)],
+            extra=plain_extras() + [
+                plain_case(lm_label, xlm, w),
+                plain_case(f"the async buffer [{ka}, {rows}, {block}], "
+                           f"staleness {ASYNC_STALENESS[:ka]}, exponent "
+                           f"{ASYNC_EXPONENT}", x_async, w_async,
+                           sk=s_async, alpha=ASYNC_EXPONENT)],
             compare=lambda g, p: assert_quantized_close(
                 g, p, step_commit, "plain_commit"),
             bytes=4 * (n_stack + 2 * k_slots + n_out),
@@ -1248,6 +1342,261 @@ def drive_main_path():
     return totals
 
 
+# ------------------------------------------------------------ async path
+def async_commit(fl, async_cfg, params, deltas, w, s, losses, m, alpha,
+                 generator):
+    """One async buffer commit of the launcher's configuration: the
+    single-shot step, or the chunked steps when ``--commit-chunk`` is below
+    the buffer (each chunk padded to C, ids arange(C), as the orchestrator
+    stacks them)."""
+    server = get_server_optimizer("fedavg")
+    C = async_cfg.commit_chunk
+    if not 0 < C < len(w):
+        step = build_buffer_commit_step(server, fl, async_cfg)
+        return step(params, (), deltas, w, s, losses, m,
+                    torch.arange(len(w), dtype=torch.int32), alpha,
+                    generator)[0]
+    acc_step, fin_step = build_chunked_commit_steps(server, fl, async_cfg)
+    acc = {k: torch.zeros_like(p) for k, p in params.items()}
+    wsum = torch.zeros((), device=w.device)
+    for lo in range(0, len(w), C):
+        part = slice(lo, lo + C)
+        acc, wsum = acc_step(acc, wsum, {k: d[part] for k, d in deltas.items()},
+                             w[part], s[part], losses[part], m[part],
+                             torch.arange(C, dtype=torch.int32), alpha,
+                             generator)
+    return fin_step(params, (), acc, wsum)[0]
+
+
+def check_async_commit_parity(device="cuda", k=ASYNC_K, tol=1e-4, seed=3):
+    """Part (a): the async buffer commit on the card against the CPU from
+    the same full-width CIFAR params and deltas, staleness ASYNC_STALENESS
+    and the exponents 0.5 and the adaptive controller's first alpha, each
+    configuration of ASYNC_PARITY with its compression draws and mask key
+    from CPU generators of one seed on both sides.  The new params agree to
+    ``tol``, the compressed commits also to the quantize contract, and the
+    card launches exactly the configuration's kernels."""
+    model = CNN(CIFAR_CNN)
+    params = model.init(torch.Generator().manual_seed(0), device="cpu")
+    rng = np.random.default_rng(seed)
+    deltas = {n: torch.from_numpy((rng.normal(size=(k,) + tuple(p.shape))
+                                   * 0.01).astype(np.float32))
+              for n, p in params.items()}
+    weights = torch.from_numpy(rng.uniform(100, 400, k).astype(np.float32))
+    losses = torch.from_numpy(rng.uniform(0.5, 2.5, k).astype(np.float32))
+    stal = torch.tensor(ASYNC_STALENESS[:k], dtype=torch.float32)
+    alphas = {"0.5": ASYNC_EXPONENT,
+              "adaptive": AdaptiveStalenessController().update(
+                  ASYNC_STALENESS[:k], 1.0)}
+    worst = {}
+    for cname, (flags, expect, live) in ASYNC_PARITY.items():
+        args = train.build_parser().parse_args(ASYNC_ARGS + flags)
+        fl, acfg = train.fl_config(args), train.async_config(args)
+        live = min(live, k)
+        m = (torch.arange(k) < live).float()
+        w = weights * m
+        d = {n: v * m.reshape((-1,) + (1,) * (v.ndim - 1))
+             for n, v in deltas.items()}
+        for aname, alpha in alphas.items():
+            new = {}
+            for dev in (device, "cpu"):
+                on = lambda t: t.to(dev)                   # noqa: E731
+                launches.reset()
+                new[dev] = async_commit(
+                    fl, acfg, {n: on(p) for n, p in params.items()},
+                    {n: on(v) for n, v in d.items()}, on(w), on(stal),
+                    on(losses), on(m), alpha,
+                    torch.Generator().manual_seed(7))
+                sync(dev)
+                if dev == device:
+                    counts = dict(launches.KERNEL_LAUNCHES)
+            label = f"async commit parity {cname}, exponent {aname}"
+            check(torch.device(device).type != "cuda" or counts == expect,
+                  f"{label}: the card launched {counts}, expected {expect}")
+            err = max((new[device][n].cpu() - new["cpu"][n]).abs().max()
+                      .item() for n in params)
+            if fl.compression.enabled:
+                w_eff = ref.slot_weights(w, stal, alpha)
+                for n in params:
+                    step = (w_eff.max() * d[n].abs().max() / 127
+                            / w.sum()).item()
+                    assert_quantized_close(new[device][n].cpu(),
+                                           new["cpu"][n], step,
+                                           f"{label} ({n})")
+            print(f"{label}: max |card - cpu| = {err:.3g}; launches {counts}")
+            check(err <= tol, f"{label}: the card differs from the CPU by "
+                              f"{err:.3g} > {tol}")
+            worst[f"{cname}, {aname}"] = err
+    launches.reset()
+    return worst
+
+
+def attempt_times(orch):
+    """Sim-seconds from dispatch to arrival of each update a run without
+    faults processed: the first ``max_concurrency`` dispatches go out at
+    time 0 and every processed event dispatches the next one at its own
+    time, so dispatch seq j >= concurrency left at the (j - concurrency)-th
+    event's time."""
+    c = min(orch.async_cfg.max_concurrency, len(orch.fleet))
+    starts = [0.0] * c + [e[0] for e in orch.events_processed]
+    return [t - starts[seq] for t, seq, _, failed, _ in orch.events_processed
+            if not failed]
+
+
+def check_async_run(cname, summary, orch, counts, expect, wall):
+    losses = summary["client_loss"]
+    check(summary["commits"] == len(losses) == 6
+          and all(math.isfinite(x) for x in losses),
+          f"{cname}: commits {summary['commits']}, losses {losses}")
+    if summary["dataset"] == "shakespeare":
+        check(summary["final_eval"] is None
+              or math.isnan(summary["final_eval"]),
+              f"{cname}: final eval {summary['final_eval']}")
+    else:
+        check(0.0 <= summary["final_eval"] <= 1.0,
+              f"{cname}: final eval {summary['final_eval']}")
+    check(counts == expect, f"{cname}: launches {counts}, expected {expect}")
+    print(f"main path {cname}: launches={counts} commits={summary['commits']} "
+          f"timeout_commits={summary['timeout_commits']} "
+          f"updates_applied={summary['updates_applied']} "
+          f"final_eval={summary['final_eval']} wall={wall:.1f}s")
+    for log in orch.logs:
+        pw = log.phase_wall
+        print(f"  commit {log.commit}: wall_s="
+              f"{sum(v for k, v in pw.items() if k != 'host_syncs'):.6f} "
+              f"n_updates={log.n_updates} timeout={log.timeout_commit} "
+              f"alpha={log.staleness_alpha:.4f} phase_wall={pw}")
+
+
+def busy_share(orch, params, server_state, n=2):
+    """Device busy share of ``n`` more commits of a warm async run: their
+    kernels' device time under ``torch.profiler`` over the host wall time
+    of ``n`` commits run before them unprofiled.  Printed only; it gates
+    nothing, and its launches come after the run's count was read."""
+    from torch.profiler import ProfilerActivity, profile
+    t0 = time.perf_counter()
+    params, server_state = orch.run(params, orch.version + n,
+                                    server_state=server_state)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        orch.run(params, orch.version + n, server_state=server_state)
+        torch.cuda.synchronize()
+    device_us = sum(e.self_device_time_total for e in prof.key_averages()
+                    if str(e.device_type).endswith("CUDA"))
+    print(f"  {n} warm commits: {wall_s * 1e3:.3f} ms of wall, "
+          f"{device_us / 1e3:.3f} ms of device time (busy share "
+          f"{device_us / 1e6 / wall_s:.3f})")
+
+
+def drive_async(base_args, configs, profiled=("async_default",
+                                              "async_batched")):
+    """The async launcher on the card once per configuration, its launches
+    counted from 0 just before the run and read just after, and held
+    against the commits times each configuration's launches per commit.
+    The adaptive run's commit timeout is a quarter of the default run's
+    median attempt time, so that partial buffers really time out.  The
+    ``profiled`` runs then print their device busy share."""
+    totals, timeout = {}, None
+    for cname, (flags, per_commit) in configs.items():
+        if cname == "async_adaptive_timeout":
+            flags = flags + ["--commit-timeout", str(timeout)]
+        args = train.build_parser().parse_args(base_args + flags)
+        launches.reset()
+        t0 = time.perf_counter()
+        orch, params, server_state = train.run(args)
+        sync(args.device)
+        wall = time.perf_counter() - t0
+        counts = dict(launches.KERNEL_LAUNCHES)
+        summary = train.summarize(args, orch)
+        expect = {kn: n * summary["commits"] for kn, n in per_commit.items()}
+        check_async_run(cname, summary, orch, counts, expect, wall)
+        add_counts(totals, counts)
+        if cname == "async_default":
+            times = attempt_times(orch)
+            timeout = statistics.median(times) / 4
+            print(f"  attempt times (sim s): median "
+                  f"{statistics.median(times):.4f} over {len(times)} updates;"
+                  f" the adaptive run's --commit-timeout {timeout:.6f}")
+        if cname in profiled and torch.device(args.device).type == "cuda":
+            busy_share(orch, params, server_state)
+        if cname == "async_adaptive_timeout":
+            check(summary["timeout_commits"] > 0,
+                  f"{cname}: no commit timed out at T={timeout}")
+    return totals
+
+
+def check_async_resume(tmp, base_args=ASYNC_ARGS, cut=4, tol=1e-4):
+    """Part (c): a checkpointed async run on the card cut after ``cut``
+    commits, then --resume to the full count on the card and, from a copy
+    of the same checkpoint, on the CPU: equal processed events and params
+    to ``tol``.  The card's resumed run is also held against its
+    uninterrupted run, with torch.use_deterministic_algorithms on: bit for
+    bit where every op of the path has a deterministic implementation (no
+    warning), else to 1e-5.  The resumed run launches one fused accumulate
+    per commit it makes."""
+    ckpt = tmp / "async_ckpt"
+    args = train.build_parser().parse_args(
+        base_args + ["--checkpoint-dir", str(ckpt), "--checkpoint-every",
+                     "1"])
+
+    def with_args(**changes):
+        return argparse.Namespace(**{**vars(args), **changes})
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            straight, p_straight, _ = train.run(with_args(checkpoint_dir=""))
+            train.run(with_args(rounds=cut))
+            shutil.copytree(ckpt, tmp / "async_ckpt_cpu")
+            launches.reset()
+            resumed, card, _ = train.run(with_args(resume=True))
+            sync(args.device)
+            counts = dict(launches.KERNEL_LAUNCHES)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    nondet = sorted({str(w.message).split("\n")[0] for w in caught
+                     if "deterministic" in str(w.message)})
+    on_cpu, cpu, _ = train.run(with_args(
+        resume=True, device="cpu", checkpoint_dir=str(tmp / "async_ckpt_cpu")))
+    err_cpu = max((card[k].cpu() - cpu[k]).abs().max().item() for k in card)
+    err_straight = max((card[k] - p_straight[k]).abs().max().item()
+                       for k in card)
+    bitwise = all(torch.equal(card[k], p_straight[k]) for k in card)
+    expect = {"fused_accum": args.rounds - cut}
+    print(f"async checkpoint and resume ({args.dataset}, {cut} commits, then "
+          f"--resume to {args.rounds}): resumed card vs CPU max |diff| = "
+          f"{err_cpu:.3g}; resumed card vs uninterrupted card max |diff| = "
+          f"{err_straight:.3g} (bit for bit: {bitwise}); deterministic "
+          f"algorithms warned: {nondet or 'none'}; launches {counts}")
+    check(resumed.events_processed == on_cpu.events_processed
+          == straight.events_processed,
+          "async resume: the processed events differ")
+    check(err_cpu <= tol, f"async resume: the card's resumed run differs "
+                          f"from the CPU's by {err_cpu:.3g} > {tol}")
+    check(bitwise if not nondet else err_straight <= 1e-5,
+          f"async resume: the card's resumed run differs from its "
+          f"uninterrupted run by {err_straight:.3g}")
+    check(counts == expect, f"async resume: launches {counts}, expected "
+                            f"{expect}")
+    return counts
+
+
+def async_path():
+    """Phase async_path: (a) the commit, card against CPU; (b) the async
+    launcher on the card, each configuration at full CIFAR width, then the
+    char-LM at full paper-charlm width; (c) checkpoint and resume."""
+    check_async_commit_parity()
+    totals = drive_async(ASYNC_ARGS, ASYNC_CONFIGS)
+    add_counts(totals, drive_async(
+        LM_ASYNC_ARGS, {"lm_async_default": ASYNC_CONFIGS["async_default"]}))
+    with tempfile.TemporaryDirectory() as tmp:
+        add_counts(totals, check_async_resume(Path(tmp)))
+    return totals
+
+
 # ---------------------------------------------------------------- phase 5
 def rel_gap(got, want) -> float:
     """max |got - want| / max |want|, in float32 on the CPU."""
@@ -1482,6 +1831,9 @@ def lm_serve():
 
 
 def main() -> int:
+    # cuBLAS reads its workspace setting when the first handle is made; a
+    # fixed one lets check_async_resume run under deterministic algorithms
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an "
               "NVIDIA GPU", file=sys.stderr)
@@ -1500,13 +1852,14 @@ def main() -> int:
         for phase, run in (("build", build), ("kernels", check_kernels),
                            ("round_parity", round_parity),
                            ("main_path", drive_main_path),
+                           ("async_path", async_path),
                            ("lm_serve", lm_serve)):
             t0 = time.perf_counter()
             phases[phase] = run()
             print(f"phase {phase}: {time.perf_counter() - t0:.1f} s")
         rows, totals = phases["kernels"], dict(phases["main_path"])
-        for k, n in phases["lm_serve"].items():
-            totals[k] = totals.get(k, 0) + n
+        add_counts(totals, phases["async_path"])
+        add_counts(totals, phases["lm_serve"])
         for kname, row in rows.items():
             row["launches"] = totals.get(kname, 0)
             check(row["launches"] > 0, f"{kname}: no launch on the main path")

@@ -1,18 +1,26 @@
 """The update pipeline, mirroring ``repro/core/pipeline.py``: one stage
-stack, built once from ``FLConfig``, that every sync execution mode folds
-its client updates through.
+stack, built once from ``FLConfig``, that every execution mode, sync and
+async, folds its client updates through.
 
 Stages over update dicts plus per-slot scalars; a "slot" is one client
-update in a batch of K (a sync cohort, or the pods of a round):
+update in a batch of K (a sync cohort, an async commit buffer, or the pods
+of a round):
 
-    compress -> weight -> secure_mask -> aggregate -> normalise
+    compress -> weight/discount -> secure_mask -> aggregate -> normalise
 
+``client_weights`` gives ``(w_eff, w_raw)``: the data-size weights times
+the participation mask (times the inverse loss under
+aggregation='weighted'), and, async only, ``w_eff`` times the staleness
+discount ``1/(1+s)^a``.  The sum is normalised by the UN-discounted mass
+``w_raw.sum()``, so a uniformly stale buffer takes a proportionally smaller
+server step (FedBuff) instead of having the discount cancel in the mean.
 Masking follows weighting: the server sums ``w_i * d_i + m_i`` and the
 ``m_i`` cancel only if nothing scales them per slot afterwards.
 
 Execution-mode mapping:
-  * parallel — ``combine`` consumes the full [K, ...] stack (trimmed mean
-    and the hierarchical pod combine included);
+  * parallel / async commit — ``combine`` consumes the full [K, ...] stack
+    (trimmed mean and the hierarchical pod combine included); the chunked
+    async commit sums ``combine_unnormalised`` over chunks;
   * sequential — per-slot ``contribution`` folded with ``accum_add``, then
     ``normalise``: the same algebra in streaming memory;
   * pod_sequential / hierarchical — per-pod partial sums, compressed, then
@@ -25,6 +33,8 @@ batched combinator runs them as one CUDA kernel over a bucket of all leaves
   * deterministic quantize and/or top-k -> ``plain_commit`` (top-k +
     per-slot-block quantize + weighted sum);
   * no compression -> ``fused_accum``;
+  both take the raw weights, the staleness and the exponent, and compute
+  the discount in the kernel;
   * stochastic rounding or federated dropout need per-slot randomness, so
     compression runs per slot first (top-k and the deterministic quantize
     through their CUDA kernels) and only the accumulate fuses;
@@ -66,13 +76,12 @@ if TYPE_CHECKING:                       # avoid circular import with round.py
     from repro_torch.core.round import FLConfig
 
 
-def refuse_unported(cfg: "FLConfig") -> None:
-    """Raise NotImplementedError for FLConfig values whose branches are not
-    ported, naming the ROADMAP item that will port them."""
-    if cfg.mode != "sync":
-        raise NotImplementedError(
-            f"FLConfig(mode={cfg.mode!r}) is not ported to repro_torch yet: "
-            f"ROADMAP queue 1, still to port, item 5 (async regime)")
+def staleness_weights(staleness, exponent):
+    """The FedBuff polynomial discount ``1 / (1 + s)^a``.  ``staleness``
+    counts server commits between a client's dispatch and its update's
+    arrival; works on tensors and numpy arrays.  ``exponent`` is a runtime
+    number: the adaptive controller moves it between commits."""
+    return (1.0 + staleness) ** (-exponent)
 
 
 class UpdatePipeline:
@@ -81,7 +90,6 @@ class UpdatePipeline:
 
     def __init__(self, cfg: "FLConfig", n_pods: int = 1,
                  allow_fused: bool = True):
-        refuse_unported(cfg)
         if cfg.secure_agg and cfg.aggregation == "trimmed_mean":
             raise ValueError(
                 "secure_agg is incompatible with aggregation='trimmed_mean': "
@@ -114,11 +122,17 @@ class UpdatePipeline:
                              batch_dims=1)
 
     # ------------------------------------------------------------- stage 2
-    def client_weights(self, weights, mask, losses=None):
-        """Per-slot weights: data sizes x participation (x inverse loss
-        under aggregation='weighted')."""
-        return agg.effective_weights(weights, mask, losses,
-                                     self.cfg.aggregation)
+    def client_weights(self, weights, mask, losses=None, staleness=None,
+                       exponent=None):
+        """(w_eff, w_raw): the discounted and the raw per-slot weights.
+        ``w_raw`` is data sizes x participation (x inverse loss under
+        aggregation='weighted'); without staleness ``w_eff`` is ``w_raw``."""
+        w_raw = agg.effective_weights(weights, mask, losses,
+                                      self.cfg.aggregation)
+        if staleness is None:
+            return w_raw, w_raw
+        return w_raw * staleness_weights(staleness.to(torch.float32),
+                                         exponent), w_raw
 
     def client_weight(self, w_c, m_c, loss_c):
         """Scalar form for streaming callers."""
@@ -174,53 +188,65 @@ class UpdatePipeline:
 
     # --------------------------------------------------------- combinators
     def combine_unnormalised(self, deltas: dict, weights, mask, losses,
-                             generator, ids=None):
-        """compress -> weight -> (secure_mask) -> weighted sum, WITHOUT the
-        closing normalise.  Returns (summed, w).  A sync commit has no
-        staleness: the fused kernels get zero staleness and exponent 0, a
-        discount of exactly 1."""
+                             generator, ids=None, staleness=None,
+                             exponent=None):
+        """compress -> weight/discount -> (secure_mask) -> weighted sum,
+        WITHOUT the closing normalise.  Returns (summed, w_eff, w_raw).
+
+        Every stage up to normalise is slot-local or additive, so a commit
+        over K slots equals the sum of this over any partition of the slots
+        into chunks, normalised once by the total raw mass: the algebra of
+        the chunked async commit.  Each chunk draws its own randomness (and
+        mask key) from ``generator``, so masks cancel within each chunk.  A
+        sync commit has no staleness: the fused kernels get zero staleness
+        and exponent 0, a discount of exactly 1."""
         if self.cfg.aggregation == "trimmed_mean":
             raise ValueError(
                 "trimmed_mean is not a chunk-accumulable aggregate: "
                 "coordinate-wise trimming needs all slots at once")
-        w = self.client_weights(weights, mask, losses)
+        w_eff, w_raw = self.client_weights(weights, mask, losses, staleness,
+                                           exponent)
         comp = self.cfg.compression
         names = ordered(deltas)
         if self.cfg.secure_agg:
             if ids is None:
                 ids = torch.arange(mask.shape[0], dtype=torch.int32)
             if comp.quantize_bits:
-                summed = self._fused_secure(deltas, w, mask, generator, ids)
+                summed = self._fused_secure(deltas, w_eff, mask, generator,
+                                            ids)
             else:
                 stacked = (self.compress_each(deltas, generator)
                            if comp.enabled else deltas)
-                pre = {k: d.to(torch.float32) * w.reshape(
+                pre = {k: d.to(torch.float32) * w_eff.reshape(
                     (-1,) + (1,) * (d.ndim - 1)) for k, d in stacked.items()}
                 masked = self.secure_mask(pre, self.mask_key(generator), ids,
                                           mask)
                 summed = {k: m.to(torch.float32).sum(0)
                           for k, m in masked.items()}
         elif self.fused:
-            s = torch.zeros_like(w)
+            # the kernels take the raw weights and compute the discount
+            s = (staleness.to(torch.float32) if staleness is not None
+                 else torch.zeros_like(w_raw))
+            a = float(exponent) if exponent is not None else 0.0
             if comp.enabled and self._fusable_comp:
-                # one pass: top-k + quantize + weight + sum, all leaves
+                # one pass: top-k + quantize + discount + sum, all leaves
                 # bucketed into a single kernel launch
                 out = kops.fused_plain_commit_tree(
-                    [deltas[n] for n in names], w, s, 0.0,
+                    [deltas[n] for n in names], w_raw, s, a,
                     bits=comp.quantize_bits, k=comp.topk_k, block=comp.block)
             else:
                 # per-slot stages that need slot randomness stay unfused;
                 # the accumulate still fuses (one bucketed launch)
                 stacked = (self.compress_each(deltas, generator)
                            if comp.enabled else deltas)
-                out = kops.fused_accum_tree([stacked[n] for n in names], w, s,
-                                            0.0, block=comp.block)
+                out = kops.fused_accum_tree([stacked[n] for n in names],
+                                            w_raw, s, a, block=comp.block)
             summed = dict(zip(names, out))
         else:
             stacked = (self.compress_each(deltas, generator)
                        if comp.enabled else deltas)
-            summed = self.weighted_sum(stacked, w)
-        return summed, w
+            summed = self.weighted_sum(stacked, w_eff)
+        return summed, w_eff, w_raw
 
     def _fused_secure(self, deltas: dict, w, participation, generator,
                       ids) -> dict:
@@ -248,34 +274,40 @@ class UpdatePipeline:
         return dict(zip(names, out))
 
     def combine(self, deltas: dict, weights, mask, losses, generator,
-                ids=None):
-        """The full batched stack over [K, ...] slot deltas, the trimmed
-        mean and the hierarchical pod combine included.  Returns
-        (delta, w)."""
-        if self.cfg.aggregation == "trimmed_mean":
-            # robust trimming consumes the RAW per-slot deltas (no
-            # compression, no masking: refused at build time)
-            w = self.client_weights(weights, mask, losses)
-            return agg.trimmed_mean(deltas, mask), w
-        if self.cfg.hierarchical and self.n_pods > 1:
-            w = self.client_weights(weights, mask, losses)
-            return self._combine_hierarchical(deltas, w, generator), w
-        summed, w = self.combine_unnormalised(deltas, weights, mask, losses,
-                                              generator, ids=ids)
-        return self.normalise(summed, w.sum()), w
+                ids=None, staleness=None, exponent=None):
+        """The full batched stack over [K, ...] slot deltas: the parallel
+        sync mode (staleness=None) and the async buffered commit (staleness
+        and exponent set), the trimmed mean and the hierarchical pod combine
+        included.  Returns (delta, w_eff, w_raw); the sum is normalised by
+        ``w_raw.sum()``, not by ``w_eff``."""
+        if self.cfg.aggregation == "trimmed_mean" or (
+                self.cfg.hierarchical and self.n_pods > 1):
+            w_eff, w_raw = self.client_weights(weights, mask, losses,
+                                               staleness, exponent)
+            if self.cfg.aggregation == "trimmed_mean":
+                # robust trimming consumes the RAW per-slot deltas (no
+                # compression, no masking: refused at build time)
+                return agg.trimmed_mean(deltas, mask), w_eff, w_raw
+            return (self._combine_hierarchical(deltas, w_eff, w_raw,
+                                               generator), w_eff, w_raw)
+        summed, w_eff, w_raw = self.combine_unnormalised(
+            deltas, weights, mask, losses, generator, ids=ids,
+            staleness=staleness, exponent=exponent)
+        return self.normalise(summed, w_raw.sum()), w_eff, w_raw
 
-    def _combine_hierarchical(self, deltas: dict, w, generator) -> dict:
+    def _combine_hierarchical(self, deltas: dict, w_eff, w_raw,
+                              generator) -> dict:
         """Pod-local weighted sums -> compress -> cross-pod combine: only
         the compressed pod sums cross the slow cross-pod link."""
         P = self.n_pods
-        per_pod = w.shape[0] // P
+        per_pod = w_eff.shape[0] // P
 
         def pod_sums(d):
-            wb = w.reshape((P, per_pod) + (1,) * (d.ndim - 1)).to(d.dtype)
+            wb = w_eff.reshape((P, per_pod) + (1,) * (d.ndim - 1)).to(d.dtype)
             return (d.reshape((P, per_pod) + tuple(d.shape[1:])) * wb).sum(1)
 
         sums = {k: pod_sums(d) for k, d in deltas.items()}
-        return self.combine_pods(sums, w.sum(), generator)
+        return self.combine_pods(sums, w_raw.sum(), generator)
 
     def combine_pods(self, pod_sums: dict, w_total, generator,
                      compressed: bool = False) -> dict:
@@ -312,6 +344,7 @@ class UpdatePipeline:
 
 def build_update_pipeline(cfg: "FLConfig", n_pods: int = 1,
                           allow_fused: bool = True) -> UpdatePipeline:
-    """Build the stage stack once from FLConfig.  ``allow_fused=False``
-    forces the unfused stages."""
+    """Build the stage stack once from FLConfig; every execution mode of
+    ``core/round.py`` and ``core/async_round.py`` closes over the returned
+    pipeline.  ``allow_fused=False`` forces the unfused stages."""
     return UpdatePipeline(cfg, n_pods=n_pods, allow_fused=allow_fused)

@@ -44,8 +44,8 @@ from repro_torch.pytree import ordered
 
 @dataclass(frozen=True)
 class FLConfig:
-    mode: str = "sync"                # sync (barrier rounds) | async (not
-    #                                   ported yet)
+    mode: str = "sync"                # sync (barrier rounds) | async (FedBuff
+    #                                   buffered commits; core.async_round)
     num_clients: int = 8              # clients per round (C)
     local_steps: int = 2              # H local epochs/steps per round
     client_lr: float = 0.05
@@ -142,8 +142,8 @@ class ParallelRound:
 
     def commit(self, global_params: dict, server_state, deltas: dict, losses,
                weights, mask, generator):
-        delta, _ = self.pipe.combine(deltas, weights, mask, losses,
-                                     generator)
+        delta, _, _ = self.pipe.combine(deltas, weights, mask, losses,
+                                        generator)
         new_params, new_state = self.server_opt.apply(global_params, delta,
                                                       server_state)
         return new_params, new_state, _metrics(delta, (losses * mask).sum(),

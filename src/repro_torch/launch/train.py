@@ -1,10 +1,11 @@
-"""Federated training launcher, sync regime, mirroring
-``repro/launch/train.py``:
+"""Federated training launcher, mirroring ``repro/launch/train.py``:
 
     PYTHONPATH=src python -m repro_torch.launch.train \
         --dataset cifar10 --rounds 100 --clients-pool 60 \
         --clients-per-round 20 --local-steps 5 --quantize-bits 8 \
         --topk-frac 0.1 --checkpoint-dir ckpts/run1 --render-jobs jobs/
+    PYTHONPATH=src python -m repro_torch.launch.train --mode async \
+        --buffer-k 8 --max-concurrency 16 --rounds 100
 
 Same flags as the reference plus ``--device`` (default ``cuda``; the
 launcher raises when CUDA is absent and ``--device cpu`` was not given).
@@ -14,10 +15,20 @@ snapshot the run and ``--resume`` continues from the latest snapshot, with
 the reference's semantics (params, server state, round, clock and backend
 state restored; selection, faults and the generators re-seeded from
 ``--seed``); ``--render-jobs`` writes the scheduler artifacts that run
-``python -m repro_torch.worker``.  ``--mode async`` and ``--facilities``
+``python -m repro_torch.worker``.
+
+``--mode async`` runs the buffered-asynchronous regime (FedBuff:
+staleness-discounted commits every ``--buffer-k`` arrivals or after
+``--commit-timeout`` sim-seconds; ``--rounds`` then counts server commits)
+on the per-event engine (``--engine legacy``, which ``auto`` picks below
+``AUTO_ENGINE_THRESHOLD`` clients) or the batched one (``--engine
+batched``).  Its ``--checkpoint-dir`` snapshots the whole orchestrator
+every ``--checkpoint-every`` commits and ``--resume`` continues bit for bit
+(event heap, buffer and every RNG stream restored).  ``--engine window``
+(and ``auto`` from ``AUTO_ENGINE_THRESHOLD`` clients) and ``--facilities``
 raise NotImplementedError naming the ROADMAP item that will port them.
-Flags that only the async or hierarchical regimes read are parsed and, as
-in the reference's sync branch, not used.
+Flags that only another regime reads are parsed and, as in the
+reference, not used.
 """
 from __future__ import annotations
 
@@ -28,16 +39,19 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from repro_torch.checkpoint import CheckpointManager
+from repro_torch.checkpoint import AsyncCheckpointManager, CheckpointManager
 from repro_torch.configs import get_config
-from repro_torch.core import CompressionConfig, FLConfig, payload_bytes
+from repro_torch.core import (AsyncConfig, CompressionConfig, FLConfig,
+                              payload_bytes)
 from repro_torch.data import (FederatedDataset, cifar10_like, medmnist_like,
                               partition_by_class, partition_by_group,
                               shakespeare_like)
 from repro_torch.exec import BACKEND_NAMES, make_backend
 from repro_torch.models import build_model
 from repro_torch.models.cnn import CIFAR_CNN, CNN, MEDMNIST_CNN
-from repro_torch.orchestrator import (FaultConfig, Orchestrator,
+from repro_torch.orchestrator import (AsyncOrchestrator,
+                                      BatchedAsyncOrchestrator, CohortFleet,
+                                      FaultConfig, Orchestrator,
                                       StragglerPolicy,
                                       equivalent_preempt_rate_per_min,
                                       make_hybrid_fleet)
@@ -45,6 +59,19 @@ from repro_torch.orchestrator.server import to_device
 from repro_torch.orchestrator.straggler import expected_attempt_s
 from repro_torch.pytree import flat_dict
 from repro_torch.sched import HybridAdapter, JobSpec, K8sAdapter, SlurmAdapter
+
+# --engine auto crossover: below this fleet size the per-event engine is
+# the reference's pick (its measured crossover)
+AUTO_ENGINE_THRESHOLD = 300
+
+
+def resolve_engine(engine: str, fleet) -> str:
+    """Map --engine auto to a concrete engine from the fleet size."""
+    if engine != "auto":
+        return engine
+    if isinstance(fleet, CohortFleet) or len(fleet) >= AUTO_ENGINE_THRESHOLD:
+        return "window"
+    return "legacy"
 
 
 def _staleness_exp(v: str):
@@ -131,7 +158,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--hpc-nodes", type=int, default=0)
     ap.add_argument("--cloud-nodes", type=int, default=0)
     ap.add_argument("--spot-preempt-per-min", type=float, default=0.0)
-    # read only by the async and hierarchical regimes (not ported yet)
+    # the async regime (and the hierarchical one, not ported yet)
     ap.add_argument("--buffer-k", type=int, default=8)
     ap.add_argument("--engine", default="auto",
                     choices=["auto", "legacy", "batched", "window"])
@@ -191,15 +218,19 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def _refuse_unported(args) -> None:
-    unported = [
-        (args.mode == "async", "--mode async",
-         "queue 1, still to port, item 5 (async regime)"),
-        (args.facilities, "--facilities", "queue 1, still to port, item 6 (hierarchy)"),
-    ]
-    for bad, flag, item in unported:
-        if bad:
-            raise NotImplementedError(
-                f"{flag} is not ported to repro_torch yet: ROADMAP {item}")
+    if args.facilities:
+        raise NotImplementedError(
+            "--facilities is not ported to repro_torch yet: ROADMAP queue 1, "
+            "still to port, item 6 (hierarchy)")
+
+
+def async_config(args) -> AsyncConfig:
+    return AsyncConfig(buffer_size=args.buffer_k,
+                       staleness_exponent=args.staleness_exp,
+                       max_staleness=args.max_staleness,
+                       commit_timeout_s=args.commit_timeout,
+                       max_concurrency=args.max_concurrency,
+                       commit_chunk=args.commit_chunk)
 
 
 def fl_config(args) -> FLConfig:
@@ -273,6 +304,36 @@ def build_run(args, fl: FLConfig | None = None):
                          partition_prob=args.partition_prob,
                          recovery_policy=args.recovery_policy,
                          recovery_overhead_s=args.recovery_overhead_s)
+    if args.mode == "async":
+        if args.deadline_s or args.fastest_k:
+            print("warning: --deadline-s/--fastest-k are barrier-round "
+                  "mitigations; the async regime ignores them (staleness "
+                  "discounting replaces them)")
+        engine = resolve_engine(args.engine, fleet)
+        if args.engine == "auto":
+            print(f"--engine auto: {len(fleet)} clients -> {engine} "
+                  f"(crossover {AUTO_ENGINE_THRESHOLD})")
+        if engine == "window":
+            raise NotImplementedError(
+                "the event-window engine (--engine window, and --engine auto "
+                f"from {AUTO_ENGINE_THRESHOLD} clients) is not ported to "
+                "repro_torch yet: ROADMAP queue 1 item 5b (event-window "
+                "engine)")
+        orch_cls, engine_kw = ((AsyncOrchestrator, {}) if engine == "legacy"
+                               else (BatchedAsyncOrchestrator,
+                                     {"train_chunk": args.train_chunk}))
+        orch = orch_cls(
+            fleet=fleet, fed_data=fed, loss_fn=model.loss_fn, fl=fl,
+            async_cfg=async_config(args),
+            server_opt_name=args.server_opt, selection_name=args.selection,
+            straggler=StragglerPolicy(), faults=faults,
+            batch_size=args.batch_size, flops_per_client_round=3e12,
+            eval_fn=eval_fn, eval_every=10,
+            checkpoint_mgr=(AsyncCheckpointManager(args.checkpoint_dir)
+                            if args.checkpoint_dir else None),
+            checkpoint_every=args.checkpoint_every, backend=build_backend(),
+            seed=args.seed, device=device, **engine_kw)
+        return orch, params
     orch = Orchestrator(
         fleet=fleet, fed_data=fed, loss_fn=model.loss_fn, fl=fl,
         server_opt_name=args.server_opt, selection_name=args.selection,
@@ -293,10 +354,17 @@ def restore(args, orch, params):
     with a checkpoint, the latest one's params, server state, round, clock
     and backend state (on the run's device); else the initial params from
     round 0.  A checkpoint written under another ``--exec-backend`` ends
-    the run."""
+    the run.  An async run restores its whole orchestrator (the first
+    round is then unused: it continues from the restored commit)."""
     mgr = orch.checkpoint_mgr
     if not (args.resume and mgr.latest_round() is not None):
         return params, None, 0
+    if args.mode == "async":
+        params, server_state = mgr.restore_async(orch, params)
+        print(f"resumed async run at commit {orch.version} "
+              f"(sim t={orch.clock:.1f}s, {len(orch._inflight)} clients "
+              f"in flight, {len(orch._buffer)} updates buffered)")
+        return params, server_state, orch.version
     server_state = orch.init_server_state(params)
     params, server_state, meta = mgr.restore(params, server_state)
     start_round = meta["round"] + 1
@@ -314,9 +382,35 @@ def restore(args, orch, params):
 
 
 def summarize(args, orch) -> dict:
-    """The run's JSON summary (the reference's keys, plus the device and
-    the host seconds of each round)."""
+    """The run's JSON summary: the reference's keys, plus the device, each
+    round's or commit's client loss, and the host seconds of each round
+    (sync) or each commit's ``phase_wall`` (async)."""
     logs = orch.logs
+    if args.mode == "async":
+        return {
+            "dataset": args.dataset, "algo": args.algo, "mode": "async",
+            "device": str(orch.device),
+            "exec_backend": args.exec_backend,
+            "engine": resolve_engine(args.engine, orch.fleet),
+            "secure_agg": args.secure_agg,
+            "mask_overhead_bytes": sum(l.mask_overhead_bytes for l in logs),
+            "commits": orch.version,
+            "updates_applied": orch.updates_applied,
+            "dropped_stale": orch.dropped_stale,
+            "recovered_updates": orch.recovered_updates,
+            "lost_to_faults": orch.lost_to_faults,
+            "final_eval": logs[-1].eval_metric if logs else None,
+            "virtual_time_s": orch.clock,
+            "updates_per_sim_s": orch.updates_per_sim_second,
+            "mean_queue_wait_s": (float(np.mean([l.queue_wait_s
+                                                 for l in logs]))
+                                  if logs else 0.0),
+            "overflow_updates": sum(l.n_overflow for l in logs),
+            "recovery_actions": sum(len(l.recovery_actions) for l in logs),
+            "timeout_commits": sum(l.timeout_commit for l in logs),
+            "client_loss": [l.client_loss for l in logs],
+            "phase_wall": [l.phase_wall for l in logs],
+        }
     return {
         "dataset": args.dataset, "algo": args.algo, "mode": "sync",
         "device": str(orch.device),
@@ -346,9 +440,10 @@ def run(args, fl: FLConfig | None = None):
         n = render_jobs(orch.fleet, Path(args.render_jobs))
         print(f"rendered {n} scheduler artifacts -> {args.render_jobs}")
     params, server_state, start_round = restore(args, orch, params)
+    start = {} if args.mode == "async" else {"start_round": start_round}
     params, server_state = orch.run(params, args.rounds,
-                                    server_state=server_state,
-                                    start_round=start_round, verbose=True)
+                                    server_state=server_state, verbose=True,
+                                    **start)
     return orch, params, server_state
 
 

@@ -3,3 +3,7 @@ from repro_torch.orchestrator.selection import AdaptiveSelection, RandomSelectio
 from repro_torch.orchestrator.straggler import StragglerPolicy, apply_mitigation, simulate_round_times  # noqa: F401
 from repro_torch.orchestrator.fault import FaultConfig, FaultInjector, equivalent_preempt_rate_per_min  # noqa: F401
 from repro_torch.orchestrator.server import Orchestrator, RoundLog  # noqa: F401
+from repro_torch.orchestrator.async_server import AsyncOrchestrator, CommitLog, PendingUpdate  # noqa: F401
+from repro_torch.orchestrator.megafleet import (  # noqa: F401
+    BatchedAsyncOrchestrator, CohortFleet, CohortSpec, make_mega_fleet,
+)

@@ -78,9 +78,10 @@ class Orchestrator:
 
     def __post_init__(self):
         if self.fl.mode != "sync":
-            raise NotImplementedError(
-                f"FLConfig(mode={self.fl.mode!r}) is not ported to "
-                f"repro_torch yet: ROADMAP queue 1, still to port, item 5")
+            raise ValueError(
+                f"Orchestrator runs the synchronous barrier loop but got "
+                f"FLConfig(mode={self.fl.mode!r}); use AsyncOrchestrator "
+                f"for mode='async'")
         self.rng = np.random.default_rng(self.seed)
         # commit randomness (stochastic rounding, federated dropout, the
         # secure-aggregation commit keys)

@@ -126,8 +126,7 @@ def test_fused_update_round_matches_jax(mode, mu):
     dict(hierarchical=True), dict(aggregation="trimmed_mean"),
     dict(secure_agg=True), dict(use_fused_update=True)])
 def test_config_values_build(change):
-    """Every sync FLConfig value builds a round step (only mode='async'
-    is still refused)."""
+    """Every sync FLConfig value builds a round step."""
     tm = CNN(CNNConfig(**NARROW))
     cfg = dataclasses.replace(FLConfig(), **change)
     step = build_fl_round_step(tm.loss_fn, get_client_optimizer("sgd"),

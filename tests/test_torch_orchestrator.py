@@ -110,7 +110,8 @@ def test_launcher_three_rounds_match_jax(monkeypatch, capsys):
     assert len(ROUND_LINE.findall(tout)) == ROUNDS
 
 
-@pytest.mark.parametrize("flag", [["--mode", "async"], ["--facilities", "2"]])
+@pytest.mark.parametrize("flag", [["--mode", "async", "--engine", "window"],
+                                  ["--facilities", "2"]])
 def test_launcher_unported_flags_raise(flag):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         t_train.main(["--device", "cpu", "--rounds", "1"] + flag)
