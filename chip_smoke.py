@@ -19,7 +19,10 @@ it happened; any failure ends the run with a non-zero exit code:
      cases (the fused accumulate at other slot counts and block widths;
      the fused accumulate and the plain commit at the async buffer's
      [8, 4671, 256] under the async phase's staleness, and the fused
-     accumulate at the char-LM's [8, 12681, 256]; the plain commit at K=1
+     accumulate at the char-LM's [8, 12681, 256]; the hierarchy's tier-2
+     commit, one slot per facility: the fused accumulate at [4, 4671,
+     256], [2, ...] and [1, ...] and the secure commit at K=4; the plain
+     commit at K=1
      and K=64 past its staged slots, without quantize,
      without top-k, at 4 bits, with a zero-weight slot, ties and zero rows,
      other block widths and half-way quotients; the top-k at k=1 and
@@ -73,7 +76,27 @@ it happened; any failure ends the run with a non-zero exit code:
      paper-charlm width; (c) a checkpointed async run cut after 4 commits
      and resumed to 6 on the card and, from a copy, on the CPU, and against
      the card's uninterrupted run;
-  6. serve an LM (``lm_serve``): the reduced Jamba on the card against the
+  6. the fleet path (``fleet_path``), at full CIFAR width: (a) ``--engine
+     window``, uncompressed and secure q8 + top-k, against ``--engine
+     batched`` (equal events and log host fields; params within 1e-5,
+     and under compression, where top-k and rounding flips add up, the
+     gap printed),
+     each commit's phase_wall printed, its host syncs held at 1, its
+     launches at one commit kernel a commit, and the busy share over 2
+     warm commits; (b) ``--engine auto`` at a 300-client pool, which must
+     pick the window engine; (c) a 100,000-client ``make_mega_fleet``
+     cohort fleet over a ``VirtualFederatedDataset``, window against
+     batched, with the wall time a commit; (d) a window run on the card
+     against the CPU, to 1e-4; (e) the hierarchy, ``--facilities 4
+     --local-rounds 2 --rounds 3`` (15 clients a facility): sync/sync,
+     async/async with ``--inter-buffer 2``, and sync/sync secure q8 +
+     top-k, launches held at the facilities' rounds or commits plus the
+     tier-2 commits, with the wall time an epoch and the tier-2 commit
+     step's; (f) a 2-facility hierarchy on the card against the CPU, to
+     1e-4, and a checkpointed async/async hierarchy cut after 2 of 3
+     tier-2 commits and resumed on the card, bit for bit against the
+     card's uninterrupted run;
+  7. serve an LM (``lm_serve``): the reduced Jamba on the card against the
      CPU (f32: prefill logits, every decode-state leaf, 4 decode steps, to
      1e-4); then Jamba-1.5-Large at every published width, cut to 8 layers
      and 8 experts (below), in bf16 through ``repro_torch.launch.serve.run``:
@@ -87,7 +110,9 @@ The last lines are the kernels' JSON record, the nvidia-smi line, and
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import io
 import json
 import math
 import os
@@ -127,8 +152,12 @@ from repro_torch.kernels.topk_sparsify import topk_sparsify_blocks  # noqa: E402
 from repro_torch.launch import serve, train  # noqa: E402
 from repro_torch.models import build_model, param_count  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
+from repro_torch.data import VirtualFederatedDataset  # noqa: E402
 from repro_torch.models.cnn import CIFAR_CNN, CNN  # noqa: E402
 from repro_torch.optim import get_client_optimizer, get_server_optimizer  # noqa: E402
+from repro_torch.orchestrator import (BatchedAsyncOrchestrator,  # noqa: E402
+                                      EventWindowOrchestrator,
+                                      make_mega_fleet)
 from repro_torch.pytree import flat_dict  # noqa: E402
 
 CSRC = "src/repro_torch/kernels/csrc/"
@@ -294,6 +323,49 @@ ASYNC_PARITY = {
     "secure_q8_topk_deterministic, 6 of 8 slots live": (
         CONFIGS["secure_q8_topk_deterministic"][0], {"secure_commit": 1}, 6),
     "commit_chunk_4": (["--commit-chunk", "4"], {"fused_accum": 2}, ASYNC_K),
+}
+
+# The fleet phase (fleet_path), at full CIFAR CNN width.  (a) The window
+# engine against the batched one, uncompressed and secure q8 + top-k, one
+# commit kernel a commit; (b) --engine auto at a 300-client pool, which
+# picks the window engine; (c) a 100,000-client cohort fleet
+# (make_mega_fleet over a VirtualFederatedDataset of the 60 CIFAR shards),
+# window against batched; (d) one window run on the card against the CPU.
+# Each configuration: flags, launches a commit, and the params tolerance
+# against the batched engine.  The window engine trains only the buffered
+# updates at a commit, so its buckets hold other clients than the batched
+# engine's and the deltas differ in float32 rounding (a stacked lane's
+# result depends on the bucket's lane count).  An uncompressed commit is
+# continuous in them: 1e-5.  Under top-k and rounding such a difference
+# turns into another kept entry or grid point, and later commits train
+# on it, so six compressed commits differ by what those flips add up to
+# (7.8e-5 and 2.0e-4 in two runs on an H100): by the "discontinuous
+# commits" rule of ROADMAP.md the compressed run's params gap is printed,
+# not held (None), while its events, log host fields and launches are;
+# its commit is held against the CPU from the same deltas by async_path.
+WINDOW_ARGS = ASYNC_ARGS + ["--engine", "window"]
+WINDOW_CONFIGS = {
+    "window_default": ([], {"fused_accum": 1}, 1e-5),
+    "window_secure_q8_topk_deterministic": (
+        CONFIGS["secure_q8_topk_deterministic"][0], {"secure_commit": 1},
+        None),
+}
+AUTO_POOL, MEGA_CLIENTS = 300, 100_000
+# (e) The hierarchy: 4 facilities of 15 clients from the 60-client pool, 2
+# local rounds (or commits) an epoch, 3 tier-2 commits; under the sync
+# tier 2 each epoch is one round or commit of every facility, and each
+# tier-2 commit takes one slot per facility.  Launches per commit kernel:
+# every facility round or commit plus every tier-2 commit.
+N_FACILITIES, LOCAL_ROUNDS, T2_COMMITS = 4, 2, 3
+HIER_FLAGS = ["--facilities", str(N_FACILITIES), "--local-rounds",
+              str(LOCAL_ROUNDS), "--rounds", str(T2_COMMITS)]
+HIER_CONFIGS = {
+    "hier_sync_sync": (MAIN_ARGS, [], "fused_accum"),
+    "hier_async_async": (ASYNC_ARGS, ["--inter-facility-mode", "async",
+                                      "--inter-buffer", "2"], "fused_accum"),
+    "hier_sync_sync_secure_q8_topk_deterministic": (
+        MAIN_ARGS, CONFIGS["secure_q8_topk_deterministic"][0],
+        "secure_commit"),
 }
 
 # The LM serving phase.  Jamba-1.5-Large (arXiv:2403.19887) keeps every
@@ -721,6 +793,26 @@ def kernel_specs(device, k_slots=K_SLOTS, rows=BUCKET_ROWS,
                 4 * (x.numel() + 2 * ka + x.shape[1] * block),
                 2 * x.numel(), 0)
 
+    # the hierarchy's tier-2 commit: one slot per facility delta, the
+    # first slots of the main stack; 4 facilities under the sync tier 2
+    # (staleness 0), and the async tier 2's --inter-buffer 1 (the default)
+    # and 2 at a staleness of one tier-2 commit
+    def tier2_accum(K, stale):
+        sk = torch.full((K,), float(stale), device=device)
+        x, wk = xb[:K], w[:K]
+        return (f"the tier-2 commit [{K}, {rows}, {block}], staleness "
+                f"{stale}, exponent {ASYNC_EXPONENT}",
+                lambda: fused_accum_blocks(x, wk, sk, ASYNC_EXPONENT),
+                lambda: ref.fused_accum_ref(x, wk[:, None], sk[:, None],
+                                            ASYNC_EXPONENT),
+                4 * (x.numel() + 2 * K + rows * block), 2 * x.numel(), 0)
+
+    kt = min(N_FACILITIES, k_slots)
+    t2_seeds, t2_coef, t2_part = secure_pairs(kt, seed, device, out=())
+    t2_secure = secure_case(
+        f"the tier-2 commit of {kt} facilities [{kt}, {rows}, {block}]",
+        xb[:kt], (w[:kt] * t2_part).contiguous(), t2_seeds, t2_coef)
+
     # FedProx update: 20 clients' copies of dense1_w against the global one
     wc = torch.randn(k_slots, leaf_params, generator=gen, device=device)
     gc = torch.randn(k_slots, leaf_params, generator=gen, device=device)
@@ -755,7 +847,8 @@ def kernel_specs(device, k_slots=K_SLOTS, rows=BUCKET_ROWS,
                 4 * (xlm.numel() + 2 * k_slots + lm_rows * block),
                 2 * xlm.numel(), 0),
                async_accum("the async buffer", x_async),
-               async_accum("the char-LM's async buffer", xlm_async)],
+               async_accum("the char-LM's async buffer", xlm_async),
+               tier2_accum(kt, 0), tier2_accum(1, 1), tier2_accum(2, 1)],
             compare=lambda g, p: check(
                 torch.allclose(g, p, rtol=1e-5, atol=1e-6),
                 "fused_accum: differs from its plain version"),
@@ -808,7 +901,7 @@ def kernel_specs(device, k_slots=K_SLOTS, rows=BUCKET_ROWS,
             plain=main_secure[2],
             library=None,
             extra=secure_extras() + [secure_case(lm_label, xlm, w_sec, seeds,
-                                                 coef)],
+                                                 coef), t2_secure],
             compare=exact("secure_commit"),
             # the top-k select, weighting, quantize and rounding as in
             # plain_commit; the PRF words this data needs per output element
@@ -1597,6 +1690,336 @@ def async_path():
     return totals
 
 
+# ------------------------------------------------------------ fleet_path
+def host_log(log) -> dict:
+    """A CommitLog's host fields: everything but the float results of the
+    device math and the wall-clock profile, NaN made comparable."""
+    d = dataclasses.asdict(log)
+    for k in ("client_loss", "delta_norm", "staleness_alpha", "eval_metric",
+              "phase_wall"):
+        d.pop(k)
+    return d
+
+
+def params_gap(a, b) -> float:
+    return max((a[k].cpu() - b[k].cpu()).abs().max().item() for k in a)
+
+
+def same_run(label, orch, ref_orch, p, p_ref, tol):
+    """Equal processed events, comm ledger and log host fields; params
+    within ``tol`` (not held where None).  Returns the params gap."""
+    gap = params_gap(p, p_ref)
+    check(orch.events_processed == ref_orch.events_processed,
+          f"{label}: the processed events differ")
+    check(orch.comm.records == ref_orch.comm.records,
+          f"{label}: the comm ledgers differ")
+    check([host_log(l) for l in orch.logs]
+          == [host_log(l) for l in ref_orch.logs],
+          f"{label}: the commit logs' host fields differ")
+    check(tol is None or gap <= tol,
+          f"{label}: params differ by {gap:.3g} > {tol}")
+    return gap
+
+
+def check_window_syncs(cname, orch):
+    """One host read a commit: every commit of the run (no eval before the
+    10th) read the card once."""
+    syncs = [l.phase_wall["host_syncs"] for l in orch.logs]
+    check(syncs == [1] * len(syncs), f"{cname}: host syncs {syncs}")
+
+
+def drive_window(base_args=WINDOW_ARGS, configs=WINDOW_CONFIGS):
+    """(a) The window engine on the card once per configuration, its
+    launches counted from 0, against the batched engine's run of the same
+    flags: equal events and log host fields, params within the
+    configuration's tolerance; each commit's phase_wall and host syncs
+    printed and the syncs held at 1; the default run's busy share over 2
+    warm commits."""
+    totals = {}
+    for cname, (flags, per_commit, tol) in configs.items():
+        args = train.build_parser().parse_args(base_args + flags)
+        launches.reset()
+        t0 = time.perf_counter()
+        orch, params, server_state = train.run(args)
+        sync(args.device)
+        wall = time.perf_counter() - t0
+        counts = dict(launches.KERNEL_LAUNCHES)
+        summary = train.summarize(args, orch)
+        check(summary["engine"] == "window", f"{cname}: {summary['engine']}")
+        expect = {kn: n * summary["commits"] for kn, n in per_commit.items()}
+        check_async_run(cname, summary, orch, counts, expect, wall)
+        check_window_syncs(cname, orch)
+        add_counts(totals, counts)
+        batched_args = train.build_parser().parse_args(
+            base_args + flags + ["--engine", "batched"])
+        launches.reset()
+        t0 = time.perf_counter()
+        b_orch, b_params, _ = train.run(batched_args)
+        sync(args.device)
+        b_wall = time.perf_counter() - t0
+        add_counts(totals, dict(launches.KERNEL_LAUNCHES))
+        gap = same_run(f"{cname} against --engine batched", orch, b_orch,
+                       params, b_params, tol)
+        print(f"  against --engine batched ({b_wall:.1f}s, host syncs "
+              f"{[l.phase_wall['host_syncs'] for l in b_orch.logs]}): equal "
+              f"events and log host fields, params max |diff| = {gap:.3g}")
+        if cname == "window_default" and \
+                torch.device(args.device).type == "cuda":
+            busy_share(orch, params, server_state)
+    return totals
+
+
+def tee_stdout(fn):
+    """(fn's result, what it printed), its output printed as well."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn()
+    print(buf.getvalue(), end="")
+    return out, buf.getvalue()
+
+
+def check_auto(base_args=ASYNC_ARGS, pool=AUTO_POOL):
+    """(b) --engine auto at a 300-client pool: the reference's crossover
+    picks the window engine, which runs 6 commits at one read each."""
+    args = train.build_parser().parse_args(
+        base_args + ["--clients-pool", str(pool), "--engine", "auto"])
+    launches.reset()
+    t0 = time.perf_counter()
+    (orch, _, _), out = tee_stdout(lambda: train.run(args))
+    sync(args.device)
+    counts = dict(launches.KERNEL_LAUNCHES)
+    summary = train.summarize(args, orch)
+    check(f"--engine auto: {pool} clients -> window" in out,
+          "auto: the launcher did not pick the window engine")
+    check(isinstance(orch, EventWindowOrchestrator), "auto: not a window run")
+    check_async_run(f"auto_{pool}", summary, orch, counts,
+                    {"fused_accum": summary["commits"]},
+                    time.perf_counter() - t0)
+    check_window_syncs(f"auto_{pool}", orch)
+    return counts
+
+
+def mega_orch(cls, device, n_clients=MEGA_CLIENTS, seed=0, **kw):
+    """An async run over a ``make_mega_fleet`` cohort fleet of
+    ``n_clients`` clients, its data a ``VirtualFederatedDataset`` over the
+    launcher's 60 CIFAR shards, with the launcher's async flags."""
+    args = train.build_parser().parse_args(ASYNC_ARGS)
+    fed, model, params, _ = train.build_task(args.dataset, args.clients_pool,
+                                             seed, device)
+    orch = cls(
+        fleet=make_mega_fleet(n_clients, seed=seed),
+        fed_data=VirtualFederatedDataset(fed.data, fed.client_indices,
+                                         seed=seed, n_virtual=n_clients),
+        loss_fn=model.loss_fn, fl=train.fl_config(args),
+        async_cfg=train.async_config(args), batch_size=args.batch_size,
+        flops_per_client_round=3e12, seed=seed, device=device, **kw)
+    return orch, params, args.rounds
+
+
+def check_mega(device="cuda", n_clients=MEGA_CLIENTS):
+    """(c) The 100,000-client cohort fleet, window against batched: equal
+    events and log host fields, params within 1e-5, one fused accumulate a
+    commit; the host wall time a commit of each."""
+    totals, runs = {}, {}
+    for name, cls in (("batched", BatchedAsyncOrchestrator),
+                      ("window", EventWindowOrchestrator)):
+        orch, params, n = mega_orch(cls, device, n_clients)
+        launches.reset()
+        t0 = time.perf_counter()
+        p, _ = orch.run(params, n)
+        sync(device)
+        wall = time.perf_counter() - t0
+        counts = dict(launches.KERNEL_LAUNCHES)
+        add_counts(totals, counts)
+        check(counts == {"fused_accum": n} or device == "cpu",
+              f"mega {name}: launches {counts}")
+        per_commit = [sum(v for k, v in l.phase_wall.items()
+                          if k != "host_syncs") for l in orch.logs]
+        print(f"mega fleet, {n_clients} clients, {name} engine: {n} commits "
+              f"in {wall:.2f}s; wall s a commit {[round(x, 4) for x in per_commit]}; "
+              f"host syncs {[l.phase_wall['host_syncs'] for l in orch.logs]}; "
+              f"{len(orch.fleet.live)} clients dispatched; launches {counts}")
+        runs[name] = (orch, p)
+    gap = same_run("mega window against batched", runs["window"][0],
+                   runs["batched"][0], runs["window"][1], runs["batched"][1],
+                   1e-5)
+    check_window_syncs("mega window", runs["window"][0])
+    print(f"  window against batched: equal events and log host fields, "
+          f"params max |diff| = {gap:.3g}")
+    return totals
+
+
+def check_window_card_cpu(base_args=WINDOW_ARGS, tol=1e-4):
+    """(d) One window run on the card and on the CPU from the same seeds:
+    equal events, params within ``tol``."""
+    args = train.build_parser().parse_args(base_args)
+    launches.reset()
+    card, p_card, _ = train.run(args)
+    sync(args.device)
+    counts = dict(launches.KERNEL_LAUNCHES)
+    t0 = time.perf_counter()
+    cpu, p_cpu, _ = train.run(argparse.Namespace(**{**vars(args),
+                                                    "device": "cpu"}))
+    gap = same_run("window card against CPU", card, cpu, p_card, p_cpu, tol)
+    print(f"window engine, card against CPU ({len(card.logs)} commits; the "
+          f"CPU run {time.perf_counter() - t0:.1f}s): equal events and log "
+          f"host fields, params max |diff| = {gap:.3g}")
+    return counts
+
+
+def timed_commit_step(hier, times):
+    """Wrap the tier-2 commit step so each call's wall time, between two
+    syncs, lands in ``times``."""
+    step = hier._commit_step
+
+    def timed(*a):
+        sync(hier.device)
+        t0 = time.perf_counter()
+        out = step(*a)
+        sync(hier.device)
+        times.append(time.perf_counter() - t0)
+        return out
+
+    hier._commit_step = timed
+
+
+def run_hier(args):
+    """A hierarchical launcher run epoch by epoch (one tier-2 commit each):
+    (hierarchy, params, server state, wall s an epoch, tier-2 step s)."""
+    hier, params = train.build_run(args)
+    params, server_state, _ = train.restore(args, hier, params)
+    walls, t2 = [], []
+    timed_commit_step(hier, t2)
+    while hier.version < args.rounds:
+        t0 = time.perf_counter()
+        params, server_state = hier.run(params, hier.version + 1,
+                                        server_state=server_state)
+        sync(args.device)
+        walls.append(time.perf_counter() - t0)
+    return hier, params, server_state, walls, t2
+
+
+def drive_hier(configs=HIER_CONFIGS):
+    """(e) The hierarchy on the card in each form: 3 tier-2 commits, finite
+    losses and an accuracy, launches held exactly at the facilities'
+    rounds or commits plus the tier-2 commits; the wall time an epoch and
+    the tier-2 commit step's."""
+    totals = {}
+    for cname, (base, flags, kname) in configs.items():
+        args = train.build_parser().parse_args(base + flags + HIER_FLAGS)
+        launches.reset()
+        t0 = time.perf_counter()
+        hier, _, _, walls, t2 = run_hier(args)
+        wall = time.perf_counter() - t0
+        counts = dict(launches.KERNEL_LAUNCHES)
+        summary = train.summarize(args, hier)
+        tier1 = sum(len(f.orch.logs) for f in hier.facilities)
+        epochs = (T2_COMMITS * N_FACILITIES if args.inter_facility_mode
+                  == "sync" else N_FACILITIES + T2_COMMITS * args.inter_buffer)
+        check(tier1 == epochs * LOCAL_ROUNDS,
+              f"{cname}: {tier1} facility rounds or commits, expected "
+              f"{epochs} epochs x {LOCAL_ROUNDS}")
+        expect = {kname: tier1 + hier.version}
+        check(summary["commits"] == T2_COMMITS
+              and all(math.isfinite(x) for x in summary["client_loss"])
+              and 0.0 <= summary["final_eval"] <= 1.0,
+              f"{cname}: summary {summary}")
+        check(counts == expect, f"{cname}: launches {counts}, expected "
+                                f"{expect}")
+        add_counts(totals, counts)
+        print(f"main path {cname}: launches={counts} (facility rounds or "
+              f"commits {tier1} + tier-2 commits {hier.version}) "
+              f"epoch wall_s={[round(x, 4) for x in walls]} tier-2 commit "
+              f"step s={[round(x, 6) for x in t2]} "
+              f"virtual_time_s={summary['virtual_time_s']:.3f} "
+              f"inter_facility_bytes={summary['inter_facility_bytes']} "
+              f"final_eval={summary['final_eval']} wall={wall:.1f}s")
+    return totals
+
+
+def check_hier_resume(tmp, tol=1e-4):
+    """(f) A 2-facility hierarchy on the card against the CPU (params
+    within ``tol``, equal tier-2 and facility logs' host fields); then a
+    checkpointed async/async hierarchy cut after 2 of 3 tier-2 commits and
+    resumed on the card, bit for bit against the card's uninterrupted run
+    under deterministic algorithms (or within 1e-5 if an op warned)."""
+    args = train.build_parser().parse_args(
+        MAIN_ARGS + ["--facilities", "2", "--local-rounds", "1", "--rounds",
+                     "2"])
+    launches.reset()
+    card, p_card, _ = train.run(args)
+    sync(args.device)
+    totals = dict(launches.KERNEL_LAUNCHES)
+    cpu, p_cpu, _ = train.run(argparse.Namespace(**{**vars(args),
+                                                    "device": "cpu"}))
+    gap = params_gap(p_card, p_cpu)
+    check([host_log(l) for l in card.logs] == [host_log(l) for l in cpu.logs]
+          and all([dataclasses.asdict(l)["selected"] for l in a.orch.logs]
+                  == [dataclasses.asdict(l)["selected"] for l in b.orch.logs]
+                  for a, b in zip(card.facilities, cpu.facilities)),
+          "hier card against CPU: the logs differ")
+    check(gap <= tol, f"hier card against CPU: params differ by {gap:.3g}")
+    print(f"hierarchy, 2 facilities, card against CPU: equal tier-2 and "
+          f"facility host logs, params max |diff| = {gap:.3g}")
+
+    base, flags, _ = HIER_CONFIGS["hier_async_async"]
+    ckpt = tmp / "hier_ckpt"
+    args = train.build_parser().parse_args(
+        base + flags + HIER_FLAGS + ["--checkpoint-dir", str(ckpt),
+                                     "--checkpoint-every", "1"])
+
+    def with_args(**changes):
+        return argparse.Namespace(**{**vars(args), **changes})
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            straight, p_straight, _ = train.run(with_args(checkpoint_dir=""))
+            train.run(with_args(rounds=T2_COMMITS - 1))
+            launches.reset()
+            (resumed, p_resumed, _), out = tee_stdout(
+                lambda: train.run(with_args(resume=True)))
+            sync(args.device)
+            add_counts(totals, dict(launches.KERNEL_LAUNCHES))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    nondet = sorted({str(w.message).split("\n")[0] for w in caught
+                     if "deterministic" in str(w.message)})
+    bitwise = all(torch.equal(p_resumed[k], p_straight[k])
+                  for k in p_straight)
+    err = params_gap(p_resumed, p_straight)
+    check("resumed hierarchical run at commit 2" in out,
+          "hier resume: the launcher did not resume at commit 2")
+    check([host_log(l) for l in resumed.logs]
+          == [host_log(l) for l in straight.logs]
+          and all(a.orch.events_processed == b.orch.events_processed
+                  for a, b in zip(resumed.facilities, straight.facilities)),
+          "hier resume: the resumed run's logs or events differ")
+    check(bitwise if not nondet else err <= 1e-5,
+          f"hier resume: differs from the uninterrupted run by {err:.3g}")
+    print(f"hierarchy checkpoint and resume (async/async, cut after 2 of "
+          f"{T2_COMMITS}): resumed card vs uninterrupted card max |diff| = "
+          f"{err:.3g} (bit for bit: {bitwise}); deterministic algorithms "
+          f"warned: {nondet or 'none'}")
+    return totals
+
+
+def fleet_path():
+    """Phase fleet_path: (a) the window engine against the batched one;
+    (b) --engine auto at 300 clients; (c) the 100,000-client cohort fleet;
+    (d) the window engine card against CPU; (e) the hierarchy in three
+    forms; (f) hierarchy parity and resume."""
+    totals = drive_window()
+    add_counts(totals, check_auto())
+    add_counts(totals, check_mega())
+    add_counts(totals, check_window_card_cpu())
+    add_counts(totals, drive_hier())
+    with tempfile.TemporaryDirectory() as tmp:
+        add_counts(totals, check_hier_resume(Path(tmp)))
+    return totals
+
+
 # ---------------------------------------------------------------- phase 5
 def rel_gap(got, want) -> float:
     """max |got - want| / max |want|, in float32 on the CPU."""
@@ -1853,12 +2276,14 @@ def main() -> int:
                            ("round_parity", round_parity),
                            ("main_path", drive_main_path),
                            ("async_path", async_path),
+                           ("fleet_path", fleet_path),
                            ("lm_serve", lm_serve)):
             t0 = time.perf_counter()
             phases[phase] = run()
             print(f"phase {phase}: {time.perf_counter() - t0:.1f} s")
         rows, totals = phases["kernels"], dict(phases["main_path"])
         add_counts(totals, phases["async_path"])
+        add_counts(totals, phases["fleet_path"])
         add_counts(totals, phases["lm_serve"])
         for kname, row in rows.items():
             row["launches"] = totals.get(kname, 0)

@@ -21,14 +21,18 @@ state restored; selection, faults and the generators re-seeded from
 staleness-discounted commits every ``--buffer-k`` arrivals or after
 ``--commit-timeout`` sim-seconds; ``--rounds`` then counts server commits)
 on the per-event engine (``--engine legacy``, which ``auto`` picks below
-``AUTO_ENGINE_THRESHOLD`` clients) or the batched one (``--engine
-batched``).  Its ``--checkpoint-dir`` snapshots the whole orchestrator
-every ``--checkpoint-every`` commits and ``--resume`` continues bit for bit
-(event heap, buffer and every RNG stream restored).  ``--engine window``
-(and ``auto`` from ``AUTO_ENGINE_THRESHOLD`` clients) and ``--facilities``
-raise NotImplementedError naming the ROADMAP item that will port them.
-Flags that only another regime reads are parsed and, as in the
-reference, not used.
+``AUTO_ENGINE_THRESHOLD`` clients), the batched one (``--engine
+batched``) or the event-window one (``--engine window``, which ``auto``
+picks from ``AUTO_ENGINE_THRESHOLD`` clients; ``--event-window`` events a
+block).  Its ``--checkpoint-dir`` snapshots the whole orchestrator every
+``--checkpoint-every`` commits and ``--resume`` continues bit for bit
+(event heap, buffer and every RNG stream restored).  ``--facilities N``
+federates N facilities, each running ``--mode`` over its share of the
+fleet for ``--local-rounds`` an epoch, under a tier-2 server
+(``--inter-facility-mode sync|async``, ``--inter-buffer``) over modelled
+WAN links; ``--rounds`` then counts tier-2 commits, and ``--resume``
+restores both tiers.  Flags that only another regime reads are parsed
+and, as in the reference, not used.
 """
 from __future__ import annotations
 
@@ -40,6 +44,7 @@ import numpy as np
 import torch
 
 from repro_torch.checkpoint import AsyncCheckpointManager, CheckpointManager
+from repro_torch.comm import LinkClass, WANTopology
 from repro_torch.configs import get_config
 from repro_torch.core import (AsyncConfig, CompressionConfig, FLConfig,
                               payload_bytes)
@@ -51,10 +56,12 @@ from repro_torch.models import build_model
 from repro_torch.models.cnn import CIFAR_CNN, CNN, MEDMNIST_CNN
 from repro_torch.orchestrator import (AsyncOrchestrator,
                                       BatchedAsyncOrchestrator, CohortFleet,
-                                      FaultConfig, Orchestrator,
+                                      EventWindowOrchestrator, FaultConfig,
+                                      HierarchicalOrchestrator, Orchestrator,
                                       StragglerPolicy,
                                       equivalent_preempt_rate_per_min,
-                                      make_hybrid_fleet)
+                                      make_facilities, make_hybrid_fleet,
+                                      split_fleet)
 from repro_torch.orchestrator.server import to_device
 from repro_torch.orchestrator.straggler import expected_attempt_s
 from repro_torch.pytree import flat_dict
@@ -158,7 +165,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--hpc-nodes", type=int, default=0)
     ap.add_argument("--cloud-nodes", type=int, default=0)
     ap.add_argument("--spot-preempt-per-min", type=float, default=0.0)
-    # the async regime (and the hierarchical one, not ported yet)
+    # the async and hierarchical regimes
     ap.add_argument("--buffer-k", type=int, default=8)
     ap.add_argument("--engine", default="auto",
                     choices=["auto", "legacy", "batched", "window"])
@@ -217,13 +224,6 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
-def _refuse_unported(args) -> None:
-    if args.facilities:
-        raise NotImplementedError(
-            "--facilities is not ported to repro_torch yet: ROADMAP queue 1, "
-            "still to port, item 6 (hierarchy)")
-
-
 def async_config(args) -> AsyncConfig:
     return AsyncConfig(buffer_size=args.buffer_k,
                        staleness_exponent=args.staleness_exp,
@@ -255,8 +255,10 @@ def fl_config(args) -> FLConfig:
 
 def build_run(args, fl: FLConfig | None = None):
     """(orchestrator, initial params) of a run from parsed launcher flags;
-    ``fl`` replaces the FLConfig the flags give (``fl_config(args)``)."""
-    _refuse_unported(args)
+    ``fl`` replaces the FLConfig the flags give (``fl_config(args)``).
+    Under ``--facilities`` the orchestrator is the tier-2
+    ``HierarchicalOrchestrator``.  ``--render-jobs`` writes the whole
+    fleet's scheduler artifacts here, before any regime is built."""
     if args.resume and not args.checkpoint_dir:
         raise SystemExit("--resume requires --checkpoint-dir")
     device = resolve_device(args.device)
@@ -269,6 +271,9 @@ def build_run(args, fl: FLConfig | None = None):
     fleet = make_hybrid_fleet(n_hpc, n_cloud, seed=args.seed,
                               data_sizes=[fed.client_size(c)
                                           for c in range(fed.num_clients)])
+    if args.render_jobs:
+        n = render_jobs(fleet, Path(args.render_jobs))
+        print(f"rendered {n} scheduler artifacts -> {args.render_jobs}")
 
     def build_backend():
         if args.exec_backend != "scheduler":
@@ -304,6 +309,9 @@ def build_run(args, fl: FLConfig | None = None):
                          partition_prob=args.partition_prob,
                          recovery_policy=args.recovery_policy,
                          recovery_overhead_s=args.recovery_overhead_s)
+    if args.facilities:
+        return build_hierarchy(args, fleet, fed, model, fl, faults, eval_fn,
+                               device), params
     if args.mode == "async":
         if args.deadline_s or args.fastest_k:
             print("warning: --deadline-s/--fastest-k are barrier-round "
@@ -313,15 +321,13 @@ def build_run(args, fl: FLConfig | None = None):
         if args.engine == "auto":
             print(f"--engine auto: {len(fleet)} clients -> {engine} "
                   f"(crossover {AUTO_ENGINE_THRESHOLD})")
+        orch_cls = {"legacy": AsyncOrchestrator,
+                    "batched": BatchedAsyncOrchestrator,
+                    "window": EventWindowOrchestrator}[engine]
+        engine_kw = ({} if engine == "legacy"
+                     else {"train_chunk": args.train_chunk})
         if engine == "window":
-            raise NotImplementedError(
-                "the event-window engine (--engine window, and --engine auto "
-                f"from {AUTO_ENGINE_THRESHOLD} clients) is not ported to "
-                "repro_torch yet: ROADMAP queue 1 item 5b (event-window "
-                "engine)")
-        orch_cls, engine_kw = ((AsyncOrchestrator, {}) if engine == "legacy"
-                               else (BatchedAsyncOrchestrator,
-                                     {"train_chunk": args.train_chunk}))
+            engine_kw["window"] = args.event_window
         orch = orch_cls(
             fleet=fleet, fed_data=fed, loss_fn=model.loss_fn, fl=fl,
             async_cfg=async_config(args),
@@ -349,16 +355,71 @@ def build_run(args, fl: FLConfig | None = None):
     return orch, params
 
 
+def build_hierarchy(args, fleet, fed, model, fl, faults, eval_fn, device):
+    """The two-tier run of ``--facilities N``: N facilities over a
+    contiguous split of the fleet, each running ``--mode`` for
+    ``--local-rounds`` rounds or commits an epoch on its own backend, under
+    a tier-2 server over WAN links of ``--wan-bw`` GB/s and
+    ``--wan-latency`` s (plus exponential ``--wan-jitter``)."""
+    fac_backend = args.facility_backend or args.exec_backend
+    subs, _ = split_fleet(fleet, args.facilities)
+
+    def backend_factory(f):
+        if fac_backend != "scheduler":
+            return make_backend("closed-form")
+        n_h = sum(c.site == "hpc" for c in subs[f])
+        n_c = max(1, sum(c.site == "cloud" for c in subs[f]))
+        return make_backend(
+            "scheduler",
+            slurm=SlurmAdapter(total_nodes=max(1, args.hpc_nodes or n_h),
+                               seed=args.seed + 10 * f),
+            k8s=K8sAdapter(initial_nodes=max(1, n_c // 2), max_nodes=n_c,
+                           preempt_prob_per_min=args.spot_preempt_per_min,
+                           seed=args.seed + 10 * f + 1))
+
+    facs = make_facilities(
+        args.facilities, fleet, fed, model.loss_fn, fl,
+        local_mode=args.mode, async_cfg=async_config(args),
+        local_rounds=args.local_rounds, backend_factory=backend_factory,
+        seed=args.seed,
+        orch_kw=dict(selection_name=args.selection,
+                     straggler=StragglerPolicy(), faults=faults,
+                     batch_size=args.batch_size,
+                     flops_per_client_round=3e12),
+        device=device)
+    wan = WANTopology(default=LinkClass("dcn", args.wan_bw, args.wan_latency),
+                      jitter_s=args.wan_jitter)
+    return HierarchicalOrchestrator(
+        facs, fl, inter_mode=args.inter_facility_mode,
+        async_cfg=AsyncConfig(buffer_size=args.inter_buffer,
+                              staleness_exponent=args.staleness_exp
+                              if args.staleness_exp != "adaptive" else 0.5,
+                              max_staleness=args.max_staleness),
+        wan=wan, server_opt_name=args.server_opt, eval_fn=eval_fn,
+        eval_every=1,
+        checkpoint_mgr=(AsyncCheckpointManager(args.checkpoint_dir)
+                        if args.checkpoint_dir else None),
+        checkpoint_every=args.checkpoint_every, seed=args.seed,
+        device=device)
+
+
 def restore(args, orch, params):
     """(params, server state, first round) of the run: under ``--resume``
     with a checkpoint, the latest one's params, server state, round, clock
     and backend state (on the run's device); else the initial params from
     round 0.  A checkpoint written under another ``--exec-backend`` ends
-    the run.  An async run restores its whole orchestrator (the first
-    round is then unused: it continues from the restored commit)."""
+    the run.  An async or hierarchical run restores its whole orchestrator
+    (the first round is then unused: it continues from the restored
+    commit)."""
     mgr = orch.checkpoint_mgr
     if not (args.resume and mgr.latest_round() is not None):
         return params, None, 0
+    if args.facilities:
+        params, server_state = mgr.restore_hier(orch, params)
+        print(f"resumed hierarchical run at commit {orch.version} "
+              f"(sim t={orch.clock:.1f}s, {len(orch._events)} facility "
+              f"deltas in flight, {len(orch._buffer)} buffered)")
+        return params, server_state, orch.version
     if args.mode == "async":
         params, server_state = mgr.restore_async(orch, params)
         print(f"resumed async run at commit {orch.version} "
@@ -386,6 +447,25 @@ def summarize(args, orch) -> dict:
     round's or commit's client loss, and the host seconds of each round
     (sync) or each commit's ``phase_wall`` (async)."""
     logs = orch.logs
+    if args.facilities:
+        return {
+            "dataset": args.dataset, "algo": args.algo, "mode": "hier",
+            "device": str(orch.device),
+            "local_mode": args.mode,
+            "inter_facility_mode": args.inter_facility_mode,
+            "facilities": args.facilities,
+            "local_rounds": args.local_rounds,
+            "exec_backend": args.facility_backend or args.exec_backend,
+            "secure_agg": args.secure_agg,
+            "commits": orch.version,
+            "dropped_stale": orch.dropped_stale,
+            "final_eval": logs[-1].eval_metric if logs else None,
+            "virtual_time_s": orch.clock,
+            "inter_facility_bytes": orch.inter_facility_bytes,
+            "total_bytes": orch.total_bytes(),
+            "facility_clocks": [f.clock for f in orch.facilities],
+            "client_loss": [l.client_loss for l in logs],
+        }
     if args.mode == "async":
         return {
             "dataset": args.dataset, "algo": args.algo, "mode": "async",
@@ -436,11 +516,9 @@ def run(args, fl: FLConfig | None = None):
     ``args.rounds`` rounds.  Returns (orchestrator, final params, server
     state)."""
     orch, params = build_run(args, fl)
-    if args.render_jobs:
-        n = render_jobs(orch.fleet, Path(args.render_jobs))
-        print(f"rendered {n} scheduler artifacts -> {args.render_jobs}")
     params, server_state, start_round = restore(args, orch, params)
-    start = {} if args.mode == "async" else {"start_round": start_round}
+    start = ({} if args.mode == "async" or args.facilities
+             else {"start_round": start_round})
     params, server_state = orch.run(params, args.rounds,
                                     server_state=server_state, verbose=True,
                                     **start)

@@ -109,6 +109,37 @@ class CommitLog:
     #                                    comparison.
 
 
+def stack_slots(ups, stal, K: int, device):
+    """Stack the updates ``ups`` (staleness ``stal``) into K slots for the
+    commit step, padding with zero deltas, weight 0 and mask 0 (a padding
+    slot contributes nothing, and every pair mask touching it is unwound).
+    ``ids`` are per-commit SLOT indices, not cids: mask cancellation needs
+    unique participant ids, and one fast client can land two updates in
+    one commit.  The hierarchy's tier-2 commit stacks facility deltas the
+    same way."""
+    pad = K - len(ups)
+    first = ups[0].delta
+    stacked = {k: torch.stack([u.delta[k] for u in ups]
+                              + [torch.zeros_like(first[k])] * pad)
+               for k in first}
+
+    def vec(vals):
+        return torch.tensor(vals, dtype=torch.float32, device=device)
+
+    weights = vec([u.weight for u in ups] + [0.0] * pad)
+    staleness = vec(list(stal) + [0] * pad)
+    # a loss the window engine left on the device is stacked there, not
+    # read back: the commit's only read is _commit_host_fetch
+    vals = [u.loss for u in ups] + [0.0] * pad
+    losses = vec([0.0 if torch.is_tensor(v) else v for v in vals])
+    if any(torch.is_tensor(v) for v in vals):
+        losses = torch.stack([v.to(losses.dtype) if torch.is_tensor(v)
+                              else losses[i] for i, v in enumerate(vals)])
+    mask = vec([1.0] * len(ups) + [0.0] * pad)
+    ids = torch.arange(K, dtype=torch.int32)
+    return stacked, weights, staleness, losses, mask, ids
+
+
 @dataclass
 class AsyncOrchestrator:
     fleet: list                       # list[ClientInfo]
@@ -239,6 +270,15 @@ class AsyncOrchestrator:
             return x.item() if x.ndim == 0 else x.cpu()
 
     # ---------------------------------------------------- engine extension
+    # The event-window engine (orchestrator.eventwindow) substitutes the
+    # structure behind these seams; the per-event baseline keeps the plain
+    # heapq semantics they wrap.
+    def _push_event(self, t: float, seq: int, upd: PendingUpdate):
+        heapq.heappush(self._events, (t, seq, upd))
+
+    def _pop_event(self):
+        return heapq.heappop(self._events)
+
     def _abandon_update(self, upd: PendingUpdate):
         """``upd`` will never be committed (dropped as stale, or lost to an
         unrecovered fault): engines that defer work for it may cancel the
@@ -336,7 +376,7 @@ class AsyncOrchestrator:
         link = link_for_site(ex.site or client.site)
         self.comm.log(self.version, client.cid, "down", down_bytes, link)
         self._inflight.add(client.cid)
-        heapq.heappush(self._events, (arrival, self._seq, upd))
+        self._push_event(arrival, self._seq, upd)
         self._seq += 1
 
     def _top_up(self, params):
@@ -410,8 +450,8 @@ class AsyncOrchestrator:
             upd.failed, upd.fault = True, fault
             if policy == "resume":
                 upd.steps_done += int(frac * (L - upd.steps_done))
-            heapq.heappush(self._events, (
-                start + ex.queue_wait_s + frac * ex.full_run_s, upd.seq, upd))
+            self._push_event(start + ex.queue_wait_s + frac * ex.full_run_s,
+                             upd.seq, upd)
         elif ex.preempted:
             # the scheduler reclaimed the RETRY's spot instance too
             upd.failed, upd.fault = True, "preempt"
@@ -419,45 +459,33 @@ class AsyncOrchestrator:
                 upd.steps_done += int(ex.frac_done * (L - upd.steps_done))
             else:
                 upd.steps_done = int(ex.frac_done * L)
-            heapq.heappush(self._events,
-                           (start + ex.duration_s, upd.seq, upd))
+            self._push_event(start + ex.duration_s, upd.seq, upd)
         else:
             upd.failed, upd.fault = False, ""
-            heapq.heappush(self._events,
-                           (start + ex.duration_s, upd.seq, upd))
+            self._push_event(start + ex.duration_s, upd.seq, upd)
         return True
 
     # --------------------------------------------------------------- commit
-    def _stack_slots(self, ups, stal, K):
-        """Stack the updates ``ups`` (staleness ``stal``) into K slots for
-        the commit step, padding with zero deltas, weight 0 and mask 0 (a
-        padding slot contributes nothing, and every pair mask touching it
-        is unwound).  ``ids`` are per-commit SLOT indices, not cids: mask
-        cancellation needs unique participant ids, and one fast client can
-        land two updates in one commit."""
-        pad = K - len(ups)
-        dev = self.device
-        first = ups[0].delta
-        stacked = {k: torch.stack([u.delta[k] for u in ups]
-                                  + [torch.zeros_like(first[k])] * pad)
-                   for k in first}
-
-        def vec(vals):
-            return torch.tensor(vals, dtype=torch.float32, device=dev)
-
-        weights = vec([u.weight for u in ups] + [0.0] * pad)
-        staleness = vec(list(stal) + [0] * pad)
-        losses = vec([u.loss for u in ups] + [0.0] * pad)
-        mask = vec([1.0] * len(ups) + [0.0] * pad)
-        ids = torch.arange(K, dtype=torch.int32)
-        return stacked, weights, staleness, losses, mask, ids
-
     def _materialize(self):
         """Deferred-training hook: engines that defer the client update at
         dispatch (BatchedAsyncOrchestrator) compute every pending delta
         here.  Called before any code that reads ``upd.delta``/``upd.loss``:
         the commit and the checkpoint serializer.  No-op here (deltas are
         computed eagerly at dispatch)."""
+
+    def _materialize_for_commit(self):
+        """Materialise only what the imminent commit reads.  The baseline
+        delegates to the full hook; the event-window engine narrows it to
+        the buffered updates."""
+        self._materialize()
+
+    def _commit_host_fetch(self, metrics, ups):
+        """The commit's one host read: its delta norm, plus the losses the
+        CommitLog needs.  Returns (delta_norm, losses as host floats).  The
+        baseline's losses are host floats already; the event-window engine
+        bundles its deferred loss buckets into the same read."""
+        return (float(self._host_fetch(metrics["delta_norm"])),
+                [float(u.loss) for u in ups])
 
     def engine_state(self) -> dict:
         """Engine-private checkpoint payload beyond the shared serializer's
@@ -482,7 +510,7 @@ class AsyncOrchestrator:
         wsum = torch.zeros((), dtype=torch.float32, device=self.device)
         for lo in range(0, len(ups), C):
             stacked, weights, staleness, losses, mask, ids = \
-                self._stack_slots(ups[lo:lo + C], stal[lo:lo + C], C)
+                stack_slots(ups[lo:lo + C], stal[lo:lo + C], C, self.device)
             acc, wsum = acc_step(acc, wsum, stacked, weights, staleness,
                                  losses, mask, ids, alpha, self.generator)
         return fin_step(params, server_state, acc, wsum)
@@ -491,7 +519,7 @@ class AsyncOrchestrator:
                    timeout: bool = False):
         t0 = perf_counter()
         snap = dict(self._phase)
-        self._materialize()
+        self._materialize_for_commit()
         ups = [u for u, _ in self._buffer]
         stal = [self.version - u.dispatch_version for u in ups]
         alpha = self._alpha
@@ -500,21 +528,21 @@ class AsyncOrchestrator:
                 params, server_state, ups, stal, alpha)
         else:
             stacked, weights, staleness, losses, mask, ids = \
-                self._stack_slots(ups, stal, self.async_cfg.buffer_size)
+                stack_slots(ups, stal, self.async_cfg.buffer_size,
+                            self.device)
             params, server_state, metrics = self._commit_step(
                 params, server_state, stacked, weights, staleness, losses,
                 mask, ids, alpha, self.generator)
         self.version += 1
         self.fault_injector.step_round()
         self.updates_applied += len(ups)
-        # the commit's one host read; the losses are host floats already
-        delta_norm = float(self._host_fetch(metrics["delta_norm"]))
+        delta_norm, up_losses = self._commit_host_fetch(metrics, ups)
         if self._staleness_ctrl is not None:
             # feed the controller AFTER the commit: alpha moves for the next
             # one, deterministically from observed staleness + norm drift
             self._alpha = self._staleness_ctrl.update(stal, delta_norm)
         down_b, up_b = self._payload_bytes_cache(params)
-        losses = [u.loss for u in ups if np.isfinite(u.loss)]
+        losses = [l for l in up_losses if np.isfinite(l)]
         rec = [u.recovery_s for u in ups if u.retries]
         log = CommitLog(
             commit=self.version, sim_time=at_time, n_updates=len(ups),
@@ -583,19 +611,19 @@ class AsyncOrchestrator:
 
         last_ckpt = self.version
         while self._events and self.version < num_commits:
-            t, seq, upd = heapq.heappop(self._events)
+            t, seq, upd = self._pop_event()
             if max_sim_time and t > max_sim_time:
                 # budget exhausted before this arrival: flush the timeout
                 # deadlines inside the budget, put the event back for a
                 # continuation run, and pin the clock to the budget
                 params, server_state = self._flush_timeouts(
                     params, server_state, max_sim_time)
-                heapq.heappush(self._events, (t, seq, upd))
+                self._push_event(t, seq, upd)
                 self.clock = max_sim_time
                 break
             params, server_state = self._flush_timeouts(params, server_state, t)
             if self.version >= num_commits:
-                heapq.heappush(self._events, (t, seq, upd))
+                self._push_event(t, seq, upd)
                 break
             self.clock = max(self.clock, t)
             client = self.fleet[upd.client_idx]

@@ -199,9 +199,11 @@ class BatchedAsyncOrchestrator(AsyncOrchestrator):
         # replaced
         self._jobs[upd.seq] = _TrainJob(upd, params, batches)
 
-    def _materialize(self):
-        """Materialise every deferred job."""
-        pending = sorted(self._jobs)
+    def _materialize(self, seqs=None):
+        """Materialise the deferred jobs: all of them, or (``seqs`` given)
+        only that subset, leaving the rest queued for a later call."""
+        pending = (sorted(self._jobs) if seqs is None
+                   else sorted(s for s in self._jobs if s in seqs))
         if not pending:
             return
         # group by params snapshot, seq order within each group; chunk each
@@ -218,10 +220,10 @@ class BatchedAsyncOrchestrator(AsyncOrchestrator):
             del self._jobs[seq]
 
     def _run_chunk(self, jobs: list[_TrainJob]):
-        """Train one bucket of same-snapshot jobs as one stacked call; one
-        host sync (the loss read) for the bucket.  Buckets are padded to the
-        next power of two by repeating lane 0 (padded lanes are discarded),
-        so a run sees log2(train_chunk) bucket sizes, not one per length."""
+        """Train one bucket of same-snapshot jobs as one stacked call.
+        Buckets are padded to the next power of two by repeating lane 0
+        (padded lanes are discarded), so a run sees log2(train_chunk)
+        bucket sizes, not one per length."""
         n = len(jobs)
         lanes = 1 << max(n - 1, 0).bit_length()
         pick = list(range(n)) + [0] * (lanes - n)
@@ -229,6 +231,12 @@ class BatchedAsyncOrchestrator(AsyncOrchestrator):
             {k: np.stack([jobs[i].batches[k] for i in pick])
              for k in jobs[0].batches}, self.device)
         deltas, losses = self._stacked_update(jobs[0].params, batches)
+        self._finish_chunk(jobs, deltas, losses)
+
+    def _finish_chunk(self, jobs, deltas, losses):
+        """Assign a bucket's results to its updates: one host sync (the loss
+        read) for the bucket.  The event-window engine defers even that to
+        the commit's bundled read."""
         lv = self._host_fetch(losses).numpy()
         for i, job in enumerate(jobs):
             job.upd.delta = {k: d[i] for k, d in deltas.items()}

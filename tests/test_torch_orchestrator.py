@@ -110,9 +110,41 @@ def test_launcher_three_rounds_match_jax(monkeypatch, capsys):
     assert len(ROUND_LINE.findall(tout)) == ROUNDS
 
 
-@pytest.mark.parametrize("flag", [["--mode", "async", "--engine", "window"],
-                                  ["--facilities", "2"]])
-def test_launcher_unported_flags_raise(flag):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_train.main(["--device", "cpu", "--rounds", "1"] + flag)
+COMMIT_LINE = re.compile(r"(commit|t2-epoch|t2-commit)\s+(\d+) t=\s*(\S+)s "
+                         r"loss=\S+ (stale=\S+|wan_B=\d+)")
+LAUNCH = ["--dataset", "medmnist", "--rounds", "2", "--clients-pool",
+          str(POOL), "--clients-per-round", str(PER_ROUND), "--local-steps",
+          "1", "--batch-size", "4", "--buffer-k", "2", "--max-concurrency",
+          "3"]
 
+
+@pytest.mark.parametrize("flag", [
+    ["--mode", "async", "--engine", "window", "--event-window", "5"],
+    ["--facilities", "2", "--local-rounds", "1"],
+    ["--clients-pool", "300", "--mode", "async", "--engine", "auto",
+     "--buffer-k", "8", "--max-concurrency", "16"],
+    ["--facilities", "2", "--local-rounds", "1", "--mode", "async",
+     "--inter-facility-mode", "async", "--inter-buffer", "2"]])
+def test_launcher_unported_flags_raise(flag, monkeypatch, capsys):
+    """The launcher branches the port had last (the event-window engine,
+    ``--engine auto`` from 300 clients, the facility hierarchy under either
+    inter-facility mode) run and agree with the reference launcher on the
+    same flags: its summary keys (plus ``device``), their host values, and
+    each commit's or tier-2 epoch's line but the loss."""
+    argv = LAUNCH + flag
+    monkeypatch.setattr(sys, "argv", ["train"] + argv)
+    j_train.main()
+    jout = capsys.readouterr().out
+    tsum = t_train.main(["--device", "cpu"] + argv)
+    tout = capsys.readouterr().out
+    jsum = json.loads(jout[jout.index("\n{") + 1:])
+    assert set(jsum) | {"device"} <= set(tsum)
+    assert tsum["device"] == "cpu"
+    floats = {"final_eval", "client_loss"}
+    for key in set(jsum) - floats:
+        assert tsum[key] == jsum[key], key
+    lines = COMMIT_LINE.findall(tout)
+    assert lines == COMMIT_LINE.findall(jout) and len(lines) == 2
+    if "auto" in flag:
+        assert "--engine auto: 300 clients -> window" in tout
+        assert tsum["engine"] == "window"
