@@ -15,7 +15,8 @@ it happened; any failure ends the run with a non-zero exit code:
      and secure commit kernels, the [20*4096, 256] dense1_w leaf for the
      per-leaf ones, 20 clients' dense1_w for the FedProx update, the
      full-width Jamba prefill's [1, 128, 16384, 16] chunk and a strided
-     batch-2 chunk view for the selective scan), each with its extra
+     batch-2 chunk view for the selective scan and its backward, the
+     backward also with a zero g_hl and with none), each with its extra
      cases (the fused accumulate at other slot counts and block widths;
      the fused accumulate and the plain commit at the async buffer's
      [8, 4671, 256] under the async phase's staleness, and the fused
@@ -31,7 +32,10 @@ it happened; any failure ends the run with a non-zero exit code:
      pads them; the secure commit past its register path, with
      non-cancelling and random coefficients under asymmetric seeds, at 4
      bits, with a noise operand and with a zero-weight slot), and the secure
-     commit's mask-word fold against its plain version; and time kernel,
+     commit's mask-word fold against its plain version; the scan and its
+     backward under ``vmap`` (2 clients folded into the batch of the
+     [1, 128, 16384, 16] chunk) bit for bit against unvmapped calls; and
+     time kernel,
      plain version and library call with CUDA events, each per call (median
      of 30 after 3 warm-up launches) and the kernel and library call also
      over 30 back-to-back launches; then the commit kernels past their old
@@ -103,7 +107,25 @@ it happened; any failure ends the run with a non-zero exit code:
      a 2032-token prompt and 16 greedy decode steps, the selective scan's
      launches counted exactly, decoding held against teacher-forced
      prefill, the peak memory and one profiler pass of the prefill; then
-     the serving command line (reduced, on cuda) through ``serve.main``.
+     the serving command line (reduced, on cuda) through ``serve.main``;
+  8. train the LMs (``lm_train``) through ``build_fl_round_step``: (a) the
+     reduced Jamba (f32; Mamba + MLP, attention + MoE) in parallel and
+     sequential rounds, the reduced Qwen3-MoE and the reduced xLSTM in
+     parallel rounds, each on the card against the CPU (4 clients, 2
+     local steps, batch 2 of 64 tokens: deltas, then the default, q8 +
+     top-k and secure q8 + top-k commits from the same deltas, and the
+     uncompressed round), to 1e-4, with the launches of training and of
+     each commit exact; (b) Jamba-1.5-Large at every published width in
+     bf16, cut to 2 layers and 2 experts (below): 2 sequential rounds of
+     2 clients, 2 local steps, batch 1 of 1024 tokens, with the round
+     wall, the peak memory and the scan's and its backward's launches
+     (8 chunks x steps x clients a round) exact; (c) xlstm-125m whole in
+     bf16: 2 parallel rounds of 4 clients, 2 local steps, batch 4 of 256
+     tokens, with the round wall, the peak memory and the sLSTM's share
+     of a local step; then serving a 512-token prompt at batch 2 and 16
+     greedy decode steps through ``serve.run``, decoding held against
+     teacher-forced prefill in float32 on the same weights (the bf16 gap
+     printed).
 The last lines are the kernels' JSON record, the nvidia-smi line, and
 ``{"ok": true, "device": {...}}``.
 """
@@ -136,7 +158,8 @@ from repro_torch import worker  # noqa: E402
 from repro_torch.checkpoint import load_pytree, save_pytree  # noqa: E402
 from repro_torch.configs import get_config, reduced  # noqa: E402
 from repro_torch.core import (AdaptiveStalenessController,  # noqa: E402
-                              CompressionConfig, build_buffer_commit_step,
+                              CompressionConfig, FLConfig,
+                              build_buffer_commit_step,
                               build_chunked_commit_steps, build_fl_round_step)
 from repro_torch.core import secure_agg as sec  # noqa: E402
 from repro_torch.core.round import ParallelRound  # noqa: E402
@@ -146,19 +169,21 @@ from repro_torch.kernels.fused_accum import fused_accum_blocks  # noqa: E402
 from repro_torch.kernels.fused_quant_mask import (  # noqa: E402
     fold_mask_words, plain_commit_blocks, secure_commit_blocks)
 from repro_torch.kernels.quantize import quantize_dequant_blocks  # noqa: E402
+from repro_torch.kernels import ops as kops  # noqa: E402
 from repro_torch.kernels.selective_scan import (  # noqa: E402
-    selective_scan_chunk_blocks)
+    selective_scan_chunk_blocks, selective_scan_chunk_bwd_blocks)
 from repro_torch.kernels.topk_sparsify import topk_sparsify_blocks  # noqa: E402
 from repro_torch.launch import serve, train  # noqa: E402
 from repro_torch.models import build_model, param_count  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
+from repro_torch.models import xlstm as xlstm_mod  # noqa: E402
 from repro_torch.data import VirtualFederatedDataset  # noqa: E402
 from repro_torch.models.cnn import CIFAR_CNN, CNN  # noqa: E402
 from repro_torch.optim import get_client_optimizer, get_server_optimizer  # noqa: E402
 from repro_torch.orchestrator import (BatchedAsyncOrchestrator,  # noqa: E402
                                       EventWindowOrchestrator,
                                       make_mega_fleet)
-from repro_torch.pytree import flat_dict  # noqa: E402
+from repro_torch.pytree import flat_dict, nest  # noqa: E402
 
 CSRC = "src/repro_torch/kernels/csrc/"
 F32_PEAK = 67e12          # H100 SXM f32 outside the tensor cores, FLOP/s
@@ -399,6 +424,45 @@ SCAN_SHAPE = (1, 128, 16384, 16)     # the full-width prefill's scan chunk
 # their whole scale.
 SERVE_DECODE_TOL = 5e-2
 
+# The LM training phase (lm_train), through build_fl_round_step.  (a) The
+# reduced LMs in f32, on the card against the CPU from the same params and
+# tokens (check_lm_round_parity): the reduced Jamba (layer 0 Mamba + MLP,
+# layer 1 attention + MoE; 64 tokens are 4 scan chunks of 16) in both
+# client modes, the reduced Qwen3-MoE in parallel mode (its sort-based
+# dispatch under vmap), the reduced xLSTM in parallel mode.
+LM_TRAIN_PARITY = ((JAMBA, ("parallel", "sequential")),
+                   ("qwen3-moe-235b-a22b", ("parallel",)),
+                   ("xlstm-125m", ("parallel",)))
+# (b) Jamba-1.5-Large at every published width in its published bf16,
+# cut as reduced() cuts the interleave: depth 72 -> 2 with attn_every
+# 8 -> 2 and the MoE every 2nd layer (layer 0 the Mamba mixer at d_inner
+# 16384, d_state 16, dt_rank 512 with the dense SwiGLU, layer 1 attention
+# with 64/8 heads with the MoE), experts 16 -> 2 with top-2 kept:
+# 3,457,064,960 params.  Sequential rounds: the f32 running sum, one
+# client's params, gradients and delta beside the global params.  1024
+# tokens are 8 scan chunks of 128.
+JAMBA_TRAIN_PARAMS = 3_457_064_960
+JAMBA_TRAIN = dict(rounds=2, C=2, H=2, B=1, S=1024)
+JAMBA_TRAIN_CUTS = ("depth 72 -> 2 (attn_every 8 -> 2: [mamba + mlp, attn + "
+                    "moe])", "experts 16 -> 2 (top-2 kept)")
+# (c) xLSTM-125M (arXiv:2405.04517) whole: 12 blocks, d_model 768, 4
+# heads, vocab 50304, bf16, 162,402,096 params; parallel rounds, then
+# serving a 512-token prompt at batch 2 with 16 greedy decode steps.
+XLSTM = "xlstm-125m"
+XLSTM_PARAMS = 162_402_096
+XLSTM_TRAIN = dict(rounds=2, C=4, H=2, B=4, S=256)
+XLSTM_SERVE = dict(batch=2, prompt_len=512, gen=16)
+# xLSTM decoding against teacher-forced prefill, held in float32 on the
+# bf16 model's weights.  The two paths differ in the last position's form
+# (an mLSTM recurrent step against a chunk of one) and, through the GEMMs'
+# shapes, in rounding everywhere; 12 recurrent blocks amplify that: in
+# float32 the gap is 1.1e-5 on the CPU (7.3e-6 in the reference), while
+# in bf16 one-ulp differences grow to 2-10% of the logit scale on the CPU
+# in both packages (the reference 1.9% and 3.3% at two inits, the port
+# 0-10%), and further on the card.  A wrong state moves the logits by
+# their whole scale.
+XLSTM_DECODE_TOL = 1e-3
+
 # The CIFAR CNN's leaves other than dense1_w as the per-leaf kernels see
 # them, 20 clients blocked by 256 (last dim zero-padded): name, rows, live
 # lanes.  q8_topk_stochastic runs topk_sparsify once on each per round.
@@ -413,7 +477,8 @@ SOURCES = {"fused_accum": "commit_kernels.cu",
            "topk_sparsify": "commit_kernels.cu",
            "secure_commit": "secure_commit.cu",
            "fedprox_update": "fedprox_update.cu",
-           "selective_scan": "selective_scan.cu"}
+           "selective_scan": "selective_scan.cu",
+           "selective_scan_bwd": "selective_scan.cu"}
 
 
 class SmokeFailure(Exception):
@@ -830,6 +895,26 @@ def kernel_specs(device, k_slots=K_SLOTS, rows=BUCKET_ROWS,
     wh0 = torch.randn((2, D, N), generator=gen, device=device)
     va, vb = wa[:, L:], wb[:, L:]
     scan_bytes = lambda b: 4 * (3 * b * L * D * N + 2 * b * D * N)
+    # the scan's backward at the same chunk, from the forward's states and
+    # random cotangents of hs and h_last; the strided batch-2 chunk view;
+    # and no gradient of the last state, as a zero g_hl and as none (the
+    # last chunk of a training sequence)
+    shs = ref.selective_scan_chunk_ref(sa, sb, sh0)[0]
+    sg = torch.randn(scan_shape, generator=gen, device=device)
+    sgl = torch.randn((B, D, N), generator=gen, device=device)
+    whs = torch.randn((2, 2 * L, D, N), generator=gen, device=device)
+    wg = torch.randn((2, 2 * L, D, N), generator=gen, device=device)
+    wgl = torch.randn((2, D, N), generator=gen, device=device)
+    vhs, vg = whs[:, L:], wg[:, L:]
+    zgl = torch.zeros_like(sgl)
+    # a, hs and g_hs read, ga and gb written, per element; h0 read, gh0
+    # written and g_hl read per lane
+    bwd_bytes = lambda b, lanes=3: 4 * (5 * b * L * D * N + lanes * b * D * N)
+
+    def bwd_case(label, args, b, lanes=3):
+        return (label, lambda: selective_scan_chunk_bwd_blocks(*args),
+                lambda: ref.selective_scan_chunk_bwd_ref(*args),
+                bwd_bytes(b, lanes), 3 * b * L * D * N, 0)
     main_secure = secure_case("main", xb, w_sec, seeds, coef)
 
     return {
@@ -931,6 +1016,21 @@ def kernel_specs(device, k_slots=K_SLOTS, rows=BUCKET_ROWS,
             # one multiply and one add per element
             bytes=scan_bytes(B),
             ops=2 * sa.numel()),
+        "selective_scan_bwd": dict(
+            replaces="src/repro/kernels/ops.py:476",
+            kernel=lambda: selective_scan_chunk_bwd_blocks(sa, shs, sh0, sg,
+                                                           sgl),
+            plain=lambda: ref.selective_scan_chunk_bwd_ref(sa, shs, sh0, sg,
+                                                           sgl),
+            library=None,
+            extra=[bwd_case("strided batch-2 chunk view",
+                            (va, vhs, wh0, vg, wgl), 2),
+                   bwd_case("g_hl = 0", (sa, shs, sh0, sg, zgl), B),
+                   bwd_case("no g_hl", (sa, shs, sh0, sg, None), B, 2)],
+            compare=exact("selective_scan_bwd"),
+            # the reverse recurrence's multiply and add, and ga's multiply
+            bytes=bwd_bytes(B),
+            ops=3 * sa.numel()),
     }
 
 
@@ -1050,13 +1150,47 @@ def check_slot_limits(device="cuda", cases=SLOT_LIMIT_CASES, seed=5):
     return out
 
 
+def check_scan_vmap(device="cuda", scan_shape=SCAN_SHAPE, C=2, seed=2):
+    """The scan and its backward under ``vmap`` as the parallel round runs
+    them, C clients folded into the batch dim by the vmap rules of
+    ``kernels/ops.py``: the forward's states, and the gradients of a, b
+    and h0 under ``vmap(grad)``, bit for bit against C unvmapped calls."""
+    from torch.func import grad, vmap
+    gen = torch.Generator(device=device).manual_seed(seed)
+    B, L, D, N = scan_shape
+    a = torch.rand((C, *scan_shape), generator=gen, device=device) * 0.7 + 0.3
+    b = torch.randn((C, *scan_shape), generator=gen, device=device) * 0.1
+    h0 = torch.randn((C, B, D, N), generator=gen, device=device)
+    w = torch.randn(scan_shape, generator=gen, device=device)
+    wl = torch.randn((B, D, N), generator=gen, device=device)
+
+    def loss(a, b, h0):
+        hs, hl = kops.selective_scan_chunk(a, b, h0)
+        return (hs * w).sum() + (hl * wl).sum()
+
+    g = grad(loss, argnums=(0, 1, 2))
+    got = vmap(kops.selective_scan_chunk)(a, b, h0) + vmap(g)(a, b, h0)
+    each = [kops.selective_scan_chunk(a[c], b[c], h0[c]) + g(a[c], b[c],
+                                                             h0[c])
+            for c in range(C)]
+    sync(device)
+    for i, name in enumerate(("hs", "h_last", "ga", "gb", "gh0")):
+        check(torch.equal(got[i], torch.stack([x[i] for x in each])),
+              f"selective scan under vmap: {name} differs from {C} "
+              f"unvmapped calls")
+    print(f"selective scan under vmap, {C} clients folded into the batch of "
+          f"{list(scan_shape)}: forward and vmap(grad) equal to {C} "
+          f"unvmapped calls")
+
+
 def check_kernels(device="cuda", **shapes):
     """Phase 2: each kernel against its plain version, and on the card its
-    times; the secure fold and the commit kernels past their old slot
-    limits."""
+    times; the scan pair under vmap; the secure fold and the commit kernels
+    past their old slot limits."""
     timed = torch.device(device).type == "cuda"
     rate = memory_rate(torch.cuda.get_device_name(0) if timed else "")
     check_fold(device, shapes.get("k_slots", K_SLOTS))
+    check_scan_vmap(device, shapes.get("scan_shape", SCAN_SHAPE))
     check_slot_limits(device, **({} if timed else dict(
         cases=tuple((kname, K, 1, coefs)
                     for kname, K, _, coefs in SLOT_LIMIT_CASES
@@ -1204,23 +1338,59 @@ def check_round_parity(device="cuda", C=20, H=2, B=16, tol=1e-4):
     return worst
 
 
+def scan_chunks(model, S: int) -> int:
+    """The selective scan's calls in one pass over S tokens: one per chunk
+    (the remainder included) per Mamba layer."""
+    if model.cfg.mamba is None:
+        return 0
+    n_mamba = model.n_groups * sum(s.mixer == "mamba" for s in model.pattern)
+    return n_mamba * math.ceil(S / model.cfg.mamba.chunk)
+
+
+def train_launches(model, mode, C, H, S) -> dict:
+    """The kernels local training launches: the scan and its backward once
+    per chunk per Mamba layer per local step, for all C clients at once
+    (parallel: vmap folds the clients into the scan's batch) or for each
+    client in turn (sequential)."""
+    n = scan_chunks(model, S) * H * (C if mode == "sequential" else 1)
+    return {"selective_scan": n, "selective_scan_bwd": n} if n else {}
+
+
+def commit_launches(mode, kernel, n_leaves, C) -> dict:
+    """The kernels one commit launches: the parallel commit one bucketed
+    commit kernel; the sequential commit compresses each client's delta
+    leaf by leaf (top-k, then the deterministic quantize), masking in
+    float where secure, and folds it with no kernel."""
+    if mode == "parallel":
+        return {kernel: 1}
+    if kernel == "fused_accum":
+        return {}
+    return {"topk_sparsify": n_leaves * C, "quantize": n_leaves * C}
+
+
 def check_lm_round_parity(device="cuda", C=8, H=2, B=16, S=64, tol=1e-4,
-                          rel_tol=1e-3, cfg=None, n_params=LM_PARAMS):
-    """Phase 3 for the char-LM at full width: the clients' deltas from
-    local training on the card and on the CPU, from the same params (drawn
-    on the CPU) and tokens, agree to ``tol``; then each LM commit
-    (LM_PARITY) runs on the card and on the CPU from the card's deltas, and
-    the new params agree to ``tol`` (the "discontinuous commits" rule), the
-    card's commit launching exactly its kernel; and the uncompressed round,
-    each device from its own deltas, agrees to ``tol``.  The changes are
-    small (lr 0.01), so each gap is also held to ``rel_tol`` of the largest
-    change on the CPU (the deltas, or the new params minus the params),
-    which must not be 0: a commit that left the params as they were, or
-    moved them wrongly, fails."""
+                          rel_tol=1e-3, cfg=None, n_params=LM_PARAMS,
+                          n_leaves=LM_LEAVES, modes=("parallel",)):
+    """Phase 3 for the char-LM at full width, and phase lm_train's reduced
+    LMs: the clients' deltas from local training on the card and on the
+    CPU, from the same params (drawn on the CPU) and tokens, agree to
+    ``tol``, the card launching exactly the kernels of ``train_launches``;
+    then each LM commit (LM_PARITY) runs on the card and on the CPU from
+    the card's deltas, and the new params agree to ``tol`` (the
+    "discontinuous commits" rule), the card's commit launching exactly the
+    kernels of ``commit_launches``; and the uncompressed round, each device
+    from its own deltas, agrees to ``tol``.  Each client mode of ``modes``
+    runs this: parallel through ``ParallelRound.train_clients`` and
+    ``commit``, sequential through ``SequentialRound.local_train`` for each
+    client and ``commit`` over their deltas.  The changes are small (lr
+    0.01), so each gap is also held to ``rel_tol`` of the largest change on
+    the CPU (the deltas, or the new params minus the params), which must
+    not be 0: a commit that left the params as they were, or moved them
+    wrongly, fails."""
     model = build_model(cfg or get_config("paper-charlm"))
     params = flat_dict(model.init(torch.Generator().manual_seed(0)))
     n = sum(v.numel() for v in params.values())
-    check(n == n_params and len(params) == LM_LEAVES,
+    check(n_params is None or n == n_params and len(params) == n_leaves,
           f"lm round parity: {n} params in {len(params)} leaves")
     toks = np.random.default_rng(0).integers(
         0, model.cfg.vocab, (C, H, B, S + 1)).astype(np.int32)
@@ -1238,51 +1408,74 @@ def check_lm_round_parity(device="cuda", C=8, H=2, B=16, S=64, tol=1e-4,
                    for k in params)
 
     devs = (device, "cpu")
-    steps = {}
-    for cname, (flags, kernel) in LM_PARITY.items():
-        fl = train.fl_config(train.build_parser().parse_args(LM_ARGS + flags))
-        steps[cname] = build_fl_round_step(
-            model.loss_fn, get_client_optimizer("sgd"),
-            get_server_optimizer("fedavg"),
-            dataclasses.replace(fl, num_clients=C, local_steps=H))
-    launches.reset()
-    trained = {dev: steps["lm_default"].train_clients(on(dev, params),
-                                                      on(dev, batches))
-               for dev in devs}
-    sync(device)
-    check(not launches.KERNEL_LAUNCHES, "lm round parity: local training "
-          f"launched {dict(launches.KERNEL_LAUNCHES)}")
-    d_cpu = trained["cpu"][0]
-    errs = {"deltas": gap(trained[device][0], d_cpu)}
-    sizes = {"deltas": max(v.abs().max().item() for v in d_cpu.values())}
+    errs, sizes = {}, {}
+    for mode in modes:
+        steps = {}
+        for cname, (flags, kernel) in LM_PARITY.items():
+            fl = train.fl_config(train.build_parser().parse_args(LM_ARGS
+                                                                 + flags))
+            steps[cname] = build_fl_round_step(
+                model.loss_fn, get_client_optimizer("sgd"),
+                get_server_optimizer("fedavg"),
+                dataclasses.replace(fl, num_clients=C, local_steps=H,
+                                    client_exec=mode))
+        first = steps["lm_default"]
 
-    def commit(cname, dev, deltas, losses):
-        new, _, met = steps[cname].commit(
-            on(dev, params), (), on(dev, deltas), losses.to(dev),
-            torch.from_numpy(w).to(dev), torch.from_numpy(m).to(dev),
-            torch.Generator().manual_seed(7))
-        sync(dev)
-        check(math.isfinite(float(met["client_loss"])),
-              f"lm round parity {cname}: non-finite loss on {dev}")
-        return new
+        def train_clients(dev):
+            if mode == "parallel":
+                return first.train_clients(on(dev, params), on(dev, batches))
+            out = [first.local_train(on(dev, params), on(dev, {
+                k: v[c] for k, v in batches.items()})) for c in range(C)]
+            return ({k: torch.stack([d[k] for d, _ in out])
+                     for k in params}, torch.stack([l for _, l in out]))
 
-    d_card, l_card = trained[device]
-    for cname, (_, kernel) in LM_PARITY.items():
         launches.reset()
-        card = commit(cname, device, d_card, l_card)
+        trained = {dev: train_clients(dev) for dev in devs}
+        sync(device)
         counts = dict(launches.KERNEL_LAUNCHES)
-        check(counts == {kernel: 1}, f"lm round parity {cname}: the card's "
-                                     f"commit launched {counts}")
-        cpu = commit(cname, "cpu", d_card, l_card)
-        errs[cname], sizes[cname] = gap(card, cpu), change(cpu)
-    cpu = commit("lm_default", "cpu", *trained["cpu"])
-    errs["round lm_default"] = gap(
-        commit("lm_default", device, *trained[device]), cpu)
-    sizes["round lm_default"] = change(cpu)
+        expect = train_launches(model, mode, C, H, S)
+        check(counts == expect, f"lm round parity ({mode}): local training "
+                                f"launched {counts}, expected {expect}")
+        d_cpu = trained["cpu"][0]
+        errs[f"{mode} deltas"] = gap(trained[device][0], d_cpu)
+        sizes[f"{mode} deltas"] = max(v.abs().max().item()
+                                      for v in d_cpu.values())
+
+        def commit(cname, dev, deltas, losses):
+            args = (on(dev, params), ())
+            if mode == "parallel":
+                args += (on(dev, deltas), losses.to(dev))
+            else:
+                args += (((on(dev, {k: d[c] for k, d in deltas.items()}),
+                           losses[c].to(dev)) for c in range(C)),)
+            new, _, met = steps[cname].commit(
+                *args, torch.from_numpy(w).to(dev),
+                torch.from_numpy(m).to(dev), torch.Generator().manual_seed(7))
+            sync(dev)
+            check(math.isfinite(float(met["client_loss"])),
+                  f"lm round parity {cname}: non-finite loss on {dev}")
+            return new
+
+        d_card, l_card = trained[device]
+        for cname, (_, kernel) in LM_PARITY.items():
+            launches.reset()
+            card = commit(cname, device, d_card, l_card)
+            counts = dict(launches.KERNEL_LAUNCHES)
+            expect = commit_launches(mode, kernel, len(params), C)
+            check(counts == expect, f"lm round parity {mode} {cname}: the "
+                                    f"card's commit launched {counts}, "
+                                    f"expected {expect}")
+            cpu = commit(cname, "cpu", d_card, l_card)
+            errs[f"{mode} {cname}"] = gap(card, cpu)
+            sizes[f"{mode} {cname}"] = change(cpu)
+        cpu = commit("lm_default", "cpu", *trained["cpu"])
+        errs[f"{mode} round lm_default"] = gap(
+            commit("lm_default", device, *trained[device]), cpu)
+        sizes[f"{mode} round lm_default"] = change(cpu)
     launches.reset()
-    print(f"lm round parity (paper-charlm, {n} params, C={C}, H={H}, B={B}, "
-          f"S={S}): max |card - cpu| = {errs}; largest change on the CPU = "
-          f"{sizes}")
+    print(f"lm round parity ({model.cfg.name}, {n} params, C={C}, H={H}, "
+          f"B={B}, S={S}): max |card - cpu| = {errs}; largest change on the "
+          f"CPU = {sizes}")
     for part, e in errs.items():
         check(e <= tol, f"lm round parity: {part} on the card differs from "
                         f"the CPU by {e:.3g} > {tol}")
@@ -2033,13 +2226,6 @@ def state_gap(state, want) -> float:
                for n in want[k])
 
 
-def scan_launches(model, S: int) -> int:
-    """The selective scan's launches in one prefill of S tokens: one per
-    chunk (the remainder included) per Mamba layer."""
-    n_mamba = model.n_groups * sum(s.mixer == "mamba" for s in model.pattern)
-    return n_mamba * math.ceil(S / model.cfg.mamba.chunk)
-
-
 def check_lm_parity(device="cuda", B=2, S0=37, T=4, tol=1e-4):
     """The reduced Jamba (f32) on the card against the CPU, from the same
     params (drawn on the CPU) and tokens: prefill logits and every
@@ -2075,7 +2261,7 @@ def check_lm_parity(device="cuda", B=2, S0=37, T=4, tol=1e-4):
     print(f"lm parity (reduced Jamba, f32, B={B}, prompt {S0}, {T} decode "
           f"steps): max |card - cpu| / max |cpu| (logits, state) = {gaps}; "
           f"launches {counts}")
-    check(counts == {"selective_scan": scan_launches(model, S0)},
+    check(counts == {"selective_scan": scan_chunks(model, S0)},
           f"lm parity: launches {counts}")
     worst = max(max(g) for g in gaps.values())
     check(worst <= tol, f"lm parity: card differs from the CPU by "
@@ -2186,7 +2372,7 @@ def serve_full_width(device="cuda", cfg=None, batch=SERVE_BATCH,
           and ((res.ids >= 0) & (res.ids < cfg.vocab)).all(),
           f"lm serve: generated ids {res.ids}")
     # one launch per chunk per Mamba layer in the prefill, none in decode
-    expect = {"selective_scan": scan_launches(model, prompt_len)}
+    expect = {"selective_scan": scan_chunks(model, prompt_len)}
     check(counts == expect, f"lm serve: launches {counts}, expected {expect}")
     with torch.inference_mode():
         drops = count_drops(lambda: model.prefill(
@@ -2237,7 +2423,7 @@ def serve_cli():
     torch.cuda.synchronize()
     counts = dict(launches.KERNEL_LAUNCHES)
     model = build_model(reduced(get_config(JAMBA)))
-    expect = {"selective_scan": scan_launches(model, args.prompt_len)}
+    expect = {"selective_scan": scan_chunks(model, args.prompt_len)}
     check(counts == expect, f"serve CLI: launches {counts}, expected {expect}")
     check(res.ids.shape == (args.batch, args.gen), f"serve CLI: {res.ids}")
     print(f"serve CLI: launches={counts}")
@@ -2250,6 +2436,225 @@ def lm_serve():
     totals = dict(serve_full_width())
     for k, n in serve_cli().items():
         totals[k] = totals.get(k, 0) + n
+    return totals
+
+# ---------------------------------------------------------------- lm_train
+def free_cache(device):
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def jamba_train_cut():
+    """Jamba-1.5-Large at every published width, cut to 2 layers and 2
+    experts (JAMBA_TRAIN_CUTS)."""
+    cfg = get_config(JAMBA)
+    return cfg.replace(n_layers=2, attn_every=2,
+                       moe=dataclasses.replace(cfg.moe, num_experts=2))
+
+
+def lm_rounds(label, model, params, fl, batches, device, rounds, tokens):
+    """``rounds`` rounds of ``fl`` through ``build_fl_round_step`` from
+    ``params`` (flat), each timed on the host clock to a sync, with the
+    peak memory over all of them and the launches, counted from 0.
+    ``batches(r)`` gives round r's [C, H, B, S] tokens and targets."""
+    step = build_fl_round_step(model.loss_fn, get_client_optimizer("sgd"),
+                               get_server_optimizer("fedavg"), fl)
+    C = fl.num_clients
+    w = torch.ones(C, device=device)
+    m = torch.ones(C, device=device)
+    gen = torch.Generator().manual_seed(7)
+    cuda = torch.device(device).type == "cuda"
+    sync(device)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    launches.reset()
+    walls = []
+    for r in range(rounds):
+        t0 = time.perf_counter()
+        params, _, met = step(params, (), batches(r), w, m, gen)
+        loss = float(met["client_loss"])          # a read, then a sync
+        sync(device)
+        walls.append(time.perf_counter() - t0)
+        print(f"lm train {label}: round {r} round_wall_s={walls[-1]:.4f} "
+              f"client_loss={loss:.6f} "
+              f"delta_norm={float(met['delta_norm']):.6g}")
+        check(math.isfinite(loss) and all(
+            bool(torch.isfinite(v).all()) for v in params.values()),
+            f"lm train {label}: non-finite loss or params in round {r}")
+    counts = dict(launches.KERNEL_LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() if cuda else 0
+    print(f"lm train {label}: {rounds} rounds of {C} clients ({fl.client_exec}"
+          f", {fl.local_steps} local steps, {tokens}), round walls {walls}, "
+          f"max_memory_allocated={peak} ({peak / 1e9:.2f} GB), "
+          f"launches={counts}")
+    return params, counts
+
+
+def train_jamba_full_width(device="cuda", cfg=None,
+                           n_params=JAMBA_TRAIN_PARAMS, **shape):
+    """(b): the cut Jamba in bf16 through sequential rounds, with every
+    scan chunk's forward and backward on the card."""
+    sh = {**JAMBA_TRAIN, **shape}
+    cfg = cfg or jamba_train_cut()
+    free_cache(device)
+    t0 = time.perf_counter()
+    model, params = serve.build(cfg, device, seed=0)
+    params = flat_dict(params)
+    n = sum(v.numel() for v in params.values())
+    print(f"lm train: {cfg.name} at every published width in {cfg.dtype}, "
+          f"cut: {'; '.join(JAMBA_TRAIN_CUTS)}: {n} params, built in "
+          f"{time.perf_counter() - t0:.1f} s")
+    check(n == n_params, f"lm train: {n} params, expected {n_params}")
+    C, H, B, S = sh["C"], sh["H"], sh["B"], sh["S"]
+    fl = FLConfig(num_clients=C, local_steps=H, client_lr=0.01,
+                  client_exec="sequential")
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, (sh["rounds"], C, H, B, S + 1))).to(device)
+    params, counts = lm_rounds(
+        "jamba", model, params, fl,
+        lambda r: {"tokens": toks[r, ..., :-1], "targets": toks[r, ..., 1:]},
+        device, sh["rounds"], f"batch {B} of {S} tokens")
+    n_scan = scan_chunks(model, S) * H * C * sh["rounds"]
+    expect = {"selective_scan": n_scan, "selective_scan_bwd": n_scan}
+    check(counts == expect, f"lm train jamba: launches {counts}, expected "
+                            f"{expect}")
+    del model, params, toks
+    free_cache(device)
+    return counts
+
+
+def slstm_share(model, params, batch, device, reps=1):
+    """The sLSTM's share of a local step: the host seconds of one
+    ``vmap(grad_and_value)`` step of the whole loss over the stacked
+    clients, against those of the model's sLSTM mixers alone under the
+    same transform on inputs of the same shape (each to a sync, the
+    fastest of ``reps``)."""
+    from torch.func import grad_and_value, vmap
+    cfg = model.cfg
+    C, _, B, S = batch["tokens"].shape
+    stacked = {k: v.expand((C, *v.shape)) for k, v in params.items()}
+    names = [k for k in params if "/slstm/" in k]
+    x = torch.randn((C, B, S, cfg.d_model), device=device).to(model.dtype)
+
+    def mixers(p, x):
+        total = 0.0
+        for g in range(model.n_groups):
+            for k in {n.rsplit("/", 1)[0] for n in names}:
+                out, _ = xlstm_mod.slstm_apply(
+                    {n.rsplit("/", 1)[1]: p[n][g] for n in names
+                     if n.startswith(k + "/")}, x, n_heads=cfg.n_heads)
+                total = total + out.float().sum()
+        return total
+
+    def best(fn):
+        times = []
+        for _ in range(reps):
+            sync(device)
+            t0 = time.perf_counter()
+            fn()
+            sync(device)
+            times.append(time.perf_counter() - t0)
+        return min(times)
+
+    whole = best(lambda: vmap(grad_and_value(model.loss_fn, has_aux=True))(
+        stacked, {k: v[:, 0] for k, v in batch.items()}))
+    alone = best(lambda: vmap(grad_and_value(mixers))(
+        {n: stacked[n] for n in names}, x))
+    n_slstm = model.n_groups * sum(s.mixer == "slstm" for s in model.pattern)
+    print(f"lm train xlstm: one local step under vmap(grad_and_value) "
+          f"{whole:.3f} s, its {n_slstm} sLSTM mixers alone {alone:.3f} s: "
+          f"the sLSTM's share of a local step, and so of the round, "
+          f"{alone / whole:.3f}")
+    return alone / whole
+
+
+def serve_decode_gaps(label, model, params, prompt, gen):
+    """``serve.run`` greedy, then decoding against teacher-forced prefill at
+    the first and the last decoded positions: max |diff| / max |logit| by
+    position."""
+    g = torch.Generator(prompt.device).manual_seed(1)
+    res = serve.run(model, params, prompt, gen, 0.0, g)
+    B, S0 = prompt.shape
+    print(f"lm serve {label}: batch {B}, prompt {S0}, {gen} greedy steps: "
+          f"prefill_s={res.prefill_s:.4f} decode_s={res.decode_s:.4f} "
+          f"({res.decode_s / gen * 1e3:.2f} ms/token)")
+    check(all(lg.shape == (B, model.cfg.vocab)
+              and bool(torch.isfinite(lg).all()) for lg in res.logits),
+          f"lm serve {label}: non-finite or misshapen logits")
+    check(res.ids.shape == (B, gen), f"lm serve {label}: ids {res.ids}")
+    tokens = torch.cat([prompt, torch.from_numpy(res.ids).to(prompt.device)],
+                       dim=1)
+    gaps = {}
+    with torch.inference_mode():
+        for t in (0, gen - 1):
+            want, _ = model.prefill(params, {"tokens": tokens[:, :S0 + t + 1]},
+                                    S0 + gen)
+            gaps[S0 + t + 1] = rel_gap(res.logits[t + 1], want)
+            same = bool((res.logits[t + 1].argmax(-1) == want.argmax(-1))
+                        .all())
+            print(f"lm serve {label}: decode step {t} against the "
+                  f"teacher-forced prefill of {S0 + t + 1} tokens: max |diff|"
+                  f" / max |logit| = {gaps[S0 + t + 1]:.4g}, same argmax: "
+                  f"{same}")
+    return gaps
+
+
+def xlstm_whole(device="cuda", cfg=None, n_params=XLSTM_PARAMS, train=None,
+                serve_shape=None):
+    """(c): xlstm-125m whole in bf16: parallel rounds with the sLSTM's
+    share of a local step, then serving through ``serve.run``."""
+    sh = {**XLSTM_TRAIN, **(train or {})}
+    sv = {**XLSTM_SERVE, **(serve_shape or {})}
+    cfg = cfg or get_config(XLSTM)
+    free_cache(device)
+    model, nested = serve.build(cfg, device, seed=0)
+    params = flat_dict(nested)
+    n = sum(v.numel() for v in params.values())
+    print(f"lm train: {cfg.name} whole ({cfg.n_layers} blocks, d_model "
+          f"{cfg.d_model}, {cfg.dtype}): {n} params")
+    check(n == n_params, f"lm train: {n} params, expected {n_params}")
+    C, H, B, S = sh["C"], sh["H"], sh["B"], sh["S"]
+    fl = FLConfig(num_clients=C, local_steps=H, client_lr=0.01)
+    toks = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab, (sh["rounds"], C, H, B, S + 1))).to(device)
+    batches = lambda r: {"tokens": toks[r, ..., :-1],
+                         "targets": toks[r, ..., 1:]}
+    _, counts = lm_rounds("xlstm", model, params, fl, batches, device,
+                          sh["rounds"], f"batch {B} of {S} tokens")
+    check(counts == {"fused_accum": sh["rounds"]},
+          f"lm train xlstm: launches {counts}")
+    slstm_share(model, params, batches(0), device)
+    prompt = torch.randint(0, cfg.vocab, (sv["batch"], sv["prompt_len"]),
+                           generator=torch.Generator(device).manual_seed(3),
+                           device=device)
+    launches.reset()
+    serve_decode_gaps(f"xlstm ({cfg.dtype})", model, nested, prompt,
+                      sv["gen"])
+    # The held comparison runs in float32 on the same weights: in bf16 the
+    # two paths' one-ulp differences grow through 12 recurrent blocks (see
+    # XLSTM_DECODE_TOL), so the bf16 gap is printed, not held.
+    f32 = build_model(cfg.replace(dtype="float32"))
+    wide = nest({k: v.float() for k, v in flat_dict(nested).items()})
+    gaps = serve_decode_gaps("xlstm (float32)", f32, wide, prompt, sv["gen"])
+    check(max(gaps.values()) <= XLSTM_DECODE_TOL,
+          f"lm serve xlstm: decoding differs from prefill by {gaps} > "
+          f"{XLSTM_DECODE_TOL}")
+    check(not launches.KERNEL_LAUNCHES, "lm serve xlstm: launched "
+                                        f"{dict(launches.KERNEL_LAUNCHES)}")
+    del f32, wide
+    del model, nested, params, toks
+    free_cache(device)
+    return counts
+
+
+def lm_train():
+    """Phase lm_train: (a) the reduced LMs' rounds on the card against
+    the CPU; (b) the cut Jamba at full width; (c) xlstm-125m whole."""
+    for arch, modes in LM_TRAIN_PARITY:
+        check_lm_round_parity(C=4, H=2, B=2, S=64, cfg=reduced(
+            get_config(arch)), n_params=None, modes=modes)
+    totals = dict(train_jamba_full_width())
+    add_counts(totals, xlstm_whole())
     return totals
 
 
@@ -2277,7 +2682,7 @@ def main() -> int:
                            ("main_path", drive_main_path),
                            ("async_path", async_path),
                            ("fleet_path", fleet_path),
-                           ("lm_serve", lm_serve)):
+                           ("lm_serve", lm_serve), ("lm_train", lm_train)):
             t0 = time.perf_counter()
             phases[phase] = run()
             print(f"phase {phase}: {time.perf_counter() - t0:.1f} s")
@@ -2285,6 +2690,7 @@ def main() -> int:
         add_counts(totals, phases["async_path"])
         add_counts(totals, phases["fleet_path"])
         add_counts(totals, phases["lm_serve"])
+        add_counts(totals, phases["lm_train"])
         for kname, row in rows.items():
             row["launches"] = totals.get(kname, 0)
             check(row["launches"] > 0, f"{kname}: no launch on the main path")

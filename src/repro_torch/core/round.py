@@ -158,7 +158,11 @@ class ParallelRound:
 
 class SequentialRound:
     """The sequential round step: one client at a time, streamed into the
-    pipeline's running sum (secure masks per slot under ``secure_agg``)."""
+    pipeline's running sum (secure masks per slot under ``secure_agg``).
+    ``commit`` folds an iterable of per-client ``(delta, loss)`` in client
+    order; the round hands it a generator that trains each client as it
+    is folded, so one client's delta is alive at a time.  A caller can
+    hand it deltas trained elsewhere (another device) instead."""
 
     def __init__(self, loss_fn: Callable, client_opt: Optimizer,
                  server_opt: ServerOptimizer, cfg: FLConfig, n_pods: int = 1):
@@ -167,17 +171,15 @@ class SequentialRound:
         self.pipe = build_update_pipeline(cfg, n_pods=n_pods)
         self.local_train = build_local_train(loss_fn, client_opt, cfg)
 
-    def __call__(self, global_params: dict, server_state,
-                 client_batches: dict, weights, mask, generator):
+    def commit(self, global_params: dict, server_state, updates, weights,
+               mask, generator):
         pipe, C = self.pipe, self.cfg.num_clients
         acc = pipe.accum_init(global_params)
         key = pipe.mask_key(generator) if self.cfg.secure_agg else None
         ids = torch.arange(C, dtype=torch.int32)
         wsum = torch.zeros((), dtype=torch.float32, device=mask.device)
         loss_sum = torch.zeros((), dtype=torch.float32, device=mask.device)
-        for c in range(C):
-            delta, loss = self.local_train(
-                global_params, {k: v[c] for k, v in client_batches.items()})
+        for c, (delta, loss) in enumerate(updates):
             wt = pipe.client_weight(weights[c], mask[c], loss)
             acc = pipe.accum_add(acc, pipe.contribution(
                 delta, wt, generator, idx=c, ids=ids, participation=mask,
@@ -188,6 +190,15 @@ class SequentialRound:
         new_params, new_state = self.server_opt.apply(global_params, delta,
                                                       server_state)
         return new_params, new_state, _metrics(delta, loss_sum, mask)
+
+    def __call__(self, global_params: dict, server_state,
+                 client_batches: dict, weights, mask, generator):
+        updates = (self.local_train(global_params,
+                                    {k: v[c] for k, v in
+                                     client_batches.items()})
+                   for c in range(self.cfg.num_clients))
+        return self.commit(global_params, server_state, updates, weights,
+                           mask, generator)
 
 
 class PodSequentialRound:

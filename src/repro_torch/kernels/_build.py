@@ -62,6 +62,8 @@ SIGNATURES = {
     },
     "selective_scan": {
         "selective_scan": [_P, _P, _P, _P, _P, _I, _I, _LL, _LL, _LL],
+        "selective_scan_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _LL,
+                               _LL, _LL, _LL],
     },
 }
 

@@ -14,8 +14,8 @@ scales and top-k thresholds are the same as per-leaf calls.
 The secure commit's mask stream is indexed by the bucket's row-major
 element index from 0, which equals the reference's per-leaf ``base``
 accumulation.  ``selective_scan_chunk`` is the Mamba mixer's scan, an
-``autograd.Function`` whose backward is not ported yet.  ``KERNEL_LAUNCHES``
-counts launches on the card by kernel name.
+``autograd.Function`` whose backward is the scan's backward kernel.
+``KERNEL_LAUNCHES`` counts launches on the card by kernel name.
 """
 from __future__ import annotations
 
@@ -229,26 +229,87 @@ def fused_secure_commit(x, w_eff, seeds, coef, base, *, bits: int, k: int = 0,
 
 
 # ---------------------------------------------------------------------------
-# selective scan: the forward is the kernel (or its plain version on the
-# CPU); the backward (the reference's custom VJP, a reverse-time scan) is
-# the training slice's
+# selective scan: forward and backward are kernels (or their plain versions
+# on the CPU), each an autograd.Function in the setup_context style with a
+# vmap rule, so the round's torch.func.grad_and_value, under vmap in
+# parallel mode, runs them
 # ---------------------------------------------------------------------------
+
+def _fold(x, bdim, n):
+    """A vmapped operand as one kernel operand: the vmapped dim (``bdim``,
+    size ``n``) folded into the batch dim, [n * B, ...]; an unbatched
+    operand (``bdim`` None) is expanded first.  A kernel reads
+    ``data_ptr()``, so it never sees a batched tensor."""
+    x = x.expand((n,) + tuple(x.shape)) if bdim is None else x.movedim(bdim,
+                                                                        0)
+    return x.reshape((n * x.shape[1],) + tuple(x.shape[2:]))
+
+
+def _unfold(x, n):
+    return x.reshape((n, x.shape[0] // n) + tuple(x.shape[1:]))
+
 
 class _SelectiveScanChunk(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, a, b, h0):
+    def forward(a, b, h0):
         return _ss.selective_scan_chunk_blocks(a, b, h0)
 
     @staticmethod
+    def setup_context(ctx, inputs, output):
+        a, _, h0 = inputs
+        ctx.save_for_backward(a, output[0], h0)   # the reference's _ss_fwd
+        # an output no loss reached (the last chunk's h_last) comes to
+        # backward as None, not as a tensor of zeros
+        ctx.set_materialize_grads(False)
+
+    @staticmethod
     def backward(ctx, g_hs, g_hl):
-        raise NotImplementedError(
-            "the selective scan's backward is not ported to repro_torch yet: "
-            "ROADMAP queue 1, still to port, item 7b (LM training)")
+        a, hs, h0 = ctx.saved_tensors
+        if g_hs is None:
+            g_hs = torch.zeros_like(hs)
+        return _SelectiveScanChunkBwd.apply(a, hs, h0, g_hs, g_hl)
+
+    @staticmethod
+    def vmap(info, in_dims, a, b, h0):
+        n = info.batch_size
+        hs, hl = _SelectiveScanChunk.apply(
+            *(_fold(x, d, n) for x, d in zip((a, b, h0), in_dims)))
+        return (_unfold(hs, n), _unfold(hl, n)), (0, 0)
+
+
+class _SelectiveScanChunkBwd(torch.autograd.Function):
+    """(a, hs, h0, g_hs, g_hl) -> (ga, gb, gh0): the kernel
+    ``selective_scan_bwd``.  ``g_hl`` is None where no gradient reached the
+    last state.  Double backward is not needed and raises."""
+
+    @staticmethod
+    def forward(a, hs, h0, g_hs, g_hl):
+        if not _ss.rows_contiguous(g_hs):
+            g_hs = g_hs.contiguous()
+        return _ss.selective_scan_chunk_bwd_blocks(a, hs, h0, g_hs, g_hl)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise NotImplementedError("the selective scan's backward has no "
+                                  "backward of its own")
+
+    @staticmethod
+    def vmap(info, in_dims, a, hs, h0, g_hs, g_hl):
+        n = info.batch_size
+        args = [None if x is None else _fold(x, d, n)
+                for x, d in zip((a, hs, h0, g_hs, g_hl), in_dims)]
+        out = _SelectiveScanChunkBwd.apply(*args)
+        return tuple(_unfold(x, n) for x in out), (0, 0, 0)
 
 
 def selective_scan_chunk(a, b, h0):
     """``h_t = a_t * h_{t-1} + b_t`` over one chunk.  a, b: [B, L, D, N]
     f32 (each batch row contiguous; chunk views of a longer sequence are
     taken as they are); h0: [B, D, N] f32.  Returns (hs [B, L, D, N],
-    h_last [B, D, N])."""
+    h_last [B, D, N]).  Differentiable in a, b and h0 (the backward is the
+    kernel ``selective_scan_bwd``), also under ``torch.func`` transforms."""
     return _SelectiveScanChunk.apply(a, b, h0)

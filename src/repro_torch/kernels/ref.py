@@ -216,3 +216,30 @@ def selective_scan_chunk_ref(a, b, h0):
         h = a[:, t] * h + b[:, t]
         hs[:, t] = h
     return hs, h
+
+
+def selective_scan_chunk_bwd_ref(a, hs, h0, g_hs, g_hl=None):
+    """The scan's backward (the reference's custom VJP ``_ss_bwd``), one
+    reverse-time step at a time in float32 with one rounding per multiply
+    and per add:
+
+        G_{L-1} = g_hs_{L-1} + g_hl,   G_t = g_hs_t + a_{t+1} * G_{t+1},
+        ga_t = G_t * h_{t-1} (h_{-1} = h0),   gb = G,   gh0 = a_0 * G_0.
+
+    a, hs, g_hs: [B, L, D, N]; h0, g_hl: [B, D, N] (``g_hl`` None is
+    zero).  Returns (ga, gb [B, L, D, N], gh0 [B, D, N]).  The steps are
+    stacked from lists, with no write into a fresh tensor."""
+    a, hs = a.to(torch.float32), hs.to(torch.float32)
+    h0, g_hs = h0.to(torch.float32), g_hs.to(torch.float32)
+    L = a.shape[1]
+    G = g_hs[:, L - 1]
+    if g_hl is not None:
+        G = G + g_hl.to(torch.float32)
+    gs = [G]
+    for t in range(L - 2, -1, -1):
+        G = g_hs[:, t] + a[:, t + 1] * G
+        gs.append(G)
+    gs.reverse()
+    h_prev = [h0] + [hs[:, t] for t in range(L - 1)]
+    ga = torch.stack([g * h for g, h in zip(gs, h_prev)], dim=1)
+    return ga, torch.stack(gs, dim=1), a[:, 0] * gs[0]

@@ -9,6 +9,11 @@ Replaces the Pallas kernel ``selective_scan_chunk_kernel`` (body
 design.  ``a`` and ``b`` may be chunk views of a whole ``[B, S, D, N]``
 tensor: each batch row must be contiguous, and the batch strides go to the
 kernel as they are, so no chunk is copied.
+
+``selective_scan_chunk_bwd_blocks`` is the scan's backward, the kernel
+``selective_scan_bwd`` of the same library (the reference's custom VJP
+``_ss_bwd``, a reverse-time recurrence with no Pallas kernel); its ``a``,
+``hs`` and ``g_hs`` are taken with their batch strides in the same way.
 """
 from __future__ import annotations
 
@@ -17,16 +22,21 @@ import torch
 from repro_torch.kernels import launches, ref
 
 NAME = "selective_scan"
+BWD_NAME = "selective_scan_bwd"
 
 
-def _check_row_major(t, what):
+def rows_contiguous(t) -> bool:
     """Each batch row of ``t`` [B, L, D, N] is one contiguous block."""
     _, L, D, N = t.shape
+    return not (L > 1 and t.stride(1) != D * N or D > 1 and t.stride(2) != N
+                or N > 1 and t.stride(3) != 1)
+
+
+def _check_row_major(t, what, name=NAME):
     if t.dtype != torch.float32:
-        raise TypeError(f"{NAME}: expected float32 {what}, got {t.dtype}")
-    if L > 1 and t.stride(1) != D * N or D > 1 and t.stride(2) != N \
-            or N > 1 and t.stride(3) != 1:
-        raise ValueError(f"{NAME}: {what} is not contiguous within a batch "
+        raise TypeError(f"{name}: expected float32 {what}, got {t.dtype}")
+    if not rows_contiguous(t):
+        raise ValueError(f"{name}: {what} is not contiguous within a batch "
                          f"row (strides {t.stride()})")
 
 
@@ -53,3 +63,35 @@ def selective_scan_chunk_blocks(a, b, h0):
                   device=a.device)
     launches.count(NAME)
     return hs, h_last
+
+
+def selective_scan_chunk_bwd_blocks(a, hs, h0, g_hs, g_hl=None):
+    """a, hs, g_hs: [B, L, D, N] f32; h0 and ``g_hl`` (None: no gradient
+    reached the last state): [B, D, N] f32.  Returns (ga, gb [B, L, D, N],
+    gh0 [B, D, N]) f32."""
+    lanes = (a.shape[0], *a.shape[2:])
+    if a.ndim != 4 or hs.shape != a.shape or g_hs.shape != a.shape \
+            or h0.shape != lanes or g_hl is not None and g_hl.shape != lanes:
+        raise ValueError(f"{BWD_NAME}: expected a, hs, g_hs [B, L, D, N] "
+                         f"and h0, g_hl [B, D, N], got {tuple(a.shape)}, "
+                         f"{tuple(hs.shape)}, {tuple(h0.shape)}, "
+                         f"{tuple(g_hs.shape)}, "
+                         f"{None if g_hl is None else tuple(g_hl.shape)}")
+    rest = () if g_hl is None else (g_hl,)
+    if launches.on_cpu(a, hs, h0, g_hs, *rest):
+        return ref.selective_scan_chunk_bwd_ref(a, hs, h0, g_hs, g_hl)
+    from repro_torch.kernels import _build
+    for t, what in ((a, "a"), (hs, "hs"), (g_hs, "g_hs")):
+        _check_row_major(t, what, BWD_NAME)
+    launches.check_operands(BWD_NAME, h0, *rest)
+    B, L, D, N = a.shape
+    ga = torch.empty((B, L, D, N), dtype=torch.float32, device=a.device)
+    gb = torch.empty((B, L, D, N), dtype=torch.float32, device=a.device)
+    gh0 = torch.empty((B, D, N), dtype=torch.float32, device=a.device)
+    _build.launch("selective_scan", BWD_NAME, a.data_ptr(), hs.data_ptr(),
+                  h0.data_ptr(), g_hs.data_ptr(),
+                  None if g_hl is None else g_hl.data_ptr(), ga.data_ptr(),
+                  gb.data_ptr(), gh0.data_ptr(), B, L, D * N, a.stride(0),
+                  hs.stride(0), g_hs.stride(0), device=a.device)
+    launches.count(BWD_NAME)
+    return ga, gb, gh0

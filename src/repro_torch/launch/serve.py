@@ -9,8 +9,10 @@ Same flags as the reference plus ``--device`` (default ``cuda``; the
 launcher raises when CUDA is absent and ``--device cpu`` was not given).
 As in the reference, ``--reduced`` is ``store_true`` with ``default=True``,
 so the command line always serves the reduced config; a full-width run
-calls ``build`` and ``run`` itself.  The dense, MoE and hybrid families
-serve; the others raise NotImplementedError naming their ROADMAP item.
+calls ``build`` and ``run`` itself.  The dense, MoE, hybrid and xLSTM
+families serve (``--arch xlstm-125m``: its mLSTM and sLSTM states are the
+decode state); the VLM and audio families raise NotImplementedError naming
+their ROADMAP item.
 """
 from __future__ import annotations
 

@@ -1,14 +1,17 @@
 """Mamba (S6) block: selective state-space model with a chunked scan,
-mirroring ``repro/models/mamba.py`` for prefill and decode.
+mirroring ``repro/models/mamba.py`` in train, prefill and decode modes.
 
-Every chunk of the prefill scan, the remainder chunk included, goes
-through ``kernels.ops.selective_scan_chunk``: the reference's
+Every chunk of the train and prefill scans, the remainder chunk included,
+goes through ``kernels.ops.selective_scan_chunk``: the reference's
 ``use_kernel=True`` path.  A CPU tensor takes the scan's plain version, a
-CUDA tensor the hand-written kernel.  The decay ``a`` and drive ``b`` are
-materialised as [B, S, d_inner, d_state] float32, as in the reference, and
-each chunk is a view of them that the kernel reads in place.  Decode is one
-recurrence step with no scan.  Training (the scan's backward) is ROADMAP
-queue 1 item 7b (7b-ii).
+CUDA tensor the hand-written kernel; in train mode its backward is the
+kernel ``selective_scan_bwd``, under the round's ``torch.func`` transforms
+too.  The decay ``a`` and drive ``b`` are materialised as [B, S, d_inner,
+d_state] float32, as in the reference, and each chunk is a view of them
+that the kernel reads in place.  Decode is one recurrence step with no
+scan.  The reference's default (``use_kernel=False``) scans each chunk
+associatively, which rounds differently from the sequential scan: the two
+agree to about 1e-6 relative.
 """
 from __future__ import annotations
 
@@ -52,13 +55,15 @@ def init_mamba(pb, path, d_model: int, cfg: MambaConfig, n_groups: int):
     add(path + ["out_proj"], g + (di, d_model))
 
 
-def _ssm_coeffs(x, p, cfg: MambaConfig):
+def _ssm_coeffs(x, p, cfg: MambaConfig, in_place: bool = True):
     """x [B, L, di] -> decay a [B,L,di,N], drive b [B,L,di,N], C [B,L,N].
 
     ``dt`` stays in the model dtype and ``dt * B`` is formed there before
     the cast to float32, as in the reference; ``a`` is formed in float32.
-    The elementwise passes over [B, L, di, N] run in place where the
-    reference makes a new array: the values are the same."""
+    With ``in_place`` (prefill and decode) the elementwise passes over [B,
+    L, di, N] run in place where the reference makes a new array: the
+    values are the same.  Train mode writes nothing in place, for autograd
+    and the round's vmap."""
     N = cfg.d_state
     R = p["dt_proj"].shape[0]
     proj = x @ p["x_proj"]                                  # [B,L,R+2N]
@@ -67,10 +72,11 @@ def _ssm_coeffs(x, p, cfg: MambaConfig):
     # differs from x by less than 1e-8 relative
     dt = F.softplus(dt_in @ p["dt_proj"] + p["dt_bias"])   # [B,L,di]
     A = -torch.exp(p["A_log"].to(torch.float32))           # [di, N]
-    a = torch.exp_(dt.to(torch.float32)[..., None] * A)    # [B,L,di,N]
+    a = dt.to(torch.float32)[..., None] * A                # [B,L,di,N]
     b = (dt[..., None] * Bc[..., None, :]).to(torch.float32)
-    b.mul_(x[..., None].to(torch.float32))
-    return a, b, Cc
+    if in_place:
+        return torch.exp_(a), b.mul_(x[..., None].to(torch.float32)), Cc
+    return torch.exp(a), b * x[..., None].to(torch.float32), Cc
 
 
 def selective_scan_chunked(a, b, C, h0, chunk: int):
@@ -87,22 +93,20 @@ def selective_scan_chunked(a, b, C, h0, chunk: int):
     return torch.cat(ys, dim=1), h
 
 
-def mamba_apply(p, x, *, cfg: MambaConfig, mode: str = "prefill",
+def mamba_apply(p, x, *, cfg: MambaConfig, mode: str = "train",
                 state=None):
-    """x [B,S,D].  mode prefill: full scan, returns (out, state).  mode
-    decode: x [B,1,D] with state {"conv": [B,d_conv-1,di], "h": [B,di,N]}."""
-    if mode not in ("prefill", "decode"):
-        raise NotImplementedError(
-            f"mamba_apply mode={mode!r}: Mamba's train mode (with the "
-            f"scan's backward kernel) is not ported to repro_torch yet: "
-            f"ROADMAP queue 1, still to port, item 7b (7b-ii)")
+    """x [B,S,D].  mode train/prefill: full scan (train returns (out, None),
+    prefill (out, state)).  mode decode: x [B,1,D] with state {"conv":
+    [B,d_conv-1,di], "h": [B,di,N]}."""
+    if mode not in ("train", "prefill", "decode"):
+        raise ValueError(mode)
     B, S, D = x.shape
     di = cfg.expand * D
     N = cfg.d_state
     xz = x @ p["in_proj"]                                   # [B,S,2di]
     xin, z = xz.chunk(2, dim=-1)
 
-    if mode == "prefill":
+    if mode in ("train", "prefill"):
         # causal depthwise conv, summed in the reference's order
         pad = torch.zeros((B, cfg.d_conv - 1, di), dtype=xin.dtype,
                           device=xin.device)
@@ -111,12 +115,14 @@ def mamba_apply(p, x, *, cfg: MambaConfig, mode: str = "prefill",
         for i in range(1, cfg.d_conv):
             conv = conv + xpad[:, i:i + S] * p["conv_w"][i]
         conv = F.silu(conv + p["conv_b"])
-        a, b, Cc = _ssm_coeffs(conv, p, cfg)
+        a, b, Cc = _ssm_coeffs(conv, p, cfg, in_place=mode == "prefill")
         h0 = torch.zeros((B, di, N), dtype=torch.float32, device=x.device)
         y, h_last = selective_scan_chunked(a, b, Cc, h0, cfg.chunk)
         del a, b
         y = y.to(x.dtype) + conv * p["D"]
         out = (F.silu(z) * y) @ p["out_proj"]
+        if mode == "train":
+            return out, None
         # keep the last d_conv-1 raw (pre-conv) inputs for decode
         new_state = {"conv": xpad[:, -(cfg.d_conv - 1):], "h": h_last}
         return out, new_state

@@ -12,7 +12,6 @@ token 0 with gate 0.
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.configs.base import MoEConfig
 from repro_torch.models.common import act_fn
@@ -35,7 +34,10 @@ def _route(x2d, router, cfg: MoEConfig):
     gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
     # Switch-style load-balance loss: E * sum_e f_e * p_e
     E = cfg.num_experts
-    hard = F.one_hot(eid[:, 0], E).to(torch.float32)
+    # a comparison, not F.one_hot, which reads its input's max on the host
+    # and so cannot run under the round's vmap
+    hard = (eid[:, :1] == torch.arange(E, device=eid.device)).to(
+        torch.float32)
     aux = E * torch.mean(hard.mean(0) * probs.mean(0))
     return eid, gate.to(x2d.dtype), aux
 
@@ -62,12 +64,14 @@ def _dispatch_indices(eid, gate, e_lo: int, e_n: int, capacity: int):
     keep = (k_sorted < e_n) & (rank < capacity)
     e_slot = torch.where(keep, k_sorted, torch.full_like(k_sorted, e_n))
     c_slot = torch.where(keep, rank, torch.zeros_like(rank))
-    # dropped assignments all land in row e_n, which is cut off below
-    tok_idx = torch.zeros((e_n + 1, capacity), dtype=torch.int64, device=dev)
-    tok_idx[e_slot, c_slot] = flat_t[order]
-    gates = torch.zeros((e_n + 1, capacity), dtype=flat_g.dtype, device=dev)
-    gates[e_slot, c_slot] = torch.where(keep, flat_g[order],
-                                        torch.zeros_like(flat_g))
+    # dropped assignments all land in row e_n, which is cut off below; the
+    # writes are out of place (index_put), which vmap takes
+    idx = (e_slot, c_slot)
+    tok_idx = torch.zeros((e_n + 1, capacity), dtype=torch.int64,
+                          device=dev).index_put(idx, flat_t[order])
+    gates = torch.zeros((e_n + 1, capacity), dtype=flat_g.dtype,
+                        device=dev).index_put(
+        idx, torch.where(keep, flat_g[order], torch.zeros_like(flat_g)))
     return tok_idx[:e_n], gates[:e_n]
 
 

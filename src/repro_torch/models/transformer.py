@@ -8,11 +8,10 @@ layer-stacked parameters with a leading ``[G, ...]`` dim, as in the
 reference, and ``_backbone`` loops over the groups in Python where the
 reference runs ``lax.scan``.
 
-Families served: dense (attn + mlp), moe (attn + moe) and hybrid
-(mamba/attn interleave + mlp/moe, Jamba); the dense and MoE families also
-train.  Cross attention (vlm), the xLSTM mixers (ssm) and codebook
-embeddings (audio) raise NotImplementedError naming ROADMAP queue 1 item
-7c; Mamba's train mode raises naming item 7b (7b-ii).
+Families that train and serve: dense (attn + mlp), moe (attn + moe),
+hybrid (mamba/attn interleave + mlp/moe, Jamba) and ssm (mlstm/slstm
+blocks, xLSTM).  Cross attention (vlm) and codebook embeddings (audio)
+raise NotImplementedError naming ROADMAP queue 1 item 7c.
 
 ``loss_fn`` takes the nested params or their flat view
 (``repro_torch.pytree.flat_dict``: ``/``-joined leaf paths in ``jax.tree``
@@ -36,6 +35,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba as mamba_mod
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.common import (DTYPES, ParamBuilder, apply_rope,
                                        cross_entropy_logits, glu_mlp,
                                        plain_mlp, rms_norm, take_embedding)
@@ -43,16 +43,14 @@ from repro_torch.pytree import nest
 
 _UNPORTED = {
     "cross": "cross attention (the VLM family)",
-    "mlstm": "the xLSTM mixers (mlstm)",
-    "slstm": "the xLSTM mixers (slstm)",
 }
 
 
-def _not_ported(what: str, item: str = "7c") -> NotImplementedError:
-    """Item 7b is LM training, 7c the rest of the zoo."""
+def _not_ported(what: str) -> NotImplementedError:
+    """Item 7c is the rest of the zoo."""
     return NotImplementedError(
         f"{what} is not ported to repro_torch yet: ROADMAP queue 1, still "
-        f"to port, item {item}")
+        f"to port, item 7c")
 
 
 @dataclass(frozen=True)
@@ -131,6 +129,10 @@ class LM:
                 pb.add(base + ["wo"], (G, H * hd, D))
             elif slot.mixer == "mamba":
                 mamba_mod.init_mamba(pb, base + ["mamba"], D, cfg.mamba, G)
+            elif slot.mixer == "mlstm":
+                xlstm_mod.init_mlstm(pb, base + ["mlstm"], D, H, cfg.xlstm, G)
+            elif slot.mixer == "slstm":
+                xlstm_mod.init_slstm(pb, base + ["slstm"], D, H, G)
             if slot.ffn != "none":
                 pb.add(base + ["norm2"], (G, D), init="ones")
             if slot.ffn == "mlp":
@@ -211,14 +213,23 @@ class LM:
             out = self._attn(p, h, positions=positions,
                              window=cfg.sliding_window, mode=mode,
                              cache=cache, pos=pos)
-        elif slot.mixer == "mamba":
-            out, new_state = mamba_mod.mamba_apply(
-                p["mamba"], h, cfg=cfg.mamba, mode=mode, state=cache)
-            for name, t in new_state.items():
+        else:
+            if slot.mixer == "mamba":
+                out, new_state = mamba_mod.mamba_apply(
+                    p["mamba"], h, cfg=cfg.mamba, mode=mode, state=cache)
+            elif slot.mixer == "mlstm":
+                out, new_state = xlstm_mod.mlstm_apply(
+                    p["mlstm"], h, n_heads=cfg.n_heads, cfg=cfg.xlstm,
+                    mode=mode, state=cache)
+            elif slot.mixer == "slstm":
+                out, new_state = xlstm_mod.slstm_apply(
+                    p["slstm"], h, n_heads=cfg.n_heads, mode=mode,
+                    state=cache)
+            else:
+                raise ValueError(slot.mixer)
+            for name, t in (new_state or {}).items():
                 cache[name].copy_(t)
             del new_state
-        else:
-            raise ValueError(slot.mixer)
         x = x + out
         aux = 0.0
         if slot.ffn != "none":
@@ -298,7 +309,7 @@ class LM:
         """Nested dict of (shape, dtype) leaves, one per decode-state leaf."""
         cfg = self.cfg
         dt = dtype or self.dtype
-        KV, hd = cfg.kv_heads, cfg.hd
+        KV, hd, H = cfg.kv_heads, cfg.hd, cfg.n_heads
         G = self.n_groups
         S_c = self.cache_len(s_max)
         slots = {}
@@ -312,6 +323,15 @@ class LM:
                 slots[key] = {"conv": ((G, B, cfg.mamba.d_conv - 1, di), dt),
                               "h": ((G, B, di, cfg.mamba.d_state),
                                     torch.float32)}
+            elif slot.mixer == "mlstm":
+                hdu = int(cfg.xlstm.proj_factor * cfg.d_model) // H
+                slots[key] = {"C": ((G, B, H, hdu, hdu), torch.float32),
+                              "n": ((G, B, H, hdu), torch.float32),
+                              "m": ((G, B, H), torch.float32)}
+            elif slot.mixer == "slstm":
+                hds = cfg.d_model // H
+                slots[key] = {k: ((G, B, H, hds), torch.float32)
+                              for k in ("c", "n", "h", "m")}
         return slots
 
     def init_decode_state(self, B: int, s_max: int, dtype=None,

@@ -2,7 +2,9 @@
 the same params (the reference's init, copied by ``convert.tree_from_jax``)
 and the same numpy inputs: the modules one by one, then whole prefill and
 decode on the reduced Jamba (pattern [mamba+mlp, attn+moe]), the paper's
-char-LM, a sliding-window ring buffer and an MoE family.
+char-LM, a sliding-window ring buffer, an MoE family and the xLSTM family;
+the full-width xLSTM's layout; the reduced Jamba's training loss and
+gradients.
 
 Tolerances (all float32): 1e-5 relative for a module, 1e-4 for a whole
 model, where matmuls and reductions are summed in another order by XLA
@@ -31,6 +33,7 @@ from repro_torch.models import build_model, param_count
 from repro_torch.models import common as tcommon
 from repro_torch.models import mamba as tmamba
 from repro_torch.models import moe as tmoe
+from repro_torch.pytree import flat_dict
 
 MODULE_TOL, MODEL_TOL = 1e-5, 1e-4
 
@@ -216,10 +219,11 @@ def test_mamba_scans_every_chunk():
 # ------------------------------------------------------------- whole model
 # jamba: the hybrid family (mamba + attention, MLP + MoE); paper-charlm:
 # dense with the tanh GELU; starcoder2 at window 8: the sliding-window ring
-# buffer wraps during prefill and decode; qwen3-moe: the MoE family
+# buffer wraps during prefill and decode; qwen3-moe: the MoE family;
+# xlstm: the ssm family (mLSTM + sLSTM, with their recurrent states)
 MODELS = [("jamba-1.5-large-398b", {}), ("paper-charlm", {}),
           ("starcoder2-7b", {"sliding_window": 8}),
-          ("qwen3-moe-235b-a22b", {})]
+          ("qwen3-moe-235b-a22b", {}), ("xlstm-125m", {})]
 B, S0, T = 2, 12, 4
 
 
@@ -311,17 +315,57 @@ def test_decode_matches_prefill_by_dtype(dtype, tol):
 @pytest.mark.parametrize("arch", ["xlstm-125m", "llama-3.2-vision-90b",
                                   "musicgen-medium"])
 def test_unported_families_raise(arch):
-    with pytest.raises(NotImplementedError, match="queue 1, still to port, "
-                                                  "item 7c"):
-        build_model(reduced(get_config(arch)))
+    """The VLM and audio families still raise, naming their item.  The
+    xLSTM family, once refused here too, builds: its case holds the whole
+    xlstm-125m's params at full width (shape and dtype of every leaf, in
+    the reference's order) against the reference's abstract ones, and its
+    decode-state layout."""
+    if arch != "xlstm-125m":
+        with pytest.raises(NotImplementedError, match="queue 1, still to "
+                                                      "port, item 7c"):
+            build_model(reduced(get_config(arch)))
+        return
+    jm, tm = jbuild(jget_config(arch)), build_model(get_config(arch))
+    want = jax.tree.leaves_with_path(jm.param_specs())
+    got = flat_dict(tm.init(torch.Generator().manual_seed(0)))
+    assert param_count(got) == 162_402_096
+    assert len(got) == len(want)
+    for (path, spec), (name, leaf) in zip(want, got.items()):
+        assert name == "/".join(k.key for k in path)
+        assert tuple(leaf.shape) == spec.shape and leaf.dtype == \
+            torch.bfloat16 == tm.dtype, name
+    jspecs = jm.decode_state_specs(2, 16)
+    specs = tm.decode_state_specs(2, 16)
+    assert specs.keys() == jspecs.keys()
+    for key in specs:
+        assert {n: (tuple(s), str(d).split(".")[-1])
+                for n, (s, d) in specs[key].items()} == {
+            n: (v.shape, str(v.dtype)) for n, v in jspecs[key].items()}
 
 
 def test_training_is_not_ported():
-    """Mamba's train mode (and so the hybrid family's training) still
-    raises; the dense and MoE families train (tests/test_torch_lm_train.py)."""
-    _, cfg = configs("jamba-1.5-large-398b")
-    model = build_model(cfg)
-    params = model.init(torch.Generator().manual_seed(0))
-    toks = torch.zeros((1, 4), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="item 7b"):
-        model.loss_fn(params, {"tokens": toks, "targets": toks})
+    """Named for the refusal it replaced: the hybrid family trains.  The
+    reduced Jamba's ``loss_fn`` (Mamba's train mode through the scan's
+    backward, attention, the MoE) and every gradient against the
+    reference's, from the same params and tokens; the gradients to
+    tests/test_torch_lm_train.py's 1e-5."""
+    jcfg, cfg = configs("jamba-1.5-large-398b")
+    jm, model = jbuild(jcfg), build_model(cfg)
+    jp = jm.init(jax.random.PRNGKey(0))
+    toks = np.random.default_rng(4).integers(0, cfg.vocab, (2, 38))
+    toks = toks.astype(np.int32)
+    jbatch = {"tokens": jnp.asarray(toks[:, :-1]),
+              "targets": jnp.asarray(toks[:, 1:])}
+    (jloss, jaux), jgrads = jax.jit(jax.value_and_grad(
+        jm.loss_fn, has_aux=True))(jp, jbatch)
+    params = {k: v.requires_grad_(True)
+              for k, v in tree_from_jax(jp, flat=True).items()}
+    loss, aux = model.loss_fn(params, {"tokens": t(toks[:, :-1]),
+                                       "targets": t(toks[:, 1:])})
+    loss.backward()
+    assert_rel(loss.detach(), jloss, MODULE_TOL, "loss")
+    assert_rel(aux["aux"].detach(), jaux["aux"], MODULE_TOL, "aux")
+    want = flat_dict(jax.tree.map(np.asarray, jgrads))
+    assert list(params) == list(want)
+    for k, w in want.items():
+        assert_rel(params[k].grad, w, MODULE_TOL, k)

@@ -8,6 +8,7 @@ Tolerances: 1e-5 relative against the associative scan, whose summation
 order differs; 1e-6 relative against the Pallas kernel, which runs the
 same sequential loop under XLA (which may contract the step into a fused
 multiply-add); bit for bit against a numpy loop."""
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -104,11 +105,20 @@ def test_sequential_semantics():
 
 
 def test_backward_is_not_ported():
-    a, b, h0 = (torch.from_numpy(x) for x in inputs(1, 4, 8, 2, 3))
-    a.requires_grad_(True)
-    hs, hl = tops.selective_scan_chunk(a, b, h0)
-    with pytest.raises(NotImplementedError, match="item 7b"):
-        (hs.sum() + hl.sum()).backward()
+    """Named for the refusal it replaced: the scan's backward runs.  Its
+    gradients through ``Tensor.backward`` against ``jax.vjp`` of the
+    reference's custom VJP under the same cotangents (1 for every hs and
+    h_last), to the associative scan's 1e-5 (tests/test_torch_scan_train.py
+    holds it at every shape)."""
+    a, b, h0 = inputs(1, 4, 8, 2, 3)
+    leaves = [torch.from_numpy(x).requires_grad_(True) for x in (a, b, h0)]
+    hs, hl = tops.selective_scan_chunk(*leaves)
+    (hs.sum() + hl.sum()).backward()
+    (want_hs, want_hl), vjp = jax.vjp(jops.selective_scan_chunk,
+                                      *(jnp.asarray(x) for x in (a, b, h0)))
+    want = vjp((jnp.ones_like(want_hs), jnp.ones_like(want_hl)))
+    for leaf, w in zip(leaves, want):
+        assert_rel(leaf.grad.numpy(), np.asarray(w), 1e-5)
 
 
 def test_cpu_never_launches_and_other_devices_raise():
