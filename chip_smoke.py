@@ -100,14 +100,24 @@ it happened; any failure ends the run with a non-zero exit code:
      1e-4, and a checkpointed async/async hierarchy cut after 2 of 3
      tier-2 commits and resumed on the card, bit for bit against the
      card's uninterrupted run;
-  7. serve an LM (``lm_serve``): the reduced Jamba on the card against the
-     CPU (f32: prefill logits, every decode-state leaf, 4 decode steps, to
-     1e-4); then Jamba-1.5-Large at every published width, cut to 8 layers
-     and 8 experts (below), in bf16 through ``repro_torch.launch.serve.run``:
-     a 2032-token prompt and 16 greedy decode steps, the selective scan's
-     launches counted exactly, decoding held against teacher-forced
-     prefill, the peak memory and one profiler pass of the prefill; then
-     the serving command line (reduced, on cuda) through ``serve.main``;
+  7. serve an LM (``lm_serve``): (a) the reduced Jamba, Llama-3.2-Vision
+     and MusicGen on the card against the CPU (f32: prefill logits, every
+     decode-state leaf, the VLM's cross K/V cache included, 4 decode steps,
+     to 1e-4); then Jamba-1.5-Large at every published width, cut to 8
+     layers and 8 experts (below), in bf16 through
+     ``repro_torch.launch.serve.run``: a 2032-token prompt and 16 greedy
+     decode steps, the selective scan's launches counted exactly, decoding
+     held against teacher-forced prefill, the peak memory and one profiler
+     pass of the prefill; (b) Llama-3.2-Vision-90B at every published
+     width cut to 30 layers (below): a 2032-token prompt with (2, 1601,
+     8192) image patches and 16 greedy decode steps, and (c)
+     MusicGen-medium whole: a [2, 500, 4] prompt and 16 greedy decode
+     steps, each with the prefill wall, the time per token, the peak
+     memory, the time one read of the weights takes and decoding against
+     teacher-forced prefill (printed), no kernel launched, one profiler
+     pass of the prefill and the VLM's cross layers' share of it; then the
+     serving command line (reduced, on cuda) through ``serve.main`` for
+     Jamba, the VLM and the audio family;
   8. train the LMs (``lm_train``) through ``build_fl_round_step``: (a) the
      reduced Jamba (f32; Mamba + MLP, attention + MoE) in parallel and
      sequential rounds, the reduced Qwen3-MoE and the reduced xLSTM in
@@ -115,7 +125,9 @@ it happened; any failure ends the run with a non-zero exit code:
      local steps, batch 2 of 64 tokens: deltas, then the default, q8 +
      top-k and secure q8 + top-k commits from the same deltas, and the
      uncompressed round), to 1e-4, with the launches of training and of
-     each commit exact; (b) Jamba-1.5-Large at every published width in
+     each commit exact, and so the reduced Llama-3.2-Vision (parallel and
+     sequential, each client's patches in its batch) and the reduced
+     MusicGen (parallel, 4 codebooks); (b) Jamba-1.5-Large at every published width in
      bf16, cut to 2 layers and 2 experts (below): 2 sequential rounds of
      2 clients, 2 local steps, batch 1 of 1024 tokens, with the round
      wall, the peak memory and the scan's and its backward's launches
@@ -125,7 +137,10 @@ it happened; any failure ends the run with a non-zero exit code:
      of a local step; then serving a 512-token prompt at batch 2 and 16
      greedy decode steps through ``serve.run``, decoding held against
      teacher-forced prefill in float32 on the same weights (the bf16 gap
-     printed).
+     printed); (d) MusicGen-medium whole in bf16: 2 parallel rounds of 2
+     clients, 2 local steps, batch 2 of 512 frames x 4 codebooks, with
+     the round wall, the peak memory, the finite loss and one fused_accum
+     a round.
 The last lines are the kernels' JSON record, the nvidia-smi line, and
 ``{"ok": true, "device": {...}}``.
 """
@@ -174,7 +189,8 @@ from repro_torch.kernels.selective_scan import (  # noqa: E402
     selective_scan_chunk_blocks, selective_scan_chunk_bwd_blocks)
 from repro_torch.kernels.topk_sparsify import topk_sparsify_blocks  # noqa: E402
 from repro_torch.launch import serve, train  # noqa: E402
-from repro_torch.models import build_model, param_count  # noqa: E402
+from repro_torch.models import (build_model, param_count,  # noqa: E402
+                                token_shape)
 from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models import xlstm as xlstm_mod  # noqa: E402
 from repro_torch.data import VirtualFederatedDataset  # noqa: E402
@@ -196,6 +212,9 @@ F32_PEAK = 67e12          # H100 SXM f32 outside the tensor cores, FLOP/s
 # instructions "excluding IMAD and IMUL"), so dispatch is the ceiling.
 INT32_PEAK = 4 * 32 * 132 * 1.98e9
 K_SLOTS, BUCKET_ROWS, BLOCK = 20, 4671, 256   # the CIFAR CNN's commit bucket
+# fused_accum against its plain version, (rtol, atol): the kernel and the
+# plain version may sum the slots in different orders
+FUSED_ACCUM_TOL = (1e-5, 1e-6)
 LEAF_ROWS = 20 * 4096                          # dense1_w, 20 slots
 DENSE1_W = 4096 * 256                          # dense1_w params per client
 TOPK_K = CompressionConfig(quantize_bits=8, topk_frac=0.1).topk_k   # 26
@@ -421,7 +440,9 @@ SCAN_SHAPE = (1, 128, 16384, 16)     # the full-width prefill's scan chunk
 # tests/test_torch_lm.py holds the reduced Jamba in bf16 on the CPU to the
 # same bound, and the same comparison in float32 to 1e-4: the bound is
 # about bf16 rounding, while a wrong cache or state moves the logits by
-# their whole scale.
+# their whole scale.  The cut Llama-3.2-Vision (30 layers, the 1601-patch
+# cross cache) and MusicGen-medium (48 layers) are held to it too, with
+# the same argmax at each position held.
 SERVE_DECODE_TOL = 5e-2
 
 # The LM training phase (lm_train), through build_fl_round_step.  (a) The
@@ -432,7 +453,9 @@ SERVE_DECODE_TOL = 5e-2
 # dispatch under vmap), the reduced xLSTM in parallel mode.
 LM_TRAIN_PARITY = ((JAMBA, ("parallel", "sequential")),
                    ("qwen3-moe-235b-a22b", ("parallel",)),
-                   ("xlstm-125m", ("parallel",)))
+                   ("xlstm-125m", ("parallel",)),
+                   ("llama-3.2-vision-90b", ("parallel", "sequential")),
+                   ("musicgen-medium", ("parallel",)))
 # (b) Jamba-1.5-Large at every published width in its published bf16,
 # cut as reduced() cuts the interleave: depth 72 -> 2 with attn_every
 # 8 -> 2 and the MoE every 2nd layer (layer 0 the Mamba mixer at d_inner
@@ -462,6 +485,37 @@ XLSTM_SERVE = dict(batch=2, prompt_len=512, gen=16)
 # 0-10%), and further on the card.  A wrong state moves the logits by
 # their whole scale.
 XLSTM_DECODE_TOL = 1e-3
+
+# The VLM and the audio family.  lm_serve (a) holds their reduced LMs
+# (the VLM's [attn + mlp, cross + mlp] over 16 patches, the audio LM's 4
+# codebooks) on the card against the CPU, as the reduced Jamba.
+LM_SERVE_PARITY = (JAMBA, "llama-3.2-vision-90b", "musicgen-medium")
+# (b) Llama-3.2-Vision-90B (the config's source: hf:meta-llama/Llama-3.2-
+# 11B-Vision, scaled to 90B) at every published width: d_model 8192, 64
+# heads / 8 KV of head_dim 128, d_ff 28672, vocab 128256, 1601 image
+# patches, rope theta 5e5, bf16.  Cut to one 80 GB card in depth only:
+# 27,770,986,496 params, 55.5 GB in bf16.  Batch 2, a 2032-token prompt
+# and (2, 1601, 8192) patches, 16 greedy decode steps.  It does not train
+# at full width here: its smallest cut that keeps the pattern, [attn,
+# cross] (3,812,663,296 params), is larger than the cut Jamba, whose
+# sequential round already peaks at 69.46 GB (PERF.md).
+VLM = "llama-3.2-vision-90b"
+VLM_SERVE_LAYERS = 30
+VLM_SERVE_PARAMS = 27_770_986_496
+VLM_SERVE_CUTS = ("depth 100 -> 30 (six whole periods of [attn + mlp x 4, "
+                  "cross + mlp]: the share of cross layers kept)",)
+VLM_SERVE = dict(batch=2, prompt_len=2032, gen=16)
+# (c) and lm_train (b): MusicGen-medium (arXiv:2306.05284) whole: 48
+# layers, d_model 1536, 24 heads (MHA), d_ff 6144, 4 codebooks of 2048,
+# bf16, 1,384,269,312 params.  Serving: batch 2, a 500-frame prompt (10 s
+# at EnCodec's 50 Hz) of [2, 500, 4] tokens, 16 greedy decode steps of
+# [2, 4] tokens.  Training: 2 parallel rounds of 2 clients, 2 local steps,
+# batch 2 x 512 frames x 4 codebooks, the default commit (one fused_accum
+# a round).
+AUDIO = "musicgen-medium"
+AUDIO_PARAMS = 1_384_269_312
+AUDIO_SERVE = dict(batch=2, prompt_len=500, gen=16)
+AUDIO_TRAIN = dict(rounds=2, C=2, H=2, B=2, S=512)
 
 # The CIFAR CNN's leaves other than dense1_w as the per-leaf kernels see
 # them, 20 clients blocked by 256 (last dim zero-padded): name, rows, live
@@ -935,7 +989,8 @@ def kernel_specs(device, k_slots=K_SLOTS, rows=BUCKET_ROWS,
                async_accum("the char-LM's async buffer", xlm_async),
                tier2_accum(kt, 0), tier2_accum(1, 1), tier2_accum(2, 1)],
             compare=lambda g, p: check(
-                torch.allclose(g, p, rtol=1e-5, atol=1e-6),
+                torch.allclose(g, p, rtol=FUSED_ACCUM_TOL[0],
+                               atol=FUSED_ACCUM_TOL[1]),
                 "fused_accum: differs from its plain version"),
             bytes=4 * (n_stack + 2 * k_slots + n_out),
             ops=2 * n_stack),
@@ -1368,6 +1423,40 @@ def commit_launches(mode, kernel, n_leaves, C) -> dict:
     return {"topk_sparsify": n_leaves * C, "quantize": n_leaves * C}
 
 
+def lm_inputs(cfg, lead, S, seed):
+    """numpy int32 tokens ``token_shape(cfg, *lead, S)`` drawn from
+    ``seed`` and, for the VLM, patches [*lead, n_patches, D] (float32, from
+    ``seed + 1000``), else None."""
+    toks = np.random.default_rng(seed).integers(
+        0, cfg.vocab, token_shape(cfg, *lead, S)).astype(np.int32)
+    patches = None
+    if cfg.cross_attn_every:
+        patches = np.random.default_rng(seed + 1000).normal(
+            size=(*lead, cfg.n_patches, cfg.d_model)).astype(np.float32)
+    return toks, patches
+
+
+def lm_batches(cfg, lead, S, seed):
+    """numpy tokens and targets [*lead, S] ([*lead, S, n_cb] with
+    codebooks), the targets one position on, from the S + 1 tokens of
+    ``lm_inputs``, with its patches for the VLM."""
+    toks, patches = lm_inputs(cfg, lead, S + 1, seed)
+    seq = len(lead)
+    batch = {"tokens": toks.take(np.arange(S), axis=seq),
+             "targets": toks.take(np.arange(1, S + 1), axis=seq)}
+    if patches is not None:
+        batch["patches"] = patches
+    return batch
+
+
+def round_batches(cfg, rounds, C, H, B, S, seed, device):
+    """``lm_batches`` for ``rounds`` rounds of [C, H, B, S], drawn at once
+    and moved to ``device``; returns round r's batch as a function of r."""
+    drawn = {k: torch.from_numpy(v).to(device) for k, v in
+             lm_batches(cfg, (rounds, C, H, B), S, seed).items()}
+    return lambda r: {k: v[r] for k, v in drawn.items()}
+
+
 def check_lm_round_parity(device="cuda", C=8, H=2, B=16, S=64, tol=1e-4,
                           rel_tol=1e-3, cfg=None, n_params=LM_PARAMS,
                           n_leaves=LM_LEAVES, modes=("parallel",)):
@@ -1392,9 +1481,7 @@ def check_lm_round_parity(device="cuda", C=8, H=2, B=16, S=64, tol=1e-4,
     n = sum(v.numel() for v in params.values())
     check(n_params is None or n == n_params and len(params) == n_leaves,
           f"lm round parity: {n} params in {len(params)} leaves")
-    toks = np.random.default_rng(0).integers(
-        0, model.cfg.vocab, (C, H, B, S + 1)).astype(np.int32)
-    batches = {"tokens": toks[..., :-1], "targets": toks[..., 1:]}
+    batches = lm_batches(model.cfg, (C, H, B), S, 0)
     _, w, m = round_inputs(C, 1, 1)
 
     def on(dev, tree):
@@ -2226,28 +2313,33 @@ def state_gap(state, want) -> float:
                for n in want[k])
 
 
-def check_lm_parity(device="cuda", B=2, S0=37, T=4, tol=1e-4):
-    """The reduced Jamba (f32) on the card against the CPU, from the same
-    params (drawn on the CPU) and tokens: prefill logits and every
-    decode-state leaf, then T decode steps' logits and states, each to
-    ``tol`` relative.  S0 = 37 at chunk 16 scans two whole chunks and a
-    remainder; the card must launch the scan once per chunk."""
-    model = build_model(reduced(get_config(JAMBA)))
+def check_lm_parity(device="cuda", arch=JAMBA, B=2, S0=37, T=4, tol=1e-4):
+    """The reduced LM of ``arch`` (f32) on the card against the CPU, from
+    the same params (drawn on the CPU), tokens and, for the VLM, patches:
+    prefill logits and every decode-state leaf (the VLM's cross K/V cache
+    included), then T decode steps' logits and states, each to ``tol``
+    relative.  For the reduced Jamba S0 = 37 at chunk 16 scans two whole
+    chunks and a remainder; the card must launch the scan once per chunk
+    (the other families launch no kernel)."""
+    model = build_model(reduced(get_config(arch)))
     params = model.init(torch.Generator().manual_seed(0))
 
     def on(tree, dev):
         return {k: on(v, dev) if isinstance(v, dict) else v.to(dev)
                 for k, v in tree.items()}
 
-    toks = torch.from_numpy(np.random.default_rng(0).integers(
-        0, model.cfg.vocab, (B, S0 + T)))
+    cfg = model.cfg
+    toks, patches = lm_inputs(cfg, (B,), S0 + T, 0)
+    toks = torch.from_numpy(toks)
+    extra = {} if patches is None else {"patches": torch.from_numpy(patches)}
     devs = (device, "cpu")
     p = {dev: on(params, dev) for dev in devs}
     launches.reset()
     gaps = {}
     with torch.inference_mode():
-        out = {dev: model.prefill(p[dev], {"tokens": toks[:, :S0].to(dev)},
-                                  S0 + T) for dev in devs}
+        out = {dev: model.prefill(p[dev], {"tokens": toks[:, :S0].to(dev),
+                                           **on(extra, dev)}, S0 + T)
+               for dev in devs}
         for i in range(T + 1):
             name = "prefill" if i == 0 else f"decode{i - 1}"
             gaps[name] = (rel_gap(out[device][0], out["cpu"][0]),
@@ -2258,14 +2350,15 @@ def check_lm_parity(device="cuda", B=2, S0=37, T=4, tol=1e-4):
                                               S0 + i) for dev in devs}
     sync(device)
     counts = dict(launches.KERNEL_LAUNCHES)
-    print(f"lm parity (reduced Jamba, f32, B={B}, prompt {S0}, {T} decode "
+    print(f"lm parity ({cfg.name}, f32, B={B}, prompt {S0}, {T} decode "
           f"steps): max |card - cpu| / max |cpu| (logits, state) = {gaps}; "
           f"launches {counts}")
-    check(counts == {"selective_scan": scan_chunks(model, S0)},
-          f"lm parity: launches {counts}")
+    n_scan = scan_chunks(model, S0)
+    check(counts == ({"selective_scan": n_scan} if n_scan else {}),
+          f"lm parity {cfg.name}: launches {counts}")
     worst = max(max(g) for g in gaps.values())
-    check(worst <= tol, f"lm parity: card differs from the CPU by "
-                        f"{worst:.3g} > {tol}")
+    check(worst <= tol, f"lm parity {cfg.name}: card differs from the CPU "
+                        f"by {worst:.3g} > {tol}")
     launches.reset()
     return worst
 
@@ -2278,21 +2371,21 @@ def jamba_cut():
                        moe=dataclasses.replace(cfg.moe, num_experts=8))
 
 
-def profile_prefill(model, params, prompt, s_max):
-    """One warm prefill timed on the host clock, then one profiler pass of
-    it: the top 10 device kernels by time, the selective scan's share and
-    the device's busy share of the warm wall time.  Printed only; it gates
-    nothing."""
+def profile_prefill(model, params, batch, s_max):
+    """One warm prefill of ``batch`` timed on the host clock, then one
+    profiler pass of it: the top 10 device kernels by time, the selective
+    scan's share and the device's busy share of the warm wall time.
+    Printed only; it gates nothing."""
     from torch.profiler import ProfilerActivity, profile
     with torch.inference_mode():
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        model.prefill(params, {"tokens": prompt}, s_max)
+        model.prefill(params, batch, s_max)
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
     with torch.inference_mode(), profile(
             activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        model.prefill(params, {"tokens": prompt}, s_max)
+        model.prefill(params, batch, s_max)
         torch.cuda.synchronize()
     kernels = [e for e in prof.key_averages()
                if str(e.device_type).endswith("CUDA")]
@@ -2408,34 +2501,135 @@ def serve_full_width(device="cuda", cfg=None, batch=SERVE_BATCH,
           f"lm serve: decoding differs from prefill by {gaps} > {tol}")
     del res, tokens, want
     if cuda:
-        profile_prefill(model, params, prompt, prompt_len + gen)
+        profile_prefill(model, params, {"tokens": prompt}, prompt_len + gen)
     del model, nd, params
     return counts
 
 
-def serve_cli():
-    """The serving command line, reduced Jamba on cuda, through
-    ``serve.main``: one scan launch per prefill chunk."""
-    argv = ["--arch", JAMBA, "--temperature", "0"]
+def serve_cli(arch=JAMBA):
+    """The serving command line, the reduced LM of ``arch`` on cuda,
+    through ``serve.main``: for Jamba one scan launch per prefill chunk,
+    for the other families none."""
+    argv = ["--arch", arch, "--temperature", "0"]
     args = serve.build_parser().parse_args(argv)
     launches.reset()
     res = serve.main(argv)
     torch.cuda.synchronize()
     counts = dict(launches.KERNEL_LAUNCHES)
-    model = build_model(reduced(get_config(JAMBA)))
-    expect = {"selective_scan": scan_chunks(model, args.prompt_len)}
-    check(counts == expect, f"serve CLI: launches {counts}, expected {expect}")
-    check(res.ids.shape == (args.batch, args.gen), f"serve CLI: {res.ids}")
-    print(f"serve CLI: launches={counts}")
+    cfg = reduced(get_config(arch))
+    n_scan = scan_chunks(build_model(cfg), args.prompt_len)
+    expect = {"selective_scan": n_scan} if n_scan else {}
+    check(counts == expect, f"serve CLI {arch}: launches {counts}, expected "
+                            f"{expect}")
+    check(res.ids.shape == token_shape(cfg, args.batch, args.gen),
+          f"serve CLI {arch}: {res.ids}")
+    print(f"serve CLI {arch}: launches={counts}")
     return counts
 
 
+def cross_share(model, params, batch, s_max):
+    """The cross-attention slots' share of one prefill's device time: CUDA
+    events around each ``_cross`` call and around the whole prefill, read
+    after one sync.  Printed only."""
+    spans, orig = [], model._cross
+
+    def timed(*a, **kw):
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        out = orig(*a, **kw)
+        ev[1].record()
+        spans.append(ev)
+        return out
+
+    whole = (torch.cuda.Event(enable_timing=True),
+             torch.cuda.Event(enable_timing=True))
+    model._cross = timed
+    try:
+        with torch.inference_mode():
+            whole[0].record()
+            model.prefill(params, batch, s_max)
+            whole[1].record()
+        torch.cuda.synchronize()
+    finally:
+        del model._cross
+    total = whole[0].elapsed_time(whole[1])
+    cross = sum(a.elapsed_time(b) for a, b in spans)
+    print(f"lm serve: the {len(spans)} cross-attention slots (q, the "
+          f"patches' K and V, attention, wo) take {cross:.3f} ms of a "
+          f"{total:.3f} ms prefill on the device clock: share "
+          f"{cross / total:.4f}")
+    return cross / total
+
+
+def serve_family(label, cfg, n_params, cuts, batch, prompt_len, gen,
+                 device="cuda", seed=3):
+    """A full-width LM in its published dtype through ``serve.run``: random
+    weights from ``seed``, a ``prompt_len`` prompt (one stream per
+    codebook for the audio family) and, for the VLM, patches drawn in the
+    model dtype; ``gen`` greedy decode steps.  Prints the prefill wall, the
+    time per token, the peak memory, the time one read of the weights
+    takes at the card's memory rate, and decoding against teacher-forced
+    prefill, held to SERVE_DECODE_TOL with the same argmax.  None of the
+    port's kernels lies on this path: every launch count must stay 0."""
+    free_cache(device)
+    t0 = time.perf_counter()
+    model, params = serve.build(cfg, device, seed=0)
+    sync(device)
+    n = param_count(params)
+    nbytes = sum(v.numel() * v.element_size()
+                 for v in flat_dict(params).values())
+    print(f"lm serve {label}: {cfg.name} ({cfg.source}) at every published "
+          f"width, {'; '.join(cuts)}: {n} params in {cfg.dtype} "
+          f"({nbytes / 1e9:.2f} GB), built in {time.perf_counter() - t0:.1f}"
+          f" s")
+    check(n_params is None or n == n_params,
+          f"lm serve {label}: {n} params, expected {n_params}")
+    prompt, patches = serve.draw_inputs(
+        cfg, batch, prompt_len, torch.Generator(device).manual_seed(seed),
+        model.dtype)
+    launches.reset()
+    gaps, same = serve_decode_gaps(f"{label} ({cfg.dtype})", model, params,
+                                   prompt, gen, patches)
+    counts = dict(launches.KERNEL_LAUNCHES)
+    check(not counts, f"lm serve {label}: launched {counts}")
+    check(max(gaps.values()) <= SERVE_DECODE_TOL and all(same.values()),
+          f"lm serve {label}: decoding differs from prefill by {gaps} "
+          f"(> {SERVE_DECODE_TOL}) or in argmax {same}")
+    if torch.device(device).type == "cuda":
+        rate = memory_rate(torch.cuda.get_device_name(0))
+        print(f"lm serve {label}: one read of the {nbytes / 1e9:.2f} GB of "
+              f"weights takes {nbytes / rate * 1e3:.2f} ms at "
+              f"{rate / 1e12:.2f} TB/s")
+        extra = {} if patches is None else {"patches": patches}
+        s_max = prompt_len + gen
+        if cfg.cross_attn_every:
+            cross_share(model, params, {"tokens": prompt, **extra}, s_max)
+        profile_prefill(model, params, {"tokens": prompt, **extra}, s_max)
+    del model, params, prompt, patches
+    free_cache(device)
+    return counts
+
+
+def vlm_serve_cut():
+    """Llama-3.2-Vision-90B at every published width, cut in depth only
+    (VLM_SERVE_CUTS)."""
+    return get_config(VLM).replace(n_layers=VLM_SERVE_LAYERS)
+
+
 def lm_serve():
-    """Phase 5: the LM serving path."""
-    check_lm_parity()
+    """Phase lm_serve: (a) the reduced LMs on the card against the CPU;
+    the cut Jamba, the cut Llama-3.2-Vision and MusicGen-medium whole at
+    full width; the command line for each of the three families."""
+    for arch in LM_SERVE_PARITY:
+        check_lm_parity(arch=arch)
     totals = dict(serve_full_width())
-    for k, n in serve_cli().items():
-        totals[k] = totals.get(k, 0) + n
+    serve_family("vlm", vlm_serve_cut(), VLM_SERVE_PARAMS, VLM_SERVE_CUTS,
+                 **VLM_SERVE)
+    serve_family("audio", get_config(AUDIO), AUDIO_PARAMS, ("whole",),
+                 **AUDIO_SERVE)
+    for arch in (JAMBA, VLM, AUDIO):
+        add_counts(totals, serve_cli(arch))
     return totals
 
 # ---------------------------------------------------------------- lm_train
@@ -2452,13 +2646,28 @@ def jamba_train_cut():
                        moe=dataclasses.replace(cfg.moe, num_experts=2))
 
 
-def lm_rounds(label, model, params, fl, batches, device, rounds, tokens):
+def lm_rounds(label, model, params, fl, batches, device, rounds, tokens,
+              kept=None):
     """``rounds`` rounds of ``fl`` through ``build_fl_round_step`` from
     ``params`` (flat), each timed on the host clock to a sync, with the
     peak memory over all of them and the launches, counted from 0.
-    ``batches(r)`` gives round r's [C, H, B, S] tokens and targets."""
+    ``batches(r)`` gives round r's [C, H, B, S] tokens and targets.  Each
+    round must give a finite loss and params, a nonzero delta norm, and
+    the rounds must move the params.  With ``kept`` (a dict; parallel
+    rounds only) the last round's stacked client deltas are kept there
+    under "deltas", for the caller to hold the commit on them."""
+    start = params
     step = build_fl_round_step(model.loss_fn, get_client_optimizer("sgd"),
                                get_server_optimizer("fedavg"), fl)
+    if kept is not None:
+        train_clients = step.train_clients
+
+        def keep_last(p, b):
+            out = train_clients(p, b)
+            if len(walls) == rounds - 1:
+                kept["deltas"] = out[0]
+            return out
+        step.train_clients = keep_last
     C = fl.num_clients
     w = torch.ones(C, device=device)
     m = torch.ones(C, device=device)
@@ -2475,13 +2684,18 @@ def lm_rounds(label, model, params, fl, batches, device, rounds, tokens):
         loss = float(met["client_loss"])          # a read, then a sync
         sync(device)
         walls.append(time.perf_counter() - t0)
+        norm = float(met["delta_norm"])
         print(f"lm train {label}: round {r} round_wall_s={walls[-1]:.4f} "
-              f"client_loss={loss:.6f} "
-              f"delta_norm={float(met['delta_norm']):.6g}")
+              f"client_loss={loss:.6f} delta_norm={norm:.6g}")
         check(math.isfinite(loss) and all(
             bool(torch.isfinite(v).all()) for v in params.values()),
             f"lm train {label}: non-finite loss or params in round {r}")
+        check(norm > 0, f"lm train {label}: round {r} committed a zero delta")
     counts = dict(launches.KERNEL_LAUNCHES)
+    moved = sum(not torch.equal(params[k], start[k]) for k in params)
+    print(f"lm train {label}: {moved} of {len(params)} leaves moved")
+    check(moved > 0, f"lm train {label}: the rounds left the params as they "
+                     f"were")
     peak = torch.cuda.max_memory_allocated() if cuda else 0
     print(f"lm train {label}: {rounds} rounds of {C} clients ({fl.client_exec}"
           f", {fl.local_steps} local steps, {tokens}), round walls {walls}, "
@@ -2508,17 +2722,14 @@ def train_jamba_full_width(device="cuda", cfg=None,
     C, H, B, S = sh["C"], sh["H"], sh["B"], sh["S"]
     fl = FLConfig(num_clients=C, local_steps=H, client_lr=0.01,
                   client_exec="sequential")
-    toks = torch.from_numpy(np.random.default_rng(1).integers(
-        0, cfg.vocab, (sh["rounds"], C, H, B, S + 1))).to(device)
-    params, counts = lm_rounds(
-        "jamba", model, params, fl,
-        lambda r: {"tokens": toks[r, ..., :-1], "targets": toks[r, ..., 1:]},
-        device, sh["rounds"], f"batch {B} of {S} tokens")
+    batches = round_batches(cfg, sh["rounds"], C, H, B, S, 1, device)
+    params, counts = lm_rounds("jamba", model, params, fl, batches, device,
+                               sh["rounds"], f"batch {B} of {S} tokens")
     n_scan = scan_chunks(model, S) * H * C * sh["rounds"]
     expect = {"selective_scan": n_scan, "selective_scan_bwd": n_scan}
     check(counts == expect, f"lm train jamba: launches {counts}, expected "
                             f"{expect}")
-    del model, params, toks
+    del model, params, batches
     free_cache(device)
     return counts
 
@@ -2568,35 +2779,43 @@ def slstm_share(model, params, batch, device, reps=1):
     return alone / whole
 
 
-def serve_decode_gaps(label, model, params, prompt, gen):
-    """``serve.run`` greedy, then decoding against teacher-forced prefill at
-    the first and the last decoded positions: max |diff| / max |logit| by
-    position."""
+def serve_decode_gaps(label, model, params, prompt, gen, patches=None):
+    """``serve.run`` greedy (with the VLM's ``patches``), with the peak
+    memory of its prefill and decode steps, then decoding against
+    teacher-forced prefill at the first and the last decoded positions:
+    max |diff| / max |logit| and whether the argmax agrees everywhere, each
+    by position."""
     g = torch.Generator(prompt.device).manual_seed(1)
-    res = serve.run(model, params, prompt, gen, 0.0, g)
-    B, S0 = prompt.shape
-    print(f"lm serve {label}: batch {B}, prompt {S0}, {gen} greedy steps: "
-          f"prefill_s={res.prefill_s:.4f} decode_s={res.decode_s:.4f} "
-          f"({res.decode_s / gen * 1e3:.2f} ms/token)")
-    check(all(lg.shape == (B, model.cfg.vocab)
+    cuda = prompt.device.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    res = serve.run(model, params, prompt, gen, 0.0, g, patches)
+    peak = torch.cuda.max_memory_allocated() if cuda else 0
+    B, S0, cb = prompt.shape[0], prompt.shape[1], tuple(prompt.shape[2:])
+    print(f"lm serve {label}: batch {B}, prompt {tuple(prompt.shape[1:])}, "
+          f"{gen} greedy steps: prefill_s={res.prefill_s:.4f} "
+          f"decode_s={res.decode_s:.4f} ({res.decode_s / gen * 1e3:.2f} "
+          f"ms/token) max_memory_allocated={peak} ({peak / 1e9:.2f} GB)")
+    check(all(lg.shape == (B, *cb, model.cfg.vocab)
               and bool(torch.isfinite(lg).all()) for lg in res.logits),
           f"lm serve {label}: non-finite or misshapen logits")
-    check(res.ids.shape == (B, gen), f"lm serve {label}: ids {res.ids}")
+    check(res.ids.shape == (B, gen, *cb), f"lm serve {label}: ids {res.ids}")
     tokens = torch.cat([prompt, torch.from_numpy(res.ids).to(prompt.device)],
                        dim=1)
-    gaps = {}
+    extra = {} if patches is None else {"patches": patches}
+    gaps, same = {}, {}
     with torch.inference_mode():
         for t in (0, gen - 1):
-            want, _ = model.prefill(params, {"tokens": tokens[:, :S0 + t + 1]},
-                                    S0 + gen)
-            gaps[S0 + t + 1] = rel_gap(res.logits[t + 1], want)
-            same = bool((res.logits[t + 1].argmax(-1) == want.argmax(-1))
-                        .all())
+            n = S0 + t + 1
+            want, _ = model.prefill(params, {"tokens": tokens[:, :n],
+                                             **extra}, S0 + gen)
+            gaps[n] = rel_gap(res.logits[t + 1], want)
+            same[n] = bool((res.logits[t + 1].argmax(-1) == want.argmax(-1))
+                           .all())
             print(f"lm serve {label}: decode step {t} against the "
-                  f"teacher-forced prefill of {S0 + t + 1} tokens: max |diff|"
-                  f" / max |logit| = {gaps[S0 + t + 1]:.4g}, same argmax: "
-                  f"{same}")
-    return gaps
+                  f"teacher-forced prefill of {n} tokens: max |diff| / max "
+                  f"|logit| = {gaps[n]:.4g}, same argmax: {same[n]}")
+    return gaps, same
 
 
 def xlstm_whole(device="cuda", cfg=None, n_params=XLSTM_PARAMS, train=None,
@@ -2615,10 +2834,7 @@ def xlstm_whole(device="cuda", cfg=None, n_params=XLSTM_PARAMS, train=None,
     check(n == n_params, f"lm train: {n} params, expected {n_params}")
     C, H, B, S = sh["C"], sh["H"], sh["B"], sh["S"]
     fl = FLConfig(num_clients=C, local_steps=H, client_lr=0.01)
-    toks = torch.from_numpy(np.random.default_rng(2).integers(
-        0, cfg.vocab, (sh["rounds"], C, H, B, S + 1))).to(device)
-    batches = lambda r: {"tokens": toks[r, ..., :-1],
-                         "targets": toks[r, ..., 1:]}
+    batches = round_batches(cfg, sh["rounds"], C, H, B, S, 2, device)
     _, counts = lm_rounds("xlstm", model, params, fl, batches, device,
                           sh["rounds"], f"batch {B} of {S} tokens")
     check(counts == {"fused_accum": sh["rounds"]},
@@ -2635,26 +2851,82 @@ def xlstm_whole(device="cuda", cfg=None, n_params=XLSTM_PARAMS, train=None,
     # XLSTM_DECODE_TOL), so the bf16 gap is printed, not held.
     f32 = build_model(cfg.replace(dtype="float32"))
     wide = nest({k: v.float() for k, v in flat_dict(nested).items()})
-    gaps = serve_decode_gaps("xlstm (float32)", f32, wide, prompt, sv["gen"])
+    gaps, _ = serve_decode_gaps("xlstm (float32)", f32, wide, prompt,
+                                sv["gen"])
     check(max(gaps.values()) <= XLSTM_DECODE_TOL,
           f"lm serve xlstm: decoding differs from prefill by {gaps} > "
           f"{XLSTM_DECODE_TOL}")
     check(not launches.KERNEL_LAUNCHES, "lm serve xlstm: launched "
                                         f"{dict(launches.KERNEL_LAUNCHES)}")
     del f32, wide
-    del model, nested, params, toks
+    del model, nested, params, batches
+    free_cache(device)
+    return counts
+
+
+def train_audio_whole(device="cuda", cfg=None, n_params=AUDIO_PARAMS,
+                      tol=FUSED_ACCUM_TOL, **shape):
+    """lm_train (d): MusicGen-medium whole in bf16 through parallel rounds
+    of the default commit, one fused_accum a round.  Then the last round's
+    commit is held at its own size: its [C, R, 256] stack, rebuilt from the
+    clients' kept deltas with ``pack_blocks`` as the commit packs them,
+    through ``fused_accum_blocks`` against ``ref.fused_accum_ref`` at phase
+    2's tolerance (rtol, atol)."""
+    sh = {**AUDIO_TRAIN, **shape}
+    cfg = cfg or get_config(AUDIO)
+    free_cache(device)
+    model, nested = serve.build(cfg, device, seed=0)
+    params = flat_dict(nested)
+    del nested
+    n = sum(v.numel() for v in params.values())
+    print(f"lm train: {cfg.name} whole ({cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.n_codebooks} codebooks of {cfg.vocab}, "
+          f"{cfg.dtype}): {n} params")
+    check(n_params is None or n == n_params,
+          f"lm train audio: {n} params, expected {n_params}")
+    C, H, B, S = sh["C"], sh["H"], sh["B"], sh["S"]
+    fl = FLConfig(num_clients=C, local_steps=H, client_lr=0.01)
+    batches = round_batches(cfg, sh["rounds"], C, H, B, S, 4, device)
+    kept = {}
+    _, counts = lm_rounds(
+        "audio", model, params, fl, batches, device, sh["rounds"],
+        f"batch {B} of {S} frames x {cfg.n_codebooks} codebooks", kept=kept)
+    check(counts == {"fused_accum": sh["rounds"]},
+          f"lm train audio: launches {counts}")
+    del model, params, batches
+    deltas = kept.pop("deltas")
+    xb, _, _ = kops.pack_blocks(list(deltas.values()), BLOCK)
+    del deltas
+    free_cache(device)
+    # the round's slot vectors: unit weights, no staleness, exponent 0
+    w = torch.ones(C, device=device)
+    s = torch.zeros(C, device=device)
+    got = fused_accum_blocks(xb, w, s, 0.0)
+    want = ref.fused_accum_ref(xb, w[:, None], s[:, None], 0.0)
+    err = (got - want).abs().max().item()
+    ok = torch.allclose(got, want, rtol=tol[0], atol=tol[1])
+    print(f"lm train audio: the last round's commit, fused_accum on its "
+          f"{list(xb.shape)} f32 stack ({xb.numel()} elements) against its "
+          f"plain version: max |diff| = {err:.3g}, max |sum| = "
+          f"{want.abs().max().item():.3g}, within (rtol, atol) {tol}: {ok}")
+    check(ok, f"lm train audio: fused_accum differs from its plain version "
+              f"on the round's stack by {err:.3g}")
+    launches.reset()
+    del xb, got, want
     free_cache(device)
     return counts
 
 
 def lm_train():
     """Phase lm_train: (a) the reduced LMs' rounds on the card against
-    the CPU; (b) the cut Jamba at full width; (c) xlstm-125m whole."""
+    the CPU; (b) the cut Jamba at full width; (c) xlstm-125m whole; (d)
+    MusicGen-medium whole."""
     for arch, modes in LM_TRAIN_PARITY:
         check_lm_round_parity(C=4, H=2, B=2, S=64, cfg=reduced(
             get_config(arch)), n_params=None, modes=modes)
     totals = dict(train_jamba_full_width())
     add_counts(totals, xlstm_whole())
+    add_counts(totals, train_audio_whole())
     return totals
 
 

@@ -9,10 +9,13 @@ Same flags as the reference plus ``--device`` (default ``cuda``; the
 launcher raises when CUDA is absent and ``--device cpu`` was not given).
 As in the reference, ``--reduced`` is ``store_true`` with ``default=True``,
 so the command line always serves the reduced config; a full-width run
-calls ``build`` and ``run`` itself.  The dense, MoE, hybrid and xLSTM
-families serve (``--arch xlstm-125m``: its mLSTM and sLSTM states are the
-decode state); the VLM and audio families raise NotImplementedError naming
-their ROADMAP item.
+calls ``build`` and ``run`` itself.  Every family serves: for the audio
+family (``--arch musicgen-medium``) the prompt is ``(B, S0, n_cb)`` tokens,
+each step samples one token per codebook and the summary prints codebook
+0's ids, as the reference does; for the VLM (``--arch
+llama-3.2-vision-90b``) ``main`` draws ``patches`` ``(B, n_patches, D)``
+in the model dtype from the seeded generator, which prefill projects into
+the cross-attention caches.
 """
 from __future__ import annotations
 
@@ -25,7 +28,7 @@ import torch
 
 from repro_torch.configs import get_config, reduced
 from repro_torch.launch.train import resolve_device
-from repro_torch.models import build_model
+from repro_torch.models import build_model, token_shape
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -52,8 +55,8 @@ def build(cfg, device, seed: int):
 
 @dataclass
 class ServeResult:
-    ids: np.ndarray          # [B, gen] generated token ids
-    logits: list             # [B, vocab] logits from the prefill and from
+    ids: np.ndarray          # [B, gen] ([B, gen, n_cb]) generated ids
+    logits: list             # [B(, n_cb), vocab] logits: the prefill's and
     #                          every decode step (gen + 1 entries)
     prefill_s: float         # wall time of the prefill, synchronised
     decode_s: float          # wall time of the gen decode steps
@@ -65,25 +68,36 @@ def _sync(device):
 
 
 def _sample(logits, temperature: float, generator):
+    """One token per row of ``logits`` [..., V] (``[B, V]``, or ``[B, n_cb,
+    V]`` with codebooks): ``torch.multinomial`` takes 1-D or 2-D input, so
+    the leading dims are flattened and restored."""
     if temperature > 0:
         probs = torch.softmax(logits.to(torch.float32) / temperature, dim=-1)
-        return torch.multinomial(probs, 1, generator=generator)[:, 0]
+        flat = probs.reshape(-1, probs.shape[-1])
+        return torch.multinomial(flat, 1, generator=generator)[:, 0].reshape(
+            probs.shape[:-1])
     return logits.argmax(-1)
 
 
 def run(model, params, prompt, gen: int, temperature: float,
-        generator) -> ServeResult:
-    """Prefill ``prompt`` [B, S0] (token ids), then ``gen`` decode steps,
-    each sampling one token from the last logits (``temperature`` 0 is
-    argmax; else ``torch.multinomial`` on ``softmax(logits / T)`` with
-    ``generator``) and feeding it back at the next position."""
+        generator, patches=None) -> ServeResult:
+    """Prefill ``prompt`` [B, S0] (token ids; [B, S0, n_cb] with codebooks)
+    and, for the VLM, ``patches`` [B, n_patches, D], then ``gen`` decode
+    steps, each sampling one token (one per codebook) from the last logits
+    (``temperature`` 0 is argmax; else ``torch.multinomial`` on
+    ``softmax(logits / T)`` with ``generator``) and feeding it back at the
+    next position."""
     device = params["embed"].device
     prompt = torch.as_tensor(prompt).to(device=device, dtype=torch.long)
     S0 = prompt.shape[1]
     s_max = S0 + gen
+    batch = {"tokens": prompt}
+    if patches is not None:
+        patches = torch.as_tensor(patches).to(device)
+        batch["patches"] = patches
     with torch.inference_mode():
         t0 = time.perf_counter()
-        logits, state = model.prefill(params, {"tokens": prompt}, s_max)
+        logits, state = model.prefill(params, batch, s_max)
         _sync(device)
         t_prefill = time.perf_counter() - t0
         out, toks = [logits], []
@@ -91,12 +105,27 @@ def run(model, params, prompt, gen: int, temperature: float,
         for t in range(gen):
             tok = _sample(logits, temperature, generator)
             toks.append(tok)
-            logits, state = model.decode_step(params, state, tok, S0 + t)
+            logits, state = model.decode_step(params, state, tok, S0 + t,
+                                              patches)
             out.append(logits)
         _sync(device)
         t_decode = time.perf_counter() - t0
     ids = torch.stack(toks, dim=1).cpu().numpy()
     return ServeResult(ids, out, t_prefill, t_decode)
+
+
+def draw_inputs(cfg, B: int, S0: int, generator, dtype):
+    """A random prompt ``token_shape(cfg, B, S0)`` and, for the VLM,
+    ``patches`` [B, n_patches, D] in ``dtype`` (else None), both drawn from
+    ``generator`` on its device."""
+    dev = generator.device
+    prompt = torch.randint(0, cfg.vocab, token_shape(cfg, B, S0),
+                           generator=generator, device=dev)
+    patches = None
+    if cfg.cross_attn_every:
+        patches = torch.randn((B, cfg.n_patches, cfg.d_model),
+                              generator=generator, device=dev, dtype=dtype)
+    return prompt, patches
 
 
 def main(argv=None) -> ServeResult:
@@ -108,13 +137,13 @@ def main(argv=None) -> ServeResult:
     model, params = build(cfg, device, args.seed)
     B, S0, T = args.batch, args.prompt_len, args.gen
     generator = torch.Generator(device).manual_seed(args.seed)
-    prompt = torch.randint(0, cfg.vocab, (B, S0), generator=generator,
-                           device=device)
-    res = run(model, params, prompt, T, args.temperature, generator)
+    prompt, patches = draw_inputs(cfg, B, S0, generator, model.dtype)
+    res = run(model, params, prompt, T, args.temperature, generator, patches)
     print(f"arch={cfg.name} prefill({B}x{S0})={res.prefill_s*1e3:.1f}ms "
           f"decode {T} steps={res.decode_s*1e3:.1f}ms "
           f"({res.decode_s/max(T, 1)*1e3:.1f} ms/tok)")
-    print("generated token ids:\n", res.ids)
+    print("generated token ids:\n",
+          res.ids[..., 0] if res.ids.ndim == 3 else res.ids)
     return res
 
 

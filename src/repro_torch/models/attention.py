@@ -1,8 +1,7 @@
 """Attention: GQA/MQA/MHA with RoPE, optional sliding window, chunked
 (online-softmax) computation for long sequences, and the decode path over
-a KV cache, mirroring ``repro/models/attention.py`` on one card.
-Cross attention (the VLM family) is not ported yet: ROADMAP queue 1 item
-7c.
+a KV cache, and cross attention to image patches (the VLM family),
+mirroring ``repro/models/attention.py`` on one card.
 
 Layouts:
   q        [B, S, H, hd]
@@ -144,3 +143,22 @@ def cache_write(cache, new, pos: int):
                          f"cache of {S}")
     cache[:, pos:pos + L] = new.to(cache.dtype)
     return cache
+
+
+# ---------------------------------------------------------------------------
+# Cross attention (VLM): kv from patch embeddings, no mask/rope.
+# ---------------------------------------------------------------------------
+
+def cross_attend(q, k, v):
+    """q [B,S,H,hd] against k, v [B,T,KV,hd] (T patches), every query to
+    every patch.  The scores are taken in the model dtype and scaled in
+    float32, the softmax in float32 and cast back to ``q.dtype``, as in
+    the reference."""
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    qg = _group(q, KV)
+    s = torch.einsum("bsngd,btnd->bngst", qg, k).to(torch.float32) \
+        * hd ** -0.5
+    p = torch.softmax(s, dim=-1).to(q.dtype)
+    out = torch.einsum("bngst,btnd->bsngd", p, v)
+    return out.reshape(B, S, H, hd)

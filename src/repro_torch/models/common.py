@@ -19,9 +19,13 @@ class ParamBuilder:
     """Builds a nested ``dict[str, Tensor]`` of parameters with the
     reference's shapes, scales and ``init`` rules.  Every draw comes from
     ``generator`` on the generator's device, in float32, and is then cast
-    to ``dtype`` on ``device``; a CUDA generator draws on the card."""
+    to ``dtype`` on ``device``; a CUDA generator draws on the card.
 
-    def __init__(self, generator: torch.Generator, dtype, device):
+    On the ``meta`` device it is the reference's abstract mode: each leaf
+    is an empty tensor of its shape and dtype, so nothing is allocated or
+    drawn (``generator`` may be None)."""
+
+    def __init__(self, generator: torch.Generator | None, dtype, device):
         self.generator = generator
         self.dtype = dtype
         self.device = torch.device(device)
@@ -35,7 +39,9 @@ class ParamBuilder:
             scale: float | None = None):
         """Create one parameter at params[path]."""
         shape = tuple(shape)
-        if init == "zeros":
+        if self.device.type == "meta":
+            val = torch.empty(shape, dtype=self.dtype, device=self.device)
+        elif init == "zeros":
             val = torch.zeros(shape, dtype=self.dtype, device=self.device)
         elif init == "ones":
             val = torch.ones(shape, dtype=self.dtype, device=self.device)
@@ -115,10 +121,12 @@ def apply_rope(x, positions, theta: float):
 
 def cross_entropy_logits(logits, targets, vocab: int, chunk: int = 0):
     """Mean next-token CE.  logits [B, S, Vp] (Vp >= vocab; the padded
-    columns get -1e9), targets [B, S] integers.  The log-softmax is taken
-    in float32.  With ``chunk`` > 0 the S dim is taken ``chunk`` positions
-    at a time, their sums added in order, to bound the float32 workspace
-    (vocab-heavy archs)."""
+    columns get -1e9), targets [B, S] integers; with codebooks, logits
+    [B, S, n_cb, Vp] and targets [B, S, n_cb], the mean over every
+    codebook position.  The log-softmax is taken in float32.  With
+    ``chunk`` > 0 the S dim is taken ``chunk`` positions at a time, their
+    sums added in order, to bound the float32 workspace (vocab-heavy
+    archs)."""
     vp = logits.shape[-1]
 
     def ce(lg, tg):

@@ -8,10 +8,17 @@ layer-stacked parameters with a leading ``[G, ...]`` dim, as in the
 reference, and ``_backbone`` loops over the groups in Python where the
 reference runs ``lax.scan``.
 
-Families that train and serve: dense (attn + mlp), moe (attn + moe),
-hybrid (mamba/attn interleave + mlp/moe, Jamba) and ssm (mlstm/slstm
-blocks, xLSTM).  Cross attention (vlm) and codebook embeddings (audio)
-raise NotImplementedError naming ROADMAP queue 1 item 7c.
+Families, every one of which trains and serves:
+  dense/audio : attn + mlp                      (audio: codebook embeds/heads)
+  moe         : attn + moe
+  hybrid      : mamba/attn interleave + mlp/moe (Jamba)
+  vlm         : attn + cross-attn every Nth     (Llama-3.2-Vision)
+  ssm         : mlstm/slstm blocks              (xLSTM)
+
+The VLM's batches carry ``patches`` [B, n_patches, D], the projected image
+patch embeddings its cross-attention slots attend to; the audio family's
+tokens and targets are [B, S, n_cb], one stream per codebook, embedded as
+the sum of the codebooks' embeddings and predicted by one head each.
 
 ``loss_fn`` takes the nested params or their flat view
 (``repro_torch.pytree.flat_dict``: ``/``-joined leaf paths in ``jax.tree``
@@ -40,18 +47,6 @@ from repro_torch.models.common import (DTYPES, ParamBuilder, apply_rope,
                                        cross_entropy_logits, glu_mlp,
                                        plain_mlp, rms_norm, take_embedding)
 from repro_torch.pytree import nest
-
-_UNPORTED = {
-    "cross": "cross attention (the VLM family)",
-}
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    """Item 7c is the rest of the zoo."""
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet: ROADMAP queue 1, still "
-        f"to port, item 7c")
-
 
 @dataclass(frozen=True)
 class Slot:
@@ -98,11 +93,6 @@ class LM:
         if cfg.n_layers % len(self.pattern):
             raise ValueError(f"{cfg.name}: {cfg.n_layers} layers do not fill "
                              f"whole groups of {len(self.pattern)}")
-        for slot in self.pattern:
-            if slot.mixer in _UNPORTED:
-                raise _not_ported(_UNPORTED[slot.mixer])
-        if cfg.n_codebooks:
-            raise _not_ported("codebook embeddings (the audio family)")
         self.n_groups = cfg.n_layers // len(self.pattern)
         self.dtype = DTYPES[cfg.dtype]
 
@@ -111,18 +101,31 @@ class LM:
         """Random params with the reference's shapes, scales and init rules,
         drawn from ``generator`` (on its own device) in the reference's
         order and cast to the config's dtype on ``device``."""
+        return self._build(ParamBuilder(generator, self.dtype, device))
+
+    def param_specs(self) -> dict:
+        """The params' tree with every leaf an empty tensor of its shape
+        and dtype on the ``meta`` device: nothing is allocated (the
+        reference's ShapeDtypeStruct tree)."""
+        return self._build(ParamBuilder(None, self.dtype, "meta"))
+
+    def _build(self, pb: ParamBuilder) -> dict:
         cfg = self.cfg
-        pb = ParamBuilder(generator, self.dtype, device)
-        D, Vp = cfg.d_model, cfg.vocab_padded
+        D, V, Vp = cfg.d_model, cfg.vocab, cfg.vocab_padded
         H, KV, hd = cfg.n_heads, cfg.kv_heads, cfg.hd
         G = self.n_groups
-        pb.add(["embed"], (cfg.vocab, D), scale=1.0 / math.sqrt(D))
-        pb.add(["unembed"], (D, Vp))
+        emb_scale = 1.0 / math.sqrt(D)
+        if cfg.n_codebooks:
+            pb.add(["embed"], (cfg.n_codebooks, V, D), scale=emb_scale)
+            pb.add(["unembed"], (D, cfg.n_codebooks * Vp))
+        else:
+            pb.add(["embed"], (V, D), scale=emb_scale)
+            pb.add(["unembed"], (D, Vp))
         pb.add(["final_norm"], (D,), init="ones")
         for si, slot in enumerate(self.pattern):
             base = ["layers", f"slot{si}"]
             pb.add(base + ["norm1"], (G, D), init="ones")
-            if slot.mixer == "attn":
+            if slot.mixer in ("attn", "cross"):
                 pb.add(base + ["wq"], (G, D, H * hd))
                 pb.add(base + ["wk"], (G, D, KV * hd))
                 pb.add(base + ["wv"], (G, D, KV * hd))
@@ -147,12 +150,45 @@ class LM:
 
     # -------------------------------------------------------------- embedding
     def embed(self, params, tokens):
+        if self.cfg.n_codebooks:
+            # tokens [B, S, n_cb] -> the codebooks' embeddings summed in
+            # codebook order, as the reference's sum()
+            return sum(take_embedding(params["embed"][c], tokens[..., c])
+                       for c in range(self.cfg.n_codebooks))
         return take_embedding(params["embed"], tokens)
 
     def logits(self, params, x):
-        return x @ params["unembed"]
+        lg = x @ params["unembed"]
+        if self.cfg.n_codebooks:
+            lg = lg.reshape(*lg.shape[:-1], self.cfg.n_codebooks,
+                            self.cfg.vocab_padded)
+        return lg
 
     # ------------------------------------------------------------------ slots
+    def _cross(self, p, x, *, mode, cache, patches):
+        """Cross attention to the image patches: K and V are projections of
+        ``patches`` (cast to the model dtype), computed in train and
+        prefill mode, where prefill writes them into ``cache`` in place,
+        and read from ``cache`` in decode mode (``patches`` unused)."""
+        cfg = self.cfg
+        B, S, D = x.shape
+        H, KV, hd = cfg.n_heads, cfg.kv_heads, cfg.hd
+        q = (x @ p["wq"]).reshape(B, S, H, hd)
+        if mode == "decode":
+            k, v = cache["k"], cache["v"]
+        else:
+            if patches is None:
+                raise ValueError(f"{cfg.name}: a cross-attention slot needs "
+                                 f"the batch's patches")
+            kv_src = patches.to(x.dtype)
+            k = (kv_src @ p["wk"]).reshape(B, -1, KV, hd)
+            v = (kv_src @ p["wv"]).reshape(B, -1, KV, hd)
+            if mode == "prefill":
+                cache["k"].copy_(k)
+                cache["v"].copy_(v)
+        out = attn.cross_attend(q, k, v)
+        return out.reshape(B, S, H * hd) @ p["wo"]
+
     def _attn(self, p, x, *, positions, window, mode, cache, pos=None):
         cfg = self.cfg
         B, S, D = x.shape
@@ -204,7 +240,7 @@ class LM:
                                  mode=moe_mode)
 
     def _apply_slot(self, slot: Slot, p, x, *, mode, positions=None,
-                    cache=None, pos=None):
+                    cache=None, pos=None, patches=None):
         """One slot.  ``cache`` is this slot's decode state for this group,
         updated in place; in ``mode="train"`` there is none."""
         cfg = self.cfg
@@ -213,6 +249,8 @@ class LM:
             out = self._attn(p, h, positions=positions,
                              window=cfg.sliding_window, mode=mode,
                              cache=cache, pos=pos)
+        elif slot.mixer == "cross":
+            out = self._cross(p, h, mode=mode, cache=cache, patches=patches)
         else:
             if slot.mixer == "mamba":
                 out, new_state = mamba_mod.mamba_apply(
@@ -239,7 +277,8 @@ class LM:
         return x, aux
 
     # ---------------------------------------------------------------- forward
-    def _backbone(self, params, x, *, mode, positions, caches, pos=None):
+    def _backbone(self, params, x, *, mode, positions, caches, pos=None,
+                  patches=None):
         """Loop over layer groups, updating ``caches`` in place (``{}`` in
         ``mode="train"``, which writes nothing in place).  Returns (x, aux
         mean).  The reference rematerialises each group in train mode
@@ -253,15 +292,17 @@ class LM:
                 key = f"slot{si}"
                 x, a = self._apply_slot(slot, gp[key], x, mode=mode,
                                         positions=positions,
-                                        cache=gc.get(key), pos=pos)
+                                        cache=gc.get(key), pos=pos,
+                                        patches=patches)
                 aux = aux + a
         return x, aux / self.cfg.n_layers
 
     # ------------------------------------------------------------------ train
     def loss_fn(self, params, batch):
-        """batch: tokens [B, S] and targets [B, S] integers.  Returns
-        (loss, {"ce", "aux"}); the MoE load-balance term is in the loss and,
-        as in the reference, in "ce" too."""
+        """batch: tokens [B, S] and targets [B, S] integers ([B, S, n_cb]
+        with codebooks), and for the VLM patches [B, n_patches, D].
+        Returns (loss, {"ce", "aux"}); the MoE load-balance term is in the
+        loss and, as in the reference, in "ce" too."""
         cfg = self.cfg
         params = nest(params)      # the flat view's tensors, not copies
         tokens = batch["tokens"]
@@ -269,7 +310,7 @@ class LM:
         S = tokens.shape[1]
         positions = torch.arange(S, device=x.device)
         x, aux = self._backbone(params, x, mode="train", positions=positions,
-                                caches={})
+                                caches={}, patches=batch.get("patches"))
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
         # chunked CE fused with the unembedding (bounds the f32 workspace)
         chunk = 512 if S * cfg.vocab_padded > (1 << 24) else 0
@@ -318,6 +359,10 @@ class LM:
             if slot.mixer == "attn":
                 slots[key] = {"k": ((G, B, S_c, KV, hd), dt),
                               "v": ((G, B, S_c, KV, hd), dt)}
+            elif slot.mixer == "cross":
+                # the patches' K and V, written once by prefill
+                slots[key] = {"k": ((G, B, cfg.n_patches, KV, hd), dt),
+                              "v": ((G, B, cfg.n_patches, KV, hd), dt)}
             elif slot.mixer == "mamba":
                 di = cfg.mamba.expand * cfg.d_model
                 slots[key] = {"conv": ((G, B, cfg.mamba.d_conv - 1, di), dt),
@@ -342,8 +387,10 @@ class LM:
                     B, s_max, dtype).items()}
 
     def prefill(self, params, batch, s_max: int):
-        """batch: {"tokens": [B, S] integer}.  Returns (last-position
-        logits [B, vocab], decode state)."""
+        """batch: {"tokens": [B, S] integer ([B, S, n_cb] with codebooks),
+        and for the VLM "patches" [B, n_patches, D]}.  Returns
+        (last-position logits [B, vocab] ([B, n_cb, vocab]), decode
+        state)."""
         cfg = self.cfg
         tokens = batch["tokens"]
         B, S = tokens.shape[0], tokens.shape[1]
@@ -354,22 +401,31 @@ class LM:
         positions = torch.arange(S, device=device)
         caches = self.init_decode_state(B, s_max, device=device)
         x, _ = self._backbone(params, x, mode="prefill", positions=positions,
-                              caches=caches)
+                              caches=caches, patches=batch.get("patches"))
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
         lg = self.logits(params, x[:, -1:])[:, 0]
         return lg[..., :cfg.vocab], caches
 
-    def decode_step(self, params, state, token, pos: int):
-        """token [B]; pos the current token's position.  Returns (logits
-        [B, vocab], state), the state updated in place."""
+    def decode_step(self, params, state, token, pos: int, patches=None):
+        """token [B] ([B, n_cb] with codebooks); pos the current token's
+        position.  Returns (logits [B, vocab] ([B, n_cb, vocab]), state),
+        the state updated in place.  ``patches`` is taken as the reference
+        takes it, and unused: the cross-attention K and V are read from
+        the state that prefill wrote."""
         cfg = self.cfg
-        x = self.embed(params, token[:, None])      # [B,1,D]
+        x = self.embed(params, token[:, None])      # [B,1,D] ([B,1,n_cb])
         positions = torch.tensor([pos], device=x.device)
         x, _ = self._backbone(params, x, mode="decode", positions=positions,
                               caches=state, pos=pos)
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
         lg = self.logits(params, x[:, 0])
         return lg[..., :cfg.vocab], state
+
+
+def token_shape(cfg: ModelConfig, *lead) -> tuple:
+    """The shape of token ids with leading dims ``lead`` (e.g. B, S): one
+    stream per codebook for the audio family (``[*lead, n_cb]``)."""
+    return (*lead, cfg.n_codebooks) if cfg.n_codebooks else tuple(lead)
 
 
 def build_model(cfg: ModelConfig) -> LM:

@@ -2,8 +2,10 @@
 the same params (the reference's init, copied by ``convert.tree_from_jax``)
 and the same numpy inputs: the modules one by one, then whole prefill and
 decode on the reduced Jamba (pattern [mamba+mlp, attn+moe]), the paper's
-char-LM, a sliding-window ring buffer, an MoE family and the xLSTM family;
-the full-width xLSTM's layout; the reduced Jamba's training loss and
+char-LM, a sliding-window ring buffer, an MoE family, the xLSTM family,
+the VLM (cross attention to image patches) and the audio family (codebook
+embeddings and heads); the full-width xLSTM's, Llama-3.2-Vision's and
+MusicGen-medium's layouts; the reduced Jamba's training loss and
 gradients.
 
 Tolerances (all float32): 1e-5 relative for a module, 1e-4 for a whole
@@ -29,7 +31,7 @@ from repro_torch.configs import get_config, reduced
 from repro_torch.convert import tree_from_jax, tree_to_numpy
 from repro_torch.kernels import launches
 from repro_torch.models import attention as tattn
-from repro_torch.models import build_model, param_count
+from repro_torch.models import build_model, param_count, token_shape
 from repro_torch.models import common as tcommon
 from repro_torch.models import mamba as tmamba
 from repro_torch.models import moe as tmoe
@@ -120,6 +122,27 @@ def test_decode_attend(window, pos):
                jattn.decode_attend(jnp.asarray(q1), jnp.asarray(kc),
                                    jnp.asarray(vc), pos, window=window),
                MODULE_TOL)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cross_attend(dtype):
+    # GQA: 8 query heads over 2 kv heads, 5 queries against 11 patches
+    q, k, v = rand((2, 5, 8, 16), 30), rand((2, 11, 2, 16), 31), \
+        rand((2, 11, 2, 16), 32)
+    want = jattn.cross_attend(*(jnp.asarray(a).astype(dtype)
+                                for a in (q, k, v)))
+    got = tattn.cross_attend(*(t(a).to(tcommon.DTYPES[dtype])
+                               for a in (q, k, v)))
+    assert got.dtype == tcommon.DTYPES[dtype] and got.shape == want.shape
+    if dtype == "float32":
+        assert_rel(got, want, MODULE_TOL)
+    else:
+        # both take the scores in bf16, the softmax in float32 and cast it
+        # to bf16 before the second product (equal here); held to one bf16
+        # ulp, since each package may sum the products in its own order
+        np.testing.assert_allclose(
+            got.to(torch.float32).numpy(),
+            np.asarray(want.astype(jnp.float32)), rtol=2 ** -7, atol=2 ** -9)
 
 
 def test_cache_write_refuses_to_clamp():
@@ -220,18 +243,34 @@ def test_mamba_scans_every_chunk():
 # jamba: the hybrid family (mamba + attention, MLP + MoE); paper-charlm:
 # dense with the tanh GELU; starcoder2 at window 8: the sliding-window ring
 # buffer wraps during prefill and decode; qwen3-moe: the MoE family;
-# xlstm: the ssm family (mLSTM + sLSTM, with their recurrent states)
+# xlstm: the ssm family (mLSTM + sLSTM, with their recurrent states);
+# llama-3.2-vision: the VLM ([attn + mlp, cross + mlp], the cross K/V
+# cache); musicgen: the audio family (4 codebooks, MHA)
 MODELS = [("jamba-1.5-large-398b", {}), ("paper-charlm", {}),
           ("starcoder2-7b", {"sliding_window": 8}),
-          ("qwen3-moe-235b-a22b", {}), ("xlstm-125m", {})]
+          ("qwen3-moe-235b-a22b", {}), ("xlstm-125m", {}),
+          ("llama-3.2-vision-90b", {}), ("musicgen-medium", {})]
 B, S0, T = 2, 12, 4
+
+
+def lm_tokens(cfg, shape, seed):
+    """Token ids of ``shape`` [B, S], or [B, S, n_cb] with codebooks."""
+    return np.random.default_rng(seed).integers(
+        0, cfg.vocab, token_shape(cfg, *shape))
+
+
+def lm_patches(cfg, seed):
+    """The VLM's patches [B, n_patches, D] (float32), else None."""
+    if not cfg.cross_attn_every:
+        return None
+    return rand((B, cfg.n_patches, cfg.d_model), seed)
 
 
 def _both(arch, changes):
     jcfg, cfg = configs(arch, **changes)
     jm, tm = jbuild(jcfg), build_model(cfg)
     jp = jm.init(jax.random.PRNGKey(0))
-    toks = np.random.default_rng(1).integers(0, cfg.vocab, (B, S0 + T))
+    toks = lm_tokens(cfg, (B, S0 + T), 1)
     return jm, tm, jp, tree_from_jax(jp), toks
 
 
@@ -250,19 +289,27 @@ def test_prefill_and_decode_match_reference(arch, changes):
     jm, tm, jp, tp, toks = _both(arch, changes)
     assert param_count(tp) == sum(x.size for x in jax.tree.leaves(jp))
     s_max = S0 + T
-    jlg, jstate = jax.jit(lambda p, x: jm.prefill(p, {"tokens": x}, s_max))(
+    patches = lm_patches(tm.cfg, 6)
+    jbatch, batch = {}, {}
+    if patches is not None:
+        jbatch["patches"], batch["patches"] = jnp.asarray(patches), \
+            t(patches)
+    jlg, jstate = jax.jit(lambda p, x: jm.prefill(
+        p, {"tokens": x, **jbatch}, s_max))(
         jp, jnp.asarray(toks[:, :S0], jnp.int32))
     with torch.inference_mode():
-        lg, state = tm.prefill(tp, {"tokens": t(toks[:, :S0])}, s_max)
+        lg, state = tm.prefill(tp, {"tokens": t(toks[:, :S0]), **batch},
+                               s_max)
     assert_rel(lg, jlg, MODEL_TOL, "prefill logits")
     _assert_state(state, jstate, MODEL_TOL, "prefill")
     jdec = jax.jit(jm.decode_step)
     for i in range(T):
         tok = toks[:, S0 + i]
         jlg, jstate = jdec(jp, jstate, jnp.asarray(tok, jnp.int32),
-                           jnp.int32(S0 + i))
+                           jnp.int32(S0 + i), jbatch.get("patches"))
         with torch.inference_mode():
-            lg, state = tm.decode_step(tp, state, t(tok), S0 + i)
+            lg, state = tm.decode_step(tp, state, t(tok), S0 + i,
+                                       batch.get("patches"))
         assert_rel(lg, jlg, MODEL_TOL, f"decode {i} logits")
         _assert_state(state, jstate, MODEL_TOL, f"decode {i}")
 
@@ -274,13 +321,16 @@ def test_decode_matches_prefill(arch, changes):
     _, cfg = configs(arch, **changes)
     tm = build_model(cfg)
     tp = tm.init(torch.Generator().manual_seed(0))
-    toks = t(np.random.default_rng(2).integers(0, cfg.vocab, (B, S0 + T)))
+    toks = t(lm_tokens(cfg, (B, S0 + T), 2))
+    patches = lm_patches(cfg, 7)
+    extra = {} if patches is None else {"patches": t(patches)}
     s_max = S0 + T
     with torch.inference_mode():
-        lg, state = tm.prefill(tp, {"tokens": toks[:, :S0]}, s_max)
+        lg, state = tm.prefill(tp, {"tokens": toks[:, :S0], **extra}, s_max)
         for i in range(T - 1):
             lg, state = tm.decode_step(tp, state, toks[:, S0 + i], S0 + i)
-            want, _ = tm.prefill(tp, {"tokens": toks[:, :S0 + i + 1]}, s_max)
+            want, _ = tm.prefill(tp, {"tokens": toks[:, :S0 + i + 1],
+                                      **extra}, s_max)
             np.testing.assert_allclose(lg.numpy(), want.numpy(), rtol=2e-3,
                                        atol=2e-3, err_msg=f"{arch} step {i}")
 
@@ -312,23 +362,29 @@ def test_decode_matches_prefill_by_dtype(dtype, tol):
                 assert_rel(lg, want, tol, f"{dtype} step {i}")
 
 
-@pytest.mark.parametrize("arch", ["xlstm-125m", "llama-3.2-vision-90b",
-                                  "musicgen-medium"])
-def test_unported_families_raise(arch):
-    """The VLM and audio families still raise, naming their item.  The
-    xLSTM family, once refused here too, builds: its case holds the whole
-    xlstm-125m's params at full width (shape and dtype of every leaf, in
-    the reference's order) against the reference's abstract ones, and its
-    decode-state layout."""
-    if arch != "xlstm-125m":
-        with pytest.raises(NotImplementedError, match="queue 1, still to "
-                                                      "port, item 7c"):
-            build_model(reduced(get_config(arch)))
-        return
+# the full-width families once refused here: their params' layouts and
+# counts, and the VLM's cross cache in the decode state
+FULL_WIDTH = {"xlstm-125m": 162_402_096,
+              "llama-3.2-vision-90b": 87_666_794_496,
+              "musicgen-medium": 1_384_269_312}
+
+
+@pytest.mark.parametrize("arch", list(FULL_WIDTH))
+def test_full_width_layouts_match_reference(arch):
+    """Each family builds at full width: every leaf's name, shape and dtype
+    in the reference's order against its abstract params, the parameter
+    count, and the decode-state layout against the reference's
+    ``decode_state_specs``.
+    The xLSTM's params are drawn (162M); the VLM's and the audio LM's
+    come from ``param_specs()`` on the meta device, nothing allocated."""
     jm, tm = jbuild(jget_config(arch)), build_model(get_config(arch))
     want = jax.tree.leaves_with_path(jm.param_specs())
-    got = flat_dict(tm.init(torch.Generator().manual_seed(0)))
-    assert param_count(got) == 162_402_096
+    if arch == "xlstm-125m":
+        got = flat_dict(tm.init(torch.Generator().manual_seed(0)))
+    else:
+        got = flat_dict(tm.param_specs())
+        assert all(v.is_meta for v in got.values())
+    assert param_count(got) == FULL_WIDTH[arch]
     assert len(got) == len(want)
     for (path, spec), (name, leaf) in zip(want, got.items()):
         assert name == "/".join(k.key for k in path)
@@ -341,6 +397,9 @@ def test_unported_families_raise(arch):
         assert {n: (tuple(s), str(d).split(".")[-1])
                 for n, (s, d) in specs[key].items()} == {
             n: (v.shape, str(v.dtype)) for n, v in jspecs[key].items()}
+    if arch == "llama-3.2-vision-90b":
+        # [attn x 4, cross]: the cross slot's cache holds 1601 patches
+        assert specs["slot4"]["k"][0] == (20, 2, 1601, 8, 128)
 
 
 def test_training_is_not_ported():

@@ -1,10 +1,11 @@
 """The port's LM training path on the CPU against the JAX package, from
 the same params (the reference's init, carried by ``convert.tree_from_jax``
 into the flat view the round takes) and the same numpy tokens: the
-cross-entropy, ``LM.loss_fn``'s value and every gradient, one paper-charlm
-round in each client mode, one round of the reduced hybrid (Jamba), MoE
-and xLSTM LMs in each of the parallel and sequential modes, and three
-launcher rounds on the synthetic Shakespeare task.
+cross-entropy (the codebooks' too), ``LM.loss_fn``'s value and every
+gradient, one paper-charlm round in each client mode, one round of the
+reduced hybrid (Jamba), MoE, xLSTM, VLM and audio LMs in each of the
+parallel and sequential modes, and three launcher rounds on the synthetic
+Shakespeare task.
 
 Tolerances (float32, relative to the largest magnitude of the compared
 array): 1e-5 for the loss, a gradient and one round (tests/test_fl_round.py's
@@ -37,7 +38,7 @@ from repro_torch.configs import get_config, reduced
 from repro_torch.convert import tree_from_jax
 from repro_torch.core import CompressionConfig, FLConfig, build_fl_round_step
 from repro_torch.launch import train as t_train
-from repro_torch.models import build_model
+from repro_torch.models import build_model, token_shape
 from repro_torch.models import common as tcommon
 from repro_torch.optim import get_client_optimizer, get_server_optimizer
 from repro_torch.pytree import flat_dict
@@ -66,6 +67,20 @@ def tokens(shape, vocab, seed):
         np.int32)
 
 
+def lm_batch(cfg, lead, S, seed):
+    """numpy tokens and targets [*lead, S] ([*lead, S, n_cb] with
+    codebooks), the targets one position on, from ``S + 1`` drawn tokens;
+    for the VLM also patches [*lead, n_patches, D] (float32)."""
+    toks = tokens(token_shape(cfg, *lead, S + 1), cfg.vocab, seed)
+    seq = len(lead)
+    batch = {"tokens": toks.take(np.arange(S), axis=seq),
+             "targets": toks.take(np.arange(1, S + 1), axis=seq)}
+    if cfg.cross_attn_every:
+        batch["patches"] = np.random.default_rng(seed + 1000).normal(
+            size=(*lead, cfg.n_patches, cfg.d_model)).astype(np.float32)
+    return batch
+
+
 # ------------------------------------------------------------ cross entropy
 @pytest.mark.parametrize("vp,chunk", [(128, 0), (160, 0), (160, 4),
                                       (160, 5)])
@@ -83,16 +98,37 @@ def test_cross_entropy_logits(vp, chunk):
     assert rel_err(got, want) <= STEP_TOL
 
 
+def test_codebook_cross_entropy():
+    """The audio family's CE: logits [B, S, n_cb, Vp] (vocab 200 padded to
+    256) against targets [B, S, n_cb], the plain mean over every codebook
+    position.  (The reference's chunked form of this function takes
+    [B, S, Vp] logits only; the model chunks in ``_ce_from_hidden``,
+    held below.)"""
+    logits = np.random.default_rng(6).normal(
+        size=(2, 12, 4, 256)).astype(np.float32) * 3
+    targets = tokens((2, 12, 4), 200, 7)
+    want = jcommon.cross_entropy_logits(jnp.asarray(logits),
+                                        jnp.asarray(targets), 200)
+    got = tcommon.cross_entropy_logits(torch.from_numpy(logits),
+                                       torch.from_numpy(targets), 200)
+    assert got.dtype == torch.float32 and got.shape == ()
+    assert rel_err(got, want) <= STEP_TOL
+
+
 # ------------------------------------------------------------ loss and grad
 # the reduced char-LM (dense, tanh GELU, vocab padded 128 -> 256), a
 # sliding window shorter than the sequence, the MoE family with its
 # load-balance term, the hybrid family (Mamba's train mode through the
-# scan's backward, attention and the MoE) and the xLSTM family
+# scan's backward, attention and the MoE), the xLSTM family, the VLM
+# (cross attention to the batch's patches) and the audio family (the
+# codebooks' embeddings, heads and CE)
 LOSS_MODELS = [("paper-charlm", SMALL_CHARLM),
                ("starcoder2-7b", {"sliding_window": 5}),
                ("qwen3-moe-235b-a22b", {}),
                ("jamba-1.5-large-398b", {}),
-               ("xlstm-125m", {})]
+               ("xlstm-125m", {}),
+               ("llama-3.2-vision-90b", {}),
+               ("musicgen-medium", {})]
 
 
 def grad_tol(arch):
@@ -110,11 +146,9 @@ def _both(arch, changes):
                          ids=[m[0] for m in LOSS_MODELS])
 def test_loss_and_grads_match_reference(arch, changes):
     jm, tm, jp, tp = _both(arch, changes)
-    toks = tokens((2, 17), tm.cfg.vocab, 2)
-    jbatch = {"tokens": jnp.asarray(toks[:, :-1]),
-              "targets": jnp.asarray(toks[:, 1:])}
-    batch = {"tokens": torch.from_numpy(toks[:, :-1]),
-             "targets": torch.from_numpy(toks[:, 1:])}
+    nb = lm_batch(tm.cfg, (2,), 16, 2)
+    jbatch = {k: jnp.asarray(v) for k, v in nb.items()}
+    batch = {k: torch.from_numpy(v) for k, v in nb.items()}
     (jloss, jaux), jgrads = jax.jit(jax.value_and_grad(
         jm.loss_fn, has_aux=True))(jp, jbatch)
     params = {k: v.clone().requires_grad_(True) for k, v in tp.items()}
@@ -143,6 +177,19 @@ def test_chunked_ce_from_hidden_matches_reference():
     assert rel_err(got, want) <= STEP_TOL
 
 
+def test_chunked_codebook_ce_from_hidden_matches_reference():
+    """The same for the reduced audio LM's four codebook heads: chunks of
+    5 positions of [B, chunk, n_cb, Vp] logits and [B, chunk, n_cb]
+    targets, and the remainder."""
+    jm, tm, jp, tp = _both("musicgen-medium", {})
+    x = np.random.default_rng(8).normal(size=(2, 12, 256)).astype(np.float32)
+    targets = tokens((2, 12, 4), tm.cfg.vocab, 9)
+    want = jm._ce_from_hidden(jp, jnp.asarray(x), jnp.asarray(targets), 5)
+    got = tm._ce_from_hidden(tp, torch.from_numpy(x),
+                             torch.from_numpy(targets), 5)
+    assert rel_err(got, want) <= STEP_TOL
+
+
 # ------------------------------------------------------------- one round
 C, H, B, S = 4, 2, 2, 16          # tests/test_fl_round.py's setup
 ROUND_COMPRESSION = {
@@ -154,7 +201,7 @@ ROUND_COMPRESSION = {
 def _round_setup(client_exec, comp, arch="paper-charlm",
                  changes=SMALL_CHARLM):
     jm, tm, jp, tp = _both(arch, changes)
-    toks = tokens((C, H, B, S + 1), tm.cfg.vocab, 1)
+    nb = lm_batch(tm.cfg, (C, H, B), S, 1)
     kw = dict(num_clients=C, local_steps=H, client_lr=0.1,
               client_exec=client_exec)
     cc = ROUND_COMPRESSION[comp]
@@ -162,10 +209,8 @@ def _round_setup(client_exec, comp, arch="paper-charlm",
     fl = FLConfig(compression=CompressionConfig(**cc), **kw)
     w = np.random.default_rng(5).uniform(1, 3, C).astype(np.float32)
     m = np.array([1, 1, 0, 1], np.float32)           # one client cut
-    jb = {"tokens": jnp.asarray(toks[..., :-1]),
-          "targets": jnp.asarray(toks[..., 1:])}
-    tb = {"tokens": torch.from_numpy(toks[..., :-1]),
-          "targets": torch.from_numpy(toks[..., 1:])}
+    jb = {k: jnp.asarray(v) for k, v in nb.items()}
+    tb = {k: torch.from_numpy(v) for k, v in nb.items()}
     return jm, tm, jp, tp, jfl, fl, jb, tb, w, m
 
 
@@ -257,8 +302,11 @@ def test_charlm_compressed_round_matches_reference(client_exec):
 # under the round's transforms: the hybrid (the scan's two
 # autograd.Functions under vmap(grad_and_value) in parallel mode, under
 # grad_and_value in sequential mode), the MoE (its sort-based dispatch
-# under vmap) and the xLSTM (the sLSTM's loop over time)
-FAMILY_ROUNDS = ["jamba-1.5-large-398b", "qwen3-moe-235b-a22b", "xlstm-125m"]
+# under vmap), the xLSTM (the sLSTM's loop over time), the VLM (each
+# client's patches [C, H, B, n_patches, D] under vmap) and the audio LM
+# (the codebooks' embedding sum under vmap)
+FAMILY_ROUNDS = ["jamba-1.5-large-398b", "qwen3-moe-235b-a22b", "xlstm-125m",
+                 "llama-3.2-vision-90b", "musicgen-medium"]
 
 
 @pytest.mark.parametrize("client_exec", ["parallel", "sequential"])
