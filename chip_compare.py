@@ -4,6 +4,8 @@
 training rounds, and the host's cost of a kernel launch.
 
     python3 chip_compare.py --parent DIR [--profile] [--host]
+    python3 chip_compare.py --paths DIR [DIR ...]
+    python3 chip_compare.py --xlstm-gaps SEED [SEED ...]
 
 ``--parent DIR``: DIR is another checkout of the repository (for example a
 ``git archive`` of the parent commit unpacked into a git-ignored
@@ -33,6 +35,31 @@ calls) of each piece of a kernel wrapper's path into CUDA (its checks, the
 output's allocation, the stream's handle, the ctypes launch), of the whole
 ``fused_accum`` wrapper, and of the ``einsum`` that computes the same sum,
 on a small stack.
+
+``--paths DIR [DIR ...]``: the host-bound training paths of this tree and
+the other checkouts in turns (this tree, each DIR, the DIRs again in
+reverse, this tree), each run a process of its own: the launcher's
+default sync round (``chip_smoke.MAIN_ARGS``), the async per-event and
+batched engines and the event-window engine (``ASYNC_ARGS``,
+``WINDOW_ARGS``: 6 commits each), and the hierarchy in its async/async
+and sync/sync forms (``HIER_FLAGS``: 3 epochs).  Each run prints the wall
+of every round, commit (the sum of its ``phase_wall`` seconds) or epoch,
+then a table of each path's median over the warm ones (the first left
+out).  Each run also trains one CIFAR CNN client (5 steps, batch 16) as
+lane 0 of stacked calls of 8, 4, 2 and 1 lanes and as the per-event
+engine trains it (``build_client_update_step``), and prints the largest
+|difference| of its delta against the 8-lane call: 0 where the tree
+computes a lane alike whatever the lane count.
+
+``--xlstm-gaps SEED [SEED ...]``: xlstm-125m whole in bfloat16 on the
+card, on the port's init drawn on the CPU from each seed (so the CPU sees
+the same bits), decoding 16 teacher-forced tokens (numpy's generator of
+``seed + 1``) after a 512-token prompt at batch 2: max |decode - prefill|
+/ max |prefill| at the first and the last decoded token (the numbers that
+``tests/test_torch_xlstm_bf16.py --whole --port-weights`` prints for both
+packages on the CPU), and each of the two against the float32 model's
+prefill on the same weights; on the card once with PyTorch's default bf16
+GEMMs and once with their split reductions kept in float32.
 
 Every run prints the card's name and power limit (``nvidia-smi``).
 """
@@ -91,6 +118,160 @@ for name, R, live in {leaves}:
     small[name] = a.elapsed_time(b) / 100
 print("SMALL " + json.dumps(small))
 """
+
+
+PATHS = """
+import json, os, statistics, sys, time
+sys.path.insert(0, {tree!r})
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+import chip_smoke as cs
+import torch
+from repro_torch.core.async_round import build_client_update_step
+from repro_torch.core.round import FLConfig, build_local_train
+from repro_torch.launch import train
+from repro_torch.models.cnn import CIFAR_CNN, CNN
+from repro_torch.optim import get_client_optimizer
+torch.backends.cudnn.allow_tf32 = False
+torch.backends.cuda.matmul.allow_tf32 = False
+cs.build()
+# one client's delta as lane 0 of 8, 4, 2 and 1 stacked lanes and as the
+# per-event engine trains it, each against the 8-lane call
+model, opt = CNN(CIFAR_CNN), get_client_optimizer("sgd")
+g = torch.Generator("cuda").manual_seed(0)
+params = model.init(g, "cuda")
+fl = FLConfig(num_clients=8, local_steps=5, client_lr=0.01)
+batches = {{"image": torch.randn(8, 5, 16, 32, 32, 3, generator=g,
+                                 device="cuda"),
+           "label": torch.randint(0, 10, (8, 5, 16), generator=g,
+                                  device="cuda")}}
+stacked = build_local_train(model.loss_fn, opt, fl, stacked=True)
+lane0 = {{n: stacked(params, {{k: v[:n] for k, v in batches.items()}})[0]
+         for n in (8, 4, 2, 1)}}
+one = build_client_update_step(model.loss_fn, opt, fl)(
+    params, {{k: v[0] for k, v in batches.items()}})[0]
+gap = lambda d: max((d[k] - lane0[8][k][0]).abs().max().item() for k in d)
+lanes = {{f"{{n}} lanes": gap({{k: v[0] for k, v in lane0[n].items()}})
+          for n in (4, 2, 1)}}
+lanes["per-event"] = gap(one)
+print("LANES " + json.dumps(lanes))
+runs = {{
+    "sync_default": cs.MAIN_ARGS,
+    "async_per_event": cs.ASYNC_ARGS,
+    "async_batched": cs.ASYNC_ARGS + ["--engine", "batched"],
+    "window_default": cs.WINDOW_ARGS,
+    "hier_async_async": cs.ASYNC_ARGS + ["--inter-facility-mode", "async",
+                                         "--inter-buffer", "2"]
+                        + cs.HIER_FLAGS,
+    "hier_sync_sync": cs.MAIN_ARGS + cs.HIER_FLAGS,
+}}
+for name, argv in runs.items():
+    args = train.build_parser().parse_args(argv)
+    if args.facilities:
+        walls = cs.run_hier(args)[3]
+    else:
+        orch, _, _ = train.run(args)
+        torch.cuda.synchronize()
+        s = train.summarize(args, orch)
+        walls = s.get("round_wall_s") or [
+            sum(v for k, v in pw.items() if k != "host_syncs")
+            for pw in s["phase_wall"]]
+    print("WALLS " + json.dumps({{name: walls}}))
+"""
+
+
+def run_paths(tree: Path, label: str) -> dict:
+    """``PATHS`` in ``tree``, in a process of its own: the lane gaps and
+    each path's walls."""
+    proc = subprocess.run([sys.executable, "-c", PATHS.format(tree=str(tree))],
+                          cwd=tree, capture_output=True, text=True,
+                          timeout=900)
+    if proc.returncode:
+        raise SystemExit(f"{label}: exit {proc.returncode}\n"
+                         f"{proc.stdout[-3000:]}{proc.stderr[-3000:]}")
+    out = {"walls": {}}
+    for line in proc.stdout.splitlines():
+        if line.startswith("LANES "):
+            out["lanes"] = json.loads(line[6:])
+        elif line.startswith("WALLS "):
+            out["walls"].update(json.loads(line[6:]))
+    print(f"  [{label}] lane 0 against the 8-lane call, max |diff|: "
+          f"{out['lanes']}")
+    for name, walls in out["walls"].items():
+        print(f"  [{label}] {name}: " + " ".join(f"{w:.6f}" for w in walls))
+    return out
+
+
+def compare_paths(others: list) -> None:
+    trees = [(ROOT, "this")] + [(p, p.name) for p in others]
+    order = trees + trees[1:][::-1] + [trees[0]]
+    runs = []
+    for i, (tree, name) in enumerate(order):
+        label = f"{i + 1}-{name}"
+        print(f"run {label}: {tree}")
+        runs.append((label, run_paths(tree, label)))
+    print("median wall s over the warm rounds, commits or epochs, runs in "
+          "order: " + "  ".join(label for label, _ in runs))
+    for name in runs[0][1]["walls"]:
+        meds = [statistics.median(r["walls"][name][1:]) for _, r in runs]
+        print(f"  {name:18s} " + "  ".join(f"{m:.6f}" for m in meds))
+    print("PATHS " + json.dumps({label: r for label, r in runs}))
+
+
+def xlstm_gaps(seeds, device="cuda") -> None:
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("xlstm-125m").replace(dtype="bfloat16")
+    model, f32 = build_model(cfg), build_model(cfg.replace(dtype="float32"))
+    batch, s0, at = 2, 512, (0, 15)
+    S = s0 + max(at) + 1
+    # the card's bf16 GEMMs as PyTorch sets them by default, then with
+    # their split reductions kept in float32
+    modes = [("default", None)]
+    if device == "cuda":
+        modes.append(("bf16 reductions in f32", False))
+    mm = torch.backends.cuda.matmul
+
+    def rel(got, want):
+        got, want = got.float(), want.float()
+        return ((got - want).abs().max() / want.abs().max()).item()
+
+    for seed in seeds:
+        cpu = model.init(torch.Generator().manual_seed(seed))
+        params, wide = _to(cpu, device), _to(cpu, device, torch.float32)
+        toks = torch.from_numpy(np.random.default_rng(seed + 1).integers(
+            0, cfg.vocab, (batch, S)).astype(np.int32)).long().to(device)
+        with torch.inference_mode():
+            truth = {t: f32.prefill(wide, {"tokens": toks[:, :s0 + t + 1]},
+                                    S)[0] for t in at}
+            for mode, reduced in modes:
+                keep = mm.allow_bf16_reduced_precision_reduction
+                if reduced is not None:
+                    mm.allow_bf16_reduced_precision_reduction = reduced
+                dec, pre = {}, {}
+                lg, state = model.prefill(params, {"tokens": toks[:, :s0]}, S)
+                for t in range(max(at) + 1):
+                    lg, state = model.decode_step(params, state,
+                                                  toks[:, s0 + t], s0 + t)
+                    if t in at:
+                        dec[t] = lg
+                        pre[t] = model.prefill(
+                            params, {"tokens": toks[:, :s0 + t + 1]}, S)[0]
+                mm.allow_bf16_reduced_precision_reduction = keep
+                print("XLSTM_GAPS " + json.dumps({
+                    "seed": seed, "mode": mode,
+                    "port_gaps": [rel(dec[t], pre[t]) for t in at],
+                    "decode_vs_f32": [rel(dec[t], truth[t]) for t in at],
+                    "prefill_vs_f32": [rel(pre[t], truth[t]) for t in at]}),
+                    flush=True)
+
+
+def _to(tree, device, dtype=None):
+    return {k: _to(v, device, dtype) if isinstance(v, dict)
+            else v.to(device, dtype) for k, v in tree.items()}
 
 
 def run_phases(tree: Path, label: str) -> dict:
@@ -251,6 +432,9 @@ def main(argv=None) -> int:
     ap.add_argument("--parent", type=Path, help="another checkout to compare")
     ap.add_argument("--profile", action="store_true")
     ap.add_argument("--host", action="store_true")
+    ap.add_argument("--paths", type=Path, nargs="+", metavar="DIR",
+                    help="other checkouts whose training paths to time")
+    ap.add_argument("--xlstm-gaps", type=int, nargs="+", metavar="SEED")
     args = ap.parse_args(argv)
     sys.path.insert(0, str(ROOT))
     import torch
@@ -262,6 +446,10 @@ def main(argv=None) -> int:
     print(f"nvidia-smi: {cs.nvidia_smi()}")
     if args.parent:
         compare(args.parent.resolve())
+    if args.paths:
+        compare_paths([p.resolve() for p in args.paths])
+    if args.xlstm_gaps:
+        xlstm_gaps(args.xlstm_gaps)
     if args.host:
         host_costs()
     if args.profile:

@@ -70,7 +70,9 @@ it happened; any failure ends the run with a non-zero exit code:
      deltas, staleness [0, 1, 2, 3, 0, 5, 1, 20], the exponent 0.5 and the
      adaptive controller's first alpha, for the default, q8 + top-k
      (deterministic and stochastic, the same generator draws), secure q8 +
-     top-k and chunked (4 of 8) commits and two partial buffers, to 1e-4;
+     top-k and chunked (4 of 8) commits and two partial buffers, to 1e-4,
+     and the secure commits' slot weights ``w_eff`` card against CPU,
+     bitwise;
      (b) ``train.run`` with ``--mode async`` on cuda at full CIFAR width
      (60-client pool, 16 in flight, buffer 8, 5 local steps, batch 16, 6
      commits) for the default, q8 + top-k, secure q8 + top-k, chunked,
@@ -118,7 +120,8 @@ it happened; any failure ends the run with a non-zero exit code:
      pass of the prefill and the VLM's cross layers' share of it; then the
      serving command line (reduced, on cuda) through ``serve.main`` for
      Jamba, the VLM and the audio family;
-  8. train the LMs (``lm_train``) through ``build_fl_round_step``: (a) the
+  8. train the LMs (``lm_train``) through ``build_fl_round_step``, every
+     round rematerialising each layer group (``LM.loss_fn``): (a) the
      reduced Jamba (f32; Mamba + MLP, attention + MoE) in parallel and
      sequential rounds, the reduced Qwen3-MoE and the reduced xLSTM in
      parallel rounds, each on the card against the CPU (4 clients, 2
@@ -131,7 +134,8 @@ it happened; any failure ends the run with a non-zero exit code:
      bf16, cut to 2 layers and 2 experts (below): 2 sequential rounds of
      2 clients, 2 local steps, batch 1 of 1024 tokens, with the round
      wall, the peak memory and the scan's and its backward's launches
-     (8 chunks x steps x clients a round) exact; (c) xlstm-125m whole in
+     (8 chunks x steps x clients a round, the scan twice: forward and
+     recompute) exact; (c) xlstm-125m whole in
      bf16: 2 parallel rounds of 4 clients, 2 local steps, batch 4 of 256
      tokens, with the round wall, the peak memory and the sLSTM's share
      of a local step; then serving a 512-token prompt at batch 2 and 16
@@ -139,8 +143,24 @@ it happened; any failure ends the run with a non-zero exit code:
      teacher-forced prefill in float32 on the same weights (the bf16 gap
      printed); (d) MusicGen-medium whole in bf16: 2 parallel rounds of 2
      clients, 2 local steps, batch 2 of 512 frames x 4 codebooks, with
-     the round wall, the peak memory, the finite loss and one fused_accum
-     a round.
+     the round wall, the peak memory (beside the 55.02 GB of the same
+     round before the remat), the finite loss and one fused_accum a round; (e)
+     Llama-3.2-Vision-90B at every published width cut to one [attn,
+     cross] group (3,812,663,296 params, bf16): 2 sequential rounds of 2
+     clients, 2 local steps, batch 1 of 1024 tokens with (1, 1601, 8192)
+     patches, with the round wall, the peak memory and the finite loss (a
+     round that does not fit is reported with its peak and the failed
+     allocation);
+  9. the mesh layer on one card (``mesh``): (a) a default CIFAR CNN round
+     at full width (20 clients, 2 local steps, batch 16) and a reduced
+     Jamba round under the 1x1 ``make_test_mesh()`` with
+     ``client_spmd_axes="data"``, each bit for bit against the same round
+     with no mesh (deterministic algorithms on), after the parallel round
+     without ``client_spmd_axes`` is refused as in the reference; (b)
+     ``python -m repro_torch.launch.dryrun`` for a dense, an MoE and a
+     hybrid arch over every input shape on both production meshes, one
+     line a tag, on the meta device: the card's allocated memory is held
+     unchanged.
 The last lines are the kernels' JSON record, the nvidia-smi line, and
 ``{"ok": true, "device": {...}}``.
 """
@@ -149,6 +169,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import functools
 import io
 import json
 import math
@@ -378,8 +399,10 @@ ASYNC_PARITY = {
 # Each configuration: flags, launches a commit, and the params tolerance
 # against the batched engine.  The window engine trains only the buffered
 # updates at a commit, so its buckets hold other clients than the batched
-# engine's and the deltas differ in float32 rounding (a stacked lane's
-# result depends on the bucket's lane count).  An uncompressed commit is
+# engine's, and on the card the deltas differ in float32 rounding (a
+# stacked lane's result depends on the bucket's lane count there, by up to
+# 6e-8 in a CIFAR CNN client's delta, ``chip_compare.py --paths``; on the
+# CPU it does not, and the tests hold the engines bit for bit).  An uncompressed commit is
 # continuous in them: 1e-5.  Under top-k and rounding such a difference
 # turns into another kept entry or grid point, and later commits train
 # on it, so six compressed commits differ by what those flips add up to
@@ -480,11 +503,15 @@ XLSTM_SERVE = dict(batch=2, prompt_len=512, gen=16)
 # (an mLSTM recurrent step against a chunk of one) and, through the GEMMs'
 # shapes, in rounding everywhere; 12 recurrent blocks amplify that: in
 # float32 the gap is 1.1e-5 on the CPU (7.3e-6 in the reference), while
-# in bf16 one-ulp differences grow to 2-10% of the logit scale on the CPU
-# in both packages (the reference 1.9% and 3.3% at two inits, the port
-# 0-10%), and further on the card.  A wrong state moves the logits by
-# their whole scale.
+# in bf16 one-ulp differences grow through the blocks: at this width both
+# packages' gaps on the CPU spread over 0.04-0.49 of the logit scale (the
+# port's at most 0.340 over 13 inits, tests/test_torch_xlstm_bf16.py).  A
+# wrong state moves the logits by their whole scale.  The bf16 gap is held
+# to XLSTM_BF16_DECODE_TOL, the port's largest on the CPU: on the card
+# with the bf16 GEMMs' split reductions in bf16 (PyTorch's default, which
+# main turns off) a decode step and the prefill round apart by 0.19-0.94.
 XLSTM_DECODE_TOL = 1e-3
+XLSTM_BF16_DECODE_TOL = 0.35
 
 # The VLM and the audio family.  lm_serve (a) holds their reduced LMs
 # (the VLM's [attn + mlp, cross + mlp] over 16 patches, the audio LM's 4
@@ -495,16 +522,21 @@ LM_SERVE_PARITY = (JAMBA, "llama-3.2-vision-90b", "musicgen-medium")
 # heads / 8 KV of head_dim 128, d_ff 28672, vocab 128256, 1601 image
 # patches, rope theta 5e5, bf16.  Cut to one 80 GB card in depth only:
 # 27,770,986,496 params, 55.5 GB in bf16.  Batch 2, a 2032-token prompt
-# and (2, 1601, 8192) patches, 16 greedy decode steps.  It does not train
-# at full width here: its smallest cut that keeps the pattern, [attn,
-# cross] (3,812,663,296 params), is larger than the cut Jamba, whose
-# sequential round already peaks at 69.46 GB (PERF.md).
+# and (2, 1601, 8192) patches, 16 greedy decode steps.  lm_train (e)
+# trains its smallest cut that keeps the pattern at every published width:
+# one [attn, cross] group (cross_attn_every 5 -> 2, as reduced() cuts it),
+# 3,812,663,296 params, in 2 sequential rounds of 2 clients, 2 local
+# steps, batch 1 of 1024 tokens with (1, 1601, 8192) patches.
 VLM = "llama-3.2-vision-90b"
 VLM_SERVE_LAYERS = 30
 VLM_SERVE_PARAMS = 27_770_986_496
 VLM_SERVE_CUTS = ("depth 100 -> 30 (six whole periods of [attn + mlp x 4, "
                   "cross + mlp]: the share of cross layers kept)",)
 VLM_SERVE = dict(batch=2, prompt_len=2032, gen=16)
+VLM_TRAIN_PARAMS = 3_812_663_296
+VLM_TRAIN = dict(rounds=2, C=2, H=2, B=1, S=1024)
+VLM_TRAIN_CUTS = ("depth 100 -> 2 (cross_attn_every 5 -> 2: one [attn + "
+                  "mlp, cross + mlp] group)",)
 # (c) and lm_train (b): MusicGen-medium (arXiv:2306.05284) whole: 48
 # layers, d_model 1536, 24 heads (MHA), d_ff 6144, 4 codebooks of 2048,
 # bf16, 1,384,269,312 params.  Serving: batch 2, a 500-frame prompt (10 s
@@ -516,6 +548,22 @@ AUDIO = "musicgen-medium"
 AUDIO_PARAMS = 1_384_269_312
 AUDIO_SERVE = dict(batch=2, prompt_len=500, gen=16)
 AUDIO_TRAIN = dict(rounds=2, C=2, H=2, B=2, S=512)
+# MusicGen-medium's parallel round peak without the per-group remat, on an
+# H100 80GB HBM3 at 700 W (measured before the remat existed).  Under the
+# remat the round's peak lies in the commit, which packs the clients'
+# deltas into an f32 stack, not in local training.  So lm_train (d) also
+# measures local training alone, with and without the remat, and holds
+# the remat's peak below the other.
+AUDIO_PEAK_NO_REMAT = 55.02e9
+
+# The mesh phase: the 1x1 test mesh's rounds (a default CIFAR CNN round at
+# full width and a reduced-Jamba round, each bit for bit against the same
+# round with no mesh), then the dry run of a dense, an MoE and a hybrid
+# arch over every input shape on both production meshes (the whole grid
+# takes minutes on the host: PERF.md).
+MESH_ROUND = dict(C=20, H=2, B=16)
+MESH_LM_ROUND = dict(C=4, H=2, B=2, S=64)
+DRYRUN_ARCHS = ("granite-3-2b", "qwen3-moe-235b-a22b", JAMBA)
 
 # The CIFAR CNN's leaves other than dense1_w as the per-leaf kernels see
 # them, 20 clients blocked by 256 (last dim zero-padded): name, rows, live
@@ -1403,12 +1451,13 @@ def scan_chunks(model, S: int) -> int:
 
 
 def train_launches(model, mode, C, H, S) -> dict:
-    """The kernels local training launches: the scan and its backward once
-    per chunk per Mamba layer per local step, for all C clients at once
+    """The kernels local training launches: per chunk per Mamba layer per
+    local step, the scan twice (the forward, and the recompute of the
+    per-group remat) and its backward once, for all C clients at once
     (parallel: vmap folds the clients into the scan's batch) or for each
     client in turn (sequential)."""
     n = scan_chunks(model, S) * H * (C if mode == "sequential" else 1)
-    return {"selective_scan": n, "selective_scan_bwd": n} if n else {}
+    return {"selective_scan": 2 * n, "selective_scan_bwd": n} if n else {}
 
 
 def commit_launches(mode, kernel, n_leaves, C) -> dict:
@@ -1800,8 +1849,30 @@ def check_async_commit_parity(device="cuda", k=ASYNC_K, tol=1e-4, seed=3):
             check(err <= tol, f"{label}: the card differs from the CPU by "
                               f"{err:.3g} > {tol}")
             worst[f"{cname}, {aname}"] = err
+            if fl.secure_agg:
+                compare_slot_weights(label, fl, w, m, losses, stal, alpha,
+                                     device)
     launches.reset()
     return worst
+
+
+def compare_slot_weights(label, fl, w, m, losses, stal, alpha, device):
+    """The secure commit's discounted slot weights ``w_eff`` (the
+    pipeline's ``client_weights``: each device's own ``pow``) computed on
+    the card and on the CPU from the same inputs, compared bitwise: the
+    slots whose weights differ and by how many float32 steps."""
+    from repro_torch.core.pipeline import build_update_pipeline
+    pipe = build_update_pipeline(fl)
+    got = {dev: pipe.client_weights(w.to(dev), m.to(dev), losses.to(dev),
+                                    stal.to(dev), alpha)[0].cpu()
+           for dev in (device, "cpu")}
+    a, b = got[device], got["cpu"]
+    steps = (a.view(torch.int32).long() - b.view(torch.int32).long()).abs()
+    diff = [int(i) for i in torch.nonzero(a != b).flatten()]
+    print(f"{label}: w_eff card against CPU bitwise: {len(diff)} of "
+          f"{len(a)} slots differ (slots {diff}, staleness "
+          f"{[float(stal[i]) for i in diff]}), by at most "
+          f"{int(steps.max())} float32 steps")
 
 
 def attempt_times(orch):
@@ -2701,7 +2772,7 @@ def lm_rounds(label, model, params, fl, batches, device, rounds, tokens,
           f", {fl.local_steps} local steps, {tokens}), round walls {walls}, "
           f"max_memory_allocated={peak} ({peak / 1e9:.2f} GB), "
           f"launches={counts}")
-    return params, counts
+    return params, counts, peak
 
 
 def train_jamba_full_width(device="cuda", cfg=None,
@@ -2723,10 +2794,11 @@ def train_jamba_full_width(device="cuda", cfg=None,
     fl = FLConfig(num_clients=C, local_steps=H, client_lr=0.01,
                   client_exec="sequential")
     batches = round_batches(cfg, sh["rounds"], C, H, B, S, 1, device)
-    params, counts = lm_rounds("jamba", model, params, fl, batches, device,
-                               sh["rounds"], f"batch {B} of {S} tokens")
-    n_scan = scan_chunks(model, S) * H * C * sh["rounds"]
-    expect = {"selective_scan": n_scan, "selective_scan_bwd": n_scan}
+    params, counts, _ = lm_rounds("jamba", model, params, fl, batches,
+                                  device, sh["rounds"],
+                                  f"batch {B} of {S} tokens")
+    expect = {k: n * sh["rounds"] for k, n in
+              train_launches(model, "sequential", C, H, S).items()}
     check(counts == expect, f"lm train jamba: launches {counts}, expected "
                             f"{expect}")
     del model, params, batches
@@ -2738,22 +2810,31 @@ def slstm_share(model, params, batch, device, reps=1):
     """The sLSTM's share of a local step: the host seconds of one
     ``vmap(grad_and_value)`` step of the whole loss over the stacked
     clients, against those of the model's sLSTM mixers alone under the
-    same transform on inputs of the same shape (each to a sync, the
-    fastest of ``reps``)."""
+    same transform on inputs of the same shape, each mixer rematerialised
+    as the loss's layer groups are (each to a sync, the fastest of
+    ``reps``)."""
     from torch.func import grad_and_value, vmap
+    from repro_torch.models.transformer import _GroupRemat
     cfg = model.cfg
     C, _, B, S = batch["tokens"].shape
     stacked = {k: v.expand((C, *v.shape)) for k, v in params.items()}
     names = [k for k in params if "/slstm/" in k]
     x = torch.randn((C, B, S, cfg.d_model), device=device).to(model.dtype)
 
+    def mixer(x, aux, positions, patches, leaves, keys):
+        out, _ = xlstm_mod.slstm_apply(dict(zip(keys, leaves)), x,
+                                       n_heads=cfg.n_heads)
+        return out, aux.view_as(aux)       # an output, not the input itself
+
     def mixers(p, x):
-        total = 0.0
+        total = torch.zeros((), device=x.device)
         for g in range(model.n_groups):
             for k in {n.rsplit("/", 1)[0] for n in names}:
-                out, _ = xlstm_mod.slstm_apply(
-                    {n.rsplit("/", 1)[1]: p[n][g] for n in names
-                     if n.startswith(k + "/")}, x, n_heads=cfg.n_heads)
+                own = [n for n in names if n.startswith(k + "/")]
+                keys = [n.rsplit("/", 1)[1] for n in own]
+                out, _ = _GroupRemat.apply(
+                    lambda *a, keys=keys: mixer(*a, keys=keys), x,
+                    total, None, None, *(p[n][g] for n in own))
                 total = total + out.float().sum()
         return total
 
@@ -2835,8 +2916,8 @@ def xlstm_whole(device="cuda", cfg=None, n_params=XLSTM_PARAMS, train=None,
     C, H, B, S = sh["C"], sh["H"], sh["B"], sh["S"]
     fl = FLConfig(num_clients=C, local_steps=H, client_lr=0.01)
     batches = round_batches(cfg, sh["rounds"], C, H, B, S, 2, device)
-    _, counts = lm_rounds("xlstm", model, params, fl, batches, device,
-                          sh["rounds"], f"batch {B} of {S} tokens")
+    _, counts, _ = lm_rounds("xlstm", model, params, fl, batches, device,
+                             sh["rounds"], f"batch {B} of {S} tokens")
     check(counts == {"fused_accum": sh["rounds"]},
           f"lm train xlstm: launches {counts}")
     slstm_share(model, params, batches(0), device)
@@ -2844,11 +2925,13 @@ def xlstm_whole(device="cuda", cfg=None, n_params=XLSTM_PARAMS, train=None,
                            generator=torch.Generator(device).manual_seed(3),
                            device=device)
     launches.reset()
-    serve_decode_gaps(f"xlstm ({cfg.dtype})", model, nested, prompt,
-                      sv["gen"])
-    # The held comparison runs in float32 on the same weights: in bf16 the
-    # two paths' one-ulp differences grow through 12 recurrent blocks (see
-    # XLSTM_DECODE_TOL), so the bf16 gap is printed, not held.
+    gaps, _ = serve_decode_gaps(f"xlstm ({cfg.dtype})", model, nested,
+                                prompt, sv["gen"])
+    check(max(gaps.values()) <= XLSTM_BF16_DECODE_TOL,
+          f"lm serve xlstm: bf16 decoding differs from prefill by {gaps} > "
+          f"{XLSTM_BF16_DECODE_TOL}")
+    # The tight comparison runs in float32 on the same weights (see
+    # XLSTM_DECODE_TOL).
     f32 = build_model(cfg.replace(dtype="float32"))
     wide = nest({k: v.float() for k, v in flat_dict(nested).items()})
     gaps, _ = serve_decode_gaps("xlstm (float32)", f32, wide, prompt,
@@ -2862,6 +2945,28 @@ def xlstm_whole(device="cuda", cfg=None, n_params=XLSTM_PARAMS, train=None,
     del model, nested, params, batches
     free_cache(device)
     return counts
+
+
+def local_train_peak(model, params, fl, batch, device, remat: bool) -> int:
+    """The peak memory of one parallel local training (the round's
+    ``train_clients``, its deltas then dropped) with or without the
+    per-group remat (``LM._backbone``'s ``remat``)."""
+    step = build_fl_round_step(model.loss_fn, get_client_optimizer("sgd"),
+                               get_server_optimizer("fedavg"), fl)
+    model._backbone = functools.partial(type(model)._backbone, model,
+                                        remat=remat)
+    cuda = torch.device(device).type == "cuda"
+    try:
+        free_cache(device)
+        sync(device)
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        out = step.train_clients(params, batch)
+        sync(device)
+        del out
+        return torch.cuda.max_memory_allocated() if cuda else 0
+    finally:
+        del model._backbone
 
 
 def train_audio_whole(device="cuda", cfg=None, n_params=AUDIO_PARAMS,
@@ -2888,11 +2993,25 @@ def train_audio_whole(device="cuda", cfg=None, n_params=AUDIO_PARAMS,
     fl = FLConfig(num_clients=C, local_steps=H, client_lr=0.01)
     batches = round_batches(cfg, sh["rounds"], C, H, B, S, 4, device)
     kept = {}
-    _, counts = lm_rounds(
+    _, counts, peak = lm_rounds(
         "audio", model, params, fl, batches, device, sh["rounds"],
         f"batch {B} of {S} frames x {cfg.n_codebooks} codebooks", kept=kept)
     check(counts == {"fused_accum": sh["rounds"]},
           f"lm train audio: launches {counts}")
+    print(f"lm train audio: the round's peak under the per-group remat "
+          f"{peak / 1e9:.2f} GB against {AUDIO_PEAK_NO_REMAT / 1e9:.2f} GB "
+          f"without it (before the remat)")
+    train_peaks = {remat: local_train_peak(model, params, fl, batches(0),
+                                           device, remat)
+                   for remat in (True, False)}
+    print(f"lm train audio: local training alone (one train_clients call), "
+          f"max_memory_allocated with the per-group remat "
+          f"{train_peaks[True]} ({train_peaks[True] / 1e9:.2f} GB), without "
+          f"{train_peaks[False]} ({train_peaks[False] / 1e9:.2f} GB)")
+    check(not torch.device(device).type == "cuda"
+          or train_peaks[True] < train_peaks[False],
+          f"lm train audio: local training peaks at {train_peaks} bytes, "
+          f"no lower with the remat")
     del model, params, batches
     deltas = kept.pop("deltas")
     xb, _, _ = kops.pack_blocks(list(deltas.values()), BLOCK)
@@ -2917,16 +3036,150 @@ def train_audio_whole(device="cuda", cfg=None, n_params=AUDIO_PARAMS,
     return counts
 
 
+def vlm_train_cut():
+    """Llama-3.2-Vision-90B at every published width, cut to one [attn,
+    cross] group (VLM_TRAIN_CUTS)."""
+    return get_config(VLM).replace(n_layers=2, cross_attn_every=2)
+
+
+def train_vlm_full_width(device="cuda", cfg=None, n_params=VLM_TRAIN_PARAMS,
+                         **shape):
+    """lm_train (e): the VLM's [attn, cross] cut in bf16 through sequential
+    rounds of the default commit (no kernel: the sequential commit folds
+    each client with no launch).  The round fits on one 80 GB card
+    (PERF.md), so running out of memory fails the phase."""
+
+    sh = {**VLM_TRAIN, **shape}
+    cfg = cfg or vlm_train_cut()
+    free_cache(device)
+    model, params = serve.build(cfg, device, seed=0)
+    params = flat_dict(params)
+    n = sum(v.numel() for v in params.values())
+    print(f"lm train: {cfg.name} at every published width in {cfg.dtype}, "
+          f"cut: {'; '.join(VLM_TRAIN_CUTS)}: {n} params")
+    check(n_params is None or n == n_params,
+          f"lm train vlm: {n} params, expected {n_params}")
+    C, H, B, S = sh["C"], sh["H"], sh["B"], sh["S"]
+    fl = FLConfig(num_clients=C, local_steps=H, client_lr=0.01,
+                  client_exec="sequential")
+    batches = round_batches(cfg, sh["rounds"], C, H, B, S, 5, device)
+    _, counts, _ = lm_rounds(
+        "vlm", model, params, fl, batches, device, sh["rounds"],
+        f"batch {B} of {S} tokens with ({B}, {cfg.n_patches}, "
+        f"{cfg.d_model}) patches")
+    check(counts == {}, f"lm train vlm: launches {counts}")
+    del model, params, batches
+    free_cache(device)
+    return counts
+
+
 def lm_train():
     """Phase lm_train: (a) the reduced LMs' rounds on the card against
     the CPU; (b) the cut Jamba at full width; (c) xlstm-125m whole; (d)
-    MusicGen-medium whole."""
+    MusicGen-medium whole; (e) the VLM's [attn, cross] cut at full
+    width.  Every round rematerialises each layer group."""
     for arch, modes in LM_TRAIN_PARITY:
         check_lm_round_parity(C=4, H=2, B=2, S=64, cfg=reduced(
             get_config(arch)), n_params=None, modes=modes)
     totals = dict(train_jamba_full_width())
     add_counts(totals, xlstm_whole())
     add_counts(totals, train_audio_whole())
+    add_counts(totals, train_vlm_full_width())
+    return totals
+
+
+def mesh_rounds(label, loss_fn, params, fl, batches, w, m, mesh, device):
+    """One round with no mesh, then the same under ``mesh`` with
+    ``client_spmd_axes="data"`` (after the round refuses to build without
+    them), each under deterministic algorithms (the card's scatter-adds
+    otherwise sum in no fixed order); the new params and metrics must be
+    equal, bit for bit.  Returns the meshed round's launches."""
+    from repro_torch.models import sharding as shd
+    opt, server = get_client_optimizer("sgd"), get_server_optimizer("fedavg")
+
+    def run(axes):
+        step = build_fl_round_step(loss_fn, opt, server, fl,
+                                   client_spmd_axes=axes)
+        launches.reset()
+        out = step(params, (), batches, w, m, torch.Generator().manual_seed(2))
+        sync(device)
+        return out, dict(launches.KERNEL_LAUNCHES)
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        (plain, _, pm), _ = run(None)
+        with shd.use_mesh(mesh):
+            try:
+                build_fl_round_step(loss_fn, opt, server, fl)
+                refused = False
+            except ValueError as e:
+                refused = "client_spmd_axes" in str(e)
+            check(refused, f"mesh {label}: a parallel round under the mesh "
+                           f"without client_spmd_axes was not refused")
+            (meshed, _, mm), counts = run("data")
+    finally:
+        torch.use_deterministic_algorithms(False)
+    same = all(torch.equal(meshed[k], plain[k]) for k in plain) and all(
+        torch.equal(mm[k], pm[k]) for k in pm)
+    print(f"mesh {label}: a round under the {mesh.shape} mesh against the "
+          f"same round with no mesh: bit for bit {same}; client_loss "
+          f"{float(mm['client_loss']):.6f}; launches {counts}")
+    check(same, f"mesh {label}: the meshed round differs from the plain one")
+    return counts
+
+
+def mesh_phase(device="cuda", archs=DRYRUN_ARCHS, cnn_round=MESH_ROUND):
+    """Phase mesh: (a) the 1x1 test mesh's rounds against no mesh; (b) the
+    dry run of ``archs``, every shape, both production meshes, on the meta
+    device."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_test_mesh
+    cuda = torch.device(device).type == "cuda"
+    mesh = make_test_mesh(device=torch.device(device).type)
+    check(mesh.shape == {"data": 1, "model": 1} and mesh.devices == (
+        f"{torch.device(device).type}:0",), f"mesh: the test mesh is {mesh}")
+    C, H, B = cnn_round["C"], cnn_round["H"], cnn_round["B"]
+    batches, w, m = round_inputs(C, H, B)
+    on = lambda a: torch.from_numpy(a).to(device)        # noqa: E731
+    fl = dataclasses.replace(train.fl_config(train.build_parser().parse_args(
+        MAIN_ARGS)), num_clients=C, local_steps=H)
+    model = CNN(CIFAR_CNN)
+    params = model.init(torch.Generator().manual_seed(0), device=device)
+    totals = mesh_rounds("cnn default", model.loss_fn, params, fl,
+                         {k: on(v) for k, v in batches.items()}, on(w),
+                         on(m), mesh, device)
+    check(not cuda or totals == {"fused_accum": 1},
+          f"mesh cnn: launches {totals}")
+    cfg = reduced(get_config(JAMBA))
+    C, H, B, S = (MESH_LM_ROUND[k] for k in "CHBS")
+    lm = build_model(cfg)
+    lparams = {k: v.to(device) for k, v in flat_dict(lm.init(
+        torch.Generator().manual_seed(0))).items()}
+    lfl = FLConfig(num_clients=C, local_steps=H, client_lr=0.05)
+    counts = mesh_rounds(
+        "reduced jamba", lm.loss_fn, lparams, lfl,
+        {k: on(v) for k, v in lm_batches(cfg, (C, H, B), S, 3).items()},
+        torch.ones(C, device=device), torch.ones(C, device=device), mesh,
+        device)
+    expect = {**train_launches(lm, "parallel", C, H, S), "fused_accum": 1}
+    check(not cuda or counts == expect, f"mesh jamba: launches {counts}, "
+                                        f"expected {expect}")
+    add_counts(totals, counts)
+    del lparams, params
+    sync(device)
+    held = torch.cuda.memory_allocated() if cuda else 0
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        for arch in archs:
+            out = dryrun.main(["--arch", arch, "--shape", "all", "--mesh",
+                               "both", "--out", tmp])
+            check(all("skipped" in r or r["cost_analysis"]["flops"] > 0
+                      for r in out), f"mesh: dry run of {arch}: {out}")
+    after = torch.cuda.memory_allocated() if cuda else 0
+    print(f"mesh: the dry run of {', '.join(archs)} over every shape "
+          f"and both meshes took {time.perf_counter() - t0:.1f} s; "
+          f"memory_allocated on the card {held} bytes before, {after} after")
+    check(after == held, "mesh: the dry run allocated on the card")
     return totals
 
 
@@ -2940,8 +3193,10 @@ def main() -> int:
         return 2
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     print("TF32 off for cuDNN convolutions and CUDA matmuls: the card "
-          "computes in float32 as the CPU does")
+          "computes in float32 as the CPU does; bf16 matmuls reduce in "
+          "float32, as the launchers set them (train.resolve_device)")
     t_start = time.perf_counter()
     try:
         smi = nvidia_smi()
@@ -2954,7 +3209,8 @@ def main() -> int:
                            ("main_path", drive_main_path),
                            ("async_path", async_path),
                            ("fleet_path", fleet_path),
-                           ("lm_serve", lm_serve), ("lm_train", lm_train)):
+                           ("lm_serve", lm_serve), ("lm_train", lm_train),
+                           ("mesh", mesh_phase)):
             t0 = time.perf_counter()
             phases[phase] = run()
             print(f"phase {phase}: {time.perf_counter() - t0:.1f} s")
@@ -2963,6 +3219,7 @@ def main() -> int:
         add_counts(totals, phases["fleet_path"])
         add_counts(totals, phases["lm_serve"])
         add_counts(totals, phases["lm_train"])
+        add_counts(totals, phases["mesh"])
         for kname, row in rows.items():
             row["launches"] = totals.get(kname, 0)
             check(row["launches"] > 0, f"{kname}: no launch on the main path")

@@ -46,6 +46,7 @@ import torch
 from repro_torch.core.pipeline import (build_update_pipeline,  # noqa: F401
                                        staleness_weights)
 from repro_torch.core.round import FLConfig, build_local_train, global_norm
+from repro_torch.models.common import lane_exact
 from repro_torch.optim import Optimizer, ServerOptimizer
 
 
@@ -171,8 +172,22 @@ def build_client_update_step(loss_fn: Callable, client_opt: Optimizer,
                              cfg: FLConfig):
     """``(params_snapshot, batches[H, b, ...]) -> (delta, loss)``: the sync
     path's local training for ONE client, against the params snapshot it
-    was dispatched with.  Local training draws no randomness."""
-    return build_local_train(loss_fn, client_opt, cfg)
+    was dispatched with.  Local training draws no randomness.  Where
+    clients train lane-exact (``models.common.lane_exact``: on the CPU)
+    the client trains as one lane of the stacked step, as the batched
+    engines' clients do, so every engine computes a client bit for bit
+    alike; elsewhere it trains unstacked."""
+    single = build_local_train(loss_fn, client_opt, cfg)
+    stacked = build_local_train(loss_fn, client_opt, cfg, stacked=True)
+
+    def client_update(params: dict, batches: dict):
+        if not lane_exact(next(iter(batches.values()))):
+            return single(params, batches)
+        delta, loss = stacked(params, {k: v[None] for k, v in
+                                       batches.items()})
+        return {k: d[0] for k, d in delta.items()}, loss[0]
+
+    return client_update
 
 
 def build_buffer_commit_step(server_opt: ServerOptimizer, cfg: FLConfig,

@@ -27,6 +27,13 @@ Client execution modes:
     pods run one after another.
 All modes fold their client updates through the SAME stage stack
 (``core.pipeline.build_update_pipeline``).
+
+Under an active mesh (``models.sharding.use_mesh``) the parallel mode needs
+``client_spmd_axes``, the mesh axes its stacked client dim is sharded
+over, as the reference's does; the model's sharding constraints inside
+the client body drop those axes (``exclude_axes``), the sequential body
+drops ``pod``.  On one card the mesh is 1x1 and every constraint is the
+identity.
 """
 from __future__ import annotations
 
@@ -38,6 +45,8 @@ from torch.func import grad_and_value, vmap
 
 from repro_torch.core.compression import CompressionConfig
 from repro_torch.core.pipeline import build_update_pipeline
+from repro_torch.models import sharding as shd
+from repro_torch.models.common import lane_exact
 from repro_torch.optim import Optimizer, ServerOptimizer
 from repro_torch.pytree import ordered
 
@@ -61,6 +70,15 @@ class FLConfig:
     #                                   masks cancel per commit (core.pipeline)
 
 
+# Where clients train lane-exact (``models.common.lane_exact``: on the CPU)
+# a stacked call trains at least this many lanes, padding with copies of
+# lane 0 (discarded).  On the CPU a lone matrix product runs as one
+# multi-threaded GEMM that splits its contraction across threads, while a
+# batch of two or more runs each matrix on one thread: so a lane's result
+# is the same for every lane count from two on, and differs at one.
+MIN_LANES = 2
+
+
 def global_norm(tree: dict):
     return torch.sqrt(sum(torch.sum(tree[k].to(torch.float32).square())
                           for k in ordered(tree)))
@@ -74,7 +92,10 @@ def build_local_train(loss_fn: Callable, client_opt: Optimizer,
     C clients at once; batches are [C, H, ...], every leaf of the clients'
     params is one [C, ...] tensor, each step's gradients are one ``vmap``
     of ``grad_and_value`` over it, and delta and loss come back [C, ...].
-    The optimizer update runs on the stacked leaves directly, so a kernel
+    Where clients train lane-exact, fewer than ``MIN_LANES`` clients are
+    padded to it, so a client's result does not depend on how many share
+    the call.  The optimizer
+    update runs on the stacked leaves directly, so a kernel
     (which cannot run under ``vmap``) takes all C clients in one launch.
 
     FedProx (mu>0): the proximal term mu/2 ||w - w0||^2 enters as the exact
@@ -88,7 +109,13 @@ def build_local_train(loss_fn: Callable, client_opt: Optimizer,
 
     def local_train(global_params: dict, batches: dict):
         if stacked:
-            C = next(iter(batches.values())).shape[0]
+            x0 = next(iter(batches.values()))
+            C = x0.shape[0]
+            if C < MIN_LANES and lane_exact(x0):
+                pick = [0] * (MIN_LANES - C)
+                delta, loss = local_train(global_params, {
+                    k: torch.cat([v, v[pick]]) for k, v in batches.items()})
+                return {k: d[:C] for k, d in delta.items()}, loss[:C]
             w = {k: p.expand((C,) + tuple(p.shape)).contiguous()
                  for k, p in global_params.items()}
             step_batch = lambda h: {k: v[:, h] for k, v in batches.items()}
@@ -134,11 +161,19 @@ class ParallelRound:
     rounding are not, so the same deltas must enter both commits."""
 
     def __init__(self, loss_fn: Callable, client_opt: Optimizer,
-                 server_opt: ServerOptimizer, cfg: FLConfig, n_pods: int = 1):
+                 server_opt: ServerOptimizer, cfg: FLConfig, n_pods: int = 1,
+                 client_spmd_axes=()):
         self.server_opt = server_opt
         self.pipe = build_update_pipeline(cfg, n_pods=n_pods)
-        self.train_clients = build_local_train(loss_fn, client_opt, cfg,
-                                               stacked=True)
+        stacked = build_local_train(loss_fn, client_opt, cfg, stacked=True)
+
+        def train_clients(global_params, client_batches):
+            # the stacked client dim owns client_spmd_axes: constraints in
+            # the vmapped body may not name them
+            with shd.exclude_axes(*client_spmd_axes):
+                return stacked(global_params, client_batches)
+
+        self.train_clients = train_clients
 
     def commit(self, global_params: dict, server_state, deltas: dict, losses,
                weights, mask, generator):
@@ -165,11 +200,20 @@ class SequentialRound:
     hand it deltas trained elsewhere (another device) instead."""
 
     def __init__(self, loss_fn: Callable, client_opt: Optimizer,
-                 server_opt: ServerOptimizer, cfg: FLConfig, n_pods: int = 1):
+                 server_opt: ServerOptimizer, cfg: FLConfig, n_pods: int = 1,
+                 client_spmd_axes=()):
         self.cfg = cfg
         self.server_opt = server_opt
         self.pipe = build_update_pipeline(cfg, n_pods=n_pods)
-        self.local_train = build_local_train(loss_fn, client_opt, cfg)
+        local_train = build_local_train(loss_fn, client_opt, cfg)
+
+        def train_one(global_params, batches):
+            # the reference keeps activation constraints off the pod axis
+            # in the sequential body (its backward miscompiles there)
+            with shd.exclude_axes(shd.POD):
+                return local_train(global_params, batches)
+
+        self.local_train = train_one
 
     def commit(self, global_params: dict, server_state, updates, weights,
                mask, generator):
@@ -209,15 +253,30 @@ class PodSequentialRound:
     normalises across pods."""
 
     def __init__(self, loss_fn: Callable, client_opt: Optimizer,
-                 server_opt: ServerOptimizer, cfg: FLConfig, n_pods: int = 1):
+                 server_opt: ServerOptimizer, cfg: FLConfig, n_pods: int = 1,
+                 client_spmd_axes=()):
         self.cfg = cfg
         self.n_pods = n_pods
         self.server_opt = server_opt
         self.pipe = build_update_pipeline(cfg, n_pods=n_pods)
         self.local_train = build_local_train(loss_fn, client_opt, cfg)
+        self.client_spmd_axes = client_spmd_axes
 
     def __call__(self, global_params: dict, server_state,
                  client_batches: dict, weights, mask, generator):
+        pipe = self.pipe
+        with shd.exclude_axes(*self.client_spmd_axes):
+            accs, wsum, loss_sum = self._pods(global_params, client_batches,
+                                              weights, mask, generator)
+        pod_sums = {k: torch.stack([a[k] for a in accs]) for k in accs[0]}
+        delta = pipe.combine_pods(pod_sums, wsum, generator, compressed=True)
+        new_params, new_state = self.server_opt.apply(global_params, delta,
+                                                      server_state)
+        return new_params, new_state, _metrics(delta, loss_sum, mask)
+
+    def _pods(self, global_params, client_batches, weights, mask, generator):
+        """Each pod streams its clients into a plain weighted sum and
+        compresses it: (the pods' sums, the weight sum, the loss sum)."""
         pipe, P = self.pipe, self.n_pods
         Cp = self.cfg.num_clients // P
         dt = pipe.accum_dtype
@@ -237,11 +296,7 @@ class PodSequentialRound:
                 loss_p = loss_p + loss * mask[c]
             accs.append(pipe.compress(acc, generator))
             wsum, loss_sum = wsum + wsum_p, loss_sum + loss_p
-        pod_sums = {k: torch.stack([a[k] for a in accs]) for k in accs[0]}
-        delta = pipe.combine_pods(pod_sums, wsum, generator, compressed=True)
-        new_params, new_state = self.server_opt.apply(global_params, delta,
-                                                      server_state)
-        return new_params, new_state, _metrics(delta, loss_sum, mask)
+        return accs, wsum, loss_sum
 
 
 ROUNDS = {"parallel": ParallelRound, "sequential": SequentialRound,
@@ -250,8 +305,20 @@ ROUNDS = {"parallel": ParallelRound, "sequential": SequentialRound,
 
 def build_fl_round_step(loss_fn: Callable, client_opt: Optimizer,
                         server_opt: ServerOptimizer, cfg: FLConfig,
-                        n_pods: int = 1):
+                        n_pods: int = 1, client_spmd_axes=None):
     """The round step of ``cfg.client_exec``.  ``n_pods`` splits the
-    clients into pods for pod_sequential and the hierarchical combine."""
+    clients into pods for pod_sequential and the hierarchical combine.
+    ``client_spmd_axes``: the mesh axis name(s) the stacked client (or pod)
+    dim is sharded over; parallel mode under an active mesh requires it,
+    as the reference's does."""
+    if (cfg.client_exec == "parallel" and client_spmd_axes is None
+            and shd.get_mesh() is not None):
+        raise ValueError(
+            "client_exec='parallel' under an active mesh requires "
+            "client_spmd_axes (the mesh axes the vmapped client dim is "
+            "sharded over, e.g. ('pod', 'data')); vmap without "
+            "spmd_axis_name over sharded params is numerically unsupported")
+    axes = (client_spmd_axes,) if isinstance(client_spmd_axes, str) \
+        else tuple(client_spmd_axes or ())
     return ROUNDS[cfg.client_exec](loss_fn, client_opt, server_opt, cfg,
-                                   n_pods=n_pods)
+                                   n_pods=n_pods, client_spmd_axes=axes)

@@ -1,5 +1,5 @@
 """Public entry points of the port's kernels, mirroring
-``repro/kernels/ops.py`` without its mesh layer.
+``repro/kernels/ops.py``.
 
 They handle the blocking (blocks along the LAST dim of each leaf, zero
 padded, leading dims collapsed to rows), the leaf bucketing, and the slot
@@ -16,6 +16,17 @@ element index from 0, which equals the reference's per-leaf ``base``
 accumulation.  ``selective_scan_chunk`` is the Mamba mixer's scan, an
 ``autograd.Function`` whose backward is the scan's backward kernel.
 ``KERNEL_LAUNCHES`` counts launches on the card by kernel name.
+
+Row split (the reference's ``_shard_rows_map`` / ``_shard_rows_reduce``):
+the blocked rows are split into one contiguous share per shard of the
+mesh's ``fusion_axes``, zero-padded to a multiple of the shard count (zero
+rows are a fixed point of every block kernel), and each shard runs its
+kernel on its own rows; the secure commit's shard starts its mask stream
+at its GLOBAL element offset, so masks cancel across shards.  On one card
+``fusion_axes()`` is empty, so every entry point runs one shard, the whole
+stack; a mesh that splits the rows over several devices raises (ROADMAP's
+multi-device item).  ``shard_rows_map`` and ``shard_rows_reduce`` take the
+shard count, so a caller (a test) can run the shards one by one here.
 """
 from __future__ import annotations
 
@@ -30,6 +41,46 @@ from repro_torch.kernels import ref
 from repro_torch.kernels import selective_scan as _ss
 from repro_torch.kernels import topk_sparsify as _tk
 from repro_torch.kernels.launches import KERNEL_LAUNCHES  # noqa: F401
+from repro_torch.models import sharding as sh
+
+
+def _fusion_shards() -> int:
+    """The shard count of the active mesh's ``fusion_axes``: 1 without a
+    mesh or on one device."""
+    axes = sh.fusion_axes()
+    if not axes:
+        return 1
+    raise NotImplementedError(f"a commit split over the mesh axes {axes}: "
+                              f"{sh.MULTI_DEVICE}")
+
+
+def _pad_rows(xb, mult: int, dim: int):
+    pad = (-xb.shape[dim]) % mult
+    if pad:
+        widths = [0, 0] * (xb.ndim - 1 - dim) + [0, pad]
+        xb = F.pad(xb, widths)
+    return xb, pad
+
+
+def shard_rows_map(fn, xb, n: int):
+    """A rows op ([R, block] -> [R, block]) run as ``n`` row shards."""
+    xb, pad = _pad_rows(xb, n, 0)
+    r = xb.shape[0] // n
+    y = torch.cat([fn(xb[i * r:(i + 1) * r].contiguous())
+                   for i in range(n)]) if n > 1 else fn(xb)
+    return y[:-pad] if pad else y
+
+
+def shard_rows_reduce(fn, xb, n: int, base: int = 0):
+    """A slot-reducing rows kernel ([K, R, block] -> [R, block]) run as
+    ``n`` row shards: ``fn(xb_local, global_base)``, where a shard's base
+    is ``base`` plus the element index of its row 0 in the stack."""
+    xb, pad = _pad_rows(xb, n, 1)
+    r, block = xb.shape[1] // n, xb.shape[2]
+    y = torch.cat([fn(xb[:, i * r:(i + 1) * r].contiguous(),
+                      base + i * r * block) for i in range(n)]) \
+        if n > 1 else fn(xb, base)
+    return y[:-pad] if pad else y
 
 
 def _as_blocks(x, block):
@@ -54,15 +105,17 @@ def _from_blocks(b, meta, shape, dtype):
 
 def quantize_dequant(x, *, bits: int = 8, block: int = 256):
     xb, meta = _as_blocks(x, block)
-    return _from_blocks(_q.quantize_dequant_blocks(xb, bits), meta, x.shape,
-                        x.dtype)
+    y = shard_rows_map(lambda b: _q.quantize_dequant_blocks(b, bits), xb,
+                       _fusion_shards())
+    return _from_blocks(y, meta, x.shape, x.dtype)
 
 
 def topk_sparsify(x, *, k: int, block: int = 256):
     # padded zero lanes are part of their block, as in the plain version
     xb, meta = _as_blocks(x, block)
-    return _from_blocks(_tk.topk_sparsify_blocks(xb, k), meta, x.shape,
-                        x.dtype)
+    y = shard_rows_map(lambda b: _tk.topk_sparsify_blocks(b, k), xb,
+                       _fusion_shards())
+    return _from_blocks(y, meta, x.shape, x.dtype)
 
 
 def fedprox_update(w, g, w0, *, lr: float, mu: float = 0.0):
@@ -158,10 +211,26 @@ def _secure_rows(xb, w_eff, seeds, coef, base, bits, k, use_kernel,
                            device=noise_generator.device).to(xb.device)
     seeds, coef = seeds.to(xb.device), coef.to(xb.device)
     if use_kernel:
-        return _fqm.secure_commit_blocks(xb, wv, seeds, coef, base, bits=bits,
-                                         k=k, noise=noise)
+        return shard_rows_reduce(
+            lambda xl, b: _fqm.secure_commit_blocks(xl, wv, seeds, coef, b,
+                                                    bits=bits, k=k,
+                                                    noise=noise),
+            xb, _fusion_shards(), base)
     return ref.fused_secure_commit_ref(xb, wv[:, None], seeds, coef, base,
                                        bits, k=k, noise=noise)
+
+
+def _accum_rows(xb, wv, sv, exponent):
+    return shard_rows_reduce(
+        lambda xl, _: _fa.fused_accum_blocks(xl, wv, sv, exponent), xb,
+        _fusion_shards())
+
+
+def _plain_rows(xb, wv, sv, exponent, bits, k):
+    return shard_rows_reduce(
+        lambda xl, _: _fqm.plain_commit_blocks(xl, wv, sv, exponent,
+                                               bits=bits, k=k), xb,
+        _fusion_shards())
 
 
 def fused_accum_tree(leaves, w, staleness, exponent, *, block: int = 256):
@@ -169,8 +238,7 @@ def fused_accum_tree(leaves, w, staleness, exponent, *, block: int = 256):
     launch for the whole tree.  Returns the per-leaf f32 sums."""
     xb, metas, rows = pack_blocks(list(leaves), block)
     wv, sv = _slot_vectors(w, staleness, xb.shape[0], xb.device)
-    return unpack_sums(_fa.fused_accum_blocks(xb, wv, sv, exponent), metas,
-                       rows)
+    return unpack_sums(_accum_rows(xb, wv, sv, exponent), metas, rows)
 
 
 def fused_plain_commit_tree(leaves, w, staleness, exponent, *, bits: int,
@@ -179,8 +247,8 @@ def fused_plain_commit_tree(leaves, w, staleness, exponent, *, bits: int,
     over a flattened leaf list: one kernel launch for the whole tree."""
     xb, metas, rows = pack_blocks(list(leaves), block)
     wv, sv = _slot_vectors(w, staleness, xb.shape[0], xb.device)
-    return unpack_sums(_fqm.plain_commit_blocks(xb, wv, sv, exponent,
-                                                bits=bits, k=k), metas, rows)
+    return unpack_sums(_plain_rows(xb, wv, sv, exponent, bits, k), metas,
+                       rows)
 
 
 def fused_secure_commit_tree(leaves, w_eff, seeds, coef, *, bits: int,
@@ -200,8 +268,8 @@ def fused_accum(x, w, staleness, exponent, *, block: int = 256):
     leaf in a single pass."""
     xb, meta = _stack_blocks(x, block)
     wv, sv = _slot_vectors(w, staleness, xb.shape[0], xb.device)
-    return _unstack_sum(_fa.fused_accum_blocks(xb.contiguous(), wv, sv,
-                                               exponent), meta, torch.float32)
+    return _unstack_sum(_accum_rows(xb.contiguous(), wv, sv, exponent), meta,
+                        torch.float32)
 
 
 def fused_plain_commit(x, w, staleness, exponent, *, bits: int, k: int,
@@ -210,9 +278,8 @@ def fused_plain_commit(x, w, staleness, exponent, *, bits: int, k: int,
     over the slot dim of one leaf, in one pass."""
     xb, meta = _stack_blocks(x, block)
     wv, sv = _slot_vectors(w, staleness, xb.shape[0], xb.device)
-    return _unstack_sum(_fqm.plain_commit_blocks(xb.contiguous(), wv, sv,
-                                                 exponent, bits=bits, k=k),
-                        meta, torch.float32)
+    return _unstack_sum(_plain_rows(xb.contiguous(), wv, sv, exponent, bits,
+                                    k), meta, torch.float32)
 
 
 def fused_secure_commit(x, w_eff, seeds, coef, base, *, bits: int, k: int = 0,
@@ -252,6 +319,8 @@ def _unfold(x, n):
 class _SelectiveScanChunk(torch.autograd.Function):
     @staticmethod
     def forward(a, b, h0):
+        if a.device.type == "meta":      # shapes only: the dry run's sizing
+            return torch.empty_like(a), torch.empty_like(h0)
         return _ss.selective_scan_chunk_blocks(a, b, h0)
 
     @staticmethod
@@ -284,6 +353,9 @@ class _SelectiveScanChunkBwd(torch.autograd.Function):
 
     @staticmethod
     def forward(a, hs, h0, g_hs, g_hl):
+        if a.device.type == "meta":      # shapes only: the dry run's sizing
+            return torch.empty_like(a), torch.empty_like(a), \
+                torch.empty_like(h0)
         if not _ss.rows_contiguous(g_hs):
             g_hs = g_hs.contiguous()
         return _ss.selective_scan_chunk_bwd_blocks(a, hs, h0, g_hs, g_hl)

@@ -93,12 +93,20 @@ def _staleness_exp(v: str):
 
 def resolve_device(name: str) -> torch.device:
     """The device a run uses; CUDA unless the caller asked for the CPU, and
-    an error (never a quiet CPU run) when CUDA was asked for and is absent."""
+    an error (never a quiet CPU run) when CUDA was asked for and is absent.
+    On CUDA, bf16 matrix products then reduce in float32, as the
+    reference's do: with PyTorch's default, cuBLAS may split a reduction
+    and add the parts in bf16, and a decode step (a few rows) then rounds
+    apart from the prefill (many rows): xlstm-125m's decode drifted from
+    its prefill by 0.19-0.94 of the logit scale, 0.0-0.12 without."""
     dev = torch.device(name)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             f"--device {name}: CUDA is not available; pass --device cpu to "
             f"run on the CPU")
+    if dev.type == "cuda":
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+            False
     return dev
 
 

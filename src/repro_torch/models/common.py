@@ -1,7 +1,7 @@
 """Shared building blocks of the LM zoo, mirroring
-``repro/models/common.py``: parameter construction, norms, activations,
-RoPE, the embedding lookup and the cross-entropy loss.  The reference's
-logical sharding specs have no counterpart on one card and are left out.
+``repro/models/common.py`` (and ``lane_exact``, the port's own): parameter construction with each parameter's
+logical sharding spec, norms, activations, RoPE, the embedding lookup and
+the cross-entropy loss.
 """
 from __future__ import annotations
 
@@ -12,7 +12,20 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models import sharding as sh
+
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def lane_exact(x: torch.Tensor) -> bool:
+    """Whether clients train on ``x``'s device by the lane-exact form, in
+    which a stacked lane's result is the same for every lane count, so the
+    deferred engines equal the per-event one bit for bit: the CNN's im2col
+    convolution (``cnn._conv3x3``), at least ``core.round.MIN_LANES``
+    lanes a stacked call, the per-event client as one stacked lane.  Only
+    on the CPU: on the card neither form is lane-exact (cuDNN and cuBLAS
+    pick kernels by the batch) and this one costs time."""
+    return x.device.type == "cpu"
 
 
 class ParamBuilder:
@@ -23,21 +36,25 @@ class ParamBuilder:
 
     On the ``meta`` device it is the reference's abstract mode: each leaf
     is an empty tensor of its shape and dtype, so nothing is allocated or
-    drawn (``generator`` may be None)."""
+    drawn (``generator`` may be None).  Each call site declares the
+    parameter's logical sharding; ``specs`` collects them in a tree
+    parallel to ``params``, so init and sharding cannot drift apart."""
 
     def __init__(self, generator: torch.Generator | None, dtype, device):
         self.generator = generator
         self.dtype = dtype
         self.device = torch.device(device)
         self.params: dict = {}
+        self.specs: dict = {}
 
     def _normal(self, shape):
         return torch.randn(shape, generator=self.generator,
                            device=self.generator.device, dtype=torch.float32)
 
-    def add(self, path: list[str], shape, init="normal",
+    def add(self, path: list[str], shape, logical, init="normal",
             scale: float | None = None):
-        """Create one parameter at params[path]."""
+        """Create one parameter at params[path]; record its logical spec
+        (one entry per dim) at specs[path]."""
         shape = tuple(shape)
         if self.device.type == "meta":
             val = torch.empty(shape, dtype=self.dtype, device=self.device)
@@ -53,11 +70,24 @@ class ParamBuilder:
             val = init(self.generator, shape).to(self.device, self.dtype)
         else:
             raise ValueError(init)
-        node = self.params
+        node, snode = self.params, self.specs
         for k in path[:-1]:
             node = node.setdefault(k, {})
+            snode = snode.setdefault(k, {})
         node[path[-1]] = val
+        snode[path[-1]] = tuple(logical)
         return val
+
+
+def logical_to_pspec_tree(spec_tree, mesh):
+    """A tree of logical-axis tuples -> the same tree of
+    ``sharding.PartitionSpec`` for ``mesh`` (all replicated without one)."""
+    if isinstance(spec_tree, dict):
+        return {k: logical_to_pspec_tree(v, mesh)
+                for k, v in spec_tree.items()}
+    if mesh is None:
+        return sh.P()
+    return sh.P(*(sh.resolve(e, mesh) for e in spec_tree))
 
 
 # ---------------------------------------------------------------------------

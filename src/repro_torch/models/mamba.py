@@ -22,6 +22,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import MambaConfig
 from repro_torch.kernels import ops as kops
+from repro_torch.models import sharding as sh
 
 
 def dt_rank(d_model: int, cfg: MambaConfig) -> int:
@@ -40,19 +41,21 @@ def init_mamba(pb, path, d_model: int, cfg: MambaConfig, n_groups: int):
     R = dt_rank(d_model, cfg)
     N = cfg.d_state
     g = (n_groups,) if n_groups else ()
+    pre = (None,) if n_groups else ()
     add = pb.add
-    add(path + ["in_proj"], g + (d_model, 2 * di))
-    add(path + ["conv_w"], g + (cfg.d_conv, di))
-    add(path + ["conv_b"], g + (di,), init="zeros")
-    add(path + ["x_proj"], g + (di, R + 2 * N))
-    add(path + ["dt_proj"], g + (R, di))
-    add(path + ["dt_bias"], g + (di,), init=_dt_bias_init)
-    add(path + ["A_log"], g + (di, N),
+    add(path + ["in_proj"], g + (d_model, 2 * di), pre + (sh.DATA, sh.MODEL))
+    add(path + ["conv_w"], g + (cfg.d_conv, di), pre + (None, sh.MODEL))
+    add(path + ["conv_b"], g + (di,), pre + (sh.MODEL,), init="zeros")
+    add(path + ["x_proj"], g + (di, R + 2 * N), pre + (sh.MODEL, None))
+    add(path + ["dt_proj"], g + (R, di), pre + (None, sh.MODEL))
+    add(path + ["dt_bias"], g + (di,), pre + (sh.MODEL,),
+        init=_dt_bias_init)
+    add(path + ["A_log"], g + (di, N), pre + (sh.MODEL, None),
         init=lambda gen, s: torch.log(torch.arange(
             1, N + 1, dtype=torch.float32,
             device=gen.device)).expand(s).contiguous())
-    add(path + ["D"], g + (di,), init="ones")
-    add(path + ["out_proj"], g + (di, d_model))
+    add(path + ["D"], g + (di,), pre + (sh.MODEL,), init="ones")
+    add(path + ["out_proj"], g + (di, d_model), pre + (sh.MODEL, sh.DATA))
 
 
 def _ssm_coeffs(x, p, cfg: MambaConfig, in_place: bool = True):
@@ -105,6 +108,7 @@ def mamba_apply(p, x, *, cfg: MambaConfig, mode: str = "train",
     N = cfg.d_state
     xz = x @ p["in_proj"]                                   # [B,S,2di]
     xin, z = xz.chunk(2, dim=-1)
+    xin = sh.shard(xin, sh.BATCH, None, sh.MODEL)
 
     if mode in ("train", "prefill"):
         # causal depthwise conv, summed in the reference's order

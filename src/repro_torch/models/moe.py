@@ -1,7 +1,13 @@
-"""Mixture-of-Experts layer, mirroring ``repro/models/moe.py`` on one card:
-every expert is local (the reference's expert-parallel mesh layer, with
-its weight and token gathers and ``psum`` combines, is ROADMAP queue 1
-item 8).
+"""Mixture-of-Experts layer, mirroring ``repro/models/moe.py``.
+
+Under a mesh the reference runs the layer expert-parallel in a shard_map:
+the experts split over ``model`` (a shard owns ``E / model`` experts from
+``e_lo``), the expert F dim over ``data``, the tokens over whichever batch
+axes divide the batch, with weight or token gathers and ``psum``
+combines.  ``moe_apply`` makes the same choices (``_mesh_plan``); with
+every chosen axis of size 1, as on one card, each gather and combine is
+the identity and the layer is ``_moe_local`` over all experts.  A mesh
+with a chosen axis larger than 1 raises (ROADMAP's multi-device item).
 
 Dispatch is sort-based with a fixed capacity per expert: the token
 assignments are stably sorted by expert, each keeps its rank within its
@@ -14,16 +20,19 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import MoEConfig
+from repro_torch.models import sharding as sh
 from repro_torch.models.common import act_fn
 
 
 def init_moe(pb, path, d_model: int, cfg: MoEConfig, n_groups: int):
     E, Fd = cfg.num_experts, cfg.d_expert
     g = (n_groups,) if n_groups else ()
-    pb.add(path + ["router"], g + (d_model, E))
-    pb.add(path + ["w1"], g + (E, d_model, Fd))
-    pb.add(path + ["w3"], g + (E, d_model, Fd))
-    pb.add(path + ["w2"], g + (E, Fd, d_model))
+    pre = (None,) if n_groups else ()
+    # the router is tiny ([D, E]): replicated, so routing gathers no weight
+    pb.add(path + ["router"], g + (d_model, E), pre + (None, None))
+    pb.add(path + ["w1"], g + (E, d_model, Fd), pre + (sh.MODEL, None, sh.DATA))
+    pb.add(path + ["w3"], g + (E, d_model, Fd), pre + (sh.MODEL, None, sh.DATA))
+    pb.add(path + ["w2"], g + (E, Fd, d_model), pre + (sh.MODEL, sh.DATA, None))
 
 
 def _route(x2d, router, cfg: MoEConfig):
@@ -86,8 +95,9 @@ def _expert_ffn(xs, w1, w3, w2, act: str):
     return torch.einsum("ecf,efd->ecd", h, w2)
 
 
-def _moe_local(x, router, w1, w3, w2, *, cfg: MoEConfig, act: str):
-    """The MoE body with every expert local (``e_lo = 0``).  x [B, S, D];
+def _moe_local(x, router, w1, w3, w2, *, cfg: MoEConfig, act: str,
+               e_lo: int = 0):
+    """The MoE body over the local experts [e_lo, e_lo + E).  x [B, S, D];
     w1/w3 [E, D, F], w2 [E, F, D].  Returns (out [B, S, D], aux).
 
     The combine is an ``index_add_`` over the flat token dim.  Each token
@@ -100,7 +110,7 @@ def _moe_local(x, router, w1, w3, w2, *, cfg: MoEConfig, act: str):
     E = w1.shape[0]
     eid, gate, aux = _route(x2d, router, cfg)
     cap = max(int(T * cfg.top_k * cfg.capacity_factor / cfg.num_experts), 4)
-    tok_idx, gates = _dispatch_indices(eid, gate, 0, E, cap)
+    tok_idx, gates = _dispatch_indices(eid, gate, e_lo, E, cap)
     flat_idx = tok_idx.reshape(-1)
     xs = x2d[flat_idx].reshape(E, cap, D)
     ys = _expert_ffn(xs, w1, w3, w2, act)
@@ -117,5 +127,26 @@ def moe_apply(p, x, *, cfg: MoEConfig, act: str, mode: str = "gather_weights"):
     gathers; on one card they are the same computation."""
     if mode not in ("gather_weights", "gather_tokens"):
         raise ValueError(mode)
+    mesh = sh.get_mesh()
+    if mesh is not None:
+        model_axis, f_axes, tok_axes = _mesh_plan(mesh, x.shape[0])
+        used = ((model_axis,) if model_axis else ()) + f_axes + tok_axes
+        if any(mesh.shape[a] > 1 for a in used):
+            raise NotImplementedError(f"the MoE over the mesh axes {used}: "
+                                      f"{sh.MULTI_DEVICE}")
     return _moe_local(x, p["router"], p["w1"], p["w3"], p["w2"], cfg=cfg,
                       act=act)
+
+
+def _mesh_plan(mesh, batch: int):
+    """The reference's layout of the layer on ``mesh``: (the expert axis,
+    the axes of the expert F dim, the axes the ``batch`` tokens are split
+    over: the batch axes whose sizes divide it, in order)."""
+    model_axis = sh.MODEL if sh.MODEL in mesh.axis_names else None
+    f_axes = (sh.DATA,) if sh.DATA in mesh.axis_names else ()
+    tok_axes, rem = [], batch
+    for a in sh.batch_axes(mesh):
+        if rem % mesh.shape[a] == 0:
+            tok_axes.append(a)
+            rem //= mesh.shape[a]
+    return model_axis, f_axes, tuple(tok_axes)

@@ -42,11 +42,12 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba as mamba_mod
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import sharding as sh
 from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.common import (DTYPES, ParamBuilder, apply_rope,
                                        cross_entropy_logits, glu_mlp,
                                        plain_mlp, rms_norm, take_embedding)
-from repro_torch.pytree import nest
+from repro_torch.pytree import flat_dict, nest
 
 @dataclass(frozen=True)
 class Slot:
@@ -81,6 +82,42 @@ def block_pattern(cfg: ModelConfig) -> list[Slot]:
     return slots
 
 
+class _GroupRemat(torch.autograd.Function):
+    """A layer group rematerialised, for ``torch.func`` transforms (which
+    take neither form of ``torch.utils.checkpoint``).  ``run(x, aux,
+    positions, patches, leaves) -> (x, aux)`` is the group; the forward
+    saves only its inputs (``leaves`` are the group's parameter leaves),
+    and the backward runs the group again under ``torch.func.vjp``, so the
+    group's activations live only while its backward runs.  The vmap rule
+    is generated: under the round's ``vmap`` the recompute and its vjp
+    are vmapped too."""
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(run, x, aux, positions, patches, *leaves):
+        return run(x, aux, positions, patches, leaves)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        run, x, aux, positions, patches, *leaves = inputs
+        ctx.run = run
+        ctx.save_for_backward(x, aux, positions, patches, *leaves)
+
+    @staticmethod
+    def backward(ctx, g_x, g_aux):
+        x, aux, positions, patches, *leaves = ctx.saved_tensors
+        _, vjp_fn = torch.func.vjp(
+            lambda x, aux, *lv: ctx.run(x, aux, positions, patches, lv),
+            x, aux, *leaves)
+        # torch.func.grad runs backward with create_graph: a cotangent
+        # that kept its graph would keep the recompute's activations alive
+        # to the end of the whole backward.  Nothing takes a second
+        # derivative through a group (the scan's backward kernel has none),
+        # so the cotangents leave without it.
+        g_in = tuple(g.detach() for g in vjp_fn((g_x, g_aux)))
+        return (None, g_in[0], g_in[1], None, None) + g_in[2:]
+
+
 def _tree_index(tree, g):
     return {k: _tree_index(v, g) if isinstance(v, dict) else v[g]
             for k, v in tree.items()}
@@ -94,6 +131,10 @@ class LM:
             raise ValueError(f"{cfg.name}: {cfg.n_layers} layers do not fill "
                              f"whole groups of {len(self.pattern)}")
         self.n_groups = cfg.n_layers // len(self.pattern)
+        # shard attention heads over `model` only when divisible by the
+        # largest production model axis (16); else attention is replicated
+        # across `model` (the MLP stays tensor parallel)
+        self.attn_tp = cfg.n_heads % 16 == 0
         self.dtype = DTYPES[cfg.dtype]
 
     # ------------------------------------------------------------------ init
@@ -109,6 +150,14 @@ class LM:
         reference's ShapeDtypeStruct tree)."""
         return self._build(ParamBuilder(None, self.dtype, "meta"))
 
+    @property
+    def logical_specs(self) -> dict:
+        """The tree of logical-axis tuples, the params' structure (built
+        on the ``meta`` device: nothing is allocated)."""
+        pb = ParamBuilder(None, self.dtype, "meta")
+        self._build(pb)
+        return pb.specs
+
     def _build(self, pb: ParamBuilder) -> dict:
         cfg = self.cfg
         D, V, Vp = cfg.d_model, cfg.vocab, cfg.vocab_padded
@@ -116,20 +165,23 @@ class LM:
         G = self.n_groups
         emb_scale = 1.0 / math.sqrt(D)
         if cfg.n_codebooks:
-            pb.add(["embed"], (cfg.n_codebooks, V, D), scale=emb_scale)
-            pb.add(["unembed"], (D, cfg.n_codebooks * Vp))
+            pb.add(["embed"], (cfg.n_codebooks, V, D), (None, None, sh.MODEL),
+                   scale=emb_scale)
+            pb.add(["unembed"], (D, cfg.n_codebooks * Vp),
+                   (sh.DATA, sh.MODEL))
         else:
-            pb.add(["embed"], (V, D), scale=emb_scale)
-            pb.add(["unembed"], (D, Vp))
-        pb.add(["final_norm"], (D,), init="ones")
+            pb.add(["embed"], (V, D), (None, sh.MODEL), scale=emb_scale)
+            pb.add(["unembed"], (D, Vp), (sh.DATA, sh.MODEL))
+        pb.add(["final_norm"], (D,), (None,), init="ones")
+        model_ax = sh.MODEL if self.attn_tp else None
         for si, slot in enumerate(self.pattern):
             base = ["layers", f"slot{si}"]
-            pb.add(base + ["norm1"], (G, D), init="ones")
+            pb.add(base + ["norm1"], (G, D), (None, None), init="ones")
             if slot.mixer in ("attn", "cross"):
-                pb.add(base + ["wq"], (G, D, H * hd))
-                pb.add(base + ["wk"], (G, D, KV * hd))
-                pb.add(base + ["wv"], (G, D, KV * hd))
-                pb.add(base + ["wo"], (G, H * hd, D))
+                pb.add(base + ["wq"], (G, D, H * hd), (None, sh.DATA, model_ax))
+                pb.add(base + ["wk"], (G, D, KV * hd), (None, sh.DATA, None))
+                pb.add(base + ["wv"], (G, D, KV * hd), (None, sh.DATA, None))
+                pb.add(base + ["wo"], (G, H * hd, D), (None, model_ax, sh.DATA))
             elif slot.mixer == "mamba":
                 mamba_mod.init_mamba(pb, base + ["mamba"], D, cfg.mamba, G)
             elif slot.mixer == "mlstm":
@@ -137,13 +189,13 @@ class LM:
             elif slot.mixer == "slstm":
                 xlstm_mod.init_slstm(pb, base + ["slstm"], D, H, G)
             if slot.ffn != "none":
-                pb.add(base + ["norm2"], (G, D), init="ones")
+                pb.add(base + ["norm2"], (G, D), (None, None), init="ones")
             if slot.ffn == "mlp":
                 F = cfg.d_ff
-                pb.add(base + ["w1"], (G, D, F))
+                pb.add(base + ["w1"], (G, D, F), (None, sh.DATA, sh.MODEL))
                 if cfg.act in ("swiglu", "geglu"):
-                    pb.add(base + ["w3"], (G, D, F))
-                pb.add(base + ["w2"], (G, F, D))
+                    pb.add(base + ["w3"], (G, D, F), (None, sh.DATA, sh.MODEL))
+                pb.add(base + ["w2"], (G, F, D), (None, sh.MODEL, sh.DATA))
             elif slot.ffn == "moe":
                 moe_mod.init_moe(pb, base + ["moe"], D, cfg.moe, G)
         return pb.params
@@ -153,9 +205,11 @@ class LM:
         if self.cfg.n_codebooks:
             # tokens [B, S, n_cb] -> the codebooks' embeddings summed in
             # codebook order, as the reference's sum()
-            return sum(take_embedding(params["embed"][c], tokens[..., c])
-                       for c in range(self.cfg.n_codebooks))
-        return take_embedding(params["embed"], tokens)
+            x = sum(take_embedding(params["embed"][c], tokens[..., c])
+                    for c in range(self.cfg.n_codebooks))
+        else:
+            x = take_embedding(params["embed"], tokens)
+        return sh.shard(x, sh.BATCH, None, None)
 
     def logits(self, params, x):
         lg = x @ params["unembed"]
@@ -202,14 +256,20 @@ class LM:
         if mode == "decode":
             S_c = cache["k"].shape[1]
             slot = pos % S_c if window else pos
-            kc = attn.cache_write(cache["k"], k, slot)
-            vc = attn.cache_write(cache["v"], v, slot)
+            kc = sh.shard(attn.cache_write(cache["k"], k, slot),
+                          sh.BATCH, sh.MODEL, None, None)
+            vc = sh.shard(attn.cache_write(cache["v"], v, slot),
+                          sh.BATCH, sh.MODEL, None, None)
             out = attn.decode_attend(q[:, 0], kc, vc, pos, window=window)
             out = out[:, None]                       # [B,1,H,hd]
         else:
             gq = H // KV
-            ke = k.repeat_interleave(gq, dim=2)
-            ve = v.repeat_interleave(gq, dim=2)
+            m_ax = sh.MODEL if self.attn_tp else None
+            q = sh.shard(q, sh.BATCH, None, m_ax, None)
+            ke = sh.shard(k.repeat_interleave(gq, dim=2),
+                          sh.BATCH, None, m_ax, None)
+            ve = sh.shard(v.repeat_interleave(gq, dim=2),
+                          sh.BATCH, None, m_ax, None)
             out = attn.attend(q, ke, ve, causal=True, window=window)
             del ke, ve
         if mode == "prefill":
@@ -277,24 +337,46 @@ class LM:
         return x, aux
 
     # ---------------------------------------------------------------- forward
+    def _group(self, gp, x, aux, *, mode, positions, gc=None, pos=None,
+               patches=None):
+        """One layer group: its slots in order, each slot's aux added to
+        ``aux``.  Returns (x, aux)."""
+        for si, slot in enumerate(self.pattern):
+            key = f"slot{si}"
+            x, a = self._apply_slot(slot, gp[key], x, mode=mode,
+                                    positions=positions,
+                                    cache=None if gc is None else gc.get(key),
+                                    pos=pos, patches=patches)
+            aux = aux + a
+            x = sh.shard(x, sh.BATCH, None, None)
+        return x, aux
+
     def _backbone(self, params, x, *, mode, positions, caches, pos=None,
-                  patches=None):
+                  patches=None, remat=True):
         """Loop over layer groups, updating ``caches`` in place (``{}`` in
         ``mode="train"``, which writes nothing in place).  Returns (x, aux
-        mean).  The reference rematerialises each group in train mode
-        (``jax.checkpoint``); that saves memory only, and the char-LM's
-        activations fit, so the port keeps them."""
+        mean).  In ``mode="train"`` with ``remat`` each group runs
+        rematerialised, as the reference's ``jax.checkpoint(group_fn)``:
+        its forward keeps only the group's inputs, and the backward runs
+        the group again (``_GroupRemat``)."""
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for g in range(self.n_groups):
             gp = _tree_index(params["layers"], g)
-            gc = _tree_index(caches, g)
-            for si, slot in enumerate(self.pattern):
-                key = f"slot{si}"
-                x, a = self._apply_slot(slot, gp[key], x, mode=mode,
-                                        positions=positions,
-                                        cache=gc.get(key), pos=pos,
-                                        patches=patches)
-                aux = aux + a
+            if remat and mode == "train":
+                flat = flat_dict(gp)
+
+                def run(x, aux, positions, patches, leaves, keys=tuple(flat)):
+                    return self._group(nest(dict(zip(keys, leaves))), x, aux,
+                                       mode="train", positions=positions,
+                                       patches=patches)
+
+                x, aux = _GroupRemat.apply(run, x, aux, positions, patches,
+                                           *flat.values())
+            else:
+                x, aux = self._group(gp, x, aux, mode=mode,
+                                     positions=positions,
+                                     gc=_tree_index(caches, g), pos=pos,
+                                     patches=patches)
         return x, aux / self.cfg.n_layers
 
     # ------------------------------------------------------------------ train
@@ -379,6 +461,17 @@ class LM:
                               for k in ("c", "n", "h", "m")}
         return slots
 
+    def state_logical_specs(self, B: int, s_max: int) -> dict:
+        """Logical sharding of the decode state: the attention cache's
+        sequence over MODEL, the batch over BATCH (the structure of
+        ``decode_state_specs``)."""
+        specs = {}
+        for key, leaves in self.decode_state_specs(B, s_max).items():
+            mixer = self.pattern[int(key.replace("slot", ""))].mixer
+            specs[key] = {name: _state_logical(mixer, name)
+                          for name in leaves}
+        return specs
+
     def init_decode_state(self, B: int, s_max: int, dtype=None,
                           device="cpu") -> dict:
         return {key: {name: torch.zeros(shape, dtype=dt, device=device)
@@ -420,6 +513,21 @@ class LM:
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
         lg = self.logits(params, x[:, 0])
         return lg[..., :cfg.vocab], state
+
+
+def _state_logical(mixer: str, name: str) -> tuple:
+    if mixer == "attn":
+        return (None, sh.BATCH, sh.MODEL, None, None)
+    if mixer == "cross":
+        return (None, sh.BATCH, None, None, None)
+    if mixer == "mamba":
+        return {"conv": (None, sh.BATCH, None, sh.MODEL),
+                "h": (None, sh.BATCH, sh.MODEL, None)}[name]
+    if mixer == "mlstm":
+        return {"C": (None, sh.BATCH, None, None, None),
+                "n": (None, sh.BATCH, None, None),
+                "m": (None, sh.BATCH, None)}[name]
+    return (None, sh.BATCH, None, None)                     # slstm
 
 
 def token_shape(cfg: ModelConfig, *lead) -> tuple:

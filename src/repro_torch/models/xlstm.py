@@ -10,11 +10,12 @@ feedback, so it cannot be parallelised over time: ``_scan_slstm`` is a
 Python loop over the steps, where the reference runs ``lax.scan``.
 Exponential gating is stabilised with the max-state m as in the paper.
 
-The reference runs the sLSTM block under ``shard_map`` when a mesh shards
-its heads over the ``model`` axis (``_head_shard_mesh``, ``_slstm_block``);
-without such a mesh, as on one device, it takes the unsharded path, which
-is the one this module ports.  The sharded form belongs to the mesh layer
-(ROADMAP queue 1 item 8).
+The reference runs the sLSTM block under ``shard_map``, heads split over
+``model``, when ``_head_shard_mesh`` finds a mesh whose ``model`` axis is
+larger than 1, not excluded, and divides the heads; otherwise it takes the
+unsharded path.  The port makes the same decision: on one card (no mesh,
+or a 1x1 mesh) it is the unsharded path, and a head-sharding mesh raises
+(ROADMAP's multi-device item).
 
 Nothing is written in place, so ``LM.loss_fn`` runs these mixers under the
 round's ``vmap(grad_and_value)``.  Gate pre-activations, states and the
@@ -27,6 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import XLSTMConfig
+from repro_torch.models import sharding as sh
 
 F32 = torch.float32
 
@@ -39,18 +41,18 @@ def init_mlstm(pb, path, d_model: int, n_heads: int, cfg: XLSTMConfig,
                n_groups: int):
     du = int(cfg.proj_factor * d_model)
     g = (n_groups,) if n_groups else ()
+    pre = (None,) if n_groups else ()
     add = pb.add
-    add(path + ["up"], g + (d_model, 2 * du))
-    add(path + ["wq"], g + (du, du))
-    add(path + ["wk"], g + (du, du))
-    add(path + ["wv"], g + (du, du))
-    add(path + ["wi"], g + (du, n_heads))
-    add(path + ["wf"], g + (du, n_heads))
-    add(path + ["bi"], g + (n_heads,), init="zeros")
+    add(path + ["up"], g + (d_model, 2 * du), pre + (sh.DATA, sh.MODEL))
+    for w in ("wq", "wk", "wv"):
+        add(path + [w], g + (du, du), pre + (sh.MODEL, None))
+    add(path + ["wi"], g + (du, n_heads), pre + (sh.MODEL, None))
+    add(path + ["wf"], g + (du, n_heads), pre + (sh.MODEL, None))
+    add(path + ["bi"], g + (n_heads,), pre + (None,), init="zeros")
     # forget-gate bias 3: remember by default
-    add(path + ["bf"], g + (n_heads,),
+    add(path + ["bf"], g + (n_heads,), pre + (None,),
         init=lambda gen, s: torch.full(s, 3.0, device=gen.device))
-    add(path + ["down"], g + (du, d_model))
+    add(path + ["down"], g + (du, d_model), pre + (sh.MODEL, sh.DATA))
 
 
 def _mlstm_chunk(q, k, v, li, lf, C0, n0, m0):
@@ -103,6 +105,7 @@ def mlstm_apply(p, x, *, n_heads: int, cfg: XLSTMConfig, mode="train",
     du = p["wq"].shape[0]
     hd = du // n_heads
     u, z = (x @ p["up"]).chunk(2, dim=-1)                 # [B,S,du]
+    u = sh.shard(u, sh.BATCH, None, sh.MODEL)
 
     def heads(w):
         return (u @ w).reshape(B, S, n_heads, hd).transpose(1, 2)
@@ -158,14 +161,17 @@ def init_slstm(pb, path, d_model: int, n_heads: int, n_groups: int):
     the gate projections are dense [D, D]."""
     hd = d_model // n_heads
     g = (n_groups,) if n_groups else ()
+    pre = (None,) if n_groups else ()
     add = pb.add
     for gate in ("i", "f", "z", "o"):
-        add(path + [f"w{gate}"], g + (d_model, d_model))
-        add(path + [f"r{gate}"], g + (n_heads, hd, hd))
-        add(path + [f"b{gate}"], g + (d_model,),
+        add(path + [f"w{gate}"], g + (d_model, d_model),
+            pre + (sh.DATA, sh.MODEL))
+        add(path + [f"r{gate}"], g + (n_heads, hd, hd),
+            pre + (sh.MODEL, None, None))
+        add(path + [f"b{gate}"], g + (d_model,), pre + (sh.MODEL,),
             init="zeros" if gate != "f" else (
                 lambda gen, s: torch.full(s, 3.0, device=gen.device)))
-    add(path + ["down"], g + (d_model, d_model))
+    add(path + ["down"], g + (d_model, d_model), pre + (sh.MODEL, sh.DATA))
 
 
 def _slstm_step(rp, carry, xt):
@@ -202,6 +208,20 @@ def _scan_slstm(rp, xs, carry0):
     return carry, torch.stack(hs)
 
 
+def _head_shard_mesh(n_heads: int):
+    """The mesh to split the sLSTM's heads over, or None for the plain
+    path: the reference's decision, on the active mesh's axis sizes."""
+    mesh = sh.get_mesh()
+    if mesh is None or sh.MODEL not in mesh.axis_names:
+        return None
+    if sh.MODEL in sh.excluded_axes():
+        return None
+    m = mesh.shape[sh.MODEL]
+    if m <= 1 or n_heads % m != 0:
+        return None
+    return mesh
+
+
 def slstm_apply(p, x, *, n_heads: int, mode="train", state=None):
     """x [B,S,D].  ``state`` (prefill: the zeroed decode state, decode: the
     running one) is {"c", "n", "h", "m"}, each [B,H,hd] f32; with none
@@ -209,6 +229,10 @@ def slstm_apply(p, x, *, n_heads: int, mode="train", state=None):
     state None in train mode."""
     B, S, D = x.shape
     H, hd = n_heads, D // n_heads
+    mesh = _head_shard_mesh(n_heads) if mode in ("train", "prefill") else None
+    if mesh is not None:
+        raise NotImplementedError(f"the sLSTM's heads over {mesh.shape}: "
+                                  f"{sh.MULTI_DEVICE}")
     if state is None:
         z0 = torch.zeros((B, H, hd), dtype=F32, device=x.device)
         state = {"c": z0, "n": z0 + 1e-6, "h": z0, "m": z0}

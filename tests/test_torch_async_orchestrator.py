@@ -11,14 +11,15 @@ CommitLog are exactly equal.  The client losses, delta norms and (under the
 adaptive exponent, fed by the delta norm) alphas agree to 1e-5 relative,
 and the final params to 1e-4: float32 sums in another order over six
 commits.  Then the port's batched engine against its per-event engine:
-equal events and logs, params within 1e-5 (the stacked gradient reduces in
-another order than the single-client one)."""
+equal events, logs and params, bit for bit (both train a client as one
+lane of a stacked call, whose result does not depend on the lane count)."""
 import math
 from dataclasses import asdict
 
 import jax
 import numpy as np
 import pytest
+import torch
 
 from repro.core import AsyncConfig as JAsync
 from repro.core import FLConfig as JFL
@@ -202,8 +203,8 @@ def test_sync_orchestrator_refuses_async_mode():
 def test_batched_engine_matches_per_event(params, case, train_chunk):
     """The batched engine draws every host stream in the per-event order
     (the batches at dispatch), so events, logs and the comm ledger are
-    equal; its bucketed training, padded to a power of two, agrees to
-    1e-5."""
+    equal; its bucketed training, padded to a power of two, is bit for bit
+    the per-event engine's."""
     tp = convert.params_from_jax(params)
     one, batched = t_orch(case), t_orch(case, BatchedAsyncOrchestrator,
                                         train_chunk=train_chunk)
@@ -215,11 +216,10 @@ def test_batched_engine_matches_per_event(params, case, train_chunk):
     for a, b in zip(one.logs, batched.logs):
         assert host_fields(a) == host_fields(b)
         for k in FLOAT_FIELDS:
-            np.testing.assert_allclose(getattr(b, k), getattr(a, k),
-                                       rtol=1e-5, err_msg=k)
+            np.testing.assert_array_equal(getattr(b, k), getattr(a, k),
+                                          err_msg=k)
     for k in p1:
-        np.testing.assert_allclose(p2[k].numpy(), p1[k].numpy(), rtol=1e-5,
-                                   atol=1e-5, err_msg=k)
+        assert torch.equal(p2[k], p1[k]), k
     # one host sync per bucket, not one per update: fewer reads in all
     # once a bucket can hold more than one client
     syncs = [sum(l.phase_wall["host_syncs"] for l in o.logs)

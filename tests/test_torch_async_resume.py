@@ -83,17 +83,12 @@ def _logs(orch):
             for l in orch.logs]
 
 
-def assert_same_run(resumed, straight, p_resumed, p_straight, exact=True):
-    assert _logs(resumed) == _logs(straight) if exact else \
-        len(resumed.logs) == len(straight.logs)
+def assert_same_run(resumed, straight, p_resumed, p_straight):
+    assert _logs(resumed) == _logs(straight)
     assert resumed.events_processed == straight.events_processed
     assert resumed.comm.records == straight.comm.records
     for k in p_straight:
-        if exact:
-            assert torch.equal(p_resumed[k], p_straight[k]), k
-        else:
-            torch.testing.assert_close(p_resumed[k], p_straight[k],
-                                       rtol=1e-5, atol=1e-5)
+        assert torch.equal(p_resumed[k], p_straight[k]), k
 
 
 @pytest.mark.parametrize("kill", ["first_commit", "mid_buffer",
@@ -152,9 +147,9 @@ def test_resume_between_timeout_deadlines(tmp_path):
     (BatchedAsyncOrchestrator, AsyncOrchestrator),
     (AsyncOrchestrator, BatchedAsyncOrchestrator)])
 def test_resume_across_engines(tmp_path, writer, reader):
-    """A snapshot from either engine continues in the other: the same
-    events and logs as the reader's uninterrupted run, params to 1e-5 (the
-    engines train through different reductions)."""
+    """A snapshot from either engine continues in the other bit for bit:
+    the same events, logs and params as the reader's uninterrupted run
+    (every engine trains a client as one lane of a stacked call)."""
     kw = lambda cls: {"train_chunk": 3} if cls is BatchedAsyncOrchestrator \
         else {}                                            # noqa: E731
     straight, params = make_orch(reader, **kw(reader))
@@ -165,7 +160,7 @@ def test_resume_across_engines(tmp_path, writer, reader):
     resumed, params3 = make_orch(reader, mgr=mgr, **kw(reader))
     p0, st0 = mgr.restore_async(resumed, params3)
     p_resumed, _ = resumed.run(p0, N_COMMITS, server_state=st0)
-    assert_same_run(resumed, straight, p_resumed, p_straight, exact=False)
+    assert_same_run(resumed, straight, p_resumed, p_straight)
     host = lambda o: [{k: v for k, v in l.items()                 # noqa: E731
                        if k not in ("client_loss", "delta_norm")}
                       for l in _logs(o)]

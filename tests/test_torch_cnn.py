@@ -12,6 +12,7 @@ from repro.models.cnn import CIFAR_CNN as J_CIFAR
 from repro.models.cnn import CNN as JCNN
 from repro.models.cnn import CNNConfig as JConfig
 from repro_torch import convert
+from repro_torch.models import cnn
 from repro_torch.models.cnn import CIFAR_CNN, CNN, MEDMNIST_CNN, CNNConfig
 
 NARROW = dict(name="t", in_shape=(8, 8, 1), num_classes=3, channels=(4, 8),
@@ -52,6 +53,18 @@ def test_shapes_and_init_distributions_match():
 
 @pytest.mark.parametrize("narrow", [NARROW, dict(NARROW, in_shape=(9, 9, 2))])
 def test_loss_acc_grads_match_jax(narrow):
+    assert_loss_acc_grads_match_jax(narrow)
+
+
+@pytest.mark.parametrize("narrow", [NARROW, dict(NARROW, in_shape=(9, 9, 2))])
+def test_library_conv_grads_match_jax(narrow, monkeypatch):
+    """The card's convolution (``F.conv2d``, cuDNN there) run here in
+    place of the CPU's lane-exact im2col: the same loss and grads."""
+    monkeypatch.setattr(cnn, "_conv", cnn._conv_library)
+    assert_loss_acc_grads_match_jax(narrow)
+
+
+def assert_loss_acc_grads_match_jax(narrow):
     jm, tm, jp, tp = pair(JConfig(**narrow), CNNConfig(**narrow))
     b = batch(tm.cfg, 6)
     (jl, jaux), jg = jax.value_and_grad(jm.loss_fn, has_aux=True)(jp, b)
