@@ -6,6 +6,7 @@ training rounds, and the host's cost of a kernel launch.
     python3 chip_compare.py --parent DIR [--profile] [--host]
     python3 chip_compare.py --paths DIR [DIR ...]
     python3 chip_compare.py --xlstm-gaps SEED [SEED ...]
+    python3 chip_compare.py --spmd
 
 ``--parent DIR``: DIR is another checkout of the repository (for example a
 ``git archive`` of the parent commit unpacked into a git-ignored
@@ -60,6 +61,19 @@ the same bits), decoding 16 teacher-forced tokens (numpy's generator of
 packages on the CPU), and each of the two against the float32 model's
 prefill on the same weights; on the card once with PyTorch's default bf16
 GEMMs and once with their split reductions kept in float32.
+
+``--spmd``: the round across processes (``chip_smoke.py``'s phase
+``spmd``) and two readings behind its bounds.  First the unfused commit's
+weighted sum over the CIFAR CNN's stack of 20 slots, computed leaf by leaf
+(the form before the sum took the fused commit's blocked layout) and as
+``kernels.ops.weighted_sum_tree`` does it: whether the two agree bit for
+bit, and each one's median time over 50 calls (CUDA events), in turns.
+(The pipeline keeps both: leaf by leaf off a mesh, packed under one.)
+Then the reduced Jamba's sequential round of the phase (``SPMD_JAMBA``)
+with no mesh here and on four gloo ranks sharing the card: sound, with the
+ranks' mean doubled, and with the mean replaced by a sum over the ranks
+(two controls that a wrong gradient reduction must fail): each one's loss
+and params gap to no mesh.  Then the phase itself, alone.
 
 Every run prints the card's name and power limit (``nvidia-smi``).
 """
@@ -427,6 +441,113 @@ def host_costs() -> None:
         print(f"host {name}: {statistics.median(times):.2f} us per call")
 
 
+def spmd_jamba_rank(mesh, path, control):
+    """One rank of the reduced Jamba's sharded round; ``control`` replaces
+    the gradient mean by twice itself or by the ranks' sum."""
+    import torch
+
+    import chip_smoke as cs
+    from repro_torch.models import sharding as sh
+    cs.spmd_rank_setup()
+    if control == "sum":
+        sh.pmean = sh.psum
+    elif control == "doubled":
+        mean = sh.pmean
+        sh.pmean = lambda x, axes: mean(x, axes) * 2
+    z = torch.load(path, weights_only=False)
+    j = cs.SPMD_JAMBA
+    lm = cs.build_model(cs.reduced(cs.get_config(cs.JAMBA)))
+    new, loss = cs.spmd_jamba_round(
+        lm, {k: v.to(mesh.device) for k, v in z["params"].items()},
+        z["batches"], j["C"], j["H"], mesh.device)
+    return cs.cpu_tree(new), loss
+
+
+def spmd_readings() -> None:
+    import os
+    import tempfile
+
+    import torch
+
+    import chip_smoke as cs
+    from repro_torch.kernels import ops as kops
+    from repro_torch.launch import spmd
+    # chip_smoke.main's settings: the phase's references are made here
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    cs.build()
+    # the unfused commit's sum, leaf by leaf and packed
+    C = cs.SPMD_ROUND["C"]
+    p = cs.CNN(cs.CIFAR_CNN).init(torch.Generator().manual_seed(0),
+                                  device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(1)
+    stacked = {k: torch.randn((C,) + tuple(v.shape), device="cuda",
+                              generator=g) * 0.01 for k, v in p.items()}
+    w = torch.rand(C, device="cuda", generator=g)
+    names = sorted(stacked)
+
+    def per_leaf():
+        return {k: (d * w.reshape((-1,) + (1,) * (d.ndim - 1))).sum(0)
+                for k, d in stacked.items()}
+
+    def packed():
+        return dict(zip(names, kops.weighted_sum_tree(
+            [stacked[n] for n in names], w)))
+    a, b = per_leaf(), packed()
+    same = all(torch.equal(a[k], b[k]) for k in a)
+    gap = max(float((a[k] - b[k]).abs().max()) for k in a)
+    times = {}
+    for name, fn in (("per leaf", per_leaf), ("packed", packed),
+                     ("per leaf again", per_leaf), ("packed again", packed)):
+        for _ in range(5):
+            fn()
+        ts = []
+        for _ in range(50):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            fn()
+            e1.record()
+            torch.cuda.synchronize()
+            ts.append(e0.elapsed_time(e1))
+        times[name] = round(statistics.median(ts), 4)
+    print(f"spmd unfused sum over [{C}, CIFAR leaves]: bit for bit {same} "
+          f"(max |diff| {gap:.3g}); median ms {times}", flush=True)
+    # the reduced Jamba: sound and the two controls
+    j = cs.SPMD_JAMBA
+    cfg = cs.reduced(cs.get_config(cs.JAMBA))
+    lm = cs.build_model(cfg)
+    lp = {k: v.to("cuda") for k, v in cs.flat_dict(lm.init(
+        torch.Generator().manual_seed(0))).items()}
+    jb = cs.lm_batches(cfg, (j["C"], j["H"], j["B"]), j["S"], 3)
+    new, loss = cs.spmd_jamba_round(lm, lp, jb, j["C"], j["H"], "cuda")
+    moved = max(float((new[k] - lp[k]).abs().max()) for k in new)
+    print(f"spmd jamba: no mesh loss {loss:.6f}, the params' largest move "
+          f"{moved:.3g}", flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "jamba.pt")
+        torch.save({"params": cs.cpu_tree(lp), "batches": jb}, path)
+        for control in (None, "doubled", "sum"):
+            got, got_loss = spmd.run(spmd_jamba_rank, (path, control),
+                                     sizes=cs.SPMD_SIZES, device="cuda",
+                                     timeout_s=300, threads=None,
+                                     verbose=False)
+            gap = max(float((got[k] - new[k].cpu()).abs().max())
+                      for k in new)
+            print(f"spmd jamba {control or 'sound'}: loss gap "
+                  f"{abs(got_loss - loss):.3g}, params gap {gap:.3g} "
+                  f"(bounds {cs.SPMD_JAMBA_TOL})", flush=True)
+    t0 = time.perf_counter()
+    try:
+        totals = cs.spmd_phase()
+        print(f"spmd phase: launches {totals}")
+    except cs.SmokeFailure as e:
+        print(f"spmd phase: FAILED {e}")
+    print(f"phase spmd: {time.perf_counter() - t0:.1f} s")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", type=Path, help="another checkout to compare")
@@ -435,6 +556,7 @@ def main(argv=None) -> int:
     ap.add_argument("--paths", type=Path, nargs="+", metavar="DIR",
                     help="other checkouts whose training paths to time")
     ap.add_argument("--xlstm-gaps", type=int, nargs="+", metavar="SEED")
+    ap.add_argument("--spmd", action="store_true")
     args = ap.parse_args(argv)
     sys.path.insert(0, str(ROOT))
     import torch
@@ -454,6 +576,8 @@ def main(argv=None) -> int:
         host_costs()
     if args.profile:
         profile_rounds()
+    if args.spmd:
+        spmd_readings()
     print(f"nvidia-smi: {cs.nvidia_smi()}")
     return 0
 

@@ -160,7 +160,38 @@ it happened; any failure ends the run with a non-zero exit code:
      ``python -m repro_torch.launch.dryrun`` for a dense, an MoE and a
      hybrid arch over every input shape on both production meshes, one
      line a tag, on the meta device: the card's allocated memory is held
-     unchanged.
+     unchanged;
+ 10. the round across processes (``spmd``), a ``model`` axis of 1: (a)
+     four gloo ranks sharing the card (NCCL takes one rank a GPU) on a
+     pod 2 x data 2 mesh run the full-width CIFAR round (20 clients, 5
+     local steps, batch 16) in the parallel (clients over pod and data),
+     sequential (each client's batch over data) and pod_sequential (2 pods
+     over pod, the batch over data) modes: each rank's deltas within 1e-5
+     of the same round's with no mesh here, the round's params too, the
+     parallel round (the main path) launching fused_accum once a rank,
+     counted alone; the
+     default, q8 + top-k and secure q8 commits of this process's deltas,
+     each rank on its share, bit for bit; the secure async buffer commit
+     bit for bit; the reduced Jamba's sequential round, its scan and
+     backward launched exactly on each rank's batch share, the loss
+     within 1e-3 and the params within 1e-4 of no mesh (its MoE routes
+     each rank's tokens; the bounds from readings, SPMD_JAMBA_TOL); every
+     commit kernel's entry point, whole and client-split, bit for bit;
+     the params bit for bit across ranks throughout, and each rank's
+     launches exact: first a sequential round under cuDNN's and cuBLAS's
+     default algorithms, where the round's gradient mean keeps the pods
+     (which repeat the work) equal, then the comparisons with no mesh
+     under the deterministic ones (the default ones' rounding at a rank's
+     half batch is beyond 1e-5); (b)
+     MusicGen-medium whole in bf16, one
+     sequential round of 2 clients x 2 steps, batch 2 x 512 frames x 4
+     codebooks split over two ranks sharing the card, against the same
+     round with no mesh (loss within 5e-3, params within 3e-2), every
+     rank reducing each gradient leaf and the loss at every local step of
+     every client, with each rank's peak, the round's wall and its
+     gradient reductions' time; (c)
+     the CIFAR parallel round as a one-rank NCCL group, bit for bit
+     against no mesh under deterministic algorithms.
 The last lines are the kernels' JSON record, the nvidia-smi line, and
 ``{"ok": true, "device": {...}}``.
 """
@@ -213,6 +244,7 @@ from repro_torch.launch import serve, train  # noqa: E402
 from repro_torch.models import (build_model, param_count,  # noqa: E402
                                 token_shape)
 from repro_torch.models import moe as moe_mod  # noqa: E402
+from repro_torch.models import sharding as shd  # noqa: E402
 from repro_torch.models import xlstm as xlstm_mod  # noqa: E402
 from repro_torch.data import VirtualFederatedDataset  # noqa: E402
 from repro_torch.models.cnn import CIFAR_CNN, CNN  # noqa: E402
@@ -950,9 +982,16 @@ def kernel_specs(device, k_slots=K_SLOTS, rows=BUCKET_ROWS,
     s_async = torch.tensor(ASYNC_STALENESS[:ka], dtype=torch.float32,
                            device=device)
 
+    # the one PyTorch call computing the fused accumulate at a shape: an
+    # einsum over the discounted slot weights, keyed by the case's label
+    accum_library = {}
+
     def async_accum(label, x):
-        return (f"{label} [{ka}, {x.shape[1]}, {block}], staleness "
-                f"{ASYNC_STALENESS[:ka]}, exponent {ASYNC_EXPONENT}",
+        label = (f"{label} [{ka}, {x.shape[1]}, {block}], staleness "
+                 f"{ASYNC_STALENESS[:ka]}, exponent {ASYNC_EXPONENT}")
+        w_lib = ref.slot_weights(w_async, s_async, ASYNC_EXPONENT)
+        accum_library[label] = lambda: torch.einsum("k,krb->rb", w_lib, x)
+        return (label,
                 lambda: fused_accum_blocks(x, w_async, s_async,
                                            ASYNC_EXPONENT),
                 lambda: ref.fused_accum_ref(x, w_async[:, None],
@@ -967,8 +1006,11 @@ def kernel_specs(device, k_slots=K_SLOTS, rows=BUCKET_ROWS,
     def tier2_accum(K, stale):
         sk = torch.full((K,), float(stale), device=device)
         x, wk = xb[:K], w[:K]
-        return (f"the tier-2 commit [{K}, {rows}, {block}], staleness "
-                f"{stale}, exponent {ASYNC_EXPONENT}",
+        label = (f"the tier-2 commit [{K}, {rows}, {block}], staleness "
+                 f"{stale}, exponent {ASYNC_EXPONENT}")
+        w_lib = ref.slot_weights(wk, sk, ASYNC_EXPONENT)
+        accum_library[label] = lambda: torch.einsum("k,krb->rb", w_lib, x)
+        return (label,
                 lambda: fused_accum_blocks(x, wk, sk, ASYNC_EXPONENT),
                 lambda: ref.fused_accum_ref(x, wk[:, None], sk[:, None],
                                             ASYNC_EXPONENT),
@@ -1036,6 +1078,7 @@ def kernel_specs(device, k_slots=K_SLOTS, rows=BUCKET_ROWS,
                async_accum("the async buffer", x_async),
                async_accum("the char-LM's async buffer", xlm_async),
                tier2_accum(kt, 0), tier2_accum(1, 1), tier2_accum(2, 1)],
+            extra_library=accum_library,
             compare=lambda g, p: check(
                 torch.allclose(g, p, rtol=FUSED_ACCUM_TOL[0],
                                atol=FUSED_ACCUM_TOL[1]),
@@ -1307,9 +1350,13 @@ def check_kernels(device="cuda", **shapes):
             (compare[0] if compare else spec["compare"])(g, p)
             del g, p
             extra_ms, extra_by = bound(nbytes, ops, int_ops, rate)
+            lib = spec.get("extra_library", {}).get(label)
             print(f"kernel {kname} ({label}): equal to its plain version "
                   + (f"ms={time_ms(kernel)} queued_ms={time_ms_queued(kernel)} "
                      if timed else "")
+                  + (f"library_ms={time_ms(lib)} "
+                     f"library_queued_ms={time_ms_queued(lib)} "
+                     if timed and lib else "")
                   + f"bound_ms={extra_ms} bound_by={extra_by}")
         got = spec["kernel"]()
         want = spec["plain"]()
@@ -3094,7 +3141,6 @@ def mesh_rounds(label, loss_fn, params, fl, batches, w, m, mesh, device):
     them), each under deterministic algorithms (the card's scatter-adds
     otherwise sum in no fixed order); the new params and metrics must be
     equal, bit for bit.  Returns the meshed round's launches."""
-    from repro_torch.models import sharding as shd
     opt, server = get_client_optimizer("sgd"), get_server_optimizer("fedavg")
 
     def run(axes):
@@ -3183,6 +3229,647 @@ def mesh_phase(device="cuda", archs=DRYRUN_ARCHS, cnn_round=MESH_ROUND):
     return totals
 
 
+# ---------------------------------------------------------------- spmd
+# The round across processes on the federated mesh axes (launch/spmd.py,
+# launch/mesh.py; a model axis of 1).  One H100 holds every rank, so the
+# ranks share it over gloo, which stages each collective through the host:
+# the phase checks the ranks' results, and measures no collective's speed.
+SPMD_SIZES = (2, 2, 1)                    # pod x data x model, 4 ranks
+SPMD_ROUND = dict(C=20, H=5, B=16)        # the main path's round
+SPMD_MODES = (("parallel", ("pod", "data")), ("sequential", None),
+              ("pod_sequential", ("pod",)))
+SPMD_COMMITS = ("default", "q8_topk_deterministic", "secure_q8_stochastic")
+SPMD_ASYNC = "secure_q8_topk_deterministic"
+SPMD_DELTA_TOL = 1e-5
+SPMD_JAMBA = dict(C=4, H=2, B=2, S=64)
+# the reduced Jamba's sharded round against the unsharded one (its MoE
+# routes each rank's tokens with the local capacity and enters its aux loss
+# per shard): the loss and the params.  Readings of this round
+# (chip_compare.py --spmd on an H100): the sound split 1.62e-05 and
+# 1.07e-06; the ranks' mean doubled 6.71 and 2.53e-03; their sum in place
+# of the mean 20.1 and 7.71e-03
+SPMD_JAMBA_TOL = (1e-3, 1e-4)
+# (b) against the unsharded round: tests/test_mesh_small.py's bounds for a
+# sharded round, the loss and the params
+SPMD_SHARDED_TOL = (5e-3, 3e-2)
+# (b): MusicGen-medium whole, sequential, 2 clients x 2 steps, batch 2 x
+# 512 frames x 4 codebooks split over data 2, one round
+AUDIO_SPMD = dict(C=2, H=2, B=2, S=512)
+AUDIO_SPMD_SIZES, AUDIO_SPMD_AXES = (2, 1), ("data", "model")
+SPMD_LIMIT_BYTES = 76e9                   # what both ranks may hold
+
+
+# the main path: one rank's launches in the parallel default round
+SPMD_MAIN_LAUNCHES = {"fused_accum": 1}
+
+
+def spmd_launches_expected(n_leaves=8, C=SPMD_ROUND["C"]) -> dict:
+    """One rank's launches over (a)'s CIFAR rounds and commits: parallel,
+    the default round (fused_accum, SPMD_MAIN_LAUNCHES) and the three
+    commits of the same deltas (fused_accum, plain_commit, secure_commit);
+    sequential, the q8
+    + top-k commit's per-client top-k and quantize, each leaf's rows split
+    over the ranks (the other two launch nothing: no compression, and
+    stochastic rounding with float masks); pod_sequential, fused_accum in
+    the default round and in two commits, and the q8 + top-k commit's
+    compress of the rank's pod sum, leaf by leaf; the secure async buffer
+    commit."""
+    return {"fused_accum": 2 + 3, "plain_commit": 1, "secure_commit": 1 + 1,
+            "topk_sparsify": n_leaves * C + n_leaves,
+            "quantize": n_leaves * C + n_leaves}
+
+
+def spmd_fl(cname, mode, C, H):
+    args = train.build_parser().parse_args(MAIN_ARGS + CONFIGS[cname][0])
+    return dataclasses.replace(train.fl_config(args), num_clients=C,
+                               local_steps=H, client_exec=mode)
+
+
+def spmd_step(model, cname, mode, axes, C, H):
+    return build_fl_round_step(model.loss_fn, get_client_optimizer("sgd"),
+                               get_server_optimizer("fedavg"),
+                               spmd_fl(cname, mode, C, H), n_pods=2,
+                               client_spmd_axes=axes)
+
+
+def recording(local_train, kept):
+    """``local_train`` that also keeps each client's (delta, loss)."""
+    def run(params, batch):
+        out = local_train(params, batch)
+        kept.append(out)
+        return out
+    return run
+
+
+def replaying(updates):
+    """A ``local_train`` that hands back ``updates`` in turn."""
+    it = iter(updates)
+    return lambda params, batch: next(it)
+
+
+def spmd_gen():
+    return torch.Generator().manual_seed(5)
+
+
+def cpu_tree(t):
+    return {k: v.detach().cpu() for k, v in t.items()}
+
+
+def spmd_kernel_calls(deltas, w, m, slot_axes=()):
+    """Every commit kernel's entry point on the parallel round's deltas
+    (this process's share of the clients where ``slot_axes`` splits them):
+    {label: per-leaf results}."""
+    leaves = [shd.local_share(deltas[k], slot_axes) for k in sorted(deltas)]
+    ids = torch.arange(len(w), dtype=torch.int32)
+    seeds = sec.pair_seeds(sec.commit_key(11), ids).to(w.device)
+    coef = sec.pair_coef_int(ids, m).to(w.device)
+    s = torch.zeros_like(w)
+    out = {
+        "fused_accum": kops.fused_accum_tree(leaves, w, s, 0.0,
+                                             slot_axes=slot_axes),
+        "plain_commit": kops.fused_plain_commit_tree(
+            leaves, w, s, 0.0, bits=8, k=TOPK_K, slot_axes=slot_axes),
+        "secure_commit": kops.fused_secure_commit_tree(
+            leaves, w * m, seeds, coef, bits=8, k=TOPK_K,
+            slot_axes=slot_axes),
+        "secure_commit, stochastic rounding": kops.fused_secure_commit_tree(
+            leaves, w * m, seeds, coef, bits=8, slot_axes=slot_axes,
+            noise_generator=spmd_gen()),
+    }
+    if not slot_axes:
+        out["quantize"] = [kops.quantize_dequant(deltas["dense1_w"])]
+        out["topk_sparsify"] = [kops.topk_sparsify(deltas["dense1_w"],
+                                                   k=TOPK_K)]
+    return {k: [x.detach().cpu() for x in v] for k, v in out.items()}
+
+
+def spmd_reference(device, sizes=SPMD_ROUND, jamba=SPMD_JAMBA):
+    """(a)'s references, each with no mesh in this process on ``device``:
+    the CIFAR rounds of every mode (the clients' deltas kept) and their
+    commits of the same deltas in every configuration of SPMD_COMMITS,
+    the secure async buffer commit, the reduced Jamba's sequential round
+    and every commit kernel's entry point on the parallel deltas."""
+    C, H, B = sizes["C"], sizes["H"], sizes["B"]
+    nb, w, m = round_inputs(C, H, B)
+    on = lambda a: torch.from_numpy(a).to(device)        # noqa: E731
+    batches, w, m = {k: on(v) for k, v in nb.items()}, on(w), on(m)
+    model = CNN(CIFAR_CNN)
+    params = model.init(torch.Generator().manual_seed(0), device=device)
+    ref_out = {"params": cpu_tree(params), "batches": cpu_tree(batches),
+               "w": w.cpu(), "m": m.cpu(), "rounds": {}, "sizes": sizes,
+               "jamba_sizes": jamba}
+    for mode, axes in SPMD_MODES:
+        step = spmd_step(model, "default", mode, None, C, H)
+        commits = {}
+        if mode == "parallel":
+            deltas, losses = step.train_clients(params, batches)
+            for cname in SPMD_COMMITS:
+                commits[cname] = spmd_step(model, cname, mode, None, C, H
+                                           ).commit(params, (), deltas,
+                                                    losses, w, m,
+                                                    spmd_gen())[0]
+            kept = {"deltas": cpu_tree(deltas), "losses": losses.cpu()}
+            ref_out["kernels"] = spmd_kernel_calls(deltas, w, m)
+        else:
+            updates = []
+            step.local_train = recording(step.local_train, updates)
+            step(params, (), batches, w, m, spmd_gen())
+            for cname in SPMD_COMMITS:
+                st = spmd_step(model, cname, mode, None, C, H)
+                if mode == "sequential":
+                    commits[cname] = st.commit(params, (), iter(updates), w,
+                                               m, spmd_gen())[0]
+                else:
+                    st.local_train = replaying(updates)
+                    commits[cname] = st(params, (), batches, w, m,
+                                        spmd_gen())[0]
+            kept = {"updates": [(cpu_tree(d), loss.cpu())
+                                for d, loss in updates]}
+        ref_out["rounds"][mode] = dict(kept, commits={
+            k: cpu_tree(v) for k, v in commits.items()})
+    # the secure async buffer commit of K=8 deltas, as async_path draws them
+    args = train.build_parser().parse_args(ASYNC_ARGS
+                                           + CONFIGS[SPMD_ASYNC][0])
+    rng = np.random.default_rng(3)
+    k = ASYNC_K
+    a_in = {"deltas": {n: torch.from_numpy((rng.normal(size=(k,) + tuple(
+        p.shape)) * 0.01).astype(np.float32)) for n, p in params.items()},
+        "w": torch.from_numpy(rng.uniform(100, 400, k).astype(np.float32)),
+        "losses": torch.from_numpy(rng.uniform(0.5, 2.5, k).astype(
+            np.float32)),
+        "s": torch.tensor(ASYNC_STALENESS[:k], dtype=torch.float32)}
+    a_in["m"] = torch.ones(k)
+    a_in["m"][2] = 0.0
+    ref_out["async"] = dict(a_in, new=cpu_tree(spmd_async_commit(
+        args, params, a_in, device)))
+    # the reduced Jamba, sequential
+    cfg = reduced(get_config(JAMBA))
+    lm = build_model(cfg)
+    lparams = {k: v.to(device) for k, v in flat_dict(lm.init(
+        torch.Generator().manual_seed(0))).items()}
+    jb = lm_batches(cfg, (jamba["C"], jamba["H"], jamba["B"]), jamba["S"], 3)
+    new, loss = spmd_jamba_round(lm, lparams, jb, jamba["C"], jamba["H"],
+                                 device)
+    ref_out["jamba"] = {"params": cpu_tree(lparams), "batches": jb,
+                        "new": cpu_tree(new), "loss": loss}
+    sync(device)
+    return ref_out
+
+
+def spmd_async_commit(args, params, a_in, device):
+    on = lambda t: t.to(device)                           # noqa: E731
+    fl, acfg = train.fl_config(args), train.async_config(args)
+    step = build_buffer_commit_step(get_server_optimizer("fedavg"), fl,
+                                    acfg)
+    k = len(a_in["w"])
+    return step(params, (), {n: on(v) for n, v in a_in["deltas"].items()},
+                on(a_in["w"]), on(a_in["s"]), on(a_in["losses"]),
+                on(a_in["m"]), torch.arange(k, dtype=torch.int32),
+                ASYNC_EXPONENT, torch.Generator().manual_seed(7))[0]
+
+
+def spmd_jamba_round(lm, params, batches_np, C, H, device):
+    fl = FLConfig(num_clients=C, local_steps=H, client_lr=0.05,
+                  client_exec="sequential")
+    step = build_fl_round_step(lm.loss_fn, get_client_optimizer("sgd"),
+                               get_server_optimizer("fedavg"), fl)
+    new, _, met = step(params, (), {k: torch.from_numpy(v).to(device)
+                                    for k, v in batches_np.items()},
+                       torch.ones(C, device=device),
+                       torch.ones(C, device=device),
+                       torch.Generator().manual_seed(2))
+    return new, float(met["client_loss"])
+
+
+def spmd_rank_setup():
+    """A rank's numerics as this script's: TF32 off, bf16 reductions in
+    float32.  cuDNN's and cuBLAS's default algorithms stay on: that ranks
+    repeating the same work (the pods of a sequential round) end with the
+    same bits is the round's to keep, not the algorithms'."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+
+
+def deterministic_algorithms():
+    """cuDNN's and cuBLAS's deterministic algorithms from here on, for a
+    comparison with a round run elsewhere: under the default ones the
+    batch-split CIFAR rounds' deltas came 2.69e-05 from the no-mesh
+    round's on an H100 (1.4e-06 to 4.4e-06 under these), beyond
+    SPMD_DELTA_TOL, which is there to measure the split, not the
+    algorithms cuDNN picks for a rank's half batch."""
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    warnings.filterwarnings("ignore", message=".*deterministic.*")
+
+
+def max_gap(got: dict, want: dict) -> float:
+    return max(float((got[k].float() - want[k].to(got[k].device).float())
+                     .abs().max()) for k in want)
+
+
+def same_bits(got: dict, want: dict) -> bool:
+    return all(torch.equal(got[k], want[k].to(got[k].device)) for k in want)
+
+
+def replicas_equal(tree) -> bool:
+    return all(len(set(v)) == 1 for v in
+               shd.replica_checksums(tree).values())
+
+
+def spmd_rank_main(mesh, ref_path):
+    """(a) on one rank: the sequential CIFAR round under the default
+    algorithms, its params bit for bit across ranks; then, under the
+    deterministic ones, each CIFAR round of SPMD_MODES under the mesh, its
+    deltas against the reference's, its commits of the reference's deltas
+    bit for bit, the params bit for bit across ranks; the async commit;
+    the reduced Jamba; then every commit kernel's entry point, whole and
+    client-split, bit for bit.  Returns (checks, walls, launches)."""
+    spmd_rank_setup()
+    dev, lead = mesh.device, mesh.rank == 0
+    ref_in = torch.load(ref_path, weights_only=False)
+    on = lambda t: t.to(dev)                              # noqa: E731
+    tree = lambda t: {k: on(v) for k, v in t.items()}     # noqa: E731
+    params, batches = tree(ref_in["params"]), tree(ref_in["batches"])
+    w, m = on(ref_in["w"]), on(ref_in["m"])
+    C, H = ref_in["sizes"]["C"], ref_in["sizes"]["H"]
+    jamba = ref_in["jamba_sizes"]
+    model = CNN(CIFAR_CNN)
+    checks, walls = [], {}
+
+    def note(label, ok, detail=""):
+        checks.append((label, bool(ok), detail))
+        if lead:
+            print(f"spmd (a) rank 0: {label}: {'ok' if ok else 'FAILED'} "
+                  f"{detail}", flush=True)
+
+    # the round's own invariant under the default algorithms: the pods of
+    # a sequential round repeat the same work, and its gradient mean over
+    # pod hands them the same bits
+    new = spmd_step(model, "default", "sequential", None, C, H)(
+        params, (), batches, w, m, spmd_gen())[0]
+    note("sequential round under the default algorithms: params bit for "
+         "bit across ranks", replicas_equal(new))
+    deterministic_algorithms()
+    counts = {}
+    for mode, axes in SPMD_MODES:
+        want = ref_in["rounds"][mode]
+        step = spmd_step(model, "default", mode, axes, C, H)
+        sync(dev)
+        launches.reset()
+        t0 = time.perf_counter()
+        if mode == "parallel":
+            # the main path: its launches counted alone
+            share = step.client_share
+            deltas, losses = step.train_clients(
+                params, {k: share(v) for k, v in batches.items()})
+            new = step.commit(params, (), deltas, losses, share(w), share(m),
+                              spmd_gen())[0]
+            main = dict(launches.KERNEL_LAUNCHES)
+            note("parallel round (the main path): its own launches",
+                 dev.startswith("cpu") or main == SPMD_MAIN_LAUNCHES,
+                 f"launches {main}, expected {SPMD_MAIN_LAUNCHES}")
+            gap = max_gap(deltas, {k: share(v) for k, v in
+                                   want["deltas"].items()})
+        else:
+            mine = []
+            step.local_train = recording(step.local_train, mine)
+            new = step(params, (), batches, w, m, spmd_gen())[0]
+            first = 0
+            if mode == "pod_sequential":
+                first = shd.shard_index(axes) * (C // shd.shard_count(axes))
+            gap = max(max_gap(d, want["updates"][first + i][0])
+                      for i, (d, _) in enumerate(mine))
+        sync(dev)
+        walls[mode] = time.perf_counter() - t0
+        note(f"{mode} round: the deltas against the no-mesh round's",
+             gap <= SPMD_DELTA_TOL, f"max |diff| {gap:.3g}")
+        note(f"{mode} round: the params against the no-mesh round's",
+             max_gap(new, want["commits"]["default"]) <= SPMD_DELTA_TOL,
+             f"max |diff| {max_gap(new, want['commits']['default']):.3g}, "
+             f"round_wall_s={walls[mode]:.4f}")
+        note(f"{mode} round: params bit for bit across ranks",
+             replicas_equal(new))
+        for cname in SPMD_COMMITS:
+            st = spmd_step(model, cname, mode, axes, C, H)
+            if mode == "parallel":
+                share = st.client_share
+                out = st.commit(params, (), {k: share(on(v)) for k, v in
+                                             want["deltas"].items()},
+                                share(on(want["losses"])), share(w), share(m),
+                                spmd_gen())[0]
+            elif mode == "sequential":
+                out = st.commit(params, (), ((tree(d), on(loss)) for d, loss
+                                             in want["updates"]), w, m,
+                                spmd_gen())[0]
+            else:
+                n = C // shd.shard_count(axes)
+                first = shd.shard_index(axes) * n
+                st.local_train = replaying(
+                    (tree(d), on(loss))
+                    for d, loss in want["updates"][first:first + n])
+                out = st(params, (), batches, w, m, spmd_gen())[0]
+            note(f"{mode} commit {cname} of the no-mesh deltas: bit for bit",
+                 same_bits(out, want["commits"][cname]))
+            note(f"{mode} commit {cname}: params bit for bit across ranks",
+                 replicas_equal(out))
+        add_counts(counts, launches.KERNEL_LAUNCHES)
+        launches.reset()
+    # the secure async buffer commit: K slots whole, rows split
+    a_in = ref_in["async"]
+    args = train.build_parser().parse_args(ASYNC_ARGS
+                                           + CONFIGS[SPMD_ASYNC][0])
+    out = spmd_async_commit(args, params, a_in, dev)
+    note("secure async buffer commit: bit for bit",
+         same_bits(out, a_in["new"]))
+    note("secure async buffer commit: params bit for bit across ranks",
+         replicas_equal(out))
+    add_counts(counts, launches.KERNEL_LAUNCHES)
+    # the reduced Jamba, sequential, each client's batch over data
+    cfg = reduced(get_config(JAMBA))
+    lm = build_model(cfg)
+    jz = ref_in["jamba"]
+    launches.reset()
+    sync(dev)
+    t0 = time.perf_counter()
+    new, loss = spmd_jamba_round(lm, tree(jz["params"]), jz["batches"],
+                                 jamba["C"], jamba["H"], dev)
+    sync(dev)
+    walls["reduced jamba"] = time.perf_counter() - t0
+    jcounts = dict(launches.KERNEL_LAUNCHES)
+    gap = max_gap(new, jz["new"])
+    note("reduced jamba sequential round against no mesh",
+         abs(loss - jz["loss"]) < SPMD_JAMBA_TOL[0]
+         and gap < SPMD_JAMBA_TOL[1],
+         f"loss {loss:.6f} against {jz['loss']:.6f}, params max |diff| "
+         f"{gap:.3g}, round_wall_s={walls['reduced jamba']:.4f}")
+    note("reduced jamba: params bit for bit across ranks",
+         replicas_equal(new))
+    expect = train_launches(lm, "sequential", jamba["C"], jamba["H"],
+                            jamba["S"])
+    note("reduced jamba: the scan and its backward on the rank's share",
+         dev.startswith("cpu") or jcounts == expect,
+         f"launches {jcounts}, expected {expect}")
+    add_counts(counts, jcounts)
+    # every commit kernel on this rank's rows, whole and client-split
+    par = ref_in["rounds"]["parallel"]["deltas"]
+    for axes in ((), ("pod", "data")):
+        got = spmd_kernel_calls(tree(par), w, m, axes)
+        for label, leaves in got.items():
+            ok = all(torch.equal(g, x) for g, x in
+                     zip(leaves, ref_in["kernels"][label]))
+            slots = f"split over {axes}" if axes else "whole"
+            note(f"kernel {label}, slots {slots}: this rank's rows and the "
+                 f"gathered result bit for bit", ok)
+    launches.reset()
+    return checks, walls, counts
+
+
+def audio_spmd_rank(mesh, ref_path, reference_loss, cfg, sh_):
+    """(b) on one rank: MusicGen-medium's sequential round, each client's
+    batch split over data, the gradient reductions timed; rank 0 then
+    holds the new params against the no-mesh round's."""
+    spmd_rank_setup()
+    dev = mesh.device
+    model, nested = serve.build(cfg, dev, seed=0)
+    params = flat_dict(nested)
+    del nested
+    fl = FLConfig(num_clients=sh_["C"], local_steps=sh_["H"], client_lr=0.01,
+                  client_exec="sequential")
+    batches = round_batches(cfg, 1, sh_["C"], sh_["H"], sh_["B"], sh_["S"],
+                            4, dev)(0)
+    step = build_fl_round_step(model.loss_fn, get_client_optimizer("sgd"),
+                               get_server_optimizer("fedavg"), fl)
+    # each local step of each client reduces every gradient leaf and the
+    # loss over data: the split ran where this many reductions did
+    expect_red = sh_["H"] * sh_["C"] * (len(params) + 1)
+    cuda = dev.startswith("cuda")
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    sync(dev)
+    t0 = time.perf_counter()
+    with shd.timed_collectives() as stats:
+        new, _, met = step(params, (), batches, torch.ones(sh_["C"],
+                                                           device=dev),
+                           torch.ones(sh_["C"], device=dev),
+                           torch.Generator().manual_seed(7))
+        loss = float(met["client_loss"])
+        sync(dev)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev) if cuda else 0
+    red = (float(stats["seconds"]["psum"]), int(stats["calls"]["psum"]))
+    del params, batches
+    same = replicas_equal(new)
+    finite = math.isfinite(loss) and all(bool(torch.isfinite(v).all())
+                                         for v in new.values())
+    print(f"spmd (b) rank {mesh.rank}: MusicGen-medium sequential round "
+          f"round_wall_s={wall:.4f} client_loss={loss:.6f} "
+          f"max_memory_allocated={peak} ({peak / 1e9:.2f} GB), gradient "
+          f"reductions {red[1]} (expected {expect_red}) taking "
+          f"{red[0]:.4f} s", flush=True)
+    gap = None
+    if mesh.rank == 0:
+        want = torch.load(ref_path, weights_only=False)
+        gap = max(float((new[k].float() - want[k].to(dev).float()).abs()
+                        .max()) for k in want)
+    return dict(loss=loss, wall=wall, peak=peak, reduction_s=red[0],
+                reductions=red[1], expected_reductions=expect_red,
+                replicas_equal=same, finite=finite,
+                gap=gap, loss_gap=abs(loss - reference_loss))
+
+
+def nccl_rank(mesh, ref_path):
+    """(c) the one-rank NCCL group: NCCL's collectives on the card, then
+    the full-width CIFAR parallel round under the 1x1x1 mesh, bit for bit
+    against the no-mesh round (both under deterministic algorithms)."""
+    import torch.distributed as dist
+    spmd_rank_setup()
+    deterministic_algorithms()
+    dev = mesh.device
+    x = torch.arange(4.0, device=dev)
+    dist.all_reduce(x)
+    parts = [torch.empty_like(x)]
+    dist.all_gather(parts, x)
+    y = torch.empty_like(x)
+    dist.all_to_all_single(y, x)
+    coll = bool(torch.equal(x, torch.arange(4.0, device=dev))
+                and torch.equal(parts[0], x) and torch.equal(y, x))
+    ref_in = torch.load(ref_path, weights_only=False)
+    tree = lambda t: {k: v.to(dev) for k, v in t.items()}  # noqa: E731
+    model = CNN(CIFAR_CNN)
+    step = spmd_step(model, "default", "parallel", ("pod", "data"),
+                     ref_in["sizes"]["C"], ref_in["sizes"]["H"])
+    launches.reset()
+    new, _, _ = step(tree(ref_in["params"]), (), tree(ref_in["batches"]),
+                     ref_in["w"].to(dev), ref_in["m"].to(dev), spmd_gen())
+    counts = dict(launches.KERNEL_LAUNCHES)
+    return dict(collectives=coll, same=same_bits(new, ref_in["nccl_new"]),
+                gap=max_gap(new, ref_in["nccl_new"]), launches=counts)
+
+
+def spmd_phase(device="cuda", sizes=SPMD_ROUND, jamba=SPMD_JAMBA,
+               audio_cfg=None, audio_shape=AUDIO_SPMD):
+    """Phase spmd: (a) four gloo ranks sharing the card on a pod 2 x data
+    2 x model 1 mesh run the CIFAR rounds, the async commit, the reduced
+    Jamba and every commit kernel against the same work with no mesh here;
+    (b) MusicGen-medium's sequential round on two ranks, its batch split
+    over data; (c) the CIFAR round as a one-rank NCCL group."""
+    from repro_torch.launch import spmd
+    kind = torch.device(device).type
+    totals = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "reference.pt")
+        t0 = time.perf_counter()
+        ref_out = spmd_reference(device, sizes, jamba)
+        # (c)'s reference: the parallel default round under deterministic
+        # algorithms
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        torch.backends.cudnn.deterministic = True
+        try:
+            model = CNN(CIFAR_CNN)
+            on = lambda t: {k: v.to(device) for k, v in t.items()}  # noqa
+            ref_out["nccl_new"] = cpu_tree(spmd_step(
+                model, "default", "parallel", None, sizes["C"],
+                sizes["H"])(on(ref_out["params"]), (),
+                                 on(ref_out["batches"]),
+                                 ref_out["w"].to(device),
+                                 ref_out["m"].to(device), spmd_gen())[0])
+        finally:
+            torch.use_deterministic_algorithms(False)
+            torch.backends.cudnn.deterministic = False
+        torch.save(ref_out, path)
+        del ref_out
+        free_cache(device)
+        print(f"spmd: the no-mesh references took "
+              f"{time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        per_rank = spmd.run(spmd_rank_main, (path,), sizes=SPMD_SIZES,
+                            device=kind, all_ranks=True, timeout_s=900,
+                            threads=None)
+        wall = time.perf_counter() - t0
+        for rank, (checks, walls, counts) in enumerate(per_rank):
+            failed = [c for c in checks if not c[1]]
+            print(f"spmd (a) rank {rank}: {len(checks) - len(failed)} of "
+                  f"{len(checks)} checks passed; walls {walls}; launches "
+                  f"{counts}")
+            for label, _, detail in failed:
+                print(f"spmd (a) rank {rank}: FAILED {label} {detail}")
+            check(not failed, f"spmd (a) rank {rank}: {failed[0][0]} "
+                              f"{failed[0][2]}" if failed else "")
+            lm = build_model(reduced(get_config(JAMBA)))
+            expect = dict(spmd_launches_expected(C=sizes["C"]))
+            add_counts(expect, train_launches(
+                lm, "sequential", jamba["C"], jamba["H"], jamba["S"]))
+            check(kind != "cuda" or counts == expect,
+                  f"spmd (a) rank {rank}: launches {counts}, expected "
+                  f"{expect}")
+            add_counts(totals, counts)
+        print(f"spmd (a): 4 ranks, the spawn and every rank's work "
+              f"{wall:.1f} s; launches over the ranks {totals}")
+        totals_c = spmd_nccl(path, kind)
+        add_counts(totals, totals_c)
+    add_counts(totals, spmd_audio(device, kind, audio_cfg, audio_shape))
+    return totals
+
+
+def spmd_nccl(path, kind):
+    from repro_torch.launch import spmd
+    t0 = time.perf_counter()
+    out = spmd.run(nccl_rank, (path,), sizes=(1, 1, 1), device=kind,
+                   backend="nccl" if kind == "cuda" else "gloo",
+                   timeout_s=300, threads=None)
+    print(f"spmd (c): one {'nccl' if kind == 'cuda' else 'gloo'} rank: "
+          f"collectives right {out['collectives']}; the CIFAR parallel "
+          f"round bit for bit against no mesh {out['same']} (max |diff| "
+          f"{out['gap']:.3g}); launches {out['launches']}; "
+          f"{time.perf_counter() - t0:.1f} s")
+    check(out["collectives"], "spmd (c): NCCL's collectives are wrong")
+    check(out["same"], f"spmd (c): the one-rank round differs from no mesh "
+                       f"by {out['gap']:.3g}")
+    return out["launches"]
+
+
+def spmd_audio(device, kind, cfg=None, shape=AUDIO_SPMD):
+    """(b): MusicGen-medium's sequential round with no mesh here, then on
+    two ranks sharing the card."""
+    from repro_torch.launch import spmd
+    cfg = cfg or get_config(AUDIO)
+    C, H, B, S = (shape[k] for k in "CHBS")
+    n = param_bytes(cfg)
+    # per rank: params, a client's params, gradients and delta in the
+    # model's dtype (four copies), the f32 sum and the f32 contribution
+    # beside it, the reduced gradients' copy; activations of its batch
+    # share under the per-group remat come on top
+    reckon = 4 * n + 2 * (2 * n) + n
+    halve = 2 * reckon > SPMD_LIMIT_BYTES
+    print(f"spmd (b): reckoned per rank before activations "
+          f"{reckon / 1e9:.1f} GB; both ranks {2 * reckon / 1e9:.1f} GB of "
+          f"the {SPMD_LIMIT_BYTES / 1e9:.0f} GB allowed: "
+          + ("halving the frames" if halve else "the published batch"))
+    if halve:
+        S //= 2
+    free_cache(device)
+    model, nested = serve.build(cfg, device, seed=0)
+    params = flat_dict(nested)
+    del nested
+    fl = FLConfig(num_clients=C, local_steps=H, client_lr=0.01,
+                  client_exec="sequential")
+    batches = round_batches(cfg, 1, C, H, B, S, 4, device)(0)
+    step = build_fl_round_step(model.loss_fn, get_client_optimizer("sgd"),
+                               get_server_optimizer("fedavg"), fl)
+    if kind == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    sync(device)
+    t0 = time.perf_counter()
+    new, _, met = step(params, (), batches, torch.ones(C, device=device),
+                       torch.ones(C, device=device),
+                       torch.Generator().manual_seed(7))
+    loss = float(met["client_loss"])
+    sync(device)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() if kind == "cuda" else 0
+    print(f"spmd (b): MusicGen-medium sequential round with no mesh "
+          f"round_wall_s={wall:.4f} client_loss={loss:.6f} "
+          f"max_memory_allocated={peak} ({peak / 1e9:.2f} GB)")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "audio.pt")
+        torch.save(cpu_tree(new), path)
+        del model, params, batches, new, step
+        free_cache(device)
+        t0 = time.perf_counter()
+        out = spmd.run(audio_spmd_rank, (path, loss, cfg, dict(shape, S=S)),
+                       sizes=AUDIO_SPMD_SIZES,
+                       axes=AUDIO_SPMD_AXES, device=kind, all_ranks=True,
+                       timeout_s=900, threads=None)
+    lead = out[0]
+    print(f"spmd (b): 2 ranks, {time.perf_counter() - t0:.1f} s with the "
+          f"spawn; loss {lead['loss']:.6f} against {loss:.6f}; params max "
+          f"|diff| {lead['gap']:.3g}; per-rank peaks "
+          f"{[round(o['peak'] / 1e9, 2) for o in out]} GB; round walls "
+          f"{[round(o['wall'], 4) for o in out]} s; gradient reductions "
+          f"{[o['reductions'] for o in out]} taking "
+          f"{[round(o['reduction_s'], 4) for o in out]} s")
+    check(all(o["finite"] for o in out), "spmd (b): a non-finite loss or "
+                                         "params")
+    check(all(o["replicas_equal"] for o in out),
+          "spmd (b): params differ between the ranks")
+    check(all(o["reductions"] == o["expected_reductions"] for o in out),
+          f"spmd (b): gradient reductions {[o['reductions'] for o in out]}, "
+          f"expected {out[0]['expected_reductions']} on every rank (is the "
+          f"batch split?)")
+    check(lead["loss_gap"] < SPMD_SHARDED_TOL[0]
+          and lead["gap"] < SPMD_SHARDED_TOL[1],
+          f"spmd (b): against no mesh, loss {lead['loss_gap']:.3g}, params "
+          f"{lead['gap']:.3g}")
+    return {}
+
+
+def param_bytes(cfg) -> int:
+    """The params' bytes in the config's dtype, from the meta tree."""
+    return sum(v.numel() * v.element_size() for v in
+               flat_dict(build_model(cfg).param_specs()).values())
+
+
 def main() -> int:
     # cuBLAS reads its workspace setting when the first handle is made; a
     # fixed one lets check_async_resume run under deterministic algorithms
@@ -3210,7 +3897,7 @@ def main() -> int:
                            ("async_path", async_path),
                            ("fleet_path", fleet_path),
                            ("lm_serve", lm_serve), ("lm_train", lm_train),
-                           ("mesh", mesh_phase)):
+                           ("mesh", mesh_phase), ("spmd", spmd_phase)):
             t0 = time.perf_counter()
             phases[phase] = run()
             print(f"phase {phase}: {time.perf_counter() - t0:.1f} s")
@@ -3220,6 +3907,7 @@ def main() -> int:
         add_counts(totals, phases["lm_serve"])
         add_counts(totals, phases["lm_train"])
         add_counts(totals, phases["mesh"])
+        add_counts(totals, phases["spmd"])
         for kname, row in rows.items():
             row["launches"] = totals.get(kname, 0)
             check(row["launches"] > 0, f"{kname}: no launch on the main path")

@@ -34,6 +34,12 @@ Split of responsibilities (as in ``core/round.py``):
 
 With staleness zero, a full mask and no compression, one buffer commit over
 the C deltas of a sync round gives the sync round's new params.
+
+Under a mesh of processes (``models.sharding``) every process calls the
+commit with the same whole buffer: the K slots stay whole on every
+process, and the commit kernels split the bucket's rows over the mesh's
+fusion axes, each process on its rows, the rows then gathered
+(``kernels/ops.rows_reduce``).
 """
 from __future__ import annotations
 
@@ -209,7 +215,7 @@ def build_buffer_commit_step(server_opt: ServerOptimizer, cfg: FLConfig,
 
     def commit(params, server_state, deltas, weights, staleness, losses,
                mask, ids, exponent, generator):
-        delta, w_eff, _ = pipe.combine(
+        delta, w_eff, _, _ = pipe.combine(
             deltas, weights, mask, losses, generator, ids=ids,
             staleness=staleness, exponent=exponent)
         new_params, new_state = server_opt.apply(params, delta, server_state)
@@ -244,7 +250,7 @@ def build_chunked_commit_steps(server_opt: ServerOptimizer, cfg: FLConfig,
 
     def accumulate(acc, wsum, deltas, weights, staleness, losses, mask, ids,
                    exponent, generator):
-        summed, _, w_raw = pipe.combine_unnormalised(
+        summed, _, w_raw, _ = pipe.combine_unnormalised(
             deltas, weights, mask, losses, generator, ids=ids,
             staleness=staleness, exponent=exponent)
         acc = {k: a + summed[k].to(a.dtype) for k, a in acc.items()}

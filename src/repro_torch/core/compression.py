@@ -54,10 +54,20 @@ class CompressionConfig:
         return max(1, int(np.ceil(self.topk_frac * self.block)))
 
 
-def _rand(shape, generator: torch.Generator, device):
-    """Uniform [0, 1) draws made on the generator's device."""
-    return torch.rand(shape, generator=generator,
-                      device=generator.device).to(device)
+def _rand(shape, generator: torch.Generator, device, split=None):
+    """Uniform [0, 1) draws made on the generator's device.  ``split`` =
+    (index, count) marks ``shape``'s leading dim as share ``index`` of
+    ``count`` (slots split over a mesh): the whole [count * shape[0], ...]
+    is drawn, as every process of the split draws it, and the share kept,
+    so each process holds its share of the unsplit draws."""
+    if split is None or split[1] == 1:
+        return torch.rand(shape, generator=generator,
+                          device=generator.device).to(device)
+    i, n = split
+    m = shape[0]
+    whole = torch.rand((n * m,) + tuple(shape[1:]), generator=generator,
+                       device=generator.device)
+    return whole[i * m:(i + 1) * m].to(device)
 
 
 # ---------------------------------------------------------------------------
@@ -82,8 +92,10 @@ def _from_blocks(blocks, pad, shape, dtype):
 
 
 def quantize_dequant(x, bits: int, block: int = 256, generator=None,
-                     stochastic: bool = True, use_kernel: bool = False):
-    """Blockwise symmetric quantization round-trip."""
+                     stochastic: bool = True, use_kernel: bool = False,
+                     split=None):
+    """Blockwise symmetric quantization round-trip (``split``: ``_rand``'s,
+    for stochastic rounding of slots split over a mesh)."""
     if use_kernel and not stochastic:
         from repro_torch.kernels import ops as kops
         return kops.quantize_dequant(x, bits=bits, block=block)
@@ -92,7 +104,7 @@ def quantize_dequant(x, bits: int, block: int = 256, generator=None,
     scale = _ref.block_scale(b, qmax)
     y = b / scale
     if stochastic and generator is not None:
-        y = torch.floor(y + _rand(y.shape, generator, y.device))
+        y = torch.floor(y + _rand(y.shape, generator, y.device, split))
     else:
         y = torch.round(y)
     y = torch.clamp(y, -qmax - 1, qmax) * scale
@@ -109,14 +121,16 @@ def topk_sparsify(x, frac: float, block: int = 256, use_kernel: bool = False):
     return _from_blocks(_ref.topk_blocks(b, k), pad, x.shape, x.dtype)
 
 
-def federated_dropout(x, frac: float, generator, batch_dims: int = 0):
+def federated_dropout(x, frac: float, generator, batch_dims: int = 0,
+                      split=None):
     """Drop a random ``frac`` of output neurons (last dim), rescale the
-    rest; one mask per slot over ``batch_dims`` leading slot dims."""
+    rest; one mask per slot over ``batch_dims`` leading slot dims
+    (``split``: ``_rand``'s, for slots split over a mesh)."""
     if x.ndim - batch_dims < 2:
         return x
     shape = (tuple(x.shape[:batch_dims]) + (1,) * (x.ndim - batch_dims - 1)
              + (x.shape[-1],))
-    keep = _rand(shape, generator, x.device) < (1.0 - frac)
+    keep = _rand(shape, generator, x.device, split) < (1.0 - frac)
     return torch.where(keep, x / (1.0 - frac), torch.zeros_like(x)).to(x.dtype)
 
 
@@ -125,8 +139,10 @@ def federated_dropout(x, frac: float, generator, batch_dims: int = 0):
 # ---------------------------------------------------------------------------
 
 def compress_tree(tree: dict, cfg: CompressionConfig, generator,
-                  batch_dims: int = 0) -> dict:
-    """Straight-through compression of an update dict."""
+                  batch_dims: int = 0, split=None) -> dict:
+    """Straight-through compression of an update dict.  ``split`` =
+    (index, count): the leading slot dim is this process's share of slots
+    split over a mesh, and each draw is its share of the unsplit draw."""
     if not cfg.enabled:
         return tree
     out = {}
@@ -134,7 +150,8 @@ def compress_tree(tree: dict, cfg: CompressionConfig, generator,
         leaf = tree[name]
         y = leaf
         if cfg.dropout_frac:
-            y = federated_dropout(y, cfg.dropout_frac, generator, batch_dims)
+            y = federated_dropout(y, cfg.dropout_frac, generator, batch_dims,
+                                  split)
         if cfg.topk_frac:
             y = topk_sparsify(y, cfg.topk_frac, cfg.block,
                               use_kernel=cfg.use_kernels)
@@ -142,7 +159,7 @@ def compress_tree(tree: dict, cfg: CompressionConfig, generator,
             y = quantize_dequant(y, cfg.quantize_bits, cfg.block,
                                  generator=generator,
                                  stochastic=cfg.stochastic_rounding,
-                                 use_kernel=cfg.use_kernels)
+                                 use_kernel=cfg.use_kernels, split=split)
         out[name] = y.to(leaf.dtype)
     return out
 

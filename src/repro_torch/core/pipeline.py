@@ -58,6 +58,21 @@ slot at a time and pods quantize on per-pod grids, so neither has a common
 grid.  ``secure_agg`` with ``trimmed_mean`` is refused when the pipeline is
 built: coordinate-wise trimming needs the individual updates that masking
 hides.
+
+Under a mesh of processes (``models.sharding``), the slot dim of a batched
+stage may arrive split over ``slot_axes`` (a parallel round's clients, a
+pod_sequential round's pods): each process holds its contiguous share of
+the slots, ``[K/n, ...]``, and of the [K] weights, mask, losses and
+staleness.  ``client_weights`` gets the vectors all-gathered (whole [K] on
+every process); the fused kernels and the unfused weighted sum run on this
+process's rows of all K slots after one ``all_to_all``
+(``kernels/ops.rows_reduce``), so fused and unfused differ only as they do
+with no mesh; the per-slot compress runs on the process's own slots, each
+random draw made whole on every process and cut to its share, so a split
+commit draws what the unsplit one does; float-domain secure masks are
+added to the process's own slots, and the masked slots are gathered and
+summed in slot order; trimming and the hierarchical pod combine gather the
+slots whole first.  The streaming stages take whole (replicated) values.
 """
 from __future__ import annotations
 
@@ -70,6 +85,7 @@ from repro_torch.core import aggregation as agg
 from repro_torch.core import secure_agg as sec
 from repro_torch.core.compression import compress_tree
 from repro_torch.kernels import ops as kops
+from repro_torch.models import sharding as sh
 from repro_torch.pytree import ordered
 
 if TYPE_CHECKING:                       # avoid circular import with round.py
@@ -111,15 +127,32 @@ class UpdatePipeline:
         self.n_pods = n_pods
         self.accum_dtype = getattr(torch, cfg.accum_dtype)
 
+    # ------------------------------------------------------------- slots
+    @staticmethod
+    def gather_slots(*vectors, slot_axes=()):
+        """Per-slot vectors (or None) whole: each all-gathered over
+        ``slot_axes`` in shard order."""
+        return tuple(None if v is None else sh.all_gather(v, slot_axes, 0)
+                     for v in vectors)
+
+    @staticmethod
+    def gather_stack(stacked: dict, slot_axes=()) -> dict:
+        """A [K/n, ...] slot stack whole, [K, ...], on every process."""
+        return {k: sh.all_gather(d, slot_axes, 0) for k, d in stacked.items()}
+
     # ------------------------------------------------------------- stage 1
     def compress(self, tree: dict, generator) -> dict:
         return compress_tree(tree, self.cfg.compression, generator)
 
-    def compress_each(self, stacked: dict, generator) -> dict:
+    def compress_each(self, stacked: dict, generator, slot_axes=()) -> dict:
         """The compress stage over every slot of a [K, ...] stack at once:
-        blocks are per row, and dropout draws one mask per slot."""
-        return compress_tree(stacked, self.cfg.compression, generator,
-                             batch_dims=1)
+        blocks are per row, and dropout draws one mask per slot.  Slots
+        split over ``slot_axes`` compress where they are, the row kernels
+        split over the axes the slots are whole along."""
+        with sh.exclude_axes(*slot_axes):
+            return compress_tree(stacked, self.cfg.compression, generator,
+                                 batch_dims=1,
+                                 split=sh.shard_split(slot_axes))
 
     # ------------------------------------------------------------- stage 2
     def client_weights(self, weights, mask, losses=None, staleness=None,
@@ -149,16 +182,27 @@ class UpdatePipeline:
         return sec.commit_key(int(draw))
 
     def secure_mask(self, weighted_stack: dict, key: int, ids,
-                    participation) -> dict:
-        return sec.mask_batch(weighted_stack, key, ids, participation)
+                    participation, first: int = 0) -> dict:
+        return sec.mask_batch(weighted_stack, key, ids, participation,
+                              first)
 
     # --------------------------------------------------------- stages 4/5
-    def weighted_sum(self, stacked: dict, w) -> dict:
-        """sum_i w_i * d_i over the slot dim, in float32."""
-        def one(d):
-            wb = w.reshape((-1,) + (1,) * (d.ndim - 1)).to(torch.float32)
-            return (d.to(torch.float32) * wb).sum(0)
-        return {k: one(d) for k, d in stacked.items()}
+    def weighted_sum(self, stacked: dict, w, slot_axes=()) -> dict:
+        """sum_i w_i * d_i over the slot dim, in float32: the unfused
+        commit's sum.  Off a mesh, leaf by leaf; under one (slots whole or
+        split over ``slot_axes``), on this process's rows of the fused
+        commit's blocked layout (``kernels.ops.weighted_sum_tree``), as the
+        fused kernels run.  The two agree bit for bit (``chip_compare.py
+        --spmd`` on an H100); leaf by leaf spares the pack's copy, 0.26
+        against 0.53 ms over the CIFAR CNN's stack of 20 slots there."""
+        if not sh.fusion_axes():
+            return {k: (d.to(torch.float32) * w.reshape(
+                (-1,) + (1,) * (d.ndim - 1)).to(torch.float32)).sum(0)
+                for k, d in stacked.items()}
+        names = ordered(stacked)
+        return dict(zip(names, kops.weighted_sum_tree(
+            [stacked[n] for n in names], w, block=self.cfg.compression.block,
+            slot_axes=slot_axes)))
 
     def normalise(self, summed: dict, w_sum) -> dict:
         denom = torch.clamp(w_sum, min=1e-12)
@@ -189,9 +233,10 @@ class UpdatePipeline:
     # --------------------------------------------------------- combinators
     def combine_unnormalised(self, deltas: dict, weights, mask, losses,
                              generator, ids=None, staleness=None,
-                             exponent=None):
+                             exponent=None, slot_axes=()):
         """compress -> weight/discount -> (secure_mask) -> weighted sum,
-        WITHOUT the closing normalise.  Returns (summed, w_eff, w_raw).
+        WITHOUT the closing normalise.  Returns (summed, w_eff, w_raw,
+        (mask, losses)), the weights, mask and losses whole.
 
         Every stage up to normalise is slot-local or additive, so a commit
         over K slots equals the sum of this over any partition of the slots
@@ -199,11 +244,14 @@ class UpdatePipeline:
         the chunked async commit.  Each chunk draws its own randomness (and
         mask key) from ``generator``, so masks cancel within each chunk.  A
         sync commit has no staleness: the fused kernels get zero staleness
-        and exponent 0, a discount of exactly 1."""
+        and exponent 0, a discount of exactly 1.  ``slot_axes``: the mesh
+        axes the slots (``deltas`` and the vectors) are split over."""
         if self.cfg.aggregation == "trimmed_mean":
             raise ValueError(
                 "trimmed_mean is not a chunk-accumulable aggregate: "
                 "coordinate-wise trimming needs all slots at once")
+        weights, mask, losses, staleness = self.gather_slots(
+            weights, mask, losses, staleness, slot_axes=slot_axes)
         w_eff, w_raw = self.client_weights(weights, mask, losses, staleness,
                                            exponent)
         comp = self.cfg.compression
@@ -213,14 +261,17 @@ class UpdatePipeline:
                 ids = torch.arange(mask.shape[0], dtype=torch.int32)
             if comp.quantize_bits:
                 summed = self._fused_secure(deltas, w_eff, mask, generator,
-                                            ids)
+                                            ids, slot_axes)
             else:
-                stacked = (self.compress_each(deltas, generator)
+                stacked = (self.compress_each(deltas, generator, slot_axes)
                            if comp.enabled else deltas)
-                pre = {k: d.to(torch.float32) * w_eff.reshape(
+                w_loc = sh.local_share(w_eff, slot_axes)
+                pre = {k: d.to(torch.float32) * w_loc.reshape(
                     (-1,) + (1,) * (d.ndim - 1)) for k, d in stacked.items()}
-                masked = self.secure_mask(pre, self.mask_key(generator), ids,
-                                          mask)
+                masked = self.secure_mask(
+                    pre, self.mask_key(generator), ids, mask,
+                    first=sh.shard_index(slot_axes) * w_loc.shape[0])
+                masked = self.gather_stack(masked, slot_axes)
                 summed = {k: m.to(torch.float32).sum(0)
                           for k, m in masked.items()}
         elif self.fused:
@@ -233,23 +284,25 @@ class UpdatePipeline:
                 # bucketed into a single kernel launch
                 out = kops.fused_plain_commit_tree(
                     [deltas[n] for n in names], w_raw, s, a,
-                    bits=comp.quantize_bits, k=comp.topk_k, block=comp.block)
+                    bits=comp.quantize_bits, k=comp.topk_k, block=comp.block,
+                    slot_axes=slot_axes)
             else:
                 # per-slot stages that need slot randomness stay unfused;
                 # the accumulate still fuses (one bucketed launch)
-                stacked = (self.compress_each(deltas, generator)
+                stacked = (self.compress_each(deltas, generator, slot_axes)
                            if comp.enabled else deltas)
                 out = kops.fused_accum_tree([stacked[n] for n in names],
-                                            w_raw, s, a, block=comp.block)
+                                            w_raw, s, a, block=comp.block,
+                                            slot_axes=slot_axes)
             summed = dict(zip(names, out))
         else:
-            stacked = (self.compress_each(deltas, generator)
+            stacked = (self.compress_each(deltas, generator, slot_axes)
                        if comp.enabled else deltas)
-            summed = self.weighted_sum(stacked, w_eff)
-        return summed, w_eff, w_raw
+            summed = self.weighted_sum(stacked, w_eff, slot_axes)
+        return summed, w_eff, w_raw, (mask, losses)
 
     def _fused_secure(self, deltas: dict, w, participation, generator,
-                      ids) -> dict:
+                      ids, slot_axes=()) -> dict:
         """Integer-domain secure commit (secure_agg + quantize_bits): one
         bucketed ``secure_commit`` launch for the whole tree, or its plain
         version with fusion off; both compute the same scheme."""
@@ -263,37 +316,49 @@ class UpdatePipeline:
             # both run as per-slot pre-stages (the quantize stays in the
             # integer-domain masked commit)
             pre = dataclasses.replace(comp, quantize_bits=0)
-            stacked = compress_tree(stacked, pre, generator, batch_dims=1)
+            with sh.exclude_axes(*slot_axes):
+                stacked = compress_tree(stacked, pre, generator,
+                                        batch_dims=1,
+                                        split=sh.shard_split(slot_axes))
             k_in = 0
         names = ordered(stacked)
         out = kops.fused_secure_commit_tree(
             [stacked[n] for n in names], w, seeds, coef,
             bits=comp.quantize_bits, k=k_in, block=comp.block,
             use_kernel=self.fused,
-            noise_generator=generator if comp.stochastic_rounding else None)
+            noise_generator=generator if comp.stochastic_rounding else None,
+            slot_axes=slot_axes)
         return dict(zip(names, out))
 
     def combine(self, deltas: dict, weights, mask, losses, generator,
-                ids=None, staleness=None, exponent=None):
+                ids=None, staleness=None, exponent=None, slot_axes=()):
         """The full batched stack over [K, ...] slot deltas: the parallel
         sync mode (staleness=None) and the async buffered commit (staleness
         and exponent set), the trimmed mean and the hierarchical pod combine
-        included.  Returns (delta, w_eff, w_raw); the sum is normalised by
-        ``w_raw.sum()``, not by ``w_eff``."""
+        included.  Returns (delta, w_eff, w_raw, (mask, losses)), the
+        weights, mask and losses whole; the sum is normalised by
+        ``w_raw.sum()``, not by ``w_eff``.  ``slot_axes``: the mesh axes the
+        slots are split over."""
         if self.cfg.aggregation == "trimmed_mean" or (
                 self.cfg.hierarchical and self.n_pods > 1):
+            # both need every slot at once: gathered whole
+            deltas = self.gather_stack(deltas, slot_axes)
+            weights, mask, losses, staleness = self.gather_slots(
+                weights, mask, losses, staleness, slot_axes=slot_axes)
             w_eff, w_raw = self.client_weights(weights, mask, losses,
                                                staleness, exponent)
             if self.cfg.aggregation == "trimmed_mean":
                 # robust trimming consumes the RAW per-slot deltas (no
                 # compression, no masking: refused at build time)
-                return agg.trimmed_mean(deltas, mask), w_eff, w_raw
+                return (agg.trimmed_mean(deltas, mask), w_eff, w_raw,
+                        (mask, losses))
             return (self._combine_hierarchical(deltas, w_eff, w_raw,
-                                               generator), w_eff, w_raw)
-        summed, w_eff, w_raw = self.combine_unnormalised(
+                                               generator), w_eff, w_raw,
+                    (mask, losses))
+        summed, w_eff, w_raw, whole = self.combine_unnormalised(
             deltas, weights, mask, losses, generator, ids=ids,
-            staleness=staleness, exponent=exponent)
-        return self.normalise(summed, w_raw.sum()), w_eff, w_raw
+            staleness=staleness, exponent=exponent, slot_axes=slot_axes)
+        return self.normalise(summed, w_raw.sum()), w_eff, w_raw, whole
 
     def _combine_hierarchical(self, deltas: dict, w_eff, w_raw,
                               generator) -> dict:
@@ -310,15 +375,17 @@ class UpdatePipeline:
         return self.combine_pods(sums, w_raw.sum(), generator)
 
     def combine_pods(self, pod_sums: dict, w_total, generator,
-                     compressed: bool = False) -> dict:
+                     compressed: bool = False, slot_axes=()) -> dict:
         """Cross-pod tail of the stack: compress each pod's partial sum
         (unless the caller did), secure-mask BETWEEN PODS (each pod's
         aggregate hidden from the others and the server), sum, normalise by
-        the total raw weight mass."""
+        the total raw weight mass.  ``slot_axes``: the mesh axes the pods
+        are split over."""
         names = ordered(pod_sums)
-        P = pod_sums[names[0]].shape[0]
+        P_loc = pod_sums[names[0]].shape[0]
+        P = P_loc * sh.shard_count(slot_axes)
         sums = (pod_sums if compressed
-                else self.compress_each(pod_sums, generator))
+                else self.compress_each(pod_sums, generator, slot_axes))
         if self.cfg.secure_agg:
             # float-domain even under quantization: the pod sums were
             # quantized on per-pod grids, so there is no common grid for
@@ -326,7 +393,9 @@ class UpdatePipeline:
             ones = torch.ones(P, dtype=torch.float32)
             masked = self.secure_mask(sums, self.mask_key(generator),
                                       torch.arange(P, dtype=torch.int32),
-                                      ones)
+                                      ones,
+                                      first=sh.shard_index(slot_axes) * P_loc)
+            masked = self.gather_stack(masked, slot_axes)
             summed = {k: m.to(torch.float32).sum(0)
                       for k, m in masked.items()}
         elif self.fused:
@@ -335,10 +404,12 @@ class UpdatePipeline:
                 [sums[n] for n in names],
                 torch.ones(P, dtype=torch.float32, device=dev),
                 torch.zeros(P, dtype=torch.float32, device=dev), 0.0,
-                block=self.cfg.compression.block)
+                block=self.cfg.compression.block, slot_axes=slot_axes)
             summed = dict(zip(names, out))
         else:
-            summed = {k: s.to(torch.float32).sum(0) for k, s in sums.items()}
+            summed = self.weighted_sum(
+                sums, torch.ones(P, dtype=torch.float32,
+                                 device=sums[names[0]].device), slot_axes)
         return self.normalise(summed, w_total)
 
 

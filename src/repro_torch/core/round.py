@@ -29,11 +29,38 @@ All modes fold their client updates through the SAME stage stack
 (``core.pipeline.build_update_pipeline``).
 
 Under an active mesh (``models.sharding.use_mesh``) the parallel mode needs
-``client_spmd_axes``, the mesh axes its stacked client dim is sharded
-over, as the reference's does; the model's sharding constraints inside
-the client body drop those axes (``exclude_axes``), the sequential body
-drops ``pod``.  On one card the mesh is 1x1 and every constraint is the
-identity.
+``client_spmd_axes``, the mesh axes its stacked client dim is sharded over,
+as the reference's does; the model's sharding constraints inside the
+client body drop those axes (``exclude_axes``), the sequential body drops
+``pod``.  On a mesh of processes (``launch.mesh.init_mesh``, a ``model``
+axis of 1) the round step runs SPMD, the reference's shardings executed:
+every process calls it with the same whole arguments and the same
+generator state, and takes its share.
+  * parallel: the clients split over ``client_spmd_axes`` (C/n a process,
+    contiguous, in ``flat_shard_index`` order), their batches over the
+    batch axes left; the commit exchanges the client split for a row split
+    (``core.pipeline``'s ``slot_axes``).
+  * sequential: every process streams every client, each client's batch
+    split over ``data`` (``pod`` dropped: processes in different pods
+    repeat the same work, as in the reference, and the gradients' mean
+    runs over ``pod`` too, so that they take the same bits whatever their
+    algorithms do).
+  * pod_sequential: the pods split over ``client_spmd_axes``, each client's
+    batch over the batch axes left; ``combine_pods`` takes the pods' sums
+    split.
+Gradients are taken on the local batch; their mean over the processes that
+split it (``sharding.batch_split_axes``) and those that repeat it
+(``replica_axes``) sits between ``grad_and_value`` and the optimizer step,
+outside every ``torch.func`` transform, and the loss is averaged the same
+way (an MoE's aux loss enters that mean per
+shard, where the reference's ``shard_map`` returns it unchecked,
+``out_specs=P()``).  A batch or a client count that its split does not
+divide raises.  Params and server state are whole on every process and end
+each round bit for bit the same on all of them
+(``sharding.replica_checksums`` shows it): every process that holds a
+client takes the same all-reduced gradient bits, and the commit's result
+is gathered whole.  A ``model`` axis larger than 1 raises where a client
+trains (``local_train``) and where the commit splits its rows.
 """
 from __future__ import annotations
 
@@ -85,7 +112,8 @@ def global_norm(tree: dict):
 
 
 def build_local_train(loss_fn: Callable, client_opt: Optimizer,
-                      cfg: FLConfig, stacked: bool = False):
+                      cfg: FLConfig, stacked: bool = False,
+                      replica_axes=()):
     """Returns local_train(global_params, batches) -> (delta, mean_loss).
 
     ``stacked=False``: one client; batches are [H, ...].  ``stacked=True``:
@@ -98,6 +126,11 @@ def build_local_train(loss_fn: Callable, client_opt: Optimizer,
     update runs on the stacked leaves directly, so a kernel
     (which cannot run under ``vmap``) takes all C clients in one launch.
 
+    Under a mesh of processes the gradients and the loss are averaged over
+    the batch split and over ``replica_axes``, the axes whose processes
+    repeat this client's work: the mean of equal values, which hands every
+    one of them the same bits.
+
     FedProx (mu>0): the proximal term mu/2 ||w - w0||^2 enters as the exact
     gradient correction mu (w - w0).  With ``use_fused_update`` and the sgd
     client optimizer, the corrected step is the fused ``fedprox_update``
@@ -108,6 +141,12 @@ def build_local_train(loss_fn: Callable, client_opt: Optimizer,
     fused = cfg.use_fused_update and client_opt.name == "sgd"
 
     def local_train(global_params: dict, batches: dict):
+        shd.check_model_axis("a federated round")
+        # the processes that split this client's batch or repeat its work
+        # (none off a mesh)
+        mesh = shd.get_mesh()
+        split = () if mesh is None else mesh.live(
+            shd.batch_split_axes() + tuple(replica_axes))
         if stacked:
             x0 = next(iter(batches.values()))
             C = x0.shape[0]
@@ -126,6 +165,12 @@ def build_local_train(loss_fn: Callable, client_opt: Optimizer,
         loss_sum = 0.0
         for h in range(cfg.local_steps):
             grads, (loss, _) = step_grad(w, step_batch(h))
+            if split:
+                # the gradient of the whole batch's mean loss: the mean of
+                # the shares' gradients (and of the replicas' equal ones),
+                # reduced between the transforms
+                grads = {k: shd.pmean(g, split) for k, g in grads.items()}
+                loss = shd.pmean(loss, split)
             if fused:
                 from repro_torch.kernels import ops as kops
                 w = {k: kops.fedprox_update(w[k], grads[k], global_params[k],
@@ -154,31 +199,58 @@ def _metrics(delta: dict, loss_sum, mask) -> dict:
     }
 
 
+def _spmd_axes(client_spmd_axes) -> tuple:
+    """The client axes of the active mesh (size > 1, mesh order)."""
+    mesh = shd.get_mesh()
+    return () if mesh is None else mesh.live(client_spmd_axes)
+
+
+def _batch_share(batches: dict, dim: int) -> dict:
+    """Each leaf's share of its batch dim ``dim`` over the batch axes left
+    here (``sharding.batch_split_axes``)."""
+    axes = shd.batch_split_axes()
+    return {k: shd.local_share(v, axes, dim, f"the batch of {k!r}")
+            for k, v in batches.items()}
+
+
 class ParallelRound:
     """The parallel round step: ``train_clients`` then ``commit``.  The two
     halves are public so a caller can hold each against another device:
     local training is continuous in its inputs, while the commit's top-k and
-    rounding are not, so the same deltas must enter both commits."""
+    rounding are not, so the same deltas must enter both commits.  Under a
+    mesh of processes both halves take this process's clients
+    (``client_share``): ``train_clients`` their whole batches,
+    ``commit`` their deltas, weights, mask and losses; the commit's result
+    is whole."""
 
     def __init__(self, loss_fn: Callable, client_opt: Optimizer,
                  server_opt: ServerOptimizer, cfg: FLConfig, n_pods: int = 1,
                  client_spmd_axes=()):
         self.server_opt = server_opt
+        self.client_spmd_axes = client_spmd_axes
         self.pipe = build_update_pipeline(cfg, n_pods=n_pods)
         stacked = build_local_train(loss_fn, client_opt, cfg, stacked=True)
 
         def train_clients(global_params, client_batches):
             # the stacked client dim owns client_spmd_axes: constraints in
-            # the vmapped body may not name them
+            # the vmapped body may not name them; each client's batch
+            # [C, H, B, ...] is split over the batch axes left
             with shd.exclude_axes(*client_spmd_axes):
-                return stacked(global_params, client_batches)
+                return stacked(global_params,
+                               _batch_share(client_batches, 2))
 
         self.train_clients = train_clients
 
+    def client_share(self, x, what: str = "the client dim"):
+        """This process's clients of a [C, ...] tensor (all of them off a
+        mesh)."""
+        return shd.local_share(x, _spmd_axes(self.client_spmd_axes), 0, what)
+
     def commit(self, global_params: dict, server_state, deltas: dict, losses,
                weights, mask, generator):
-        delta, _, _ = self.pipe.combine(deltas, weights, mask, losses,
-                                        generator)
+        axes = _spmd_axes(self.client_spmd_axes)
+        delta, _, _, (mask, losses) = self.pipe.combine(
+            deltas, weights, mask, losses, generator, slot_axes=axes)
         new_params, new_state = self.server_opt.apply(global_params, delta,
                                                       server_state)
         return new_params, new_state, _metrics(delta, (losses * mask).sum(),
@@ -186,9 +258,12 @@ class ParallelRound:
 
     def __call__(self, global_params: dict, server_state,
                  client_batches: dict, weights, mask, generator):
-        deltas, losses = self.train_clients(global_params, client_batches)
+        share = self.client_share
+        deltas, losses = self.train_clients(
+            global_params, {k: share(v, f"the clients of {k!r}")
+                            for k, v in client_batches.items()})
         return self.commit(global_params, server_state, deltas, losses,
-                           weights, mask, generator)
+                           share(weights), share(mask), generator)
 
 
 class SequentialRound:
@@ -197,7 +272,9 @@ class SequentialRound:
     ``commit`` folds an iterable of per-client ``(delta, loss)`` in client
     order; the round hands it a generator that trains each client as it
     is folded, so one client's delta is alive at a time.  A caller can
-    hand it deltas trained elsewhere (another device) instead."""
+    hand it deltas trained elsewhere (another device) instead.  Under a
+    mesh of processes each process trains every client on its share of
+    the client's batch (``local_train`` takes the whole [H, B, ...])."""
 
     def __init__(self, loss_fn: Callable, client_opt: Optimizer,
                  server_opt: ServerOptimizer, cfg: FLConfig, n_pods: int = 1,
@@ -205,13 +282,16 @@ class SequentialRound:
         self.cfg = cfg
         self.server_opt = server_opt
         self.pipe = build_update_pipeline(cfg, n_pods=n_pods)
-        local_train = build_local_train(loss_fn, client_opt, cfg)
+        # the pods repeat every client's work
+        local_train = build_local_train(loss_fn, client_opt, cfg,
+                                        replica_axes=(shd.POD,))
 
         def train_one(global_params, batches):
             # the reference keeps activation constraints off the pod axis
-            # in the sequential body (its backward miscompiles there)
+            # in the sequential body (its backward miscompiles there): the
+            # batch splits over data alone
             with shd.exclude_axes(shd.POD):
-                return local_train(global_params, batches)
+                return local_train(global_params, _batch_share(batches, 1))
 
         self.local_train = train_one
 
@@ -248,9 +328,12 @@ class SequentialRound:
 class PodSequentialRound:
     """The pod_sequential round step: clients pinned to ``n_pods`` pods, the
     client dim split [P, C/P]; each pod streams its clients into a plain
-    weighted sum and compresses it (what would cross the slow cross-pod
-    link), then ``combine_pods`` masks (under ``secure_agg``), sums and
-    normalises across pods."""
+    weighted sum, then the pods' sums are compressed (what would cross the
+    slow cross-pod link) and ``combine_pods`` masks (under
+    ``secure_agg``), sums and normalises across pods.  Under a mesh of
+    processes the pods split over ``client_spmd_axes``; each process
+    streams its pods' clients, each client's batch split over the batch
+    axes left."""
 
     def __init__(self, loss_fn: Callable, client_opt: Optimizer,
                  server_opt: ServerOptimizer, cfg: FLConfig, n_pods: int = 1,
@@ -264,39 +347,61 @@ class PodSequentialRound:
 
     def __call__(self, global_params: dict, server_state,
                  client_batches: dict, weights, mask, generator):
-        pipe = self.pipe
+        pipe, P = self.pipe, self.n_pods
+        axes = _spmd_axes(self.client_spmd_axes)
+        n = shd.shard_count(axes)
+        if P % n:
+            raise ValueError(f"{P} pods do not split over the mesh axes "
+                             f"{axes} ({n} shards)")
+        pods = range(shd.shard_index(axes) * (P // n),
+                     (shd.shard_index(axes) + 1) * (P // n))
         with shd.exclude_axes(*self.client_spmd_axes):
-            accs, wsum, loss_sum = self._pods(global_params, client_batches,
-                                              weights, mask, generator)
-        pod_sums = {k: torch.stack([a[k] for a in accs]) for k in accs[0]}
-        delta = pipe.combine_pods(pod_sums, wsum, generator, compressed=True)
+            accs, wsums, loss_sums = self._pods(
+                global_params, client_batches, weights, mask, pods)
+            # what crosses the cross-pod link: each pod's compressed sum;
+            # the sums move into the stack leaf by leaf, so the uncompressed
+            # sums are held once, then beside their compressed copy
+            stacked = {k: torch.stack([a.pop(k) for a in accs])
+                       for k in list(accs[0])}
+            del accs
+            pod_sums = pipe.compress_each(stacked, generator, axes)
+            del stacked
+        # the round's sums in pod order, as one process would add them
+        wsums, loss_sums = pipe.gather_slots(torch.stack(wsums),
+                                             torch.stack(loss_sums),
+                                             slot_axes=axes)
+        wsum, loss_sum = 0.0, 0.0
+        for p in range(P):
+            wsum, loss_sum = wsum + wsums[p], loss_sum + loss_sums[p]
+        delta = pipe.combine_pods(pod_sums, wsum, generator, compressed=True,
+                                  slot_axes=axes)
         new_params, new_state = self.server_opt.apply(global_params, delta,
                                                       server_state)
         return new_params, new_state, _metrics(delta, loss_sum, mask)
 
-    def _pods(self, global_params, client_batches, weights, mask, generator):
-        """Each pod streams its clients into a plain weighted sum and
-        compresses it: (the pods' sums, the weight sum, the loss sum)."""
-        pipe, P = self.pipe, self.n_pods
-        Cp = self.cfg.num_clients // P
+    def _pods(self, global_params, client_batches, weights, mask, pods):
+        """Each of ``pods`` streams its clients into a plain weighted sum:
+        (the pods' sums, their weight sums, their loss sums)."""
+        pipe = self.pipe
+        Cp = self.cfg.num_clients // self.n_pods
         dt = pipe.accum_dtype
-        accs, wsum, loss_sum = [], 0.0, 0.0
-        for p in range(P):
+        accs, wsums, loss_sums = [], [], []
+        for p in pods:
             acc = pipe.accum_init(global_params)
             wsum_p = torch.zeros((), dtype=torch.float32, device=mask.device)
             loss_p = torch.zeros((), dtype=torch.float32, device=mask.device)
             for c in range(p * Cp, (p + 1) * Cp):
-                delta, loss = self.local_train(
-                    global_params,
-                    {k: v[c] for k, v in client_batches.items()})
+                delta, loss = self.local_train(global_params, _batch_share(
+                    {k: v[c] for k, v in client_batches.items()}, 1))
                 wt = pipe.client_weight(weights[c], mask[c], loss)
                 acc = pipe.accum_add(acc, {k: wt.to(dt) * d.to(dt)
                                            for k, d in delta.items()})
                 wsum_p = wsum_p + wt
                 loss_p = loss_p + loss * mask[c]
-            accs.append(pipe.compress(acc, generator))
-            wsum, loss_sum = wsum + wsum_p, loss_sum + loss_p
-        return accs, wsum, loss_sum
+            accs.append(acc)
+            wsums.append(wsum_p)
+            loss_sums.append(loss_p)
+        return accs, wsums, loss_sums
 
 
 ROUNDS = {"parallel": ParallelRound, "sequential": SequentialRound,

@@ -122,15 +122,20 @@ def mask_slot(key: int, ids, participation, idx: int, tree: dict) -> dict:
             for k, leaf in tree.items()}
 
 
-def mask_batch(tree: dict, key: int, ids, participation) -> dict:
-    """Mask a full stacked batch (leaves [K, ...]), slot by slot, so the
-    peak memory stays one slot's mask per leaf."""
+def mask_batch(tree: dict, key: int, ids, participation,
+               first: int = 0) -> dict:
+    """Mask a stacked batch (leaves [K, ...]), slot by slot, so the peak
+    memory stays one slot's mask per leaf.  The leaves may hold slots
+    ``first`` to ``first + K`` of a longer batch (a process's share of
+    slots split over a mesh); ``ids`` and ``participation`` are the whole
+    batch's."""
     coef = _pair_coef(ids, participation)
 
     def mask_leaf(leaf):
         totals = torch.stack([
-            _row_total(key, ids, coef[i], int(ids[i]), leaf.shape[1:],
-                       leaf.device) for i in range(leaf.shape[0])])
+            _row_total(key, ids, coef[first + i], int(ids[first + i]),
+                       leaf.shape[1:], leaf.device)
+            for i in range(leaf.shape[0])])
         return (leaf.to(torch.float32) + totals).to(leaf.dtype)
 
     return {k: mask_leaf(leaf) for k, leaf in tree.items()}

@@ -18,15 +18,24 @@ accumulation.  ``selective_scan_chunk`` is the Mamba mixer's scan, an
 ``KERNEL_LAUNCHES`` counts launches on the card by kernel name.
 
 Row split (the reference's ``_shard_rows_map`` / ``_shard_rows_reduce``):
-the blocked rows are split into one contiguous share per shard of the
-mesh's ``fusion_axes``, zero-padded to a multiple of the shard count (zero
-rows are a fixed point of every block kernel), and each shard runs its
-kernel on its own rows; the secure commit's shard starts its mask stream
-at its GLOBAL element offset, so masks cancel across shards.  On one card
-``fusion_axes()`` is empty, so every entry point runs one shard, the whole
-stack; a mesh that splits the rows over several devices raises (ROADMAP's
-multi-device item).  ``shard_rows_map`` and ``shard_rows_reduce`` take the
-shard count, so a caller (a test) can run the shards one by one here.
+under a mesh of processes whose ``fusion_axes`` are larger than one, the
+blocked rows are zero-padded to a multiple of the shard count (zero rows
+are a fixed point of every block kernel) and split into one contiguous
+share a process, in the order of ``sharding.flat_shard_index`` over the
+fusion axes.  Each process runs the kernel on its own rows (``rows_map``,
+``rows_reduce``), the secure commit's from the GLOBAL element index of its
+row 0, so masks cancel across shards, and one all-gather of the rows over
+the fusion axes gives every process the whole result.  Where the slot dim
+of a commit stack arrives split over some axes (``slot_axes``: a parallel
+round's clients, [C/n, R, block] a process), one ``all_to_all`` over those
+axes first turns the client split into the row split ([C, R/n, block]).
+A row map (quantize, top-k) is row-local: it runs over the axes its input
+is whole along, which ``exclude_axes`` of a client split leaves in
+``fusion_axes``.  Without a mesh, or on one device, every entry point runs
+one shard, the whole stack; a ``model`` axis larger than 1 raises
+(``sharding.MULTI_DEVICE``).  ``shard_rows_map`` and ``shard_rows_reduce``
+take a shard count and run the shards one after another in one process,
+so a test can hold them shard by shard.
 """
 from __future__ import annotations
 
@@ -44,14 +53,16 @@ from repro_torch.kernels.launches import KERNEL_LAUNCHES  # noqa: F401
 from repro_torch.models import sharding as sh
 
 
-def _fusion_shards() -> int:
-    """The shard count of the active mesh's ``fusion_axes``: 1 without a
-    mesh or on one device."""
+def _fusion_shards():
+    """(axes, count, index) of this process's row share over the active
+    mesh's ``fusion_axes``: ((), 1, 0) without a mesh or on one device."""
     axes = sh.fusion_axes()
     if not axes:
-        return 1
-    raise NotImplementedError(f"a commit split over the mesh axes {axes}: "
-                              f"{sh.MULTI_DEVICE}")
+        return (), 1, 0
+    if sh.MODEL in axes:
+        raise NotImplementedError(f"a commit split over the mesh axes "
+                                  f"{axes}: {sh.MULTI_DEVICE}")
+    return axes, sh.shard_count(axes), sh.shard_index(axes)
 
 
 def _pad_rows(xb, mult: int, dim: int):
@@ -83,6 +94,69 @@ def shard_rows_reduce(fn, xb, n: int, base: int = 0):
     return y[:-pad] if pad else y
 
 
+def rows_map(fn, xb):
+    """A rows op ([R, block] -> [R, block], the same on every process) run
+    on this process's rows of the active mesh's fusion axes, the rows then
+    gathered: the reference's ``_shard_rows_map``."""
+    axes, n, i = _fusion_shards()
+    if n == 1:
+        return fn(xb)
+    xb, pad = _pad_rows(xb, n, 0)
+    r = xb.shape[0] // n
+    y = sh.all_gather(fn(xb[i * r:(i + 1) * r].contiguous()), axes, 0)
+    return y[:-pad] if pad else y
+
+
+def _to_row_split(xb, slot_axes, axes, n, r):
+    """The [K_local, R_pad, block] stack whose slot dim is split over
+    ``slot_axes`` -> [K, r, block], this process's rows of all K slots: to
+    each member of its slot group the rows of that member's shard, one
+    ``all_to_all``."""
+    mesh = sh.get_mesh()
+    slot_axes = mesh.live(slot_axes)
+    if not set(slot_axes) <= set(axes):
+        raise ValueError(f"slots split over {slot_axes}, rows over {axes}")
+    coords = mesh.coords
+    sizes = [mesh.shape[a] for a in slot_axes]
+    chunks = []
+    for member in range(sh.shard_count(slot_axes)):
+        c, rem = dict(coords), member
+        for a, size in reversed(list(zip(slot_axes, sizes))):
+            c[a], rem = rem % size, rem // size
+        f = sh.flat_shard_index(axes, c, mesh)
+        chunks.append(xb[:, f * r:(f + 1) * r])
+    got = sh.all_to_all(torch.stack(chunks), slot_axes, 0, 0)
+    return got.reshape((-1,) + tuple(got.shape[2:])).contiguous()
+
+
+def rows_reduce(fn, xb, base: int = 0, slot_axes=(), aligned=None):
+    """A slot-reducing rows kernel ([K, R, block] -> [R, block]) run on
+    this process's rows of the fusion axes, the rows then gathered:
+    ``fn(xb_rows, global_base, aligned_rows)``, where ``global_base`` is
+    ``base`` plus the element index of the share's row 0 (the reference's
+    ``flat_shard_index`` offset) and ``aligned`` (None, or a whole
+    [K, R, block] operand such as the rounding noise) comes cut to the
+    same rows.  ``xb``'s slots are whole, or split over ``slot_axes`` (a
+    client split, exchanged to the row split first)."""
+    axes, n, i = _fusion_shards()
+    if n == 1:
+        if sh.shard_count(slot_axes) > 1:
+            raise ValueError(f"slots split over {slot_axes} with no rows "
+                             f"to split")
+        return fn(xb, base, aligned)
+    xb, pad = _pad_rows(xb, n, 1)
+    r, block = xb.shape[1] // n, xb.shape[2]
+    if sh.shard_count(slot_axes) > 1:
+        xl = _to_row_split(xb, slot_axes, axes, n, r)
+    else:
+        xl = xb[:, i * r:(i + 1) * r].contiguous()
+    if aligned is not None:
+        aligned = _pad_rows(aligned, n, 1)[0][:, i * r:(i + 1) * r]
+        aligned = aligned.contiguous()
+    y = sh.all_gather(fn(xl, base + i * r * block, aligned), axes, 0)
+    return y[:-pad] if pad else y
+
+
 def _as_blocks(x, block):
     """Blocks along the LAST dim (core.compression's grouping), then leading
     dims collapsed to rows: ``([R, block] f32, meta)``."""
@@ -105,16 +179,14 @@ def _from_blocks(b, meta, shape, dtype):
 
 def quantize_dequant(x, *, bits: int = 8, block: int = 256):
     xb, meta = _as_blocks(x, block)
-    y = shard_rows_map(lambda b: _q.quantize_dequant_blocks(b, bits), xb,
-                       _fusion_shards())
+    y = rows_map(lambda b: _q.quantize_dequant_blocks(b, bits), xb)
     return _from_blocks(y, meta, x.shape, x.dtype)
 
 
 def topk_sparsify(x, *, k: int, block: int = 256):
     # padded zero lanes are part of their block, as in the plain version
     xb, meta = _as_blocks(x, block)
-    y = shard_rows_map(lambda b: _tk.topk_sparsify_blocks(b, k), xb,
-                       _fusion_shards())
+    y = rows_map(lambda b: _tk.topk_sparsify_blocks(b, k), xb)
     return _from_blocks(y, meta, x.shape, x.dtype)
 
 
@@ -198,69 +270,92 @@ def _slot_vectors(w, staleness, K, device):
 
 
 def _secure_rows(xb, w_eff, seeds, coef, base, bits, k, use_kernel,
-                 noise_generator):
-    """The secure commit of a blocked [K, R, block] stack: the kernel, or
-    its plain version where the caller turned fusion off.  A
+                 noise_generator, slot_axes=()):
+    """The secure commit of a blocked [K, R, block] stack (its slots whole
+    or split over ``slot_axes``): the kernel, or its plain version where
+    the caller turned fusion off, each on this process's rows.  A
     ``noise_generator`` switches on stochastic rounding: the uniform draws
-    are made on the generator's device and moved to the stack's."""
-    K = xb.shape[0]
-    wv = _slot_vector(w_eff, K, xb.device)
+    of the whole [K, R, block] stack are made on the generator's device,
+    the same on every process, and moved to the stack's."""
+    wv = _slot_vector(w_eff, torch.as_tensor(w_eff).numel(), xb.device)
+    K = wv.shape[0]
     noise = None
     if noise_generator is not None:
-        noise = torch.rand(xb.shape, generator=noise_generator,
+        noise = torch.rand((K,) + tuple(xb.shape[1:]),
+                           generator=noise_generator,
                            device=noise_generator.device).to(xb.device)
     seeds, coef = seeds.to(xb.device), coef.to(xb.device)
-    if use_kernel:
-        return shard_rows_reduce(
-            lambda xl, b: _fqm.secure_commit_blocks(xl, wv, seeds, coef, b,
-                                                    bits=bits, k=k,
-                                                    noise=noise),
-            xb, _fusion_shards(), base)
-    return ref.fused_secure_commit_ref(xb, wv[:, None], seeds, coef, base,
-                                       bits, k=k, noise=noise)
+
+    def one(xl, b, nz):
+        if use_kernel:
+            return _fqm.secure_commit_blocks(xl, wv, seeds, coef, b,
+                                             bits=bits, k=k, noise=nz)
+        return ref.fused_secure_commit_ref(xl, wv[:, None], seeds, coef, b,
+                                           bits, k=k, noise=nz)
+    return rows_reduce(one, xb, base, slot_axes, noise)
 
 
-def _accum_rows(xb, wv, sv, exponent):
-    return shard_rows_reduce(
-        lambda xl, _: _fa.fused_accum_blocks(xl, wv, sv, exponent), xb,
-        _fusion_shards())
+def _accum_rows(xb, wv, sv, exponent, slot_axes=()):
+    return rows_reduce(
+        lambda xl, _, __: _fa.fused_accum_blocks(xl, wv, sv, exponent), xb,
+        0, slot_axes)
 
 
-def _plain_rows(xb, wv, sv, exponent, bits, k):
-    return shard_rows_reduce(
-        lambda xl, _: _fqm.plain_commit_blocks(xl, wv, sv, exponent,
-                                               bits=bits, k=k), xb,
-        _fusion_shards())
+def _plain_rows(xb, wv, sv, exponent, bits, k, slot_axes=()):
+    return rows_reduce(
+        lambda xl, _, __: _fqm.plain_commit_blocks(xl, wv, sv, exponent,
+                                                   bits=bits, k=k), xb, 0,
+        slot_axes)
 
 
-def fused_accum_tree(leaves, w, staleness, exponent, *, block: int = 256):
+def fused_accum_tree(leaves, w, staleness, exponent, *, block: int = 256,
+                     slot_axes=()):
     """Bucketed fused accumulate over a flattened leaf list: one kernel
-    launch for the whole tree.  Returns the per-leaf f32 sums."""
+    launch for the whole tree.  Returns the per-leaf f32 sums.  Under a
+    mesh the leaves' slot dim may be split over ``slot_axes`` (``w`` and
+    ``staleness`` whole)."""
     xb, metas, rows = pack_blocks(list(leaves), block)
-    wv, sv = _slot_vectors(w, staleness, xb.shape[0], xb.device)
-    return unpack_sums(_accum_rows(xb, wv, sv, exponent), metas, rows)
+    K = torch.as_tensor(w).numel()
+    wv, sv = _slot_vectors(w, staleness, K, xb.device)
+    return unpack_sums(_accum_rows(xb, wv, sv, exponent, slot_axes), metas,
+                       rows)
 
 
 def fused_plain_commit_tree(leaves, w, staleness, exponent, *, bits: int,
-                            k: int, block: int = 256):
+                            k: int, block: int = 256, slot_axes=()):
     """Bucketed one-pass plain commit (top-k + quantize + discounted sum)
     over a flattened leaf list: one kernel launch for the whole tree."""
     xb, metas, rows = pack_blocks(list(leaves), block)
-    wv, sv = _slot_vectors(w, staleness, xb.shape[0], xb.device)
-    return unpack_sums(_plain_rows(xb, wv, sv, exponent, bits, k), metas,
-                       rows)
+    K = torch.as_tensor(w).numel()
+    wv, sv = _slot_vectors(w, staleness, K, xb.device)
+    return unpack_sums(_plain_rows(xb, wv, sv, exponent, bits, k, slot_axes),
+                       metas, rows)
 
 
 def fused_secure_commit_tree(leaves, w_eff, seeds, coef, *, bits: int,
                              k: int = 0, block: int = 256,
-                             use_kernel: bool = True, noise_generator=None):
+                             use_kernel: bool = True, noise_generator=None,
+                             slot_axes=()):
     """Bucketed integer-domain secure commit over a flattened leaf list: one
     kernel launch for the whole tree, the mask stream indexed from 0 over
     the bucket.  ``seeds`` [K, K] uint32 values and ``coef`` [K, K] int
     from ``core.secure_agg``.  Returns the per-leaf f32 sums."""
     xb, metas, rows = pack_blocks(list(leaves), block)
     return unpack_sums(_secure_rows(xb, w_eff, seeds, coef, 0, bits, k,
-                                    use_kernel, noise_generator), metas, rows)
+                                    use_kernel, noise_generator, slot_axes),
+                       metas, rows)
+
+
+def weighted_sum_tree(leaves, w, *, block: int = 256, slot_axes=()):
+    """``sum_i w_i * x_i`` over the slot dim in float32, in plain PyTorch
+    on this process's rows of the bucket (slots whole, or split over
+    ``slot_axes``): the unfused commit's sum, in the fused commit's
+    layout."""
+    xb, metas, rows = pack_blocks(list(leaves), block)
+    wv = _slot_vector(w, torch.as_tensor(w).numel(), xb.device)
+    return unpack_sums(rows_reduce(
+        lambda xl, _, __: (xl * wv[:, None, None]).sum(0), xb, 0, slot_axes),
+        metas, rows)
 
 
 def fused_accum(x, w, staleness, exponent, *, block: int = 256):

@@ -5,18 +5,32 @@ device state.  Mesh semantics: ``pod`` = site (HPC cluster / cloud
 region), ``data`` = federated-client / batch axis inside a site, ``model``
 = tensor / expert / sequence parallel axis inside a client.
 
-A mesh here is ``models.sharding.Mesh``, a record of axis names, sizes and
-devices.  The production meshes name 256 or 512 placeholder devices
-(integers): they size the dry run (``launch/dryrun.py``) and nothing runs
-on them.  ``make_test_mesh`` names the card(s) this process sees; on one
-card it is 1x1 ("data", "model"), the mesh that ``chip_smoke.py``'s
-``mesh`` phase runs under.
+A mesh here is ``models.sharding.Mesh``.  The production meshes name 256
+or 512 placeholder devices (integers): they size the dry run
+(``launch/dryrun.py``) and nothing runs on them.  ``make_test_mesh`` names
+the card(s) this process sees; on one card it is 1x1 ("data", "model").
+``init_mesh`` makes a mesh of processes, one a device: it initialises the
+``torch.distributed`` process group, then one sub-group for every set of
+axes of size > 1, and returns the mesh with this process's rank (its
+coordinates follow, row-major).  ``launch/spmd.py`` starts such processes.
+
+Devices and backends are explicit, and nothing falls back: a rank's device
+is ``cuda:{rank % device_count}`` unless the caller asks for the CPU; the
+backend is ``nccl`` where every rank has a card of its own and ``gloo``
+where ranks share a card or run on the CPU (NCCL refuses two ranks on one
+card), unless the caller names one.  Every process group has a timeout, so
+a lost rank fails the others instead of hanging them.
 """
 from __future__ import annotations
 
+import datetime
+import itertools
 import math
 
 from repro_torch.models.sharding import Mesh
+
+GROUP_TIMEOUT_S = 180.0
+FEDERATED_AXES = ("pod", "data", "model")
 
 
 def _mesh(sizes: tuple, axes: tuple, devices=None) -> Mesh:
@@ -51,3 +65,76 @@ def make_test_mesh(n_devices: int | None = None, device: str = "cuda"
         sizes, axes = (1, 1), ("data", "model")
     return _mesh(sizes, axes, [f"{device}:{i}"
                                for i in range(math.prod(sizes))])
+
+
+def rank_devices(world_size: int, device: str = "cuda") -> list:
+    """Each rank's device: ``cuda:{rank % device_count}``, or the CPU."""
+    if device == "cpu":
+        return ["cpu"] * world_size
+    import torch
+    n = torch.cuda.device_count()
+    if n < 1:
+        raise RuntimeError("no CUDA device: pass device='cpu' for ranks on "
+                           "the CPU")
+    return [f"cuda:{r % n}" for r in range(world_size)]
+
+
+def default_backend(world_size: int, device: str = "cuda") -> str:
+    """``nccl`` where each of ``world_size`` ranks has a card of its own,
+    else ``gloo`` (ranks on the CPU, or sharing a card)."""
+    if device == "cpu":
+        return "gloo"
+    import torch
+    return "nccl" if torch.cuda.device_count() >= world_size else "gloo"
+
+
+def init_mesh(init_method: str, rank: int, world_size: int,
+              sizes: tuple = (2, 2, 1), axes: tuple = FEDERATED_AXES,
+              backend: str | None = None, device: str = "cuda",
+              timeout_s: float = GROUP_TIMEOUT_S) -> Mesh:
+    """Initialise the process group of this process (``rank`` of
+    ``world_size``, rendezvous at ``init_method``: ``tcp://127.0.0.1:PORT``
+    or ``file://PATH``) and return its mesh of ``sizes`` over ``axes``,
+    with one sub-group per set of axes of size > 1.  Every process of the
+    group must call this with the same arguments but its rank."""
+    import torch
+    import torch.distributed as dist
+    if math.prod(sizes) != world_size:
+        raise ValueError(f"a {sizes} mesh needs {math.prod(sizes)} ranks, "
+                         f"got world_size {world_size}")
+    devices = rank_devices(world_size, device)
+    backend = backend or default_backend(world_size, device)
+    if devices[rank].startswith("cuda"):
+        torch.cuda.set_device(torch.device(devices[rank]))
+    timeout = datetime.timedelta(seconds=timeout_s)
+    dist.init_process_group(
+        backend, init_method=init_method, rank=rank, world_size=world_size,
+        timeout=timeout,
+        device_id=torch.device(devices[rank]) if backend == "nccl" else None)
+    coords = [Mesh(tuple(axes), tuple(sizes), tuple(devices), rank=r).coords
+              for r in range(world_size)]
+    shape = dict(zip(axes, sizes))
+    live = [a for a in axes if shape[a] > 1]
+    groups = {}
+    # every process creates every group, in the same order, as new_group
+    # requires; a group holds the ranks that share all other coordinates
+    for n in range(1, len(live) + 1):
+        for span in itertools.combinations(live, n):
+            rest = [a for a in axes if a not in span]
+            for fixed in itertools.product(*(range(shape[a]) for a in rest)):
+                members = [r for r in range(world_size)
+                           if all(coords[r][a] == v
+                                  for a, v in zip(rest, fixed))]
+                g = dist.new_group(members, timeout=timeout,
+                                   backend=backend)
+                if rank in members:
+                    groups[span] = g
+    return Mesh(tuple(axes), tuple(sizes), tuple(devices), rank=rank,
+                groups=groups)
+
+
+def close_mesh() -> None:
+    """Destroy this process's process group, if one is up."""
+    import torch.distributed as dist
+    if dist.is_available() and dist.is_initialized():
+        dist.destroy_process_group()

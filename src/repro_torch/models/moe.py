@@ -4,10 +4,17 @@ Under a mesh the reference runs the layer expert-parallel in a shard_map:
 the experts split over ``model`` (a shard owns ``E / model`` experts from
 ``e_lo``), the expert F dim over ``data``, the tokens over whichever batch
 axes divide the batch, with weight or token gathers and ``psum``
-combines.  ``moe_apply`` makes the same choices (``_mesh_plan``); with
-every chosen axis of size 1, as on one card, each gather and combine is
-the identity and the layer is ``_moe_local`` over all experts.  A mesh
-with a chosen axis larger than 1 raises (ROADMAP's multi-device item).
+combines.  ``_mesh_plan`` is that layout's guard.  With a ``model`` axis
+of 1 its ``gather_weights`` layout (train, prefill) gathers the F dim over
+``data`` back to whole weights and routes each
+shard's own tokens, the capacity taken from the local token count: under
+the port's SPMD convention (``models.sharding``) the weights are whole on
+every process and ``x`` is the process's share of the batch, so that is
+``_moe_local`` over all experts on the local tokens.  ``gather_tokens``
+(decode) all-gathers the tokens over the axes they are split over, routes
+them all and keeps the process's share.  A ``model`` axis larger than 1
+raises (``sharding.MULTI_DEVICE``: expert parallelism is ROADMAP's item
+9b).
 
 Dispatch is sort-based with a fixed capacity per expert: the token
 assignments are stably sorted by expert, each keeps its rank within its
@@ -124,29 +131,30 @@ def moe_apply(p, x, *, cfg: MoEConfig, act: str, mode: str = "gather_weights"):
 
     Both of the reference's modes, ``gather_weights`` (train/prefill) and
     ``gather_tokens`` (decode), differ only in which operand their mesh
-    gathers; on one card they are the same computation."""
+    gathers: with the weights whole, ``gather_weights`` routes the local
+    tokens and ``gather_tokens`` the tokens gathered over the axes that
+    split the batch; off a mesh, or on one device, they are the same
+    computation."""
     if mode not in ("gather_weights", "gather_tokens"):
         raise ValueError(mode)
     mesh = sh.get_mesh()
     if mesh is not None:
-        model_axis, f_axes, tok_axes = _mesh_plan(mesh, x.shape[0])
-        used = ((model_axis,) if model_axis else ()) + f_axes + tok_axes
-        if any(mesh.shape[a] > 1 for a in used):
-            raise NotImplementedError(f"the MoE over the mesh axes {used}: "
-                                      f"{sh.MULTI_DEVICE}")
+        _mesh_plan(mesh)
+        tok_axes = sh.batch_split_axes()
+        if mode == "gather_tokens" and tok_axes:
+            B = x.shape[0]
+            xg = sh.all_gather(x, tok_axes, 0)
+            out, aux = _moe_local(xg, p["router"], p["w1"], p["w3"], p["w2"],
+                                  cfg=cfg, act=act)
+            i = sh.shard_index(tok_axes)
+            return out[i * B:(i + 1) * B], aux
     return _moe_local(x, p["router"], p["w1"], p["w3"], p["w2"], cfg=cfg,
                       act=act)
 
 
-def _mesh_plan(mesh, batch: int):
-    """The reference's layout of the layer on ``mesh``: (the expert axis,
-    the axes of the expert F dim, the axes the ``batch`` tokens are split
-    over: the batch axes whose sizes divide it, in order)."""
-    model_axis = sh.MODEL if sh.MODEL in mesh.axis_names else None
-    f_axes = (sh.DATA,) if sh.DATA in mesh.axis_names else ()
-    tok_axes, rem = [], batch
-    for a in sh.batch_axes(mesh):
-        if rem % mesh.shape[a] == 0:
-            tok_axes.append(a)
-            rem //= mesh.shape[a]
-    return model_axis, f_axes, tuple(tok_axes)
+def _mesh_plan(mesh):
+    """The reference's expert-parallel layout on ``mesh``, where it splits
+    anything this port does not: an expert axis (``model``) larger than 1
+    raises (ROADMAP item 9b).  With a ``model`` axis of 1 the layout is
+    whole weights on the local tokens, which ``moe_apply`` runs."""
+    sh.check_model_axis("the MoE's expert-parallel layout", mesh)

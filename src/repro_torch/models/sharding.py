@@ -1,4 +1,5 @@
-"""Mesh context and sharding helpers, mirroring ``repro/models/sharding.py``.
+"""Mesh context, sharding helpers and collectives over named mesh axes,
+mirroring ``repro/models/sharding.py``.
 
 The model code is written once for three regimes:
   * no mesh                               -> constraints are no-ops
@@ -10,23 +11,45 @@ Logical axes used by the model code:
   DATA   -> "data"  (FSDP / weight-gather axis)
   MODEL  -> "model" (tensor/expert parallel axis)
 
-The port runs on one card.  Its ``Mesh`` is a record of axis names, sizes
-and devices: a ``torch.distributed.device_mesh.DeviceMesh`` needs an
-initialised process group, and the production meshes' 256 or 512 devices
-do not exist here.  Every pure function of a mesh (``resolve``,
-``batch_axes``, ``pspec``, ``axis_size``, ``fusion_axes``,
-``flat_shard_index``) reads only ``axis_names`` and ``shape``, as the
-reference's do, so they run on any mesh.  ``shard`` is the identity
-without a mesh or on a one-device mesh, and raises on a larger one:
-execution across devices (process groups, collectives) is ROADMAP's
-multi-device item, and nothing is quietly replicated.
+A ``Mesh`` is a record of axis names, sizes and devices.  Every pure
+function of a mesh (``resolve``, ``batch_axes``, ``pspec``, ``axis_size``,
+``fusion_axes``, ``flat_shard_index``) reads only ``axis_names`` and
+``shape``, as the reference's do, so they run on any mesh: the production
+meshes' 256 or 512 devices are placeholders that size the dry run.  A mesh
+that ``launch.mesh.init_mesh`` built also carries this process's ``rank``
+(one process per device, row-major over the axes), its ``coords`` and one
+``torch.distributed`` process group per set of axes of size > 1; the
+collectives below (``psum``, ``pmean``, ``all_gather``, ``all_to_all``,
+named after the reference's lax ops) run over those groups.
+
+SPMD convention (the reference's semantics without GSPMD, for a mesh whose
+``model`` axis is 1).  Each rank runs the same program.  Inside a client's
+computation a tensor is the rank's local share along the batch axes that
+``exclude_axes`` has not dropped (``batch_split_axes``), and whole along
+every other axis: params, optimizer and server state are whole on every
+rank.  So ``shard(x, *logical)`` is the identity wherever its spec resolves
+only to batch axes or to axes of size 1, and raises where it resolves to a
+``model`` axis larger than 1: tensor and expert parallelism need
+collectives inside ``torch.func`` transforms, ROADMAP's item 9b
+(``MULTI_DEVICE``).  No collective runs inside a transform: the rounds
+reduce between them (``core/round.py``), and the commit exchanges its rows
+between the client split and the row split (``kernels/ops.py``).
+
+Group order: a group over ``axes`` holds the ranks that share every other
+coordinate; ``torch.distributed.new_group`` sorts its ranks, and on a
+row-major mesh the sorted order is the row-major order over ``axes`` taken
+in mesh order, so a group's member ``j`` is the shard ``flat_shard_index``
+calls ``j``.  Every function here takes its axes in any order and uses
+them in mesh order.
 """
 from __future__ import annotations
 
 import contextlib
 import math
 import threading
-from dataclasses import dataclass
+import time
+from collections import Counter
+from dataclasses import dataclass, field
 from typing import Optional, Sequence
 
 BATCH = "__batch__"   # data-parallel batch axis (pod+data in multi-pod)
@@ -34,8 +57,8 @@ DATA = "data"
 MODEL = "model"
 POD = "pod"
 
-MULTI_DEVICE = ("execution across more than one device (ROADMAP: "
-                "multi-device execution) is not ported")
+MULTI_DEVICE = ("a `model` mesh axis larger than 1 (tensor and expert "
+                "parallelism: ROADMAP item 9b) is not ported")
 
 
 class PartitionSpec(tuple):
@@ -64,10 +87,15 @@ def _entry(e):
 class Mesh:
     """A device mesh as a record: ``axis_names``, their sizes in
     ``shape`` (name -> size, in axis order, as ``jax.sharding.Mesh.shape``)
-    and the row-major device list."""
+    and the row-major device list.  A mesh of processes
+    (``launch.mesh.init_mesh``) also has this process's ``rank`` and the
+    process groups of its axes, keyed by the tuple of axes (of size > 1,
+    in mesh order) each group spans."""
     axis_names: tuple
     sizes: tuple
     devices: tuple
+    rank: Optional[int] = None
+    groups: dict = field(default=None, compare=False, hash=False, repr=False)
 
     def __post_init__(self):
         if len(self.axis_names) != len(self.sizes):
@@ -77,6 +105,8 @@ class Mesh:
             raise ValueError(f"a {self.sizes} mesh needs "
                              f"{math.prod(self.sizes)} devices, got "
                              f"{len(self.devices)}")
+        if self.rank is not None and not 0 <= self.rank < self.size:
+            raise ValueError(f"rank {self.rank} on a mesh of {self.size}")
 
     @property
     def shape(self) -> dict:
@@ -85,6 +115,43 @@ class Mesh:
     @property
     def size(self) -> int:
         return math.prod(self.sizes)
+
+    @property
+    def coords(self) -> dict:
+        """This process's index along each axis (row-major rank)."""
+        if self.rank is None:
+            raise RuntimeError("a mesh record has no coordinates: a mesh "
+                               "of processes comes from "
+                               "launch.mesh.init_mesh")
+        out, r = {}, self.rank
+        for a, n in reversed(tuple(zip(self.axis_names, self.sizes))):
+            out[a] = r % n
+            r //= n
+        return {a: out[a] for a in self.axis_names}
+
+    @property
+    def device(self):
+        """This process's device."""
+        return self.devices[self.rank or 0]
+
+    def live(self, axes) -> tuple:
+        """``axes`` (a name or names) that this mesh has with size > 1, in
+        mesh order."""
+        axes = (axes,) if isinstance(axes, str) else tuple(axes or ())
+        return tuple(a for a in self.axis_names
+                     if a in axes and self.shape[a] > 1)
+
+    def group(self, axes):
+        """The process group over ``axes``, or None where they span one
+        process."""
+        axes = self.live(axes)
+        if not axes:
+            return None
+        if self.groups is None:
+            raise RuntimeError(f"a collective over {axes} needs a mesh of "
+                               f"processes (launch.mesh.init_mesh); this "
+                               f"{self.shape} mesh is a record only")
+        return self.groups[axes]
 
     def device_mesh(self):
         """The ``torch.distributed`` ``DeviceMesh`` of this record, where a
@@ -117,7 +184,7 @@ def excluded_axes() -> frozenset:
 @contextlib.contextmanager
 def exclude_axes(*axes: str):
     """Drop the given mesh axes from constraint resolution: used inside a
-    vmapped client body, whose mapped dim owns those axes."""
+    client body whose client (or pod) dim owns those axes."""
     prev = excluded_axes()
     _state.exclude = prev | set(axes)
     try:
@@ -145,6 +212,13 @@ def batch_axes(mesh: Optional[Mesh] = None):
     return tuple(a for a in axes if a not in excluded_axes())
 
 
+def batch_split_axes() -> tuple:
+    """The axes a client's batch is split over here: ``batch_axes`` of
+    size > 1 (empty without a mesh)."""
+    mesh = get_mesh()
+    return mesh.live(batch_axes(mesh)) if mesh is not None else ()
+
+
 def resolve(spec_entry, mesh):
     """Map a logical axis entry to concrete mesh axes (or None)."""
     excl = excluded_axes()
@@ -168,14 +242,31 @@ def pspec(*logical) -> PartitionSpec:
     return P(*(resolve(e, mesh) for e in logical))
 
 
+def check_model_axis(what: str, mesh: Optional[Mesh] = None) -> None:
+    """Raise (``MULTI_DEVICE``) where ``what`` would run over a ``model``
+    axis larger than 1 that ``exclude_axes`` has not dropped."""
+    mesh = mesh or get_mesh()
+    if (mesh is not None and MODEL not in excluded_axes()
+            and mesh.shape.get(MODEL, 1) > 1):
+        raise NotImplementedError(f"{what} on a {mesh.shape} mesh: "
+                                  f"{MULTI_DEVICE}")
+
+
 def shard(x, *logical):
-    """The sharding constraint of ``x`` against the active mesh: the
-    identity without a mesh or on one device; a larger mesh raises."""
+    """The sharding constraint of ``x`` against the active mesh.  Under the
+    SPMD convention a tensor already is its rank's share along the batch
+    axes and whole along the rest, so this is the identity; a spec that
+    resolves to a ``model`` axis larger than 1 raises."""
     mesh = get_mesh()
-    if mesh is None or mesh.size == 1:
+    if mesh is None:
         return x
-    raise NotImplementedError(f"shard{tuple(pspec(*logical))} on a "
-                              f"{mesh.shape} mesh: {MULTI_DEVICE}")
+    spec = pspec(*logical)
+    for e in spec:
+        names = e if isinstance(e, tuple) else (e,)
+        if MODEL in names and mesh.shape[MODEL] > 1:
+            raise NotImplementedError(f"shard{tuple(spec)} on a "
+                                      f"{mesh.shape} mesh: {MULTI_DEVICE}")
+    return x
 
 
 def axis_size(name: str) -> int:
@@ -187,7 +278,7 @@ def axis_size(name: str) -> int:
 
 def fusion_axes() -> tuple:
     """Mesh axes the fused commit's row (block) dim is split over
-    (``kernels.ops.shard_rows_reduce``): every active axis of size > 1 that
+    (``kernels.ops``): every active axis of size > 1 that
     ``exclude_axes`` has not dropped.  Empty on one device: the kernels
     run unsharded."""
     mesh = get_mesh()
@@ -209,3 +300,167 @@ def flat_shard_index(axes: Sequence[str], coords: dict,
     for a in axes:
         flat = flat * mesh.shape[a] + int(coords[a])
     return flat
+
+
+def shard_count(axes) -> int:
+    """Shards over ``axes`` on the active mesh (1 without one)."""
+    mesh = get_mesh()
+    return 1 if mesh is None else math.prod(mesh.shape[a]
+                                            for a in mesh.live(axes))
+
+
+def shard_index(axes) -> int:
+    """This process's flat shard index over ``axes`` (in mesh order)."""
+    mesh = get_mesh()
+    if mesh is None:
+        return 0
+    axes = mesh.live(axes)
+    return flat_shard_index(axes, mesh.coords, mesh) if axes else 0
+
+
+def shard_split(axes) -> tuple:
+    """(``shard_index(axes)``, ``shard_count(axes)``): this process's share
+    of a dim split over ``axes``, as ``core.compression`` takes it."""
+    return shard_index(axes), shard_count(axes)
+
+
+def local_share(x, axes, dim: int = 0, what: str = "a tensor"):
+    """This process's contiguous share of ``x`` along ``dim`` when that dim
+    is split over ``axes``: share ``shard_index(axes)`` of
+    ``shard_count(axes)``.  A size the count does not divide raises."""
+    n = shard_count(axes)
+    if n == 1:
+        return x
+    size = x.shape[dim]
+    if size % n:
+        raise ValueError(f"{what}: dim {dim} of size {size} does not split "
+                         f"over the mesh axes {get_mesh().live(axes)} "
+                         f"({n} shards)")
+    m = size // n
+    return x.narrow(dim, shard_index(axes) * m, m)
+
+
+# ---------------------------------------------------------------------------
+# collectives over named axes (between torch.func transforms, never inside)
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def timed_collectives():
+    """Time every collective run inside the block on the host clock, the
+    device synchronised before and after it: yields
+    ``{"seconds": Counter, "calls": Counter}`` keyed by the op's name."""
+    prev = getattr(_state, "timed", None)
+    stats = {"seconds": Counter(), "calls": Counter()}
+    _state.timed = stats
+    try:
+        yield stats
+    finally:
+        _state.timed = prev
+
+
+def _run(name, x, op):
+    import torch
+    stats = getattr(_state, "timed", None)
+    if stats is None:
+        return op()
+    sync = (torch.cuda.synchronize if x.device.type == "cuda"
+            else (lambda: None))
+    sync()
+    t0 = time.perf_counter()
+    out = op()
+    sync()
+    stats["seconds"][name] += time.perf_counter() - t0
+    stats["calls"][name] += 1
+    return out
+
+
+def psum(x, axes):
+    """The sum of ``x`` over the processes of ``axes`` (``lax.psum``)."""
+    import torch.distributed as dist
+    mesh = get_mesh()
+    group = mesh.group(axes) if mesh is not None else None
+    if group is None:
+        return x
+
+    def op():
+        y = x.contiguous().clone()
+        dist.all_reduce(y, group=group)
+        return y
+    return _run("psum", x, op)
+
+
+def pmean(x, axes):
+    """The mean of ``x`` over the processes of ``axes``."""
+    n = shard_count(axes)
+    return x if n == 1 else psum(x, axes) / n
+
+
+def all_gather(x, axes, dim: int = 0):
+    """``lax.all_gather`` (tiled) over ``axes``: the members' ``x`` in
+    shard order, concatenated along ``dim``."""
+    import torch
+    import torch.distributed as dist
+    mesh = get_mesh()
+    group = mesh.group(axes) if mesh is not None else None
+    if group is None:
+        return x
+
+    def op():
+        xc = x.contiguous()
+        parts = [torch.empty_like(xc) for _ in range(group.size())]
+        dist.all_gather(parts, xc, group=group)
+        return torch.cat(parts, dim)
+    return _run("all_gather", x, op)
+
+
+def all_to_all(x, axes, split_dim: int, concat_dim: int):
+    """``lax.all_to_all`` (tiled) over ``axes``: ``x`` split along
+    ``split_dim`` into one chunk per member, chunk ``j`` sent to member
+    ``j``, and the chunks received concatenated along ``concat_dim`` in
+    shard order."""
+    import torch
+    import torch.distributed as dist
+    mesh = get_mesh()
+    group = mesh.group(axes) if mesh is not None else None
+    if group is None:
+        return x
+    n = group.size()
+    if x.shape[split_dim] % n:
+        raise ValueError(f"all_to_all: dim {split_dim} of {tuple(x.shape)} "
+                         f"does not split into {n}")
+
+    def op():
+        send = x.movedim(split_dim, 0)
+        chunk = tuple(send.shape)
+        send = send.reshape((n, chunk[0] // n) + chunk[1:]).contiguous()
+        recv = torch.empty_like(send)
+        dist.all_to_all_single(recv, send, group=group)
+        return torch.cat([recv[j].movedim(0, split_dim) for j in range(n)],
+                         concat_dim)
+    return _run("all_to_all", x, op)
+
+
+def replica_checksums(tree: dict, axes=None, chunk: int = 1 << 24) -> dict:
+    """Per leaf of ``tree`` (a flat dict), every process's integer checksum
+    of the leaf's bits, gathered over ``axes`` (every axis of size > 1 by
+    default): {name: [checksum of shard 0, of shard 1, ...]}.  Equal lists
+    mean the leaf is bit for bit the same on every process (a replica that
+    diverged shows, where a broadcast would have hidden it)."""
+    import torch
+    mesh = get_mesh()
+    axes = mesh.axis_names if axes is None and mesh is not None else axes
+    out = {}
+    for name in sorted(tree):
+        x = tree[name].detach().contiguous().reshape(-1)
+        ints = {1: torch.uint8, 2: torch.int16, 4: torch.int32,
+                8: torch.int64}[x.element_size()]
+        v = x.view(ints)
+        total = torch.zeros(2, dtype=torch.int64, device=x.device)
+        for lo in range(0, v.numel(), chunk):
+            c = v[lo:lo + chunk].to(torch.int64)
+            pos = torch.arange(lo + 1, lo + 1 + c.numel(), device=x.device)
+            total[0] += c.sum()
+            total[1] += (c * pos).sum()
+        out[name] = [tuple(t) for t in
+                     all_gather(total[None], axes or (), 0).tolist()]
+    return out

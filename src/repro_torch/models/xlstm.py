@@ -13,9 +13,10 @@ Exponential gating is stabilised with the max-state m as in the paper.
 The reference runs the sLSTM block under ``shard_map``, heads split over
 ``model``, when ``_head_shard_mesh`` finds a mesh whose ``model`` axis is
 larger than 1, not excluded, and divides the heads; otherwise it takes the
-unsharded path.  The port makes the same decision: on one card (no mesh,
-or a 1x1 mesh) it is the unsharded path, and a head-sharding mesh raises
-(ROADMAP's multi-device item).
+unsharded path.  With a ``model`` axis of 1 the port takes the unsharded
+path on the process's share of the batch (``models.sharding``'s SPMD
+convention); a ``model`` axis larger than 1 raises (``_head_shard_mesh``,
+ROADMAP item 9b).
 
 Nothing is written in place, so ``LM.loss_fn`` runs these mixers under the
 round's ``vmap(grad_and_value)``.  Gate pre-activations, states and the
@@ -208,18 +209,13 @@ def _scan_slstm(rp, xs, carry0):
     return carry, torch.stack(hs)
 
 
-def _head_shard_mesh(n_heads: int):
-    """The mesh to split the sLSTM's heads over, or None for the plain
-    path: the reference's decision, on the active mesh's axis sizes."""
-    mesh = sh.get_mesh()
-    if mesh is None or sh.MODEL not in mesh.axis_names:
-        return None
-    if sh.MODEL in sh.excluded_axes():
-        return None
-    m = mesh.shape[sh.MODEL]
-    if m <= 1 or n_heads % m != 0:
-        return None
-    return mesh
+def _head_shard_mesh(n_heads: int) -> None:
+    """The reference's decision to split the sLSTM's heads over ``model``:
+    a ``model`` axis larger than 1 that ``exclude_axes`` has not dropped
+    raises (``sharding.MULTI_DEVICE``: the head split is ROADMAP's item
+    9b); with a ``model`` axis of 1 the heads stay whole and the plain path
+    runs on the process's batch share."""
+    sh.check_model_axis(f"the sLSTM's {n_heads} heads")
 
 
 def slstm_apply(p, x, *, n_heads: int, mode="train", state=None):
@@ -229,10 +225,8 @@ def slstm_apply(p, x, *, n_heads: int, mode="train", state=None):
     state None in train mode."""
     B, S, D = x.shape
     H, hd = n_heads, D // n_heads
-    mesh = _head_shard_mesh(n_heads) if mode in ("train", "prefill") else None
-    if mesh is not None:
-        raise NotImplementedError(f"the sLSTM's heads over {mesh.shape}: "
-                                  f"{sh.MULTI_DEVICE}")
+    if mode in ("train", "prefill"):
+        _head_shard_mesh(n_heads)
     if state is None:
         z0 = torch.zeros((B, H, hd), dtype=F32, device=x.device)
         state = {"c": z0, "n": z0 + 1e-6, "h": z0, "m": z0}

@@ -7,8 +7,10 @@ shards start their mask streams at their global element offsets (``base``
 plus the shard's first row times the block), so the masks of coefficients
 that do not cancel still cancel against the unsharded stream: its result
 is the unsharded one, not only the unmasked sum.  On one device
-(``fusion_axes()`` empty) the entry points run one shard; under a larger
-mesh they raise."""
+(``fusion_axes()`` empty) the entry points run one shard; a mesh with a
+``model`` axis larger than 1 raises, naming the ``model`` item, and a
+mesh record of several devices without processes cannot run the split
+(``tests/test_torch_spmd_kernels.py`` runs it across processes)."""
 import numpy as np
 import pytest
 import torch
@@ -74,7 +76,9 @@ def test_row_maps_shard_by_shard(n):
 
 def test_entry_points_run_one_shard_on_one_device():
     """Under the 1x1 mesh the entry points equal the no-mesh call; a mesh
-    that splits the rows raises, naming the multi-device item."""
+    whose ``model`` axis is larger than 1 raises, naming the ``model``
+    item; a record of four devices with no process group raises for the
+    want of one."""
     x = stack(4)
     w, s = torch.tensor([1.0, 2.0, 0.5, 1.5]), torch.zeros(K)
     plain, kept = ops.fused_accum(x, w, s, 0.0), ops.topk_sparsify(x[0], k=32)
@@ -82,5 +86,9 @@ def test_entry_points_run_one_shard_on_one_device():
         assert torch.equal(ops.fused_accum(x, w, s, 0.0), plain)
         assert torch.equal(ops.topk_sparsify(x[0], k=32), kept)
     with sh.use_mesh(make_production_mesh()):
-        with pytest.raises(NotImplementedError, match="multi-device"):
+        with pytest.raises(NotImplementedError, match="item 9b"):
+            ops.fused_accum(x, w, s, 0.0)
+    with sh.use_mesh(sh.Mesh(("pod", "data", "model"), (2, 2, 1),
+                             tuple(range(4)))):
+        with pytest.raises(RuntimeError, match="mesh of processes"):
             ops.fused_accum(x, w, s, 0.0)

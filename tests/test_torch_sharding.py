@@ -5,9 +5,11 @@ mesh stand-ins of 16x16 ("data", "model"), 2x16x16 ("pod", "data",
 ``resolve``, ``batch_axes``, ``pspec``, ``fusion_axes`` and ``axis_size``
 read only ``axis_names`` and ``shape``.  Each is compared under every
 ``exclude_axes`` set the rounds use.  Then ``shard``: the identity without
-a mesh and on a 1x1 mesh, an error naming the multi-device item on a
-larger one; ``flat_shard_index`` row-major; the production and test
-meshes' shapes; and the round's guard: parallel mode under a mesh without
+a mesh, on a 1x1 mesh and, under the SPMD convention, wherever its spec
+resolves only to batch axes or to axes of size 1; an error naming the
+``model`` item (ROADMAP 9b) where it resolves to a ``model`` axis larger
+than 1; ``flat_shard_index`` row-major; the production and test meshes'
+shapes; and the round's guard: parallel mode under a mesh without
 ``client_spmd_axes`` raises as the reference does."""
 import itertools
 from types import SimpleNamespace
@@ -69,8 +71,15 @@ def test_shard_is_the_identity_on_one_device():
         assert sh.fusion_axes() == ()
     for name in MESHES:
         with sh.use_mesh(meshes(name)[0]):
-            with pytest.raises(NotImplementedError, match="multi-device"):
-                sh.shard(x, sh.BATCH, None)
+            assert sh.shard(x, sh.BATCH, None) is x
+            assert sh.shard(x, sh.DATA, (sh.POD, sh.DATA)) is x
+            with pytest.raises(NotImplementedError, match="item 9b"):
+                sh.shard(x, sh.BATCH, sh.MODEL)
+            with sh.exclude_axes(sh.MODEL):
+                assert sh.shard(x, sh.BATCH, sh.MODEL) is x
+    with sh.use_mesh(sh.Mesh(("pod", "data", "model"), (2, 2, 1),
+                             tuple(range(4)))):
+        assert sh.shard(x, sh.BATCH, sh.MODEL) is x
 
 
 def test_flat_shard_index_is_row_major():
