@@ -7,6 +7,7 @@ training rounds, and the host's cost of a kernel launch.
     python3 chip_compare.py --paths DIR [DIR ...]
     python3 chip_compare.py --xlstm-gaps SEED [SEED ...]
     python3 chip_compare.py --spmd
+    python3 chip_compare.py --spmd-references
 
 ``--parent DIR``: DIR is another checkout of the repository (for example a
 ``git archive`` of the parent commit unpacked into a git-ignored
@@ -74,6 +75,11 @@ with no mesh here and on four gloo ranks sharing the card: sound, with the
 ranks' mean doubled, and with the mean replaced by a sum over the ranks
 (two controls that a wrong gradient reduction must fail): each one's loss
 and params gap to no mesh.  Then the phase itself, alone.
+
+``--spmd-references``: the phase's (a) ranks against no-mesh references
+made under cuDNN's default algorithms, then under the deterministic ones
+the ranks compare under: every rank's deltas' gap from no mesh in each
+mode (``spmd_reference_algorithms``).
 
 Every run prints the card's name and power limit (``nvidia-smi``).
 """
@@ -548,6 +554,44 @@ def spmd_readings() -> None:
     print(f"phase spmd: {time.perf_counter() - t0:.1f} s")
 
 
+def spmd_reference_algorithms() -> None:
+    """``--spmd-references``: ``chip_smoke.py``'s ``spmd`` (a) ranks held
+    against no-mesh references made under cuDNN's default algorithms and
+    under the deterministic ones the ranks compare under (``spmd_phase``
+    makes them under the latter): every rank's deltas' gap from no mesh in
+    each mode, and each client's largest delta."""
+    import tempfile
+
+    import torch
+
+    import chip_smoke as cs
+    from repro_torch.launch import spmd
+    cs.build()
+    for det in (False, True):
+        torch.use_deterministic_algorithms(det, warn_only=True)
+        torch.backends.cudnn.deterministic = det
+        with tempfile.TemporaryDirectory() as tmp:
+            path = f"{tmp}/reference.pt"
+            ref = cs.spmd_reference("cuda")
+            for mode in ("sequential", "pod_sequential"):
+                top = [round(max(float(v.abs().max()) for v in d.values()),
+                             4) for d, _ in ref["rounds"][mode]["updates"]]
+                print(f"references deterministic {det}: {mode} clients' "
+                      f"largest delta {top}", flush=True)
+            torch.save(ref, path)
+            del ref
+            out = spmd.run(cs.spmd_rank_main, (path,), sizes=cs.SPMD_SIZES,
+                           device="cuda", all_ranks=True, timeout_s=900,
+                           threads=None)
+        for rank, (checks, _, _) in enumerate(out):
+            for label, ok, detail in checks:
+                if "deltas against" in label:
+                    print(f"references deterministic {det}, rank {rank}: "
+                          f"{label}: {detail}", flush=True)
+    torch.use_deterministic_algorithms(False)
+    torch.backends.cudnn.deterministic = False
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", type=Path, help="another checkout to compare")
@@ -557,6 +601,7 @@ def main(argv=None) -> int:
                     help="other checkouts whose training paths to time")
     ap.add_argument("--xlstm-gaps", type=int, nargs="+", metavar="SEED")
     ap.add_argument("--spmd", action="store_true")
+    ap.add_argument("--spmd-references", action="store_true")
     args = ap.parse_args(argv)
     sys.path.insert(0, str(ROOT))
     import torch
@@ -578,6 +623,8 @@ def main(argv=None) -> int:
         profile_rounds()
     if args.spmd:
         spmd_readings()
+    if args.spmd_references:
+        spmd_reference_algorithms()
     print(f"nvidia-smi: {cs.nvidia_smi()}")
     return 0
 

@@ -161,7 +161,7 @@ it happened; any failure ends the run with a non-zero exit code:
      hybrid arch over every input shape on both production meshes, one
      line a tag, on the meta device: the card's allocated memory is held
      unchanged;
- 10. the round across processes (``spmd``), a ``model`` axis of 1: (a)
+ 10. the round across processes (``spmd``): (a), with a ``model`` axis of 1,
      four gloo ranks sharing the card (NCCL takes one rank a GPU) on a
      pod 2 x data 2 mesh run the full-width CIFAR round (20 clients, 5
      local steps, batch 16) in the parallel (clients over pod and data),
@@ -191,7 +191,25 @@ it happened; any failure ends the run with a non-zero exit code:
      every client, with each rank's peak, the round's wall and its
      gradient reductions' time; (c)
      the CIFAR parallel round as a one-rank NCCL group, bit for bit
-     against no mesh under deterministic algorithms.
+     against no mesh under deterministic algorithms; (d) eight gloo ranks
+     on the reference test's pod 2 x data 2 x model 2 mesh, the params
+     held at rest as their sanitised specs cut them, run the reduced
+     granite (sequential, pod_sequential), Qwen3-MoE (sequential), xLSTM
+     (parallel, sequential) and Jamba (parallel: the scan and its backward
+     on the rank's channels, the experts over model) rounds, each in the
+     reference test's stochastic q8 against the same round with no mesh
+     (loss within 5e-3, params within 3e-2) and uncompressed with the
+     fused FedProx update within 1e-5 of the same round with ``model``
+     dropped (deterministic algorithms), the shares bit for bit on the
+     ranks that hold them; the main path's parallel CIFAR round against no
+     mesh, launching fused_accum once a rank; every commit kernel's entry
+     point with ``model`` among the fusion axes bit for bit; (e)
+     granite-3-2b whole (bf16, 40 layers, every published width), one
+     sequential round of 2 clients x 2 steps x batch 1 x 1024 tokens with
+     no mesh, then on data 1 x model 2, two ranks sharing the card: each
+     rank's param bytes equal to the dry run's, its round peak held
+     against no mesh's (GRANITE_PEAK_RATIO), the loss and the params
+     against no mesh (5e-3, 3e-2), the collectives' time printed.
 The last lines are the kernels' JSON record, the nvidia-smi line, and
 ``{"ok": true, "device": {...}}``.
 """
@@ -241,6 +259,7 @@ from repro_torch.kernels.selective_scan import (  # noqa: E402
     selective_scan_chunk_blocks, selective_scan_chunk_bwd_blocks)
 from repro_torch.kernels.topk_sparsify import topk_sparsify_blocks  # noqa: E402
 from repro_torch.launch import serve, train  # noqa: E402
+from repro_torch.launch import specs as sp  # noqa: E402
 from repro_torch.models import (build_model, param_count,  # noqa: E402
                                 token_shape)
 from repro_torch.models import moe as moe_mod  # noqa: E402
@@ -3230,10 +3249,11 @@ def mesh_phase(device="cuda", archs=DRYRUN_ARCHS, cnn_round=MESH_ROUND):
 
 
 # ---------------------------------------------------------------- spmd
-# The round across processes on the federated mesh axes (launch/spmd.py,
-# launch/mesh.py; a model axis of 1).  One H100 holds every rank, so the
-# ranks share it over gloo, which stages each collective through the host:
-# the phase checks the ranks' results, and measures no collective's speed.
+# The round across processes on the mesh axes (launch/spmd.py,
+# launch/mesh.py; (a)-(c) a model axis of 1, (d)-(e) of 2).  One H100
+# holds every rank, so the ranks share it over gloo, which stages each
+# collective through the host: the phase checks the ranks' results and
+# memory, and measures no collective's speed.
 SPMD_SIZES = (2, 2, 1)                    # pod x data x model, 4 ranks
 SPMD_ROUND = dict(C=20, H=5, B=16)        # the main path's round
 SPMD_MODES = (("parallel", ("pod", "data")), ("sequential", None),
@@ -3261,6 +3281,30 @@ SPMD_LIMIT_BYTES = 76e9                   # what both ranks may hold
 
 # the main path: one rank's launches in the parallel default round
 SPMD_MAIN_LAUNCHES = {"fused_accum": 1}
+
+# (d): the reference test's (2, 2, 2) mesh with tensor, expert and head
+# parallelism over `model` inside every client, the params held at rest as
+# their sanitised specs cut them (launch.specs.shard_params): 8 gloo ranks
+# sharing the card
+MODEL_SIZES = (2, 2, 2)
+MODEL_SHAPE = dict(C=4, H=2, B=2, S=16)   # tests/test_mesh_small.py's round
+MODEL_CASES = (("granite-3-2b", "sequential"),
+               ("granite-3-2b", "pod_sequential"),
+               ("qwen3-moe-235b-a22b", "sequential"),
+               ("xlstm-125m", "parallel"), ("xlstm-125m", "sequential"),
+               (JAMBA, "parallel"))
+MODEL_AXES = {"parallel": ("pod", "data"), "pod_sequential": ("pod",),
+              "sequential": None}
+# the uncompressed f32 round split over model against the same round with
+# model dropped (the same batch split, every layer whole)
+MODEL_OWN_TOL = 1e-5
+# (e): granite-3-2b whole (bf16, every published width, 40 layers), one
+# sequential round of 2 clients x 2 steps x batch 1 x 1024 tokens, on data
+# 1 x model 2; a rank's round peak over the no-mesh round's at most
+GRANITE = "granite-3-2b"
+GRANITE_MODEL = dict(C=2, H=2, B=1, S=1024)
+GRANITE_MODEL_SIZES, GRANITE_MODEL_AXES = (1, 2), ("data", "model")
+GRANITE_PEAK_RATIO = 0.75
 
 
 def spmd_launches_expected(n_leaves=8, C=SPMD_ROUND["C"]) -> dict:
@@ -3453,11 +3497,14 @@ def spmd_rank_setup():
 
 def deterministic_algorithms():
     """cuDNN's and cuBLAS's deterministic algorithms from here on, for a
-    comparison with a round run elsewhere: under the default ones the
-    batch-split CIFAR rounds' deltas came 2.69e-05 from the no-mesh
-    round's on an H100 (1.4e-06 to 4.4e-06 under these), beyond
+    comparison with a round run elsewhere, which ``spmd_phase`` runs under
+    them too: with the ranks under the default ones the batch-split CIFAR
+    rounds' deltas came 2.69e-05 from the no-mesh round's on an H100, and
+    with the ranks under these but the no-mesh round under the default
+    ones a pod_sequential rank's came 1.18e-05 to 2.16e-05 from it on some
+    machines (5.96e-08 to 1.43e-06 with both under these), beyond
     SPMD_DELTA_TOL, which is there to measure the split, not the
-    algorithms cuDNN picks for a rank's half batch."""
+    algorithms cuDNN picks."""
     torch.backends.cudnn.deterministic = True
     torch.use_deterministic_algorithms(True, warn_only=True)
     warnings.filterwarnings("ignore", message=".*deterministic.*")
@@ -3708,24 +3755,31 @@ def nccl_rank(mesh, ref_path):
 
 
 def spmd_phase(device="cuda", sizes=SPMD_ROUND, jamba=SPMD_JAMBA,
-               audio_cfg=None, audio_shape=AUDIO_SPMD):
+               audio_cfg=None, audio_shape=AUDIO_SPMD, granite_cfg=None,
+               granite_shape=GRANITE_MODEL):
     """Phase spmd: (a) four gloo ranks sharing the card on a pod 2 x data
     2 x model 1 mesh run the CIFAR rounds, the async commit, the reduced
     Jamba and every commit kernel against the same work with no mesh here;
     (b) MusicGen-medium's sequential round on two ranks, its batch split
-    over data; (c) the CIFAR round as a one-rank NCCL group."""
+    over data; (c) the CIFAR round as a one-rank NCCL group; (d) eight
+    ranks on the pod 2 x data 2 x model 2 mesh run the reduced LMs'
+    rounds split over model, the main path's CIFAR round and every commit
+    kernel with model among the fusion axes; (e) granite-3-2b whole over
+    model 2."""
     from repro_torch.launch import spmd
     kind = torch.device(device).type
     totals = {}
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "reference.pt")
         t0 = time.perf_counter()
-        ref_out = spmd_reference(device, sizes, jamba)
-        # (c)'s reference: the parallel default round under deterministic
-        # algorithms
+        # every no-mesh reference under the deterministic algorithms the
+        # ranks compare under: (a)'s, (d)'s, and (c)'s parallel default
+        # round
         torch.use_deterministic_algorithms(True, warn_only=True)
         torch.backends.cudnn.deterministic = True
         try:
+            ref_out = spmd_reference(device, sizes, jamba)
+            ref_out["model_cases"] = model_reference(device)
             model = CNN(CIFAR_CNN)
             on = lambda t: {k: v.to(device) for k, v in t.items()}  # noqa
             ref_out["nccl_new"] = cpu_tree(spmd_step(
@@ -3768,7 +3822,10 @@ def spmd_phase(device="cuda", sizes=SPMD_ROUND, jamba=SPMD_JAMBA,
               f"{wall:.1f} s; launches over the ranks {totals}")
         totals_c = spmd_nccl(path, kind)
         add_counts(totals, totals_c)
+        add_counts(totals, spmd_model(path, kind))
     add_counts(totals, spmd_audio(device, kind, audio_cfg, audio_shape))
+    add_counts(totals, spmd_granite(device, kind, granite_cfg,
+                                    granite_shape))
     return totals
 
 
@@ -3861,6 +3918,304 @@ def spmd_audio(device, kind, cfg=None, shape=AUDIO_SPMD):
           and lead["gap"] < SPMD_SHARDED_TOL[1],
           f"spmd (b): against no mesh, loss {lead['loss_gap']:.3g}, params "
           f"{lead['gap']:.3g}")
+    return {}
+
+
+def model_fl(mode, compressed: bool):
+    """(d)'s round: the reference test's (stochastic q8, FedProx 0.01), or
+    uncompressed with the fused FedProx update kernel."""
+    return FLConfig(num_clients=MODEL_SHAPE["C"],
+                    local_steps=MODEL_SHAPE["H"], client_lr=0.05,
+                    fedprox_mu=0.01, client_exec=mode,
+                    compression=CompressionConfig(
+                        quantize_bits=8 if compressed else 0),
+                    use_fused_update=not compressed)
+
+
+def model_round(lm, params, batches, mode, compressed, axes):
+    C = MODEL_SHAPE["C"]
+    dev = next(iter(params.values())).device
+    step = build_fl_round_step(lm.loss_fn, get_client_optimizer("sgd"),
+                               get_server_optimizer("fedavg"),
+                               model_fl(mode, compressed), n_pods=2,
+                               client_spmd_axes=axes)
+    new, _, met = step(params, (), batches, torch.ones(C, device=dev),
+                       torch.ones(C, device=dev),
+                       torch.Generator().manual_seed(3))
+    return new, float(met["client_loss"])
+
+
+def model_reference(device):
+    """(d)'s references with no mesh here on ``device``: each case's
+    stochastic q8 round, from the reduced arch's params (seed 0)."""
+    out, s = {}, MODEL_SHAPE
+    for arch, mode in MODEL_CASES:
+        cfg = reduced(get_config(arch))
+        lm = build_model(cfg)
+        params = {k: v.to(device) for k, v in flat_dict(lm.init(
+            torch.Generator().manual_seed(0))).items()}
+        nb = lm_batches(cfg, (s["C"], s["H"], s["B"]), s["S"], 1)
+        new, loss = model_round(lm, params, {
+            k: torch.from_numpy(v).to(device) for k, v in nb.items()}, mode,
+            True, None)
+        out[(arch, mode)] = {"params": cpu_tree(params), "batches": nb,
+                             "new": cpu_tree(new), "loss": loss}
+    return out
+
+
+def same_share_bits(tree) -> bool:
+    """Every leaf bit for bit the same on the ranks that hold the same
+    share: its checksums gathered over the axes other than model."""
+    return all(len(set(v)) == 1 for v in shd.replica_checksums(
+        tree, ("pod", "data")).values())
+
+
+def model_rank_main(mesh, ref_path):
+    """(d) on one rank of the (2, 2, 2) mesh, under deterministic
+    algorithms: each reduced case's q8 round against no mesh, its
+    uncompressed round against the same round with model dropped, the
+    shares bit for bit across the ranks that hold them; the main path's
+    parallel CIFAR round against no mesh; every commit kernel with model
+    among the fusion axes bit for bit.  Returns (checks, walls, launches
+    of the split rounds, launches per case)."""
+    spmd_rank_setup()
+    deterministic_algorithms()
+    dev, lead = mesh.device, mesh.rank == 0
+    ref_in = torch.load(ref_path, weights_only=False)
+    on = lambda t: t.to(dev)                              # noqa: E731
+    tree = lambda t: {k: on(v) for k, v in t.items()}     # noqa: E731
+    checks, walls, counts, per_case = [], {}, {}, {}
+
+    def note(label, ok, detail=""):
+        checks.append((label, bool(ok), detail))
+        if lead:
+            print(f"spmd (d) rank 0: {label}: {'ok' if ok else 'FAILED'} "
+                  f"{detail}", flush=True)
+
+    s = MODEL_SHAPE
+    for (arch, mode), want in ref_in["model_cases"].items():
+        lm = build_model(reduced(get_config(arch)))
+        specs = lm.logical_specs
+        whole = tree(want["params"])
+        local = sp.shard_params(whole, specs)
+        batches = {k: on(torch.from_numpy(v)) for k, v in
+                   want["batches"].items()}
+        axes, label = MODEL_AXES[mode], f"{arch} {mode}"
+        launches.reset()
+        sync(dev)
+        t0 = time.perf_counter()
+        new, loss = model_round(lm, local, batches, mode, True, axes)
+        sync(dev)
+        walls[label] = time.perf_counter() - t0
+        gap = max_gap(new, sp.shard_params(tree(want["new"]), specs))
+        note(f"{label}: q8 round against no mesh",
+             abs(loss - want["loss"]) < SPMD_SHARDED_TOL[0]
+             and gap < SPMD_SHARDED_TOL[1],
+             f"loss {loss:.6f} against {want['loss']:.6f}, params max "
+             f"|diff| {gap:.3g}, round_wall_s={walls[label]:.4f}")
+        note(f"{label}: q8 round's shares bit for bit across ranks",
+             same_share_bits(new))
+        new_u, loss_u = model_round(lm, local, batches, mode, False, axes)
+        per_case[label] = dict(launches.KERNEL_LAUNCHES)
+        add_counts(counts, per_case[label])
+        with shd.exclude_axes(shd.MODEL):
+            new_x, loss_x = model_round(lm, whole, batches, mode, False,
+                                        axes)
+        launches.reset()
+        gap = max_gap(new_u, sp.shard_params(new_x, specs))
+        note(f"{label}: uncompressed round against model dropped",
+             abs(loss_u - loss_x) <= MODEL_OWN_TOL and gap <= MODEL_OWN_TOL,
+             f"loss {loss_u:.7f} against {loss_x:.7f}, params max |diff| "
+             f"{gap:.3g}")
+        note(f"{label}: uncompressed shares bit for bit across ranks",
+             same_share_bits(new_u))
+        if arch == JAMBA:
+            expect = train_launches(lm, mode, s["C"], s["H"], s["S"])
+            got = {k: per_case[label].get(k, 0) // 2 for k in expect}
+            note(f"{label}: the scan and its backward on the rank's "
+                 f"channels in each round", dev.startswith("cpu")
+                 or got == expect,
+                 f"launches {per_case[label]}, expected {expect} a round")
+    # the main path's parallel CIFAR round: clients over pod x data, the
+    # CNN whole on the model ranks, the commit's rows over all three axes
+    params, batches = tree(ref_in["params"]), tree(ref_in["batches"])
+    w, m = on(ref_in["w"]), on(ref_in["m"])
+    C, H = ref_in["sizes"]["C"], ref_in["sizes"]["H"]
+    step = spmd_step(CNN(CIFAR_CNN), "default", "parallel", ("pod", "data"),
+                     C, H)
+    launches.reset()
+    sync(dev)
+    t0 = time.perf_counter()
+    new = step(params, (), batches, w, m, spmd_gen())[0]
+    sync(dev)
+    walls["cifar parallel"] = time.perf_counter() - t0
+    main = dict(launches.KERNEL_LAUNCHES)
+    add_counts(counts, main)
+    per_case["cifar parallel"] = main
+    gap = max_gap(new, ref_in["rounds"]["parallel"]["commits"]["default"])
+    note("parallel CIFAR round (the main path) against no mesh",
+         gap <= SPMD_DELTA_TOL, f"max |diff| {gap:.3g}, round_wall_s="
+                                f"{walls['cifar parallel']:.4f}")
+    note("parallel CIFAR round: its own launches",
+         dev.startswith("cpu") or main == SPMD_MAIN_LAUNCHES,
+         f"launches {main}, expected {SPMD_MAIN_LAUNCHES}")
+    note("parallel CIFAR round: params bit for bit across ranks",
+         replicas_equal(new))
+    # every commit kernel on this rank's rows of pod x data x model
+    par = ref_in["rounds"]["parallel"]["deltas"]
+    launches.reset()
+    for axes in ((), ("pod", "data")):
+        got = spmd_kernel_calls(tree(par), w, m, axes)
+        for label, leaves in got.items():
+            ok = all(torch.equal(g, x) for g, x in
+                     zip(leaves, ref_in["kernels"][label]))
+            slots = f"split over {axes}" if axes else "whole"
+            note(f"kernel {label}, slots {slots}, fusion axes "
+                 f"{shd.fusion_axes()}: bit for bit", ok)
+    per_case["commit kernels"] = dict(launches.KERNEL_LAUNCHES)
+    launches.reset()
+    return checks, walls, counts, per_case
+
+
+def spmd_model(path, kind):
+    """(d): the (2, 2, 2) mesh's ranks on the card."""
+    from repro_torch.launch import spmd
+    t0 = time.perf_counter()
+    per_rank = spmd.run(model_rank_main, (path,), sizes=MODEL_SIZES,
+                        device=kind, all_ranks=True, timeout_s=900,
+                        threads=None)
+    wall = time.perf_counter() - t0
+    totals = {}
+    for rank, (checks, walls, counts, per_case) in enumerate(per_rank):
+        failed = [c for c in checks if not c[1]]
+        print(f"spmd (d) rank {rank}: {len(checks) - len(failed)} of "
+              f"{len(checks)} checks passed; walls "
+              f"{ {k: round(v, 4) for k, v in walls.items()} }; launches "
+              f"{per_case}")
+        for label, _, detail in failed:
+            print(f"spmd (d) rank {rank}: FAILED {label} {detail}")
+        check(not failed, f"spmd (d) rank {rank}: {failed[0][0]} "
+                          f"{failed[0][2]}" if failed else "")
+        add_counts(totals, counts)
+    print(f"spmd (d): 8 ranks on a pod 2 x data 2 x model 2 mesh, the "
+          f"spawn and every rank's work {wall:.1f} s; the split rounds' "
+          f"launches over the ranks {totals}")
+    return totals
+
+
+def granite_model_rank(mesh, ref_path, cfg, sh_):
+    """(e) on one rank of data 1 x model 2: granite-3-2b drawn whole,
+    held as its share, its bytes against the dry run's; the sequential
+    round with the collectives timed; its share against no mesh's."""
+    from repro_torch.launch import dryrun
+    spmd_rank_setup()
+    dev = mesh.device
+    model, nested = serve.build(cfg, dev, seed=0)
+    specs = model.logical_specs
+    params = sp.shard_params(flat_dict(nested), specs)
+    del nested
+    free_cache(dev)
+    held = sp.param_bytes(params)
+    dry = dryrun.per_device_bytes(model.param_specs(), specs, shd.Mesh(
+        GRANITE_MODEL_AXES, GRANITE_MODEL_SIZES, tuple(range(2))))
+    C, H, B, S = (sh_[k] for k in "CHBS")
+    batches = round_batches(cfg, 1, C, H, B, S, 4, dev)(0)
+    step = build_fl_round_step(model.loss_fn, get_client_optimizer("sgd"),
+                               get_server_optimizer("fedavg"), FLConfig(
+                                   num_clients=C, local_steps=H,
+                                   client_lr=0.01, client_exec="sequential"))
+    cuda = dev.startswith("cuda")
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    sync(dev)
+    t0 = time.perf_counter()
+    with shd.timed_collectives() as stats:
+        new, _, met = step(params, (), batches, torch.ones(C, device=dev),
+                           torch.ones(C, device=dev),
+                           torch.Generator().manual_seed(7))
+        loss = float(met["client_loss"])
+        sync(dev)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev) if cuda else 0
+    want = sp.shard_params(torch.load(ref_path, mmap=True,
+                                      weights_only=False), specs)
+    gap = max(float((new[k].float() - want[k].to(dev).float()).abs().max())
+              for k in want)
+    finite = math.isfinite(loss) and all(bool(torch.isfinite(v).all())
+                                         for v in new.values())
+    coll = {k: (round(float(stats["seconds"][k]), 4),
+                int(stats["calls"][k])) for k in stats["calls"]}
+    print(f"spmd (e) rank {mesh.rank}: {GRANITE} over model 2: holds "
+          f"{held} param bytes (dry run {dry}); round_wall_s={wall:.4f} "
+          f"client_loss={loss:.6f} max_memory_allocated={peak} "
+          f"({peak / 1e9:.2f} GB); collectives (s, calls) {coll}",
+          flush=True)
+    return dict(held=held, dry=dry, loss=loss, wall=wall, peak=peak,
+                gap=gap, finite=finite, collectives=coll)
+
+
+def spmd_granite(device, kind, cfg=None, shape=GRANITE_MODEL):
+    """(e): granite-3-2b's sequential round with no mesh here, then on
+    data 1 x model 2, two ranks sharing the card."""
+    from repro_torch.launch import spmd
+    cfg = cfg or get_config(GRANITE)
+    C, H, B, S = (shape[k] for k in "CHBS")
+    free_cache(device)
+    model, nested = serve.build(cfg, device, seed=0)
+    params = flat_dict(nested)
+    del nested
+    batches = round_batches(cfg, 1, C, H, B, S, 4, device)(0)
+    step = build_fl_round_step(model.loss_fn, get_client_optimizer("sgd"),
+                               get_server_optimizer("fedavg"), FLConfig(
+                                   num_clients=C, local_steps=H,
+                                   client_lr=0.01, client_exec="sequential"))
+    if kind == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    sync(device)
+    t0 = time.perf_counter()
+    new, _, met = step(params, (), batches, torch.ones(C, device=device),
+                       torch.ones(C, device=device),
+                       torch.Generator().manual_seed(7))
+    loss = float(met["client_loss"])
+    sync(device)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() if kind == "cuda" else 0
+    n = sp.param_bytes(params)
+    print(f"spmd (e): {GRANITE} whole ({n} param bytes) sequential round "
+          f"with no mesh round_wall_s={wall:.4f} client_loss={loss:.6f} "
+          f"max_memory_allocated={peak} ({peak / 1e9:.2f} GB)")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "granite.pt")
+        torch.save(cpu_tree(new), path)
+        del model, params, batches, new, step
+        free_cache(device)
+        t0 = time.perf_counter()
+        out = spmd.run(granite_model_rank, (path, cfg, shape),
+                       sizes=GRANITE_MODEL_SIZES, axes=GRANITE_MODEL_AXES,
+                       device=kind, all_ranks=True, timeout_s=900,
+                       threads=None)
+    ratios = [o["peak"] / peak if peak else 0.0 for o in out]
+    print(f"spmd (e): 2 ranks, {time.perf_counter() - t0:.1f} s with the "
+          f"spawn; losses {[round(o['loss'], 6) for o in out]} against "
+          f"{loss:.6f}; params max |diff| {[o['gap'] for o in out]}; rank "
+          f"peaks {[o['peak'] for o in out]} against no mesh's {peak} "
+          f"(ratios {[round(r, 4) for r in ratios]}); param bytes "
+          f"{[o['held'] for o in out]} against the dry run's "
+          f"{[o['dry'] for o in out]} and whole {n}; round walls "
+          f"{[round(o['wall'], 4) for o in out]} s")
+    check(all(o["finite"] for o in out), "spmd (e): a non-finite loss or "
+                                         "params")
+    check(all(o["held"] == o["dry"] for o in out),
+          f"spmd (e): param bytes {[o['held'] for o in out]} against the "
+          f"dry run's {[o['dry'] for o in out]}")
+    check(all(abs(o["loss"] - loss) < SPMD_SHARDED_TOL[0]
+              and o["gap"] < SPMD_SHARDED_TOL[1] for o in out),
+          f"spmd (e): against no mesh, losses "
+          f"{[o['loss'] for o in out]} ({loss}), params "
+          f"{[o['gap'] for o in out]}")
+    check(kind != "cuda" or all(r <= GRANITE_PEAK_RATIO for r in ratios),
+          f"spmd (e): rank peaks over no mesh's {ratios}, above "
+          f"{GRANITE_PEAK_RATIO}")
     return {}
 
 

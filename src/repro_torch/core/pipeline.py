@@ -73,11 +73,22 @@ commit draws what the unsplit one does; float-domain secure masks are
 added to the process's own slots, and the masked slots are gathered and
 summed in slot order; trimming and the hierarchical pod combine gather the
 slots whole first.  The streaming stages take whole (replicated) values.
+
+Where the params are split over a ``model`` axis at rest
+(``launch.specs.shard_params``), so are the deltas: ``model_commit`` runs
+a stage on them.  An elementwise commit (no compression, no secure masks:
+``fused_accum``, the plain weighted sum, the streaming sum, the trimmed
+mean) runs on each rank's shares, ``model`` dropped from the fusion axes.
+A blockwise one (quantize, top-k, dropout, the secure commits: blocks run
+along a leaf's last dim, draws and masks follow its element order) first
+gathers each split leaf whole over ``model``, runs as above with
+``model`` among the fusion axes, and keeps the rank's share: so a split
+commit equals the unsplit commit of the same deltas bit for bit.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import TYPE_CHECKING
+from typing import TYPE_CHECKING, Callable
 
 import torch
 
@@ -90,6 +101,20 @@ from repro_torch.pytree import ordered
 
 if TYPE_CHECKING:                       # avoid circular import with round.py
     from repro_torch.core.round import FLConfig
+
+
+def model_whole(tree: dict, model_dims: dict, lead: int = 0) -> dict:
+    """Each leaf of ``tree`` that ``model_dims`` splits over ``model``
+    (after ``lead`` leading slot dims) gathered whole; the rest as they
+    are."""
+    return {k: v if model_dims.get(k) is None else sh.all_gather(
+        v, sh.MODEL, model_dims[k] + lead) for k, v in tree.items()}
+
+
+def model_share(tree: dict, model_dims: dict, lead: int = 0) -> dict:
+    """``model_whole``'s inverse: this rank's share of each split leaf."""
+    return {k: v if model_dims.get(k) is None else sh.local_share(
+        v, sh.MODEL, model_dims[k] + lead, k) for k, v in tree.items()}
 
 
 def staleness_weights(staleness, exponent):
@@ -126,6 +151,35 @@ class UpdatePipeline:
         self.cfg = cfg
         self.n_pods = n_pods
         self.accum_dtype = getattr(torch, cfg.accum_dtype)
+
+    # ------------------------------------------------------- model shares
+    @property
+    def blockwise(self) -> bool:
+        """Whether a commit stage needs each leaf whole: compression
+        (blocks along the last dim, dropout's columns, rounding draws in
+        element order) or secure masks (indexed by element)."""
+        return self.cfg.compression.enabled or self.cfg.secure_agg
+
+    def model_commit(self, fn: Callable, tree: dict, model_dims=None,
+                     lead: int = 1):
+        """``fn(tree)``, a commit stage whose result is a dict of leaves
+        (or a tuple led by one), on a ``tree`` of this rank's shares over
+        ``model``: ``model_dims`` gives each leaf's split dim (None where
+        it is whole), after ``lead`` leading slot dims.  Elementwise
+        stages run on the shares with ``model`` out of the fusion axes;
+        blockwise ones (``blockwise``) on the split leaves gathered whole,
+        their result cut back to the shares."""
+        dims = {k: d for k, d in (model_dims or {}).items()
+                if d is not None}
+        if not dims or not sh.model_live():
+            return fn(tree)
+        if not self.blockwise:
+            with sh.exclude_axes(sh.MODEL):
+                return fn(tree)
+        out = fn(model_whole(tree, dims, lead))
+        if isinstance(out, tuple):
+            return (model_share(out[0], dims),) + out[1:]
+        return model_share(out, dims)
 
     # ------------------------------------------------------------- slots
     @staticmethod

@@ -32,10 +32,12 @@ Under an active mesh (``models.sharding.use_mesh``) the parallel mode needs
 ``client_spmd_axes``, the mesh axes its stacked client dim is sharded over,
 as the reference's does; the model's sharding constraints inside the
 client body drop those axes (``exclude_axes``), the sequential body drops
-``pod``.  On a mesh of processes (``launch.mesh.init_mesh``, a ``model``
-axis of 1) the round step runs SPMD, the reference's shardings executed:
-every process calls it with the same whole arguments and the same
-generator state, and takes its share.
+``pod``.  On a mesh of processes (``launch.mesh.init_mesh``) the round
+step runs SPMD, the reference's shardings executed: every process calls
+it with the same whole batches, weights and mask, the same generator
+state, and the params (and server state) as it holds them at rest: its
+share over ``model`` (``launch.specs.shard_params``), whole along the
+other axes.  It returns the new params as it holds them.
   * parallel: the clients split over ``client_spmd_axes`` (C/n a process,
     contiguous, in ``flat_shard_index`` order), their batches over the
     batch axes left; the commit exchanges the client split for a row split
@@ -48,24 +50,34 @@ generator state, and takes its share.
   * pod_sequential: the pods split over ``client_spmd_axes``, each client's
     batch over the batch axes left; ``combine_pods`` takes the pods' sums
     split.
+  * ``model``: inside every mode the client's forward and backward split
+    its layers over ``model`` (tensor, expert and head parallelism,
+    ``models.sharding``'s conjugate collectives, which run inside the
+    transforms); the commit runs on the shares (``pipeline.model_commit``).
 Gradients are taken on the local batch; their mean over the processes that
 split it (``sharding.batch_split_axes``) and those that repeat it
 (``replica_axes``) sits between ``grad_and_value`` and the optimizer step,
-outside every ``torch.func`` transform, and the loss is averaged the same
-way (an MoE's aux loss enters that mean per
+outside every ``torch.func`` transform.  A leaf held whole over ``model``
+is averaged over ``model`` too (its ranks hold equal values, and the mean
+hands them the same bits whatever their algorithms do); a split leaf's
+gradient is the rank's own.  The loss is averaged over all of these axes
+(an MoE's aux loss enters that mean per
 shard, where the reference's ``shard_map`` returns it unchecked,
 ``out_specs=P()``).  A batch or a client count that its split does not
-divide raises.  Params and server state are whole on every process and end
-each round bit for bit the same on all of them
+divide raises.  Params and server state end each round bit for bit the
+same on every process that holds the same share
 (``sharding.replica_checksums`` shows it): every process that holds a
 client takes the same all-reduced gradient bits, and the commit's result
-is gathered whole.  A ``model`` axis larger than 1 raises where a client
-trains (``local_train``) and where the commit splits its rows.
+is gathered whole along every axis but ``model``.
+
+Which leaves are split over ``model`` (``ModelLayout``): the sanitised
+specs of the model whose bound ``loss_fn`` the round gets (``LM``), or the
+``model_dims`` given; a model without specs (the CNN) is whole.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 from torch.func import grad_and_value, vmap
@@ -75,7 +87,7 @@ from repro_torch.core.pipeline import build_update_pipeline
 from repro_torch.models import sharding as shd
 from repro_torch.models.common import lane_exact
 from repro_torch.optim import Optimizer, ServerOptimizer
-from repro_torch.pytree import ordered
+from repro_torch.pytree import flat_dict, ordered
 
 
 @dataclass(frozen=True)
@@ -106,14 +118,52 @@ class FLConfig:
 MIN_LANES = 2
 
 
-def global_norm(tree: dict):
-    return torch.sqrt(sum(torch.sum(tree[k].to(torch.float32).square())
-                          for k in ordered(tree)))
+def global_norm(tree: dict, model_dims: Optional[dict] = None):
+    """The L2 norm of ``tree``'s leaves; where ``model_dims`` marks leaves
+    as this rank's shares over ``model``, of the whole tree (their squares
+    summed over ``model``)."""
+    sq = lambda k: torch.sum(tree[k].to(torch.float32).square())
+    split = {k for k, d in (model_dims or {}).items() if d is not None}
+    if not split or not shd.model_live():
+        return torch.sqrt(sum(sq(k) for k in ordered(tree)))
+    whole = sum(sq(k) for k in ordered(tree) if k not in split)
+    shares = shd.psum(sum(sq(k) for k in ordered(tree) if k in split),
+                      shd.MODEL)
+    return torch.sqrt(whole + shares)
+
+
+class ModelLayout:
+    """Which param leaves are split over ``model`` at rest, and along which
+    dim: ``layout()`` -> ``{leaf: dim or None}`` (flat names) on the
+    active mesh, empty off a ``model`` axis larger than 1.  From
+    ``model_dims`` where given, else from the sanitised specs of the model
+    that ``loss_fn`` is bound to (one with ``param_specs`` and
+    ``logical_specs``); a model without them has every leaf whole."""
+
+    def __init__(self, loss_fn: Callable, model_dims: Optional[dict] = None):
+        self.owner = getattr(loss_fn, "__self__", None)
+        self.model_dims = model_dims
+        self._cache = {}
+
+    def __call__(self) -> dict:
+        if self.model_dims is not None:
+            return self.model_dims
+        mesh = shd.get_mesh()
+        if not shd.model_live() or not hasattr(self.owner, "param_specs"):
+            return {}
+        key = tuple(mesh.shape.items())
+        if key not in self._cache:
+            from repro_torch.launch.specs import model_dims
+            shapes = {k: tuple(v.shape) for k, v in
+                      flat_dict(self.owner.param_specs()).items()}
+            self._cache[key] = model_dims(shapes, self.owner.logical_specs,
+                                          mesh)
+        return self._cache[key]
 
 
 def build_local_train(loss_fn: Callable, client_opt: Optimizer,
                       cfg: FLConfig, stacked: bool = False,
-                      replica_axes=()):
+                      replica_axes=(), layout: Optional[ModelLayout] = None):
     """Returns local_train(global_params, batches) -> (delta, mean_loss).
 
     ``stacked=False``: one client; batches are [H, ...].  ``stacked=True``:
@@ -129,7 +179,10 @@ def build_local_train(loss_fn: Callable, client_opt: Optimizer,
     Under a mesh of processes the gradients and the loss are averaged over
     the batch split and over ``replica_axes``, the axes whose processes
     repeat this client's work: the mean of equal values, which hands every
-    one of them the same bits.
+    one of them the same bits.  Over a ``model`` axis the params are the
+    rank's shares (``layout``: ``ModelLayout`` of ``loss_fn`` by default);
+    a leaf held whole there, and the loss, are averaged over ``model``
+    too.
 
     FedProx (mu>0): the proximal term mu/2 ||w - w0||^2 enters as the exact
     gradient correction mu (w - w0).  With ``use_fused_update`` and the sgd
@@ -139,14 +192,18 @@ def build_local_train(loss_fn: Callable, client_opt: Optimizer,
     if stacked:
         step_grad = vmap(step_grad, in_dims=(0, 0))
     fused = cfg.use_fused_update and client_opt.name == "sgd"
+    layout = layout or ModelLayout(loss_fn)
 
     def local_train(global_params: dict, batches: dict):
-        shd.check_model_axis("a federated round")
         # the processes that split this client's batch or repeat its work
-        # (none off a mesh)
+        # (none off a mesh), and with them those of `model` for a leaf
+        # every rank of it holds whole
         mesh = shd.get_mesh()
         split = () if mesh is None else mesh.live(
             shd.batch_split_axes() + tuple(replica_axes))
+        dims = layout()
+        whole_axes = mesh.live(split + (shd.MODEL,)) if shd.model_live() \
+            else split
         if stacked:
             x0 = next(iter(batches.values()))
             C = x0.shape[0]
@@ -165,12 +222,14 @@ def build_local_train(loss_fn: Callable, client_opt: Optimizer,
         loss_sum = 0.0
         for h in range(cfg.local_steps):
             grads, (loss, _) = step_grad(w, step_batch(h))
-            if split:
+            if whole_axes:
                 # the gradient of the whole batch's mean loss: the mean of
                 # the shares' gradients (and of the replicas' equal ones),
                 # reduced between the transforms
-                grads = {k: shd.pmean(g, split) for k, g in grads.items()}
-                loss = shd.pmean(loss, split)
+                grads = {k: shd.pmean(g, whole_axes if dims.get(k) is None
+                                      else split)
+                         for k, g in grads.items()}
+                loss = shd.pmean(loss, whole_axes)
             if fused:
                 from repro_torch.kernels import ops as kops
                 w = {k: kops.fedprox_update(w[k], grads[k], global_params[k],
@@ -191,10 +250,10 @@ def build_local_train(loss_fn: Callable, client_opt: Optimizer,
     return local_train
 
 
-def _metrics(delta: dict, loss_sum, mask) -> dict:
+def _metrics(delta: dict, loss_sum, mask, model_dims=None) -> dict:
     return {
         "client_loss": loss_sum / torch.clamp(mask.sum(), min=1),
-        "delta_norm": global_norm(delta),
+        "delta_norm": global_norm(delta, model_dims),
         "participation": mask.mean(),
     }
 
@@ -221,15 +280,17 @@ class ParallelRound:
     mesh of processes both halves take this process's clients
     (``client_share``): ``train_clients`` their whole batches,
     ``commit`` their deltas, weights, mask and losses; the commit's result
-    is whole."""
+    is whole (the rank's share of a leaf split over ``model``)."""
 
     def __init__(self, loss_fn: Callable, client_opt: Optimizer,
                  server_opt: ServerOptimizer, cfg: FLConfig, n_pods: int = 1,
-                 client_spmd_axes=()):
+                 client_spmd_axes=(), model_dims=None):
         self.server_opt = server_opt
         self.client_spmd_axes = client_spmd_axes
         self.pipe = build_update_pipeline(cfg, n_pods=n_pods)
-        stacked = build_local_train(loss_fn, client_opt, cfg, stacked=True)
+        self.layout = ModelLayout(loss_fn, model_dims)
+        stacked = build_local_train(loss_fn, client_opt, cfg, stacked=True,
+                                    layout=self.layout)
 
         def train_clients(global_params, client_batches):
             # the stacked client dim owns client_spmd_axes: constraints in
@@ -249,12 +310,14 @@ class ParallelRound:
     def commit(self, global_params: dict, server_state, deltas: dict, losses,
                weights, mask, generator):
         axes = _spmd_axes(self.client_spmd_axes)
-        delta, _, _, (mask, losses) = self.pipe.combine(
-            deltas, weights, mask, losses, generator, slot_axes=axes)
+        dims = self.layout()
+        delta, _, _, (mask, losses) = self.pipe.model_commit(
+            lambda d: self.pipe.combine(d, weights, mask, losses, generator,
+                                        slot_axes=axes), deltas, dims)
         new_params, new_state = self.server_opt.apply(global_params, delta,
                                                       server_state)
         return new_params, new_state, _metrics(delta, (losses * mask).sum(),
-                                               mask)
+                                               mask, dims)
 
     def __call__(self, global_params: dict, server_state,
                  client_batches: dict, weights, mask, generator):
@@ -278,13 +341,15 @@ class SequentialRound:
 
     def __init__(self, loss_fn: Callable, client_opt: Optimizer,
                  server_opt: ServerOptimizer, cfg: FLConfig, n_pods: int = 1,
-                 client_spmd_axes=()):
+                 client_spmd_axes=(), model_dims=None):
         self.cfg = cfg
         self.server_opt = server_opt
         self.pipe = build_update_pipeline(cfg, n_pods=n_pods)
+        self.layout = ModelLayout(loss_fn, model_dims)
         # the pods repeat every client's work
         local_train = build_local_train(loss_fn, client_opt, cfg,
-                                        replica_axes=(shd.POD,))
+                                        replica_axes=(shd.POD,),
+                                        layout=self.layout)
 
         def train_one(global_params, batches):
             # the reference keeps activation constraints off the pod axis
@@ -298,6 +363,7 @@ class SequentialRound:
     def commit(self, global_params: dict, server_state, updates, weights,
                mask, generator):
         pipe, C = self.pipe, self.cfg.num_clients
+        dims = self.layout()
         acc = pipe.accum_init(global_params)
         key = pipe.mask_key(generator) if self.cfg.secure_agg else None
         ids = torch.arange(C, dtype=torch.int32)
@@ -305,15 +371,16 @@ class SequentialRound:
         loss_sum = torch.zeros((), dtype=torch.float32, device=mask.device)
         for c, (delta, loss) in enumerate(updates):
             wt = pipe.client_weight(weights[c], mask[c], loss)
-            acc = pipe.accum_add(acc, pipe.contribution(
-                delta, wt, generator, idx=c, ids=ids, participation=mask,
-                key=key))
+            acc = pipe.accum_add(acc, pipe.model_commit(
+                lambda d: pipe.contribution(
+                    d, wt, generator, idx=c, ids=ids, participation=mask,
+                    key=key), delta, dims, lead=0))
             wsum = wsum + wt
             loss_sum = loss_sum + loss * mask[c]
         delta = pipe.normalise(acc, wsum)
         new_params, new_state = self.server_opt.apply(global_params, delta,
                                                       server_state)
-        return new_params, new_state, _metrics(delta, loss_sum, mask)
+        return new_params, new_state, _metrics(delta, loss_sum, mask, dims)
 
     def __call__(self, global_params: dict, server_state,
                  client_batches: dict, weights, mask, generator):
@@ -337,12 +404,14 @@ class PodSequentialRound:
 
     def __init__(self, loss_fn: Callable, client_opt: Optimizer,
                  server_opt: ServerOptimizer, cfg: FLConfig, n_pods: int = 1,
-                 client_spmd_axes=()):
+                 client_spmd_axes=(), model_dims=None):
         self.cfg = cfg
         self.n_pods = n_pods
         self.server_opt = server_opt
         self.pipe = build_update_pipeline(cfg, n_pods=n_pods)
-        self.local_train = build_local_train(loss_fn, client_opt, cfg)
+        self.layout = ModelLayout(loss_fn, model_dims)
+        self.local_train = build_local_train(loss_fn, client_opt, cfg,
+                                             layout=self.layout)
         self.client_spmd_axes = client_spmd_axes
 
     def __call__(self, global_params: dict, server_state,
@@ -358,14 +427,11 @@ class PodSequentialRound:
         with shd.exclude_axes(*self.client_spmd_axes):
             accs, wsums, loss_sums = self._pods(
                 global_params, client_batches, weights, mask, pods)
-            # what crosses the cross-pod link: each pod's compressed sum;
             # the sums move into the stack leaf by leaf, so the uncompressed
             # sums are held once, then beside their compressed copy
             stacked = {k: torch.stack([a.pop(k) for a in accs])
                        for k in list(accs[0])}
             del accs
-            pod_sums = pipe.compress_each(stacked, generator, axes)
-            del stacked
         # the round's sums in pod order, as one process would add them
         wsums, loss_sums = pipe.gather_slots(torch.stack(wsums),
                                              torch.stack(loss_sums),
@@ -373,11 +439,20 @@ class PodSequentialRound:
         wsum, loss_sum = 0.0, 0.0
         for p in range(P):
             wsum, loss_sum = wsum + wsums[p], loss_sum + loss_sums[p]
-        delta = pipe.combine_pods(pod_sums, wsum, generator, compressed=True,
-                                  slot_axes=axes)
+
+        def cross_pod(stacked):
+            # what crosses the cross-pod link: each pod's compressed sum
+            with shd.exclude_axes(*self.client_spmd_axes):
+                pod_sums = pipe.compress_each(stacked, generator, axes)
+            return pipe.combine_pods(pod_sums, wsum, generator,
+                                     compressed=True, slot_axes=axes)
+
+        dims = self.layout()
+        delta = pipe.model_commit(cross_pod, stacked, dims)
+        del stacked
         new_params, new_state = self.server_opt.apply(global_params, delta,
                                                       server_state)
-        return new_params, new_state, _metrics(delta, loss_sum, mask)
+        return new_params, new_state, _metrics(delta, loss_sum, mask, dims)
 
     def _pods(self, global_params, client_batches, weights, mask, pods):
         """Each of ``pods`` streams its clients into a plain weighted sum:
@@ -410,12 +485,15 @@ ROUNDS = {"parallel": ParallelRound, "sequential": SequentialRound,
 
 def build_fl_round_step(loss_fn: Callable, client_opt: Optimizer,
                         server_opt: ServerOptimizer, cfg: FLConfig,
-                        n_pods: int = 1, client_spmd_axes=None):
+                        n_pods: int = 1, client_spmd_axes=None,
+                        model_dims: Optional[dict] = None):
     """The round step of ``cfg.client_exec``.  ``n_pods`` splits the
     clients into pods for pod_sequential and the hierarchical combine.
     ``client_spmd_axes``: the mesh axis name(s) the stacked client (or pod)
     dim is sharded over; parallel mode under an active mesh requires it,
-    as the reference's does."""
+    as the reference's does.  ``model_dims``: ``{leaf: dim}`` of the params
+    split over ``model`` at rest (``launch.specs.model_dims``), where
+    ``loss_fn`` is not an ``LM``'s, whose specs give it."""
     if (cfg.client_exec == "parallel" and client_spmd_axes is None
             and shd.get_mesh() is not None):
         raise ValueError(
@@ -426,4 +504,5 @@ def build_fl_round_step(loss_fn: Callable, client_opt: Optimizer,
     axes = (client_spmd_axes,) if isinstance(client_spmd_axes, str) \
         else tuple(client_spmd_axes or ())
     return ROUNDS[cfg.client_exec](loss_fn, client_opt, server_opt, cfg,
-                                   n_pods=n_pods, client_spmd_axes=axes)
+                                   n_pods=n_pods, client_spmd_axes=axes,
+                                   model_dims=model_dims)

@@ -32,10 +32,12 @@ axes first turns the client split into the row split ([C, R/n, block]).
 A row map (quantize, top-k) is row-local: it runs over the axes its input
 is whole along, which ``exclude_axes`` of a client split leaves in
 ``fusion_axes``.  Without a mesh, or on one device, every entry point runs
-one shard, the whole stack; a ``model`` axis larger than 1 raises
-(``sharding.MULTI_DEVICE``).  ``shard_rows_map`` and ``shard_rows_reduce``
-take a shard count and run the shards one after another in one process,
-so a test can hold them shard by shard.
+one shard, the whole stack.  A ``model`` axis is a fusion axis like any
+other: the stacks these entry points get are whole along it (the
+pipeline's ``model_commit`` gathers split leaves first, or drops
+``model`` for an elementwise commit on the shares).  ``shard_rows_map``
+and ``shard_rows_reduce`` take a shard count and run the shards one after
+another in one process, so a test can hold them shard by shard.
 """
 from __future__ import annotations
 
@@ -59,9 +61,6 @@ def _fusion_shards():
     axes = sh.fusion_axes()
     if not axes:
         return (), 1, 0
-    if sh.MODEL in axes:
-        raise NotImplementedError(f"a commit split over the mesh axes "
-                                  f"{axes}: {sh.MULTI_DEVICE}")
     return axes, sh.shard_count(axes), sh.shard_index(axes)
 
 

@@ -6,7 +6,16 @@
 not divide by the mesh extent of its logical axes falls back to replicated
 (e.g. batch=1 in long_500k, kv_heads < 16, the 36-head starcoder2
 attention).  Its trees hold ``sharding.PartitionSpec``s where the
-reference's hold ``NamedSharding``s of the same specs."""
+reference's hold ``NamedSharding``s of the same specs.
+
+Params at rest on a mesh of processes: ``shard_params`` cuts each leaf to
+this rank's contiguous share along the dim its sanitised spec puts on
+``model`` (the reference's placement by ``sanitize_specs``), and
+``gather_params`` puts the shares back together, bit for bit.  ``data``
+entries stay whole (FSDP over ``data`` is ROADMAP item 9c).  The trees may
+be nested or the flat ``/``-joined view; the specs are the model's
+``logical_specs``, nested or flat.  Server optimizer state of the
+sharded params (``server_opt.init`` of them) is sharded alike."""
 from __future__ import annotations
 
 import math
@@ -18,6 +27,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import sharding as sh
 from repro_torch.models.common import DTYPES
 from repro_torch.models.transformer import LM
+from repro_torch.pytree import flat_dict, nest
 
 TOKENS = torch.int32
 
@@ -53,6 +63,86 @@ def sanitize_specs(shape_tree, logical_tree, mesh):
         return {k: sanitize_specs(v, logical_tree[k], mesh)
                 for k, v in shape_tree.items()}
     return sanitize_entry(tuple(shape_tree.shape), logical_tree, mesh)
+
+
+def flat_logical(tree, prefix: str = "") -> dict:
+    """A (nested or flat) tree of logical tuples as ``{path: tuple}``: the
+    tuples are leaves, where ``pytree.flat_dict`` would walk them."""
+    out = {}
+    for k, v in tree.items():
+        path = f"{prefix}{k}"
+        if isinstance(v, dict):
+            out.update(flat_logical(v, path + "/"))
+        else:
+            out[path] = v
+    return out
+
+
+def model_dims(shapes: dict, logical: dict, mesh=None) -> dict:
+    """``{leaf: the dim its sanitised spec splits over model, or None}``
+    for the flat ``{leaf: shape}`` dict ``shapes`` (whole shapes) and the
+    logical specs (nested or flat), on ``mesh`` (the active one by
+    default).  Without a ``model`` axis larger than 1 every entry is
+    None."""
+    mesh = mesh or sh.get_mesh()
+    out = dict.fromkeys(shapes)
+    if mesh is None or mesh.shape.get(sh.MODEL, 1) == 1:
+        return out
+    logical = flat_logical(logical)
+    for name, shape in shapes.items():
+        spec = sanitize_entry(tuple(shape), logical[name], mesh)
+        for dim, e in enumerate(spec):
+            if sh.MODEL in ((e,) if isinstance(e, str) else tuple(e or ())):
+                out[name] = dim
+    return out
+
+
+def shard_params(whole, specs, mesh=None):
+    """This rank's share of ``whole`` (nested or flat) under ``specs`` (the
+    logical tree): each leaf cut along the dim its sanitised spec puts on
+    ``model`` to share ``model`` index of ``model`` size, the rest whole.
+    Returns the same structure; a leaf not split is the tensor itself."""
+    mesh = mesh or sh.get_mesh()
+    flat = flat_dict(whole)
+    dims = model_dims({k: tuple(v.shape) for k, v in flat.items()}, specs,
+                      mesh)
+    m = 1 if mesh is None else mesh.shape.get(sh.MODEL, 1)
+    i = 0 if m == 1 else mesh.coords[sh.MODEL]
+    out = {}
+    for k, v in flat.items():
+        d = dims[k]
+        if d is None:
+            out[k] = v
+        else:
+            n = v.shape[d] // m
+            out[k] = v.narrow(d, i * n, n).contiguous()
+    return _like(whole, out)
+
+
+def gather_params(local, specs, whole_shapes, mesh=None):
+    """``shard_params``' inverse: every rank's shares of ``local`` gathered
+    over ``model`` along their split dims.  ``whole_shapes``: the params'
+    tree of whole tensors (``LM.param_specs()``, on ``meta``), from which
+    the split is decided as ``shard_params`` decided it."""
+    mesh = mesh or sh.get_mesh()
+    flat = flat_dict(local)
+    shapes = {k: tuple(v.shape) for k, v in flat_dict(whole_shapes).items()}
+    dims = model_dims(shapes, specs, mesh)
+    out = {k: v if dims[k] is None else sh.all_gather(v, sh.MODEL, dims[k])
+           for k, v in flat.items()}
+    return _like(local, out)
+
+
+def _like(tree, flat: dict):
+    """``flat`` in ``tree``'s structure (flat or nested)."""
+    if all(not isinstance(v, dict) for v in tree.values()):
+        return flat
+    return nest(flat)
+
+
+def param_bytes(tree) -> int:
+    """The bytes of a (nested or flat) tree's tensors."""
+    return sum(v.numel() * v.element_size() for v in flat_dict(tree).values())
 
 
 def train_client_batch_specs(cfg: ModelConfig, shape: InputShape,

@@ -109,14 +109,25 @@ def act_fn(name: str) -> Callable:
     return {"gelu": _gelu, "silu": F.silu, "relu": F.relu}[name]
 
 
-def glu_mlp(x, w1, w3, w2, act: str):
-    """Gated MLP. act in {swiglu, geglu}; w3 is the gate projection."""
+def glu_mlp(x, w1, w3, w2, act: str, tp: bool = False):
+    """Gated MLP. act in {swiglu, geglu}; w3 is the gate projection.  With
+    ``tp`` the weights are this rank's share of a split over ``model``:
+    ``w1``/``w3`` its columns (column-parallel, the input copied to the
+    split) and ``w2`` its rows (row-parallel, the partial outputs summed
+    over ``model``)."""
     inner = act_fn({"swiglu": "silu", "geglu": "gelu"}[act])
-    return (inner(x @ w1) * (x @ w3)) @ w2
+    if tp:
+        x = sh.copy_to_model(x)
+    out = (inner(x @ w1) * (x @ w3)) @ w2
+    return sh.reduce_from_model(out) if tp else out
 
 
-def plain_mlp(x, w1, w2, act: str):
-    return act_fn(act)(x @ w1) @ w2
+def plain_mlp(x, w1, w2, act: str, tp: bool = False):
+    """Ungated MLP; ``tp`` as in ``glu_mlp``."""
+    if tp:
+        x = sh.copy_to_model(x)
+    out = act_fn(act)(x @ w1) @ w2
+    return sh.reduce_from_model(out) if tp else out
 
 
 # ---------------------------------------------------------------------------
@@ -183,13 +194,17 @@ def cross_entropy_logits(logits, targets, vocab: int, chunk: int = 0):
     return ce(logits, targets).mean()
 
 
-def take_embedding(table, tokens):
+def take_embedding(table, tokens, tp: bool = False):
     """Rows of the [V, D] ``table`` at ``tokens`` (any shape) -> [*, D].
+    With ``tp`` the table is this rank's share of D (its spec ``(None,
+    MODEL)``): the rank looks up its columns and the shares are gathered
+    over ``model`` (backward: the rank's share of the equal cotangents).
     Its backward is ``index_select``'s, a scatter-add into the table's
     gradient: the transpose of ``jnp.take`` that the reference takes on one
     device (its one-hot contraction serves only a model-sharded mesh).  On
     the card the scatter adds with atomics, so a token seen twice sums its
     rows' gradients in no fixed order: equal to the CPU to float32
     rounding, not bit for bit."""
-    return table.index_select(0, tokens.reshape(-1)).reshape(
+    out = table.index_select(0, tokens.reshape(-1)).reshape(
         *tokens.shape, table.shape[-1])
+    return sh.gather_from_model(out, -1) if tp else out

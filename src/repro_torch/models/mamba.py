@@ -12,6 +12,18 @@ that the kernel reads in place.  Decode is one recurrence step with no
 scan.  The reference's default (``use_kernel=False``) scans each chunk
 associatively, which rounds differently from the sequential scan: the two
 agree to about 1e-6 relative.
+
+Under a ``model`` axis larger than 1 (train mode; ``models.sharding``) the
+``d_inner`` channels split over ``model``.  ``in_proj`` is held at rest as
+its spec's contiguous share of the ``2 * d_inner`` columns ``[x | z]``,
+which is not the rank's channels of both halves, so the forward gathers it
+(``gather_to_model``: its backward sums the ranks' cotangents and cuts the
+share) and takes the rank's columns of ``x`` and of ``z``.  ``conv_w``,
+``conv_b``, ``dt_proj``, ``dt_bias``, ``A_log`` and ``D`` are
+channel-local; ``x_proj`` contracts the channels (its partial products
+summed over ``model``, then fed to every rank's channels), and
+``out_proj`` is row-parallel.  The scan and its backward run on the rank's
+``[B, L, d_inner / m, N]``.
 """
 from __future__ import annotations
 
@@ -58,11 +70,14 @@ def init_mamba(pb, path, d_model: int, cfg: MambaConfig, n_groups: int):
     add(path + ["out_proj"], g + (di, d_model), pre + (sh.MODEL, sh.DATA))
 
 
-def _ssm_coeffs(x, p, cfg: MambaConfig, in_place: bool = True):
+def _ssm_coeffs(x, p, cfg: MambaConfig, in_place: bool = True,
+                tp: bool = False):
     """x [B, L, di] -> decay a [B,L,di,N], drive b [B,L,di,N], C [B,L,N].
 
     ``dt`` stays in the model dtype and ``dt * B`` is formed there before
     the cast to float32, as in the reference; ``a`` is formed in float32.
+    With ``tp`` the channels are the rank's share of a split over
+    ``model``: ``x_proj``'s partial products are summed over ``model``.
     With ``in_place`` (prefill and decode) the elementwise passes over [B,
     L, di, N] run in place where the reference makes a new array: the
     values are the same.  Train mode writes nothing in place, for autograd
@@ -70,6 +85,9 @@ def _ssm_coeffs(x, p, cfg: MambaConfig, in_place: bool = True):
     N = cfg.d_state
     R = p["dt_proj"].shape[0]
     proj = x @ p["x_proj"]                                  # [B,L,R+2N]
+    if tp:
+        # the channels' partial sums, whole, then into each rank's channels
+        proj = sh.copy_to_model(sh.reduce_from_model(proj))
     dt_in, Bc, Cc = torch.split(proj, [R, N, N], dim=-1)
     # F.softplus is linear above 20, where jax.nn.softplus (logaddexp(x, 0))
     # differs from x by less than 1e-8 relative
@@ -106,7 +124,17 @@ def mamba_apply(p, x, *, cfg: MambaConfig, mode: str = "train",
     B, S, D = x.shape
     di = cfg.expand * D
     N = cfg.d_state
-    xz = x @ p["in_proj"]                                   # [B,S,2di]
+    m = sh.model_split(di)
+    if m > 1:
+        # the rank's channels of x and of z, from in_proj gathered whole
+        w = sh.gather_to_model(p["in_proj"], -1)            # [D, 2di]
+        dl, r = di // m, sh.model_index()
+        w = torch.cat([w[:, r * dl:(r + 1) * dl],
+                       w[:, di + r * dl:di + (r + 1) * dl]], dim=-1)
+        xz = sh.copy_to_model(x) @ w                        # [B,S,2di/m]
+        di = dl
+    else:
+        xz = x @ p["in_proj"]                               # [B,S,2di]
     xin, z = xz.chunk(2, dim=-1)
     xin = sh.shard(xin, sh.BATCH, None, sh.MODEL)
 
@@ -119,12 +147,15 @@ def mamba_apply(p, x, *, cfg: MambaConfig, mode: str = "train",
         for i in range(1, cfg.d_conv):
             conv = conv + xpad[:, i:i + S] * p["conv_w"][i]
         conv = F.silu(conv + p["conv_b"])
-        a, b, Cc = _ssm_coeffs(conv, p, cfg, in_place=mode == "prefill")
+        a, b, Cc = _ssm_coeffs(conv, p, cfg, in_place=mode == "prefill",
+                               tp=m > 1)
         h0 = torch.zeros((B, di, N), dtype=torch.float32, device=x.device)
         y, h_last = selective_scan_chunked(a, b, Cc, h0, cfg.chunk)
         del a, b
         y = y.to(x.dtype) + conv * p["D"]
         out = (F.silu(z) * y) @ p["out_proj"]
+        if m > 1:
+            out = sh.reduce_from_model(out)
         if mode == "train":
             return out, None
         # keep the last d_conv-1 raw (pre-conv) inputs for decode

@@ -2,19 +2,24 @@
 
 Under a mesh the reference runs the layer expert-parallel in a shard_map:
 the experts split over ``model`` (a shard owns ``E / model`` experts from
-``e_lo``), the expert F dim over ``data``, the tokens over whichever batch
-axes divide the batch, with weight or token gathers and ``psum``
-combines.  ``_mesh_plan`` is that layout's guard.  With a ``model`` axis
-of 1 its ``gather_weights`` layout (train, prefill) gathers the F dim over
-``data`` back to whole weights and routes each
-shard's own tokens, the capacity taken from the local token count: under
-the port's SPMD convention (``models.sharding``) the weights are whole on
-every process and ``x`` is the process's share of the batch, so that is
-``_moe_local`` over all experts on the local tokens.  ``gather_tokens``
-(decode) all-gathers the tokens over the axes they are split over, routes
-them all and keeps the process's share.  A ``model`` axis larger than 1
-raises (``sharding.MULTI_DEVICE``: expert parallelism is ROADMAP's item
-9b).
+``e_lo = model index * E / model``), the expert F dim over ``data``, the
+tokens over whichever batch axes divide the batch, with weight or token
+gathers and ``psum`` combines.  Under the port's SPMD convention
+(``models.sharding``) ``x`` is the process's share of the batch, whole on
+every ``model`` rank, and the expert weights are held at rest as their
+spec cuts them: the rank's ``E / model`` experts, F whole (``data``
+entries stay whole, so the reference's F gather is the identity).  The
+``gather_weights`` layout (train) then routes the process's own tokens
+with the whole router on every rank, the capacity from the local token
+count, dispatches them to the rank's experts (ids offset by ``e_lo``),
+and sums the ranks' outputs over ``model`` (``reduce_from_model``); the
+tokens and gates enter the expert split through ``copy_to_model``, so the
+router and the tokens take the whole gradient.  The aux loss is computed
+whole on every rank, the reference's ``pmean`` over ``model`` of equal
+values.  ``gather_tokens`` (decode) all-gathers the tokens over the axes
+they are split over, routes them all and keeps the process's share; it
+serves only, and a ``model`` axis larger than 1 raises there
+(``sharding.MULTI_DEVICE``).
 
 Dispatch is sort-based with a fixed capacity per expert: the token
 assignments are stably sorted by expert, each keeps its rank within its
@@ -103,9 +108,10 @@ def _expert_ffn(xs, w1, w3, w2, act: str):
 
 
 def _moe_local(x, router, w1, w3, w2, *, cfg: MoEConfig, act: str,
-               e_lo: int = 0):
-    """The MoE body over the local experts [e_lo, e_lo + E).  x [B, S, D];
-    w1/w3 [E, D, F], w2 [E, F, D].  Returns (out [B, S, D], aux).
+               tp: bool = False):
+    """The MoE body over the local experts: all of them, or with ``tp``
+    the rank's ``E / model`` from ``e_lo``.  x [B, S, D]; w1/w3 [E, D, F],
+    w2 [E, F, D].  Returns (out [B, S, D], aux).
 
     The combine is an ``index_add_`` over the flat token dim.  Each token
     receives at most ``top_k`` nonzero terms plus exact zeros (empty
@@ -116,6 +122,10 @@ def _moe_local(x, router, w1, w3, w2, *, cfg: MoEConfig, act: str,
     T = x2d.shape[0]
     E = w1.shape[0]
     eid, gate, aux = _route(x2d, router, cfg)
+    e_lo = 0
+    if tp:
+        e_lo = sh.model_index() * E
+        x2d, gate = sh.copy_to_model(x2d), sh.copy_to_model(gate)
     cap = max(int(T * cfg.top_k * cfg.capacity_factor / cfg.num_experts), 4)
     tok_idx, gates = _dispatch_indices(eid, gate, e_lo, E, cap)
     flat_idx = tok_idx.reshape(-1)
@@ -123,6 +133,8 @@ def _moe_local(x, router, w1, w3, w2, *, cfg: MoEConfig, act: str,
     ys = _expert_ffn(xs, w1, w3, w2, act)
     out = torch.zeros_like(x2d).index_add_(
         0, flat_idx, (gates[..., None] * ys).reshape(-1, D))
+    if tp:
+        out = sh.reduce_from_model(out)
     return out.reshape(B, S, D), aux
 
 
@@ -131,17 +143,17 @@ def moe_apply(p, x, *, cfg: MoEConfig, act: str, mode: str = "gather_weights"):
 
     Both of the reference's modes, ``gather_weights`` (train/prefill) and
     ``gather_tokens`` (decode), differ only in which operand their mesh
-    gathers: with the weights whole, ``gather_weights`` routes the local
-    tokens and ``gather_tokens`` the tokens gathered over the axes that
+    gathers: ``gather_weights`` routes the local tokens to the rank's
+    experts and ``gather_tokens`` the tokens gathered over the axes that
     split the batch; off a mesh, or on one device, they are the same
     computation."""
     if mode not in ("gather_weights", "gather_tokens"):
         raise ValueError(mode)
     mesh = sh.get_mesh()
-    if mesh is not None:
-        _mesh_plan(mesh)
+    if mesh is not None and mode == "gather_tokens":
+        sh.check_model_axis("the MoE's gather_tokens (decode) layout")
         tok_axes = sh.batch_split_axes()
-        if mode == "gather_tokens" and tok_axes:
+        if tok_axes:
             B = x.shape[0]
             xg = sh.all_gather(x, tok_axes, 0)
             out, aux = _moe_local(xg, p["router"], p["w1"], p["w3"], p["w2"],
@@ -149,12 +161,4 @@ def moe_apply(p, x, *, cfg: MoEConfig, act: str, mode: str = "gather_weights"):
             i = sh.shard_index(tok_axes)
             return out[i * B:(i + 1) * B], aux
     return _moe_local(x, p["router"], p["w1"], p["w3"], p["w2"], cfg=cfg,
-                      act=act)
-
-
-def _mesh_plan(mesh):
-    """The reference's expert-parallel layout on ``mesh``, where it splits
-    anything this port does not: an expert axis (``model``) larger than 1
-    raises (ROADMAP item 9b).  With a ``model`` axis of 1 the layout is
-    whole weights on the local tokens, which ``moe_apply`` runs."""
-    sh.check_model_axis("the MoE's expert-parallel layout", mesh)
+                      act=act, tp=sh.model_split(cfg.num_experts) > 1)

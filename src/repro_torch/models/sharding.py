@@ -22,18 +22,26 @@ that ``launch.mesh.init_mesh`` built also carries this process's ``rank``
 collectives below (``psum``, ``pmean``, ``all_gather``, ``all_to_all``,
 named after the reference's lax ops) run over those groups.
 
-SPMD convention (the reference's semantics without GSPMD, for a mesh whose
-``model`` axis is 1).  Each rank runs the same program.  Inside a client's
-computation a tensor is the rank's local share along the batch axes that
-``exclude_axes`` has not dropped (``batch_split_axes``), and whole along
-every other axis: params, optimizer and server state are whole on every
-rank.  So ``shard(x, *logical)`` is the identity wherever its spec resolves
-only to batch axes or to axes of size 1, and raises where it resolves to a
-``model`` axis larger than 1: tensor and expert parallelism need
-collectives inside ``torch.func`` transforms, ROADMAP's item 9b
-(``MULTI_DEVICE``).  No collective runs inside a transform: the rounds
-reduce between them (``core/round.py``), and the commit exchanges its rows
-between the client split and the row split (``kernels/ops.py``).
+SPMD convention (the reference's semantics without GSPMD).  Each rank runs
+the same program.  Inside a client's computation a tensor is the rank's
+local share along the batch axes that ``exclude_axes`` has not dropped
+(``batch_split_axes``).  A parameter (and its optimizer and server state)
+is held at rest as ``launch.specs.shard_params`` cuts it: its contiguous
+share along each dim whose sanitised spec names ``model`` (``model_split``
+decides, as ``sanitize_entry`` does: a dim the axis does not divide stays
+whole), whole along every other axis.  Activations are whole along
+``model``, the same bits on every rank of a ``model`` group, except where
+a layer splits them explicitly: tensor, expert and head parallelism run
+through the conjugate collectives below (``copy_to_model``,
+``reduce_from_model``, ``gather_from_model``, ``scatter_to_model``,
+``gather_to_model``), each an ``autograd.Function`` with a ``vmap`` rule,
+so they run inside the round's ``torch.func`` transforms.  So
+``shard(x, *logical)`` is the identity: a tensor already is its rank's
+share.  Serving (prefill and decode) with a ``model`` axis larger than 1
+raises (``check_model_axis``, ``MULTI_DEVICE``: ROADMAP item 9c).  The
+rounds reduce gradients between the transforms (``core/round.py``), and
+the commit exchanges its rows between the client split and the row split
+(``kernels/ops.py``).
 
 Group order: a group over ``axes`` holds the ranks that share every other
 coordinate; ``torch.distributed.new_group`` sorts its ranks, and on a
@@ -46,19 +54,22 @@ from __future__ import annotations
 
 import contextlib
 import math
-import threading
 import time
+import types
 from collections import Counter
 from dataclasses import dataclass, field
 from typing import Optional, Sequence
+
+import torch
 
 BATCH = "__batch__"   # data-parallel batch axis (pod+data in multi-pod)
 DATA = "data"
 MODEL = "model"
 POD = "pod"
 
-MULTI_DEVICE = ("a `model` mesh axis larger than 1 (tensor and expert "
-                "parallelism: ROADMAP item 9b) is not ported")
+MULTI_DEVICE = ("serving (prefill and decode) over a `model` mesh axis "
+                "larger than 1 (the cache's sequence over `model`: ROADMAP "
+                "item 9c) is not ported")
 
 
 class PartitionSpec(tuple):
@@ -166,7 +177,13 @@ class Mesh:
             self.axis_names))
 
 
-_state = threading.local()
+# One state for the process, not one a thread: the autograd engine runs a
+# CUDA tensor's backward on a device thread of its own, and the backward of
+# a collective, or a layer group's recompute (``transformer._GroupRemat``),
+# must see the mesh and the excluded axes that the forward saw.  The
+# backward runs while the caller waits in ``torch.func.grad``, inside the
+# same ``use_mesh``/``exclude_axes`` blocks.
+_state = types.SimpleNamespace()
 
 
 def set_mesh(mesh: Optional[Mesh]) -> None:
@@ -242,31 +259,47 @@ def pspec(*logical) -> PartitionSpec:
     return P(*(resolve(e, mesh) for e in logical))
 
 
-def check_model_axis(what: str, mesh: Optional[Mesh] = None) -> None:
-    """Raise (``MULTI_DEVICE``) where ``what`` would run over a ``model``
-    axis larger than 1 that ``exclude_axes`` has not dropped."""
-    mesh = mesh or get_mesh()
-    if (mesh is not None and MODEL not in excluded_axes()
-            and mesh.shape.get(MODEL, 1) > 1):
-        raise NotImplementedError(f"{what} on a {mesh.shape} mesh: "
+def model_live() -> bool:
+    """Whether a ``model`` axis larger than 1 is active here (not dropped
+    by ``exclude_axes``)."""
+    mesh = get_mesh()
+    return (mesh is not None and MODEL not in excluded_axes()
+            and mesh.shape.get(MODEL, 1) > 1)
+
+
+def check_model_axis(what: str) -> None:
+    """Raise (``MULTI_DEVICE``) where ``what``, a serving mode, would run
+    over a ``model`` axis larger than 1 (``model_live``)."""
+    if model_live():
+        raise NotImplementedError(f"{what} on a {get_mesh().shape} mesh: "
                                   f"{MULTI_DEVICE}")
 
 
 def shard(x, *logical):
     """The sharding constraint of ``x`` against the active mesh.  Under the
     SPMD convention a tensor already is its rank's share along the batch
-    axes and whole along the rest, so this is the identity; a spec that
-    resolves to a ``model`` axis larger than 1 raises."""
-    mesh = get_mesh()
-    if mesh is None:
-        return x
-    spec = pspec(*logical)
-    for e in spec:
-        names = e if isinstance(e, tuple) else (e,)
-        if MODEL in names and mesh.shape[MODEL] > 1:
-            raise NotImplementedError(f"shard{tuple(spec)} on a "
-                                      f"{mesh.shape} mesh: {MULTI_DEVICE}")
+    axes and along ``model`` where a layer split it, so this is the
+    identity."""
     return x
+
+
+def model_split(*sizes) -> int:
+    """The shards a dim (or each of several dims) of whole size ``sizes``
+    is cut into over ``model``: the active ``model`` axis's size where it
+    is larger than 1, not excluded, and divides every size; else 1 (the
+    dim stays whole, as ``launch.specs.sanitize_entry`` decides)."""
+    if not model_live():
+        return 1
+    m = get_mesh().shape[MODEL]
+    return m if all(s % m == 0 for s in sizes) else 1
+
+
+def model_index() -> int:
+    """This process's index along ``model`` (0 without one)."""
+    mesh = get_mesh()
+    if mesh is None or mesh.shape.get(MODEL, 1) == 1:
+        return 0
+    return mesh.coords[MODEL]
 
 
 def axis_size(name: str) -> int:
@@ -464,3 +497,200 @@ def replica_checksums(tree: dict, axes=None, chunk: int = 1 << 24) -> dict:
         out[name] = [tuple(t) for t in
                      all_gather(total[None], axes or (), 0).tolist()]
     return out
+
+
+# ---------------------------------------------------------------------------
+# collectives over ``model`` inside torch.func transforms: conjugate pairs
+# ---------------------------------------------------------------------------
+#
+# Each is an autograd.Function in the setup_context style whose backward is
+# its conjugate's ``apply`` (so a backward under ``vmap`` batches too) and
+# whose ``vmap`` rule moves the vmapped dim to 0 and runs the collective on
+# the physical tensor: every rank of a ``model`` group holds the same
+# clients, so the batched tensors line up.  Dims are taken negative, so a
+# leading batch dim leaves them as they are.  The pairing decides the
+# gradient: a collective whose output feeds the same computation on every
+# rank has a backward that keeps the rank's own share of the (equal)
+# cotangents; one whose output feeds a different computation on each rank
+# sums the ranks' cotangents.  The wrong pair scales a gradient by the
+# axis size.  Off a ``model`` axis larger than 1 each is the identity.
+
+def _own(x, dim):
+    n = shard_count(MODEL)
+    m = x.shape[dim] // n
+    return x.narrow(dim, model_index() * m, m).contiguous()
+
+
+def _batched(cls, in_dims, x, *rest):
+    """The vmap rule of a one-tensor collective: the vmapped dim moved to
+    0, the collective run once on the physical tensor."""
+    bdim = in_dims[0]
+    if bdim is None:
+        return cls.apply(x, *rest), None
+    return cls.apply(x.movedim(bdim, 0), *rest), 0
+
+
+class _CopyToModel(torch.autograd.Function):
+    """Forward the identity; backward the sum over ``model``: the input of
+    a split computation (a column-parallel product)."""
+
+    @staticmethod
+    def forward(x):
+        return x.view_as(x)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, g):
+        return _ReduceFromModel.apply(g)
+
+    @staticmethod
+    def vmap(info, in_dims, x):
+        return _batched(_CopyToModel, in_dims, x)
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    """Forward the sum over ``model``; backward the identity: the partial
+    sums of a split computation (a row-parallel product) joined for a
+    computation that every rank repeats."""
+
+    @staticmethod
+    def forward(x):
+        return psum(x, MODEL)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, g):
+        return _CopyToModel.apply(g)
+
+    @staticmethod
+    def vmap(info, in_dims, x):
+        return _batched(_ReduceFromModel, in_dims, x)
+
+
+class _GatherFromModel(torch.autograd.Function):
+    """Forward the ranks' shares concatenated along ``dim``; backward the
+    rank's own share of the cotangent: the gathered tensor feeds the same
+    computation on every rank."""
+
+    @staticmethod
+    def forward(x, dim):
+        return all_gather(x, MODEL, dim)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.dim = inputs[1]
+
+    @staticmethod
+    def backward(ctx, g):
+        return _ScatterToModel.apply(g, ctx.dim), None
+
+    @staticmethod
+    def vmap(info, in_dims, x, dim):
+        return _batched(_GatherFromModel, in_dims, x, dim)
+
+
+class _ScatterToModel(torch.autograd.Function):
+    """Forward the rank's own share along ``dim`` of a tensor every rank
+    holds whole; backward the ranks' cotangent shares gathered: each rank
+    feeds its share to a computation of its own."""
+
+    @staticmethod
+    def forward(x, dim):
+        return _own(x, dim)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.dim = inputs[1]
+
+    @staticmethod
+    def backward(ctx, g):
+        return _GatherFromModel.apply(g, ctx.dim), None
+
+    @staticmethod
+    def vmap(info, in_dims, x, dim):
+        return _batched(_ScatterToModel, in_dims, x, dim)
+
+
+class _GatherToModel(torch.autograd.Function):
+    """Forward the ranks' shares concatenated along ``dim``; backward the
+    ranks' cotangents summed and cut to the rank's share (a reduce-scatter,
+    as an all-reduce and a cut, which every backend runs): the gathered
+    tensor feeds a different computation on each rank."""
+
+    @staticmethod
+    def forward(x, dim):
+        return all_gather(x, MODEL, dim)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.dim = inputs[1]
+
+    @staticmethod
+    def backward(ctx, g):
+        return _ReduceScatterModel.apply(g, ctx.dim), None
+
+    @staticmethod
+    def vmap(info, in_dims, x, dim):
+        return _batched(_GatherToModel, in_dims, x, dim)
+
+
+class _ReduceScatterModel(torch.autograd.Function):
+    """The sum over ``model`` cut to the rank's share along ``dim``:
+    ``_GatherToModel``'s backward (its own backward is the gather)."""
+
+    @staticmethod
+    def forward(x, dim):
+        return _own(psum(x, MODEL), dim)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.dim = inputs[1]
+
+    @staticmethod
+    def backward(ctx, g):
+        return _GatherToModel.apply(g, ctx.dim), None
+
+    @staticmethod
+    def vmap(info, in_dims, x, dim):
+        return _batched(_ReduceScatterModel, in_dims, x, dim)
+
+
+def _neg(x, dim: int) -> int:
+    return dim - x.ndim if dim >= 0 else dim
+
+
+def copy_to_model(x):
+    """``x`` into a computation split over ``model``: forward the identity,
+    backward the sum over ``model``."""
+    return _CopyToModel.apply(x) if model_live() else x
+
+
+def reduce_from_model(x):
+    """The sum over ``model`` of a split computation's partial sums, for a
+    computation every rank repeats: backward the identity."""
+    return _ReduceFromModel.apply(x) if model_live() else x
+
+
+def gather_from_model(x, dim: int = -1):
+    """The shares along ``dim`` gathered over ``model``, for a computation
+    every rank repeats: backward the rank's own share."""
+    return _GatherFromModel.apply(x, _neg(x, dim)) if model_live() else x
+
+
+def scatter_to_model(x, dim: int = -1):
+    """The rank's share along ``dim`` of a tensor every rank holds whole,
+    for a computation of its own: backward the shares gathered."""
+    return _ScatterToModel.apply(x, _neg(x, dim)) if model_live() else x
+
+
+def gather_to_model(x, dim: int = -1):
+    """The shares along ``dim`` gathered over ``model``, for a computation
+    of each rank's own (a weight held split, used whole): backward the
+    ranks' cotangents summed and cut to the share."""
+    return _GatherToModel.apply(x, _neg(x, dim)) if model_live() else x

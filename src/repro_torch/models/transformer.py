@@ -26,6 +26,15 @@ order, the layout the round, the update pipeline and the checkpoints use)
 and writes nothing in place, so the parallel round can run it under
 ``vmap(grad_and_value)`` over the clients' stacked params.
 
+Under a ``model`` mesh axis larger than 1 (train mode; ``models.sharding``)
+the params are the rank's shares as their specs cut them, and each layer
+splits over the axis where it divides: the MLPs column- then
+row-parallel, the embedding over D and the unembedding over the padded
+vocab (its logits gathered for the cross-entropy), attention over its
+query heads where ``attn_tp`` holds (``wk``/``wv`` whole, each rank's heads
+meeting their own KV heads), and the mixers as their modules say.
+Prefill and decode raise there (ROADMAP item 9c).
+
 Decode states are written in place: ``prefill`` fills the state that
 ``init_decode_state`` made, and ``decode_step`` updates the state it is
 given and returns it (JAX's arrays are immutable; a caller that needs the
@@ -202,23 +211,57 @@ class LM:
 
     # -------------------------------------------------------------- embedding
     def embed(self, params, tokens):
+        """The embeddings of ``tokens``; a table split over ``model`` (its
+        D) is looked up in the rank's share and the shares gathered."""
+        tp = sh.model_split(self.cfg.d_model) > 1
         if self.cfg.n_codebooks:
             # tokens [B, S, n_cb] -> the codebooks' embeddings summed in
-            # codebook order, as the reference's sum()
+            # codebook order, as the reference's sum(), gathered once
             x = sum(take_embedding(params["embed"][c], tokens[..., c])
                     for c in range(self.cfg.n_codebooks))
+            x = sh.gather_from_model(x, -1) if tp else x
         else:
-            x = take_embedding(params["embed"], tokens)
+            x = take_embedding(params["embed"], tokens, tp=tp)
         return sh.shard(x, sh.BATCH, None, None)
 
     def logits(self, params, x):
-        lg = x @ params["unembed"]
+        """``x @ unembed``.  An unembedding split over ``model`` (its padded
+        vocab) is column-parallel: the rank's logits, gathered whole for
+        the cross-entropy that every rank repeats."""
+        cfg = self.cfg
+        if sh.model_split(max(cfg.n_codebooks, 1) * cfg.vocab_padded) > 1:
+            lg = sh.gather_from_model(sh.copy_to_model(x)
+                                      @ params["unembed"], -1)
+        else:
+            lg = x @ params["unembed"]
         if self.cfg.n_codebooks:
             lg = lg.reshape(*lg.shape[:-1], self.cfg.n_codebooks,
                             self.cfg.vocab_padded)
         return lg
 
     # ------------------------------------------------------------------ slots
+    def _heads_split(self) -> int:
+        """The shards of the query heads over ``model`` (1: attention runs
+        whole on every rank): with ``attn_tp``, where the axis divides
+        the heads, as the reference shards ``wq``/``wo``."""
+        cfg = self.cfg
+        if not self.attn_tp:
+            return 1
+        m = sh.model_split(cfg.n_heads * cfg.hd)
+        if m > 1 and cfg.n_heads % m:
+            raise ValueError(f"{cfg.name}: {cfg.n_heads} heads do not split "
+                             f"over a `model` axis of {m}")
+        return m
+
+    def _kv_share(self, k, m):
+        """K or V [B, T, KV, hd], whole on every rank, repeated to the
+        query heads and cut to the rank's ``H / m`` (each query head meets
+        its own KV head, ``h // (H / KV)``); the cut's backward gathers the
+        ranks' cotangents, so ``wk``/``wv`` take the whole gradient."""
+        ke = k.repeat_interleave(self.cfg.n_heads // self.cfg.kv_heads,
+                                 dim=2)
+        return sh.scatter_to_model(ke, 2) if m > 1 else ke
+
     def _cross(self, p, x, *, mode, cache, patches):
         """Cross attention to the image patches: K and V are projections of
         ``patches`` (cast to the model dtype), computed in train and
@@ -227,7 +270,9 @@ class LM:
         cfg = self.cfg
         B, S, D = x.shape
         H, KV, hd = cfg.n_heads, cfg.kv_heads, cfg.hd
-        q = (x @ p["wq"]).reshape(B, S, H, hd)
+        m = self._heads_split()
+        xq = sh.copy_to_model(x) if m > 1 else x
+        q = (xq @ p["wq"]).reshape(B, S, H // m, hd)
         if mode == "decode":
             k, v = cache["k"], cache["v"]
         else:
@@ -240,14 +285,21 @@ class LM:
             if mode == "prefill":
                 cache["k"].copy_(k)
                 cache["v"].copy_(v)
+        if m > 1:
+            k, v = self._kv_share(k, m), self._kv_share(v, m)
         out = attn.cross_attend(q, k, v)
-        return out.reshape(B, S, H * hd) @ p["wo"]
+        out = out.reshape(B, S, H // m * hd) @ p["wo"]
+        return sh.reduce_from_model(out) if m > 1 else out
 
     def _attn(self, p, x, *, positions, window, mode, cache, pos=None):
         cfg = self.cfg
         B, S, D = x.shape
         H, KV, hd = cfg.n_heads, cfg.kv_heads, cfg.hd
-        q = (x @ p["wq"]).reshape(B, S, H, hd)
+        # with the heads split over `model`: wq column-parallel over the
+        # rank's heads, wk/wv whole, wo row-parallel
+        m = self._heads_split()
+        xq = sh.copy_to_model(x) if m > 1 else x
+        q = (xq @ p["wq"]).reshape(B, S, H // m, hd)
         k = (x @ p["wk"]).reshape(B, S, KV, hd)
         v = (x @ p["wv"]).reshape(B, S, KV, hd)
         q = apply_rope(q, positions, cfg.rope_theta)
@@ -263,13 +315,10 @@ class LM:
             out = attn.decode_attend(q[:, 0], kc, vc, pos, window=window)
             out = out[:, None]                       # [B,1,H,hd]
         else:
-            gq = H // KV
             m_ax = sh.MODEL if self.attn_tp else None
             q = sh.shard(q, sh.BATCH, None, m_ax, None)
-            ke = sh.shard(k.repeat_interleave(gq, dim=2),
-                          sh.BATCH, None, m_ax, None)
-            ve = sh.shard(v.repeat_interleave(gq, dim=2),
-                          sh.BATCH, None, m_ax, None)
+            ke = sh.shard(self._kv_share(k, m), sh.BATCH, None, m_ax, None)
+            ve = sh.shard(self._kv_share(v, m), sh.BATCH, None, m_ax, None)
             out = attn.attend(q, ke, ve, causal=True, window=window)
             del ke, ve
         if mode == "prefill":
@@ -287,14 +336,17 @@ class LM:
             else:
                 attn.cache_write(cache["k"], k, 0)
                 attn.cache_write(cache["v"], v, 0)
-        return out.reshape(B, S, H * hd) @ p["wo"]
+        out = out.reshape(B, S, H // m * hd) @ p["wo"]
+        return sh.reduce_from_model(out) if m > 1 else out
 
     def _ffn(self, slot, p, x, mode):
         cfg = self.cfg
         if slot.ffn == "mlp":
+            tp = sh.model_split(cfg.d_ff) > 1
             if cfg.act in ("swiglu", "geglu"):
-                return glu_mlp(x, p["w1"], p["w3"], p["w2"], cfg.act), 0.0
-            return plain_mlp(x, p["w1"], p["w2"], cfg.act), 0.0
+                return glu_mlp(x, p["w1"], p["w3"], p["w2"], cfg.act,
+                               tp=tp), 0.0
+            return plain_mlp(x, p["w1"], p["w2"], cfg.act, tp=tp), 0.0
         moe_mode = "gather_tokens" if mode == "decode" else "gather_weights"
         return moe_mod.moe_apply(p["moe"], x, cfg=cfg.moe, act=cfg.act,
                                  mode=moe_mode)
@@ -485,6 +537,7 @@ class LM:
         (last-position logits [B, vocab] ([B, n_cb, vocab]), decode
         state)."""
         cfg = self.cfg
+        sh.check_model_axis(f"{cfg.name}'s prefill")
         tokens = batch["tokens"]
         B, S = tokens.shape[0], tokens.shape[1]
         if S > s_max:
@@ -506,6 +559,7 @@ class LM:
         takes it, and unused: the cross-attention K and V are read from
         the state that prefill wrote."""
         cfg = self.cfg
+        sh.check_model_axis(f"{cfg.name}'s decode")
         x = self.embed(params, token[:, None])      # [B,1,D] ([B,1,n_cb])
         positions = torch.tensor([pos], device=x.device)
         x, _ = self._backbone(params, x, mode="decode", positions=positions,

@@ -13,10 +13,20 @@ Exponential gating is stabilised with the max-state m as in the paper.
 The reference runs the sLSTM block under ``shard_map``, heads split over
 ``model``, when ``_head_shard_mesh`` finds a mesh whose ``model`` axis is
 larger than 1, not excluded, and divides the heads; otherwise it takes the
-unsharded path.  With a ``model`` axis of 1 the port takes the unsharded
-path on the process's share of the batch (``models.sharding``'s SPMD
-convention); a ``model`` axis larger than 1 raises (``_head_shard_mesh``,
-ROADMAP item 9b).
+unsharded path.  The port does the same in train mode on the process's
+share of the batch (``models.sharding``'s SPMD convention): the gate
+projections ``w{i,f,z,o}`` are column-parallel, and their contiguous share
+is the rank's heads; ``r*``, ``b*`` and the carry hold ``H / m`` heads;
+the loop over time runs on them, and ``down`` is row-parallel.  Where the
+axis divides ``D`` but not the heads, the split weights are gathered
+(``gather_from_model``) and the block runs whole on every rank.  The
+mLSTM's ``up`` is held as its spec's contiguous share of ``[u | z]``, so
+it is gathered (``gather_to_model``) and cut to the rank's channels of
+``u`` and ``z``; ``wq``/``wk``/``wv``/``wi``/``wf`` contract the channels
+(their partial products summed over ``model``), the cell runs whole on
+every rank, and its output enters the row-parallel ``down`` cut to the
+rank's channels (``scatter_to_model``).  Prefill and decode with a
+``model`` axis larger than 1 raise (``sharding.MULTI_DEVICE``).
 
 Nothing is written in place, so ``LM.loss_fn`` runs these mixers under the
 round's ``vmap(grad_and_value)``.  Gate pre-activations, states and the
@@ -103,18 +113,29 @@ def mlstm_apply(p, x, *, n_heads: int, cfg: XLSTMConfig, mode="train",
     decode: x [B,1,D] and ``state`` {"C": [B,H,hd,hd], "n": [B,H,hd], "m":
     [B,H]} f32."""
     B, S, _ = x.shape
-    du = p["wq"].shape[0]
+    du = p["wq"].shape[1]
     hd = du // n_heads
-    u, z = (x @ p["up"]).chunk(2, dim=-1)                 # [B,S,du]
+    tp = sh.model_split(du) if mode == "train" else 1
+    if tp > 1:
+        # the rank's channels of u and of z, from `up` gathered whole
+        w = sh.gather_to_model(p["up"], -1)                # [D, 2du]
+        dl, r = du // tp, sh.model_index()
+        w = torch.cat([w[:, r * dl:(r + 1) * dl],
+                       w[:, du + r * dl:du + (r + 1) * dl]], dim=-1)
+        u, z = (sh.copy_to_model(x) @ w).chunk(2, dim=-1)  # [B,S,du/m]
+        proj = lambda w: sh.reduce_from_model(u @ w)
+    else:
+        u, z = (x @ p["up"]).chunk(2, dim=-1)             # [B,S,du]
+        proj = lambda w: u @ w
     u = sh.shard(u, sh.BATCH, None, sh.MODEL)
 
     def heads(w):
-        return (u @ w).reshape(B, S, n_heads, hd).transpose(1, 2)
+        return proj(w).reshape(B, S, n_heads, hd).transpose(1, 2)
 
     q, k, v = heads(p["wq"]), heads(p["wk"]), heads(p["wv"])
     # log-space input gate and log forget gate, [B,H,S] f32
-    li = (u @ p["wi"] + p["bi"]).transpose(1, 2).to(F32)
-    lf = F.logsigmoid((u @ p["wf"] + p["bf"]).transpose(1, 2).to(F32))
+    li = (proj(p["wi"]) + p["bi"]).transpose(1, 2).to(F32)
+    lf = F.logsigmoid((proj(p["wf"]) + p["bf"]).transpose(1, 2).to(F32))
 
     if mode in ("train", "prefill"):
         L = min(cfg.chunk, S)
@@ -129,7 +150,11 @@ def mlstm_apply(p, x, *, n_heads: int, cfg: XLSTMConfig, mode="train",
                 v[:, :, sl].to(F32), li[..., sl], lf[..., sl], C, nrm, m)
             ys.append(y)
         y = torch.cat(ys, dim=2).transpose(1, 2).reshape(B, S, du)
+        if tp > 1:
+            y = sh.scatter_to_model(y, -1)
         out = (F.silu(z) * y.to(x.dtype)) @ p["down"]
+        if tp > 1:
+            out = sh.reduce_from_model(out)
         if mode == "prefill":
             return out, {"C": C, "n": nrm, "m": m}
         return out, None
@@ -209,24 +234,32 @@ def _scan_slstm(rp, xs, carry0):
     return carry, torch.stack(hs)
 
 
-def _head_shard_mesh(n_heads: int) -> None:
+def _head_shard_mesh(n_heads: int, d_model: int) -> int:
     """The reference's decision to split the sLSTM's heads over ``model``:
-    a ``model`` axis larger than 1 that ``exclude_axes`` has not dropped
-    raises (``sharding.MULTI_DEVICE``: the head split is ROADMAP's item
-    9b); with a ``model`` axis of 1 the heads stay whole and the plain path
-    runs on the process's batch share."""
-    sh.check_model_axis(f"the sLSTM's {n_heads} heads")
+    the shards, where a ``model`` axis larger than 1 that ``exclude_axes``
+    has not dropped divides the heads (and ``D``); else 1."""
+    return sh.model_split(n_heads, d_model)
 
 
 def slstm_apply(p, x, *, n_heads: int, mode="train", state=None):
     """x [B,S,D].  ``state`` (prefill: the zeroed decode state, decode: the
     running one) is {"c", "n", "h", "m"}, each [B,H,hd] f32; with none
     (train) the carry starts at zero with n = 1e-6.  Returns (out, state),
-    state None in train mode."""
+    state None in train mode.  In train mode under a ``model`` axis the
+    heads split over it (``_head_shard_mesh``)."""
     B, S, D = x.shape
     H, hd = n_heads, D // n_heads
-    if mode in ("train", "prefill"):
-        _head_shard_mesh(n_heads)
+    m = _head_shard_mesh(n_heads, D) if mode == "train" else 1
+    split = mode == "train" and m == 1 and sh.model_split(D) > 1
+    if split:
+        # the weights are split over `model` at rest but the heads are not
+        # whole in a share: gathered, and the block runs whole everywhere
+        p = dict(p, down=sh.gather_from_model(p["down"], 0),
+                 **{f"{k}{g}": sh.gather_from_model(p[f"{k}{g}"], -1)
+                    for k in "wb" for g in "ifzo"})
+    if m > 1:
+        x = sh.copy_to_model(x)
+    H, Dl = H // m, D // m
     if state is None:
         z0 = torch.zeros((B, H, hd), dtype=F32, device=x.device)
         state = {"c": z0, "n": z0 + 1e-6, "h": z0, "m": z0}
@@ -237,11 +270,13 @@ def slstm_apply(p, x, *, n_heads: int, mode="train", state=None):
         xs = tuple(a.transpose(0, 1).to(F32).reshape(S, B, H, hd)
                    for a in gates)
         carry, hs = _scan_slstm(rp, xs, carry0)
-        y = hs.transpose(0, 1).reshape(B, S, D).to(x.dtype)
+        y = hs.transpose(0, 1).reshape(B, S, Dl).to(x.dtype)
     else:
         xt = tuple(a[:, 0].to(F32).reshape(B, H, hd) for a in gates)
         carry = _slstm_step(rp, carry0, xt)
-        y = carry[2].reshape(B, 1, D).to(x.dtype)
+        y = carry[2].reshape(B, 1, Dl).to(x.dtype)
     out = y @ p["down"]
+    if m > 1:
+        out = sh.reduce_from_model(out)
     st = dict(zip("cnhm", carry))
     return out, (None if mode == "train" else st)

@@ -75,10 +75,11 @@ def test_row_maps_shard_by_shard(n):
 
 
 def test_entry_points_run_one_shard_on_one_device():
-    """Under the 1x1 mesh the entry points equal the no-mesh call; a mesh
-    whose ``model`` axis is larger than 1 raises, naming the ``model``
-    item; a record of four devices with no process group raises for the
-    want of one."""
+    """Under the 1x1 mesh the entry points equal the no-mesh call; on a
+    record of devices with no process group, one whose ``model`` axis is
+    larger than 1 included (``model`` is a fusion axis like the others),
+    the row split raises for the want of one
+    (``tests/test_torch_spmd_kernels.py`` runs them on ranks)."""
     x = stack(4)
     w, s = torch.tensor([1.0, 2.0, 0.5, 1.5]), torch.zeros(K)
     plain, kept = ops.fused_accum(x, w, s, 0.0), ops.topk_sparsify(x[0], k=32)
@@ -86,7 +87,8 @@ def test_entry_points_run_one_shard_on_one_device():
         assert torch.equal(ops.fused_accum(x, w, s, 0.0), plain)
         assert torch.equal(ops.topk_sparsify(x[0], k=32), kept)
     with sh.use_mesh(make_production_mesh()):
-        with pytest.raises(NotImplementedError, match="item 9b"):
+        assert sh.fusion_axes() == ("data", "model")
+        with pytest.raises(RuntimeError, match="mesh of processes"):
             ops.fused_accum(x, w, s, 0.0)
     with sh.use_mesh(sh.Mesh(("pod", "data", "model"), (2, 2, 1),
                              tuple(range(4)))):

@@ -5,11 +5,12 @@ mesh stand-ins of 16x16 ("data", "model"), 2x16x16 ("pod", "data",
 ``resolve``, ``batch_axes``, ``pspec``, ``fusion_axes`` and ``axis_size``
 read only ``axis_names`` and ``shape``.  Each is compared under every
 ``exclude_axes`` set the rounds use.  Then ``shard``: the identity without
-a mesh, on a 1x1 mesh and, under the SPMD convention, wherever its spec
-resolves only to batch axes or to axes of size 1; an error naming the
-``model`` item (ROADMAP 9b) where it resolves to a ``model`` axis larger
-than 1; ``flat_shard_index`` row-major; the production and test meshes'
-shapes; and the round's guard: parallel mode under a mesh without
+a mesh, on a 1x1 mesh and, under the SPMD convention (a tensor already is
+its rank's share), on every spec, a ``model`` axis larger than 1 included,
+where ``model_split`` splits what the axis divides and serving raises
+naming its item (ROADMAP 9c); the mesh seen from another thread;
+``flat_shard_index`` row-major; the production and test meshes' shapes;
+and the round's guard: parallel mode under a mesh without
 ``client_spmd_axes`` raises as the reference does."""
 import itertools
 from types import SimpleNamespace
@@ -73,10 +74,15 @@ def test_shard_is_the_identity_on_one_device():
         with sh.use_mesh(meshes(name)[0]):
             assert sh.shard(x, sh.BATCH, None) is x
             assert sh.shard(x, sh.DATA, (sh.POD, sh.DATA)) is x
-            with pytest.raises(NotImplementedError, match="item 9b"):
-                sh.shard(x, sh.BATCH, sh.MODEL)
+            assert sh.shard(x, sh.BATCH, sh.MODEL) is x
+            m = sh.axis_size("model")
+            assert sh.model_split(m * 3) == m and sh.model_split(m + 1) == 1
+            with pytest.raises(NotImplementedError, match="item 9c"):
+                sh.check_model_axis("serving")
             with sh.exclude_axes(sh.MODEL):
                 assert sh.shard(x, sh.BATCH, sh.MODEL) is x
+                assert sh.model_split(m * 3) == 1
+                sh.check_model_axis("serving")
     with sh.use_mesh(sh.Mesh(("pod", "data", "model"), (2, 2, 1),
                              tuple(range(4)))):
         assert sh.shard(x, sh.BATCH, sh.MODEL) is x
@@ -120,3 +126,25 @@ def test_parallel_round_under_a_mesh_needs_client_axes():
         build_fl_round_step(*args, client_spmd_axes="data")
         build_fl_round_step(*args[:3], FLConfig(client_exec="sequential"))
     build_fl_round_step(*args)
+
+
+def test_the_mesh_is_seen_from_another_thread():
+    """The autograd engine runs a CUDA tensor's backward on a device thread
+    of its own; a collective's backward and a layer group's recompute read
+    the mesh there, so the mesh and the excluded axes are the process's,
+    not the thread's."""
+    import threading
+    seen = {}
+    mesh = make_production_mesh()
+
+    def look():
+        seen["mesh"], seen["excluded"] = sh.get_mesh(), sh.excluded_axes()
+        seen["split"] = sh.model_split(32)
+
+    with sh.use_mesh(mesh), sh.exclude_axes(sh.POD):
+        t = threading.Thread(target=look)
+        t.start()
+        t.join()
+    assert seen["mesh"] is mesh and seen["excluded"] == {sh.POD}
+    assert seen["split"] == 16
+    assert sh.get_mesh() is None

@@ -14,9 +14,9 @@ version; ``quantize`` and ``topk_sparsify`` as row maps.  The secure
 masks cancel from each rank's global base: the results are the unsharded
 ones, not only the unmasked sum.  Then the collectives against their
 definitions, a rank that raises failing the run within its timeout, and a
-``model`` 2 mesh that builds and raises, naming the ``model`` item, in
-everything it would run; and the MoE's decode layout over a split batch,
-each rank's output its share of the unsplit layer's."""
+``model`` 2 mesh that builds and runs what used to raise there (serving
+alone still raises, naming its item); and the MoE's decode layout over a
+split batch, each rank's output its share of the unsplit layer's."""
 import time
 
 import numpy as np
@@ -227,51 +227,83 @@ def test_a_failing_rank_fails_the_run(tmp_path):
 
 
 def _model_axis_cases(mesh):
-    """Everything a ``model`` 2 mesh would run: each must raise naming the
-    ``model`` item (their messages), while batch-only specs pass."""
+    """Everything a ``model`` 2 mesh runs, on this rank's shares, and the
+    same calls with no mesh on whole values: {name: (split, unsplit)};
+    serving's refusal, naming the serving item."""
     from repro_torch.configs import get_config, reduced
     from repro_torch.core import FLConfig, build_fl_round_step
-    from repro_torch.models import moe, xlstm
+    from repro_torch.models import build_model, moe, xlstm
     from repro_torch.optim import get_client_optimizer, get_server_optimizer
     x = torch.ones(2, 4, 8)
+    i = mesh.coords["model"]
+    cfg_moe = reduced(get_config("qwen3-moe-235b-a22b")).moe
+    rng = np.random.default_rng(3)
+    draw = lambda *shape: torch.from_numpy(                 # noqa: E731
+        rng.normal(size=shape).astype(np.float32) * 0.3)
+    p_moe = {"router": draw(8, 4), "w1": draw(4, 8, 6), "w3": draw(4, 8, 6),
+             "w2": draw(4, 6, 8)}
+    xm = draw(2, 5, 8)
+    p_sl = {**{f"w{g}": draw(8, 8) for g in "ifzo"},
+            **{f"r{g}": draw(4, 2, 2) for g in "ifzo"},
+            **{f"b{g}": draw(8) for g in "ifzo"}, "down": draw(8, 8)}
+    cut = {"w": lambda t: t[:, 4 * i:4 * i + 4], "r": lambda t: t[2 * i:
+           2 * i + 2], "b": lambda t: t[4 * i:4 * i + 4]}
+    p_sl_mine = {k: cut[k[0]](v) if k != "down" else v[4 * i:4 * i + 4]
+                 for k, v in p_sl.items()}
+    step = lambda: build_fl_round_step(                     # noqa: E731
+        lambda p, b: ((p["w"] * b["x"].mean()).sum(), {}),
+        get_client_optimizer("sgd"), get_server_optimizer("fedavg"),
+        FLConfig(num_clients=2, client_exec="sequential"))(
+            {"w": torch.ones(2)}, (), {"x": torch.ones(2, 2, 2)},
+            torch.ones(2), torch.ones(2), torch.Generator())[0]["w"]
+    commit = lambda: ops.fused_accum_tree(                  # noqa: E731
+        [torch.arange(16.0).reshape(2, 8)], torch.ones(2), torch.zeros(2),
+        0.0)[0]
     out = {"coords": mesh.coords,
-           "batch spec": sh.shard(x, sh.BATCH, None, None) is x}
-    cases = {
-        "shard": lambda: sh.shard(x, sh.BATCH, None, sh.MODEL),
-        "round": lambda: build_fl_round_step(
-            lambda p, b: (p["w"].sum(), {}), get_client_optimizer("sgd"),
-            get_server_optimizer("fedavg"),
-            FLConfig(num_clients=2, client_exec="sequential"))(
-                {"w": torch.ones(2)}, (), {"x": torch.ones(2, 2, 2)},
-                torch.ones(2), torch.ones(2), torch.Generator()),
-        "commit": lambda: ops.fused_accum_tree([torch.ones(2, 8)],
-                                               torch.ones(2), torch.zeros(2),
-                                               0.0),
-        "moe": lambda: moe.moe_apply(
-            None, x, cfg=reduced(get_config("qwen3-moe-235b-a22b")).moe,
-            act="swiglu"),
-        "slstm": lambda: xlstm._head_shard_mesh(4),
-    }
-    for name, fn in cases.items():
-        try:
-            fn()
-            out[name] = None
-        except NotImplementedError as e:
-            out[name] = str(e)
+           "batch spec": sh.shard(x, sh.BATCH, None, None) is x,
+           "shard": sh.shard(x, sh.BATCH, None, sh.MODEL) is x,
+           "slstm heads": xlstm._head_shard_mesh(4, 8)}
+    split = {
+        "round": step(), "commit": commit(),
+        "moe": moe.moe_apply({**p_moe, **{k: p_moe[k][2 * i:2 * i + 2]
+                                         for k in ("w1", "w3", "w2")}},
+                             xm, cfg=cfg_moe, act="swiglu")[0],
+        "slstm": xlstm.slstm_apply(p_sl_mine, xm, n_heads=4)[0]}
+    with sh.use_mesh(None):
+        whole = {"round": step(), "commit": commit(),
+                 "moe": moe.moe_apply(p_moe, xm, cfg=cfg_moe,
+                                      act="swiglu")[0],
+                 "slstm": xlstm.slstm_apply(p_sl, xm, n_heads=4)[0]}
+    out.update({k: (split[k], whole[k]) for k in split})
+    model = build_model(reduced(get_config("granite-3-2b")))
+    try:
+        model.prefill(model.init(torch.Generator().manual_seed(0)),
+                      {"tokens": torch.zeros(1, 4, dtype=torch.long)}, 8)
+        out["serving"] = None
+    except NotImplementedError as e:
+        out["serving"] = str(e)
     return out
 
 
 def test_a_model_axis_mesh_builds_and_raises(tmp_path):
+    """A ``model`` 2 mesh builds, and what used to raise there runs: the
+    round, the commit, the MoE on the rank's experts and the sLSTM on its
+    heads equal their unsplit results (the round and the commit bit for
+    bit); serving alone still raises, naming its item."""
     got = spmd.run(_model_axis_cases, sizes=(1, 1, 2), device="cpu",
                    init_method=spmd.init_file(tmp_path), all_ranks=True,
                    verbose=False)
     for rank, out in enumerate(got):
         assert out["coords"] == {"pod": 0, "data": 0, "model": rank}
-        assert out["batch spec"]
-        for name in ("shard", "round", "commit", "moe", "slstm"):
-            assert out[name] is not None, name
-            assert "`model` mesh axis" in out[name], (name, out[name])
-            assert "item 9b" in out[name], (name, out[name])
+        assert out["batch spec"] and out["shard"]
+        assert out["slstm heads"] == 2
+        for name in ("round", "commit"):
+            assert torch.equal(*out[name]), name
+        for name in ("moe", "slstm"):
+            torch.testing.assert_close(*out[name], rtol=1e-5, atol=1e-6)
+        assert out["serving"] is not None
+        assert "`model` mesh axis" in out["serving"], out["serving"]
+        assert "item 9c" in out["serving"], out["serving"]
 
 
 @pytest.mark.parametrize("mesh", sorted(MESHES))
