@@ -209,7 +209,27 @@ it happened; any failure ends the run with a non-zero exit code:
      no mesh, then on data 1 x model 2, two ranks sharing the card: each
      rank's param bytes equal to the dry run's, its round peak held
      against no mesh's (GRANITE_PEAK_RATIO), the loss and the params
-     against no mesh (5e-3, 3e-2), the collectives' time printed.
+     against no mesh (5e-3, 3e-2), the collectives' time printed; (f)
+     serving on a ``model`` axis through ``serve.run`` under the mesh:
+     (i) eight gloo ranks on pod 2 x data 2 x model 2 serve the reduced
+     zoo in f32 (granite and its 16-head variant, gemma, starcoder2 with a
+     window of 8, Qwen3-MoE, Jamba, xLSTM, the VLM, MusicGen; batch 4, a
+     12-token prompt, 4 decode steps fed given tokens), each rank's
+     logits within 1e-5 of the same run with no mesh on the card and its
+     greedy tokens equal on every rank; (ii) the lm_serve Jamba cut
+     (every published width, 8 layers, 8 experts) on data 1 x model 2,
+     each rank drawing the leaves whole in turn and keeping its share:
+     its param and decode-state bytes equal to the dry run's, prefill of
+     2032 tokens and 16 decode steps fed the no-mesh run's greedy tokens,
+     the logits within SERVE_DECODE_TOL of no mesh's in each row up to
+     its first flipped MoE routing, at most SERVE_FLIP_SHARE of the
+     routings flipped, and within the bound at every step when routed as
+     no mesh routed (argmax agreement printed); the same cut with 2
+     experts, each token sent to both (no routing choice), within the
+     bound at every step; 112 scan launches a rank on its 8192 of 16384
+     channels, prefill s, decode ms a token and each rank's peak printed;
+     then the scan at a rank's chunk [1, 128, 8192, 16] bit for bit
+     against its plain version and timed beside its bound.
 The last lines are the kernels' JSON record, the nvidia-smi line, and
 ``{"ok": true, "device": {...}}``.
 """
@@ -219,6 +239,7 @@ import argparse
 import contextlib
 import dataclasses
 import functools
+import gc
 import io
 import json
 import math
@@ -491,9 +512,10 @@ HIER_CONFIGS = {
 # d_expert 24576, vocab 65536, Mamba d_state 16, expand 2, chunk 128) and is
 # cut in two ways to fit one 80 GB card in bf16: depth 72 -> 8, one whole
 # period of its block pattern (7 Mamba slots and 1 attention slot, MoE in
-# slots 1, 3, 5, 7), and experts 16 -> 8, top-2 kept.  The port has no
-# expert-parallel MoE yet, so the 8 experts are a smaller router, not one
-# card's share of 16.  25,910,730,752 parameters, 51.8 GB in bf16.
+# slots 1, 3, 5, 7), and experts 16 -> 8, top-2 kept: a smaller router,
+# so the whole cut fits one card with no mesh (the `spmd` phase's (f)
+# serves it split over model 2 too).  25,910,730,752 parameters, 51.8 GB
+# in bf16.
 JAMBA = "jamba-1.5-large-398b"
 JAMBA_PARAMS = 25_910_730_752
 # 2032 = 15 x 128 + 112 prompt tokens exercise the scan's remainder chunk;
@@ -2562,6 +2584,60 @@ def count_drops(fn):
     return drops
 
 
+@contextlib.contextmanager
+def recorded_routes():
+    """Every MoE routing's expert ids [T, top_k], copied on their device
+    (no host read, so timed runs may use it), while the block runs."""
+    routes, orig = [], moe_mod._route
+
+    def route(x2d, router, cfg):
+        out = orig(x2d, router, cfg)
+        routes.append(out[0].detach().clone())
+        return out
+
+    moe_mod._route = route
+    try:
+        yield routes
+    finally:
+        moe_mod._route = orig
+
+
+@contextlib.contextmanager
+def forced_routes(want):
+    """Every MoE routing sent to the experts another run recorded
+    (``recorded_routes``), call by call in order; the gates are this run's
+    own router probabilities at those experts, normalised as ``_route``
+    normalises its top-k.  Where the two runs choose alike it changes
+    nothing."""
+    it, orig = iter(want), moe_mod._route
+
+    def route(x2d, router, cfg):
+        _, _, aux = orig(x2d, router, cfg)
+        eid = next(it).to(x2d.device)
+        probs = torch.softmax(x2d.to(torch.float32)
+                              @ router.to(torch.float32), dim=-1)
+        gate = probs.gather(-1, eid)
+        gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
+        return eid, gate.to(x2d.dtype), aux
+
+    moe_mod._route = route
+    try:
+        yield
+    finally:
+        moe_mod._route = orig
+
+
+def route_flips(routes, want, per_step, B) -> list:
+    """Per step (prefill, then each decode step), per batch row: the tokens
+    whose set of experts differs between two runs' routings, summed over
+    the step's ``per_step`` MoE layers (a call's tokens are its ``B`` rows
+    in order)."""
+    flips = [(torch.sort(a.cpu(), -1).values != torch.sort(b, -1).values)
+             .any(-1).view(B, -1).sum(-1) for a, b in zip(routes, want)]
+    return [torch.stack(flips[i:i + per_step]).sum(0).tolist()
+            for i in range(0, len(flips), per_step)]
+
+
 def serve_full_width(device="cuda", cfg=None, batch=SERVE_BATCH,
                      prompt_len=SERVE_PROMPT, gen=SERVE_GEN,
                      n_params=JAMBA_PARAMS, tol=SERVE_DECODE_TOL):
@@ -2772,6 +2848,14 @@ def lm_serve():
 # ---------------------------------------------------------------- lm_train
 def free_cache(device):
     if torch.device(device).type == "cuda":
+        gc.collect()
+        # cuBLAS's workspace (32 MiB, CUBLAS_WORKSPACE_CONFIG) comes from
+        # the caching allocator and can pin a segment of GBs that a large
+        # product split; it is made again at the next product
+        clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
+        if clear is not None:
+            torch.cuda.synchronize(device)
+            clear()
         torch.cuda.empty_cache()
 
 
@@ -3305,6 +3389,45 @@ GRANITE = "granite-3-2b"
 GRANITE_MODEL = dict(C=2, H=2, B=1, S=1024)
 GRANITE_MODEL_SIZES, GRANITE_MODEL_AXES = (1, 2), ("data", "model")
 GRANITE_PEAK_RATIO = 0.75
+# (f): serving on a `model` axis through serve.run under the mesh.  (i) The
+# reduced zoo in f32 on eight gloo ranks of the (2, 2, 2) mesh, batch 4 (a
+# process's share 1), a 12-token prompt and 4 decode steps fed given
+# tokens; each rank's logits, gathered whole, against the same run with no
+# mesh here, as max |diff| over the largest |logit|.  The reduced MoE
+# configs (4 experts, top 2, capacity factor 2) drop nothing under the
+# local count of prefill or the gathered count of decode.
+SERVE_ZOO = (("granite", "granite-3-2b", {}),
+             ("granite 16 heads", "granite-3-2b",
+              dict(n_heads=16, kv_heads=4, head_dim=16)),
+             ("gemma", "gemma-2b", {}),
+             ("starcoder2 window 8", "starcoder2-7b",
+              dict(sliding_window=8)),
+             ("qwen3-moe", "qwen3-moe-235b-a22b", {}), ("jamba", JAMBA, {}),
+             ("xlstm", XLSTM, {}), ("vlm", VLM, {}), ("musicgen", AUDIO, {}))
+SERVE_ZOO_SIZES = MODEL_SIZES
+SERVE_ZOO_SHAPE = dict(batch=4, prompt_len=12, gen=4)
+SERVE_SPLIT_TOL = 1e-5
+# (ii): the lm_serve Jamba cut (every published width, 8 layers, 8
+# experts) on data 1 x model 2, two ranks sharing the card, fed the no-mesh
+# run's greedy tokens.  The split's partial sums round otherwise than one
+# product, and at a near-tie of two router probabilities that flips a
+# token's expert, which moves its logits by their scale (an H100 run routed
+# 702 of 4 x 4064 prefill choices and 1 of 4 x 2 at the second decode step
+# otherwise, and the served logits came 0.025-0.058 and, at that step, 0.24
+# from no mesh's).  A flip moves the later tokens of its row too (the
+# Mamba state and the cache carry it), so the served run's logits are held
+# to SERVE_DECODE_TOL in each row up to its first flip, and at most
+# SERVE_FLIP_SHARE of its routings may flip: a router on wrong inputs would
+# agree with no mesh's top 2 of 8 by chance, 1 time in 28.  The gap left
+# without flips is held twice: the same run with every token sent to the
+# experts the no-mesh run chose (forced_routes), and the cut with 2
+# experts, each token sent to both (SERVE_NO_CHOICE), which serves the
+# real path with no choice to flip.
+SERVE_FLIP_SHARE = 0.25
+SERVE_NO_CHOICE = "2 experts, top 2 of 2: no routing choice"
+SERVE_MODEL_SIZES, SERVE_MODEL_AXES = (1, 2), ("data", "model")
+SERVE_MODEL = dict(batch=SERVE_BATCH, prompt_len=SERVE_PROMPT,
+                   gen=SERVE_GEN)
 
 
 def spmd_launches_expected(n_leaves=8, C=SPMD_ROUND["C"]) -> dict:
@@ -3756,7 +3879,8 @@ def nccl_rank(mesh, ref_path):
 
 def spmd_phase(device="cuda", sizes=SPMD_ROUND, jamba=SPMD_JAMBA,
                audio_cfg=None, audio_shape=AUDIO_SPMD, granite_cfg=None,
-               granite_shape=GRANITE_MODEL):
+               granite_shape=GRANITE_MODEL, serve_cfg=None,
+               serve_shape=SERVE_MODEL):
     """Phase spmd: (a) four gloo ranks sharing the card on a pod 2 x data
     2 x model 1 mesh run the CIFAR rounds, the async commit, the reduced
     Jamba and every commit kernel against the same work with no mesh here;
@@ -3765,7 +3889,8 @@ def spmd_phase(device="cuda", sizes=SPMD_ROUND, jamba=SPMD_JAMBA,
     ranks on the pod 2 x data 2 x model 2 mesh run the reduced LMs'
     rounds split over model, the main path's CIFAR round and every commit
     kernel with model among the fusion axes; (e) granite-3-2b whole over
-    model 2."""
+    model 2; (f) serving over model: the reduced zoo on the (2, 2, 2)
+    mesh and the Jamba cut on data 1 x model 2."""
     from repro_torch.launch import spmd
     kind = torch.device(device).type
     totals = {}
@@ -3826,6 +3951,8 @@ def spmd_phase(device="cuda", sizes=SPMD_ROUND, jamba=SPMD_JAMBA,
     add_counts(totals, spmd_audio(device, kind, audio_cfg, audio_shape))
     add_counts(totals, spmd_granite(device, kind, granite_cfg,
                                     granite_shape))
+    add_counts(totals, spmd_serve(device, kind, jamba_cfg=serve_cfg,
+                                  jamba_shape=serve_shape))
     return totals
 
 
@@ -4217,6 +4344,380 @@ def spmd_granite(device, kind, cfg=None, shape=GRANITE_MODEL):
           f"spmd (e): rank peaks over no mesh's {ratios}, above "
           f"{GRANITE_PEAK_RATIO}")
     return {}
+
+
+def zoo_config(arch, changes):
+    return reduced(get_config(arch)).replace(**changes)
+
+
+def serve_forced(cfg, device, shape, shard):
+    """``serve.run`` of ``cfg`` (seed-0 params drawn on ``device``; with
+    ``shard`` each rank keeps its share) on a seeded prompt, its decode
+    steps fed given tokens: the logits on the CPU, and the tokens a greedy
+    run would draw from them."""
+    B, S0, T = (shape[k] for k in ("batch", "prompt_len", "gen"))
+    model, params = serve.build(cfg, device, seed=0, shard=shard)
+    toks, patches = lm_inputs(cfg, (B,), S0 + T, 3)
+    res = serve.run(model, params, toks[:, :S0], T, 0.0,
+                    torch.Generator(device), patches, forced=toks[:, S0:])
+    logits = [lg.float().cpu() for lg in res.logits]
+    return logits, torch.stack([lg.argmax(-1) for lg in logits])
+
+
+def serve_zoo_rank(mesh, ref_path, shape):
+    """(f) (i) on one rank: every zoo case served on its shares, its logits
+    against no mesh's, the greedy tokens' checksums across the ranks."""
+    spmd_rank_setup()
+    ref = torch.load(ref_path, weights_only=False)
+    out = {}
+    for label, arch, changes in SERVE_ZOO:
+        launches.reset()
+        logits, toks = serve_forced(zoo_config(arch, changes), mesh.device,
+                                    shape, True)
+        sync(mesh.device)
+        counts = dict(launches.KERNEL_LAUNCHES)
+        gap = max(rel_gap(g, w) for g, w in zip(logits, ref[label]))
+        sums = shd.replica_checksums({"tokens": toks})["tokens"]
+        out[label] = dict(gap=gap, same=len(set(sums)) == 1, launches=counts,
+                          finite=all(bool(torch.isfinite(g).all())
+                                     for g in logits))
+    launches.reset()
+    return out
+
+
+def serve_zoo(device, kind, sizes=SERVE_ZOO_SIZES, shape=SERVE_ZOO_SHAPE):
+    """(f) (i): the reduced zoo with no mesh here, then on the ranks of a
+    ``sizes`` mesh."""
+    from repro_torch.launch import spmd
+    t0 = time.perf_counter()
+    ref = {label: serve_forced(zoo_config(arch, changes), device, shape,
+                               False)[0]
+           for label, arch, changes in SERVE_ZOO}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "serve_zoo.pt")
+        torch.save(ref, path)
+        out = spmd.run(serve_zoo_rank, (path, shape), sizes=sizes,
+                       device=kind, all_ranks=True, timeout_s=600,
+                       threads=None)
+    n_scan = scan_chunks(build_model(reduced(get_config(JAMBA))),
+                         shape["prompt_len"])
+    totals = {}
+    for label, _, _ in SERVE_ZOO:
+        gaps = [o[label]["gap"] for o in out]
+        print(f"spmd (f) (i) {label}: prefill and {shape['gen']} decode "
+              f"steps on {len(out)} ranks, max |diff| / max |logit| against "
+              f"no mesh per rank {[float(f'{g:.3g}') for g in gaps]}; "
+              f"greedy tokens "
+              f"equal across ranks {all(o[label]['same'] for o in out)}; "
+              f"launches {[o[label]['launches'] for o in out]}")
+        check(all(o[label]["finite"] for o in out),
+              f"spmd (f) (i) {label}: non-finite logits")
+        check(max(gaps) <= SERVE_SPLIT_TOL,
+              f"spmd (f) (i) {label}: {max(gaps):.3g} from no mesh")
+        check(all(o[label]["same"] for o in out),
+              f"spmd (f) (i) {label}: the ranks draw different tokens")
+        expect = {"selective_scan": n_scan} if label == "jamba" else {}
+        check(kind != "cuda" or all(o[label]["launches"] == expect
+                                    for o in out),
+              f"spmd (f) (i) {label}: launches "
+              f"{[o[label]['launches'] for o in out]}, expected {expect}")
+        for o in out:
+            add_counts(totals, o[label]["launches"])
+    print(f"spmd (f) (i): {len(SERVE_ZOO)} families on a {sizes} mesh, "
+          f"{time.perf_counter() - t0:.1f} s with the references and the "
+          f"spawn")
+    return totals
+
+
+def no_choice_cut(cfg):
+    """``cfg`` with 2 experts, each token sent to both (SERVE_NO_CHOICE)."""
+    return cfg.replace(moe=dataclasses.replace(cfg.moe, num_experts=2))
+
+
+def jamba_model_ranks(mesh, runs, shape):
+    """(f) (ii) on one rank of data 1 x model 2: ``jamba_model_rank`` for
+    each (reference file, config) of ``runs``, the first also routed as the
+    no-mesh run routed; each run's params freed before the next."""
+    spmd_rank_setup()
+    outs = []
+    for i, (path, cfg) in enumerate(runs):
+        outs.append(jamba_model_rank(mesh, path, cfg, shape,
+                                     routed_alike=i == 0))
+        free_cache(mesh.device)
+    return outs
+
+
+def jamba_model_rank(mesh, ref_path, cfg, shape, routed_alike):
+    """One cut on one rank: drawn leaf by leaf, only the rank's share kept
+    (the ranks in turn, so that one whole leaf is drawn at a time on the
+    card), its bytes against the dry run's; then ``serve.run`` fed the
+    no-mesh run's tokens, the scan's calls and channels and the routings
+    recorded; with ``routed_alike`` the run again with every token sent to
+    the experts the no-mesh run chose."""
+    from repro_torch.launch import dryrun
+    dev = mesh.device
+    ref = torch.load(ref_path, weights_only=False)
+    t0 = time.perf_counter()
+    cuda = dev.startswith("cuda")
+
+    def memory(when):
+        if cuda:
+            print(f"spmd (f) (ii) rank {mesh.rank} {when}: memory_allocated "
+                  f"{torch.cuda.memory_allocated(dev)} reserved "
+                  f"{torch.cuda.memory_reserved(dev)}; the card's free and "
+                  f"total bytes {torch.cuda.mem_get_info(dev)}", flush=True)
+
+    for turn in range(mesh.shape["model"]):
+        if shd.model_index() == turn:
+            memory(f"before its draw of {cfg.moe.num_experts} experts")
+            model, params = serve.build(cfg, dev, seed=0, shard=True)
+            sync(dev)
+            free_cache(dev)
+            memory("after its draw")
+        torch.distributed.barrier()
+    build_s = time.perf_counter() - t0
+    B, S0, T = (shape[k] for k in ("batch", "prompt_len", "gen"))
+    record = shd.Mesh(SERVE_MODEL_AXES, SERVE_MODEL_SIZES, tuple(range(2)))
+    with shd.use_mesh(None):
+        whole_state = model.init_decode_state(B, S0 + T, device="meta")
+    dry = (dryrun.per_device_bytes(model.param_specs(), model.logical_specs,
+                                   record),
+           dryrun.per_device_bytes(whole_state, model.state_logical_specs(
+               B, S0 + T), record))
+    channels, orig = [], kops.selective_scan_chunk
+
+    def scan(a, b, h0):
+        channels.append(a.shape[2])
+        return orig(a, b, h0)
+
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    launches.reset()
+    kops.selective_scan_chunk = scan
+    try:
+        with recorded_routes() as routes:
+            res = serve.run(model, params, ref["prompt"], T, 0.0,
+                            torch.Generator(dev), forced=ref["ids"])
+    finally:
+        kops.selective_scan_chunk = orig
+    sync(dev)
+    counts = dict(launches.KERNEL_LAUNCHES)
+    launches.reset()
+    peak = torch.cuda.max_memory_allocated(dev) if cuda else 0
+    held = (sp.param_bytes(params), sum(
+        v.numel() * v.element_size() for leaves in res.state.values()
+        for v in leaves.values()))
+
+    def row_gaps(g, w):
+        g, w = g.detach().float().cpu(), w.float()
+        return ((g - w).abs().flatten(1).amax(1)
+                / w.abs().max().clamp_min(1e-30)).tolist()
+
+    out = dict(held=held, dry=dry, counts=counts, peak=peak,
+               build_s=build_s, prefill_s=res.prefill_s,
+               decode_ms=res.decode_s / T * 1e3,
+               channels=sorted(set(channels)), n_scans=len(channels),
+               gaps=[rel_gap(g, w) for g, w in zip(res.logits,
+                                                   ref["logits"])],
+               row_gaps=[row_gaps(g, w) for g, w in zip(res.logits,
+                                                        ref["logits"])],
+               agree=[float((g.cpu().argmax(-1) == w.argmax(-1)).float()
+                            .mean())
+                      for g, w in zip(res.logits, ref["logits"])],
+               routings=sum(r.shape[0] for r in routes),
+               flips=route_flips(routes, ref["routes"],
+                                 len(ref["routes"]) // (T + 1), B))
+    finite = all(bool(torch.isfinite(g).all()) for g in res.logits)
+    del res, routes
+    if routed_alike:
+        # the gap left is the split's rounding alone
+        with forced_routes(ref["routes"]):
+            same = serve.run(model, params, ref["prompt"], T, 0.0,
+                             torch.Generator(dev), forced=ref["ids"])
+        out["routed"] = [rel_gap(g, w) for g, w in zip(same.logits,
+                                                        ref["logits"])]
+        finite = finite and all(bool(torch.isfinite(g).all())
+                                for g in same.logits)
+    out["finite"] = finite
+    print(f"spmd (f) (ii) rank {mesh.rank}: {cfg.name} cut, "
+          f"{cfg.moe.num_experts} experts, over model 2: "
+          f"param bytes {held[0]} (dry run {dry[0]}), decode-state bytes "
+          f"{held[1]} (dry run {dry[1]}); built in {build_s:.1f} s with "
+          f"the other rank's turn; prefill_s={out['prefill_s']:.4f} decode "
+          f"{out['decode_ms']:.2f} ms/token max_memory_allocated={peak} "
+          f"({peak / 1e9:.2f} GB); scan calls {len(channels)} on "
+          f"{out['channels']} channels; launches {counts}", flush=True)
+    return out
+
+
+def serve_no_mesh(cfg, device, kind, shape, path):
+    """The cut served greedily with no mesh here; its prompt, tokens,
+    logits and routings saved to ``path`` for the ranks."""
+    B, S0, T = (shape[k] for k in ("batch", "prompt_len", "gen"))
+    free_cache(device)
+    t0 = time.perf_counter()
+    model, params = serve.build(cfg, device, seed=0)
+    g = torch.Generator(device).manual_seed(1)
+    prompt = torch.randint(0, cfg.vocab, (B, S0), generator=g, device=device)
+    cuda = kind == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    with recorded_routes() as routes:
+        res = serve.run(model, params, prompt, T, 0.0, g)
+    peak = torch.cuda.max_memory_allocated() if cuda else 0
+    print(f"spmd (f) (ii): {cfg.name} cut to {cfg.n_layers} layers, "
+          f"{cfg.moe.num_experts} experts, with no mesh: "
+          f"prefill_s={res.prefill_s:.4f} decode "
+          f"{res.decode_s / T * 1e3:.2f} ms/token max_memory_allocated="
+          f"{peak} ({peak / 1e9:.2f} GB); {time.perf_counter() - t0:.1f} s "
+          f"with the build")
+    torch.save({"prompt": prompt.cpu(), "ids": res.ids,
+                "logits": [lg.cpu() for lg in res.logits],
+                "routes": [r.cpu() for r in routes]}, path)
+    del model, params, res, prompt, routes
+    free_cache(device)
+
+
+def serve_jamba_model(device, kind, cfg=None, shape=SERVE_MODEL):
+    """(f) (ii): the Jamba cut, and the cut with no routing choice
+    (SERVE_NO_CHOICE), each served greedily with no mesh here, then on
+    data 1 x model 2 fed the same tokens; and the scan at a rank's chunk,
+    timed against its plain version and its bound."""
+    from repro_torch.launch import spmd
+    cfg = cfg or jamba_cut()
+    cfgs = (cfg, no_choice_cut(cfg))
+    B, S0, T = (shape[k] for k in ("batch", "prompt_len", "gen"))
+    cuda = kind == "cuda"
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = [os.path.join(tmp, f"jamba_served_{i}.pt")
+                 for i in range(len(cfgs))]
+        for c, path in zip(cfgs, paths):
+            serve_no_mesh(c, device, kind, shape, path)
+        if cuda:
+            print(f"spmd (f) (ii): this process holds "
+                  f"{torch.cuda.memory_allocated()} bytes allocated, "
+                  f"{torch.cuda.memory_reserved()} reserved before the "
+                  f"spawn; the card's free and total bytes "
+                  f"{torch.cuda.mem_get_info()}")
+        # the ranks' allocator maps and unmaps pages (expandable segments):
+        # a whole leaf freed after its share is cut leaves no segment that a
+        # share pins, so each rank holds about its share when the other
+        # draws
+        prev = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+        os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+        t0 = time.perf_counter()
+        try:
+            outs = spmd.run(jamba_model_ranks, (list(zip(paths, cfgs)),
+                                                shape),
+                            sizes=SERVE_MODEL_SIZES, axes=SERVE_MODEL_AXES,
+                            device=kind, all_ranks=True, timeout_s=900,
+                            threads=None)
+        finally:
+            if prev is None:
+                del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
+            else:
+                os.environ["PYTORCH_CUDA_ALLOC_CONF"] = prev
+    print(f"spmd (f) (ii): 2 ranks, {time.perf_counter() - t0:.1f} s with "
+          f"the spawn")
+    n_scan = scan_chunks(build_model(cfg), S0)
+    n_moe = sum(s.ffn == "moe" for s in build_model(cfg).pattern)
+    di = cfg.mamba.expand * cfg.d_model // SERVE_MODEL_SIZES[1]
+    totals = {}
+    for j, c in enumerate(cfgs):
+        out = [o[j] for o in outs]
+        label = (f"spmd (f) (ii) {c.moe.num_experts} experts" if j == 0
+                 else f"spmd (f) (ii) {SERVE_NO_CHOICE}")
+
+        def worst(key):
+            return [round(max(o[key][i] for o in out), 5)
+                    for i in range(T + 1)]
+
+        agree = [min(o["agree"][i] for o in out) for i in range(T + 1)]
+        peaks = [o["peak"] for o in out]
+        flips = out[0]["flips"]
+        # a row's steps up to its first flip: no flip reaches them
+        held = [(i, b) for i in range(T + 1) for b in range(B)
+                if sum(f[b] for f in flips[:i + 1]) == 0]
+        share = sum(map(sum, flips)) / out[0]["routings"]
+        print(f"{label}: max |diff| / max |logit| against no mesh, prefill "
+              f"and each decode step, worst rank {worst('gaps')}; argmax "
+              f"agreement {agree}; tokens routed to other experts than "
+              f"with no mesh (over the {n_moe} MoE layers; prefill, then "
+              f"each step; per row) {flips}, {share:.4f} of "
+              f"{out[0]['routings']} routings; held before any flip of "
+              f"their row: {len(held)} of {(T + 1) * B} (step, row)s"
+              + (f"; with every token routed as with no mesh "
+                 f"{worst('routed')}" if j == 0 else "")
+              + f"; rank peaks {peaks} ({sum(peaks) / 1e9:.2f} GB "
+                f"together)")
+        for o in out:
+            check(o["finite"], f"{label}: non-finite logits")
+            check(o["held"] == o["dry"], f"{label}: (param, state) bytes "
+                                         f"{o['held']} against the dry "
+                                         f"run's {o['dry']}")
+            over = [(i, b, o["row_gaps"][i][b]) for i, b in held
+                    if o["row_gaps"][i][b] > SERVE_DECODE_TOL]
+            check(not over, f"{label}: (step, row, gap) over "
+                            f"{SERVE_DECODE_TOL} with no flip before: "
+                            f"{over}")
+            check(share <= SERVE_FLIP_SHARE,
+                  f"{label}: {share:.4f} of the routings flipped")
+            if j == 0:
+                check(max(o["routed"]) <= SERVE_DECODE_TOL,
+                      f"{label}: {max(o['routed']):.4g} from no mesh, "
+                      f"routed alike")
+            else:
+                check(share == 0 and max(o["gaps"]) <= SERVE_DECODE_TOL,
+                      f"{label}: {max(o['gaps']):.4g} from no mesh with "
+                      f"{share} of the routings flipped")
+            check(o["n_scans"] == n_scan and o["channels"] == [di],
+                  f"{label}: {o['n_scans']} scan calls on {o['channels']} "
+                  f"channels, expected {n_scan} on [{di}]")
+            check(not cuda or o["counts"] == {"selective_scan": n_scan},
+                  f"{label}: launches {o['counts']}, expected {n_scan} "
+                  f"scans")
+            add_counts(totals, o["counts"])
+    if cuda:
+        time_rank_chunk(cfg, device)
+    return totals
+
+
+def time_rank_chunk(cfg, device, seed=4):
+    """The scan at a rank's prefill chunk of the cut over model 2 ([1,
+    chunk, d_inner / 2, d_state] f32): bit for bit against its plain
+    version, then timed (kernel, queued, plain) beside its byte bound."""
+    L, N = cfg.mamba.chunk, cfg.mamba.d_state
+    D = cfg.mamba.expand * cfg.d_model // SERVE_MODEL_SIZES[1]
+    gen = torch.Generator(device).manual_seed(seed)
+    a = torch.rand((1, L, D, N), generator=gen, device=device) * 0.7 + 0.3
+    b = torch.randn((1, L, D, N), generator=gen, device=device) * 0.1
+    h0 = torch.randn((1, D, N), generator=gen, device=device)
+    got = selective_scan_chunk_blocks(a, b, h0)
+    want = ref.selective_scan_chunk_ref(a, b, h0)
+    same = all(torch.equal(x, y) for x, y in zip(got, want))
+    ms = time_ms(lambda: selective_scan_chunk_blocks(a, b, h0))
+    queued = time_ms_queued(lambda: selective_scan_chunk_blocks(a, b, h0))
+    plain = time_ms(lambda: ref.selective_scan_chunk_ref(a, b, h0))
+    bound_ms, by = bound(4 * (3 * L * D * N + 2 * D * N), 2 * a.numel(), 0,
+                         memory_rate(torch.cuda.get_device_name(0)))
+    print(f"spmd (f) (ii): selective_scan at a rank's chunk [1, {L}, {D}, "
+          f"{N}]: bit for bit against its plain version {same}; kernel "
+          f"{ms:.4f} ms, queued {queued:.4f} ms ({bound_ms / queued:.0%} of "
+          f"the bound), plain {plain:.4f} ms, bound {bound_ms:.4f} ms by "
+          f"{by}")
+    check(same, "spmd (f) (ii): the scan at a rank's chunk differs from its "
+                "plain version")
+
+
+def spmd_serve(device, kind, zoo_sizes=SERVE_ZOO_SIZES,
+               zoo_shape=SERVE_ZOO_SHAPE, jamba_cfg=None,
+               jamba_shape=SERVE_MODEL):
+    """(f): serving on a ``model`` axis, (i) the reduced zoo and (ii) the
+    Jamba cut at every published width."""
+    totals = serve_zoo(device, kind, zoo_sizes, zoo_shape)
+    add_counts(totals, serve_jamba_model(device, kind, jamba_cfg,
+                                         jamba_shape))
+    return totals
 
 
 def param_bytes(cfg) -> int:

@@ -16,6 +16,21 @@ each step samples one token per codebook and the summary prints codebook
 llama-3.2-vision-90b``) ``main`` draws ``patches`` ``(B, n_patches, D)``
 in the model dtype from the seeded generator, which prefill projects into
 the cross-attention caches.
+
+Under a mesh of processes (``launch.spmd.run``, no launcher flag, as in
+the reference) each rank calls ``build(..., shard=True)`` (or holds its
+params' shares, ``specs.shard_params``) and ``run`` with the whole prompt:
+the rank serves its process's share of the batch, its decode state cut as
+its specs say, and the logits are gathered whole each step, so every rank
+samples the same tokens from its own generator of the same seed::
+
+    def serve_rank(mesh, cfg):
+        model, params = serve.build(cfg, mesh.device, seed=0, shard=True)
+        g = torch.Generator(mesh.device).manual_seed(0)
+        prompt, patches = serve.draw_inputs(cfg, 4, 16, g, model.dtype)
+        return serve.run(model, params, prompt, 8, 0.0, g, patches).ids
+
+    spmd.run(serve_rank, (cfg,), sizes=(1, 2, 2), device="cpu")
 """
 from __future__ import annotations
 
@@ -27,8 +42,10 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_config, reduced
+from repro_torch.launch import specs
 from repro_torch.launch.train import resolve_device
 from repro_torch.models import build_model, token_shape
+from repro_torch.models import sharding as sh
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -44,12 +61,16 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
-def build(cfg, device, seed: int):
+def build(cfg, device, seed: int, shard: bool = False):
     """(model, params): random params drawn on ``device`` from a generator
-    seeded with ``seed``."""
+    seeded with ``seed``.  With ``shard``, under a mesh, each leaf is drawn
+    whole and only this rank's share kept (``specs.shard_leaf``), leaf by
+    leaf: the no-mesh model's bits, cut as ``specs.shard_params`` cuts
+    them."""
     device = torch.device(device)
     model = build_model(cfg)
-    params = model.init(torch.Generator(device).manual_seed(seed), device)
+    params = model.init(torch.Generator(device).manual_seed(seed), device,
+                        keep=specs.shard_leaf if shard else None)
     return model, params
 
 
@@ -60,6 +81,8 @@ class ServeResult:
     #                          every decode step (gen + 1 entries)
     prefill_s: float         # wall time of the prefill, synchronised
     decode_s: float          # wall time of the gen decode steps
+    state: dict              # the decode state after the last step (under
+    #                          a mesh, this rank's share)
 
 
 def _sync(device):
@@ -80,38 +103,56 @@ def _sample(logits, temperature: float, generator):
 
 
 def run(model, params, prompt, gen: int, temperature: float,
-        generator, patches=None) -> ServeResult:
+        generator, patches=None, forced=None) -> ServeResult:
     """Prefill ``prompt`` [B, S0] (token ids; [B, S0, n_cb] with codebooks)
     and, for the VLM, ``patches`` [B, n_patches, D], then ``gen`` decode
     steps, each sampling one token (one per codebook) from the last logits
     (``temperature`` 0 is argmax; else ``torch.multinomial`` on
     ``softmax(logits / T)`` with ``generator``) and feeding it back at the
-    next position."""
+    next position; ``forced`` ([B, gen] ids), where given, is fed in their
+    place (teacher forcing: one run held against another on the same
+    tokens).
+
+    Under a mesh ``params`` are this rank's shares, and ``prompt``,
+    ``patches`` and ``forced`` are whole: the rank serves its process's
+    rows (``sharding.local_share`` over the axes that split the batch),
+    and the logits are gathered whole over those axes each step, so the
+    result's ids and logits are the whole batch's on every rank."""
     device = params["embed"].device
+    axes = sh.batch_split_axes()
+
+    def mine(t):
+        return sh.local_share(t, axes, 0, "the served batch")
+
     prompt = torch.as_tensor(prompt).to(device=device, dtype=torch.long)
     S0 = prompt.shape[1]
     s_max = S0 + gen
-    batch = {"tokens": prompt}
+    batch = {"tokens": mine(prompt)}
     if patches is not None:
-        patches = torch.as_tensor(patches).to(device)
+        patches = mine(torch.as_tensor(patches).to(device))
         batch["patches"] = patches
+    if forced is not None:
+        forced = torch.as_tensor(forced).to(device=device, dtype=torch.long)
     with torch.inference_mode():
         t0 = time.perf_counter()
         logits, state = model.prefill(params, batch, s_max)
+        logits = sh.all_gather(logits, axes, 0)
         _sync(device)
         t_prefill = time.perf_counter() - t0
         out, toks = [logits], []
         t0 = time.perf_counter()
         for t in range(gen):
-            tok = _sample(logits, temperature, generator)
+            tok = (forced[:, t] if forced is not None
+                   else _sample(logits, temperature, generator))
             toks.append(tok)
-            logits, state = model.decode_step(params, state, tok, S0 + t,
-                                              patches)
+            logits, state = model.decode_step(params, state, mine(tok),
+                                              S0 + t, patches)
+            logits = sh.all_gather(logits, axes, 0)
             out.append(logits)
         _sync(device)
         t_decode = time.perf_counter() - t0
     ids = torch.stack(toks, dim=1).cpu().numpy()
-    return ServeResult(ids, out, t_prefill, t_decode)
+    return ServeResult(ids, out, t_prefill, t_decode, state)
 
 
 def draw_inputs(cfg, B: int, S0: int, generator, dtype):

@@ -15,7 +15,15 @@ this rank's contiguous share along the dim its sanitised spec puts on
 entries stay whole (FSDP over ``data`` is ROADMAP item 9c).  The trees may
 be nested or the flat ``/``-joined view; the specs are the model's
 ``logical_specs``, nested or flat.  Server optimizer state of the
-sharded params (``server_opt.init`` of them) is sharded alike."""
+sharded params (``server_opt.init`` of them) is sharded alike.
+``shard_leaf`` cuts one leaf as it is drawn (``LM.init``'s ``keep``), so a
+rank never holds the whole model.
+
+The decode state at rest: ``shard_state`` cuts a whole state by
+``state_logical_specs`` after ``sanitize_specs``, the batch over the batch
+axes and the attention cache's slots and Mamba's channels over ``model``:
+the shares that ``LM.prefill`` makes on a rank under the mesh, whose bytes
+are ``launch.dryrun.per_device_bytes`` of the state."""
 from __future__ import annotations
 
 import math
@@ -78,6 +86,34 @@ def flat_logical(tree, prefix: str = "") -> dict:
     return out
 
 
+def model_dim(shape, logical, mesh):
+    """The dim of a whole ``shape`` that its sanitised spec splits over
+    ``model`` on ``mesh``, or None."""
+    if mesh is None or mesh.shape.get(sh.MODEL, 1) == 1:
+        return None
+    out = None
+    for dim, e in enumerate(sanitize_entry(tuple(shape), logical, mesh)):
+        if sh.MODEL in ((e,) if isinstance(e, str) else tuple(e or ())):
+            out = dim
+    return out
+
+
+def shard_leaf(v, logical, mesh=None):
+    """This rank's share of the whole leaf ``v`` under its logical spec:
+    cut along the dim its sanitised spec puts on ``model`` to share
+    ``model`` index of ``model`` size, or ``v`` itself where nothing is
+    split.  The share is a copy with storage of its own: a cut that is
+    contiguous as it stands (the experts of a [1, E, D, F] leaf) would
+    otherwise be a view that keeps the whole leaf alive."""
+    mesh = mesh or sh.get_mesh()
+    d = model_dim(v.shape, logical, mesh)
+    if d is None:
+        return v
+    n = v.shape[d] // mesh.shape[sh.MODEL]
+    return v.narrow(d, mesh.coords[sh.MODEL] * n, n).clone(
+        memory_format=torch.contiguous_format)
+
+
 def model_dims(shapes: dict, logical: dict, mesh=None) -> dict:
     """``{leaf: the dim its sanitised spec splits over model, or None}``
     for the flat ``{leaf: shape}`` dict ``shapes`` (whole shapes) and the
@@ -85,16 +121,9 @@ def model_dims(shapes: dict, logical: dict, mesh=None) -> dict:
     default).  Without a ``model`` axis larger than 1 every entry is
     None."""
     mesh = mesh or sh.get_mesh()
-    out = dict.fromkeys(shapes)
-    if mesh is None or mesh.shape.get(sh.MODEL, 1) == 1:
-        return out
     logical = flat_logical(logical)
-    for name, shape in shapes.items():
-        spec = sanitize_entry(tuple(shape), logical[name], mesh)
-        for dim, e in enumerate(spec):
-            if sh.MODEL in ((e,) if isinstance(e, str) else tuple(e or ())):
-                out[name] = dim
-    return out
+    return {name: model_dim(shape, logical[name], mesh)
+            for name, shape in shapes.items()}
 
 
 def shard_params(whole, specs, mesh=None):
@@ -103,20 +132,9 @@ def shard_params(whole, specs, mesh=None):
     ``model`` to share ``model`` index of ``model`` size, the rest whole.
     Returns the same structure; a leaf not split is the tensor itself."""
     mesh = mesh or sh.get_mesh()
-    flat = flat_dict(whole)
-    dims = model_dims({k: tuple(v.shape) for k, v in flat.items()}, specs,
-                      mesh)
-    m = 1 if mesh is None else mesh.shape.get(sh.MODEL, 1)
-    i = 0 if m == 1 else mesh.coords[sh.MODEL]
-    out = {}
-    for k, v in flat.items():
-        d = dims[k]
-        if d is None:
-            out[k] = v
-        else:
-            n = v.shape[d] // m
-            out[k] = v.narrow(d, i * n, n).contiguous()
-    return _like(whole, out)
+    logical = flat_logical(specs)
+    return _like(whole, {k: shard_leaf(v, logical[k], mesh)
+                         for k, v in flat_dict(whole).items()})
 
 
 def gather_params(local, specs, whole_shapes, mesh=None):
@@ -131,6 +149,30 @@ def gather_params(local, specs, whole_shapes, mesh=None):
     out = {k: v if dims[k] is None else sh.all_gather(v, sh.MODEL, dims[k])
            for k, v in flat.items()}
     return _like(local, out)
+
+
+def shard_state(whole, logical, mesh=None) -> dict:
+    """This process's share of the whole decode state ``whole`` (``LM.
+    init_decode_state`` of the global batch, with no mesh) under its
+    logical specs (``LM.state_logical_specs``): each leaf cut along every
+    dim whose sanitised spec names mesh axes, to the share at this
+    process's flat index over them (the batch over ``pod`` and ``data``,
+    slots and channels over ``model``).  Returns the nested structure."""
+    mesh = mesh or sh.get_mesh()
+    spec = sanitize_specs(whole, logical, mesh)
+
+    def cut(v, s):
+        if isinstance(v, dict):
+            return {k: cut(v[k], s[k]) for k in v}
+        for dim, e in enumerate(s):
+            axes = () if e is None else (e,) if isinstance(e, str) else e
+            n = math.prod(mesh.shape[a] for a in axes)
+            if n > 1:
+                i = sh.flat_shard_index(axes, mesh.coords, mesh)
+                size = v.shape[dim] // n
+                v = v.narrow(dim, i * size, size)
+        return v
+    return cut(whole, spec)
 
 
 def _like(tree, flat: dict):
@@ -189,8 +231,8 @@ def decode_inputs_specs(cfg: ModelConfig, shape: InputShape, model: LM):
     tok_shape = (B, cfg.n_codebooks) if cfg.n_codebooks else (B,)
     token = meta(tok_shape, TOKENS)
     token_logical = (sh.BATCH,) + (None,) * (len(tok_shape) - 1)
-    state = {key: {name: meta(shp, dt) for name, (shp, dt) in leaves.items()}
-             for key, leaves in model.decode_state_specs(B, S).items()}
+    with sh.use_mesh(None):                 # the whole state, not a share
+        state = model.init_decode_state(B, S, device="meta")
     state_logical = model.state_logical_specs(B, S)
     patches = patches_logical = None
     if cfg.cross_attn_every:

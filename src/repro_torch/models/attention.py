@@ -1,12 +1,13 @@
 """Attention: GQA/MQA/MHA with RoPE, optional sliding window, chunked
-(online-softmax) computation for long sequences, and the decode path over
-a KV cache, and cross attention to image patches (the VLM family),
-mirroring ``repro/models/attention.py`` on one card.
+(online-softmax) computation for long sequences, the decode path over a
+KV cache (whole, or a shard of its sequence for the flash-decoding merge
+over ``model``: ``decode_partials``), and cross attention to image patches
+(the VLM family), mirroring ``repro/models/attention.py``.
 
 Layouts:
   q        [B, S, H, hd]
   k, v     [B, T, KV, hd]      (KV heads never repeated in memory)
-  caches   [B, S_max, KV, hd]
+  caches   [B, S_max, KV, hd]  (decode: S_max split over ``model``)
 """
 from __future__ import annotations
 
@@ -132,11 +133,43 @@ def decode_attend(q1, k_cache, v_cache, pos: int, *, window=0):
     return out.reshape(B, H, hd)
 
 
+def decode_partials(q1, k_shard, v_shard, pos: int, *, window=0, offset=0,
+                    total=None):
+    """``decode_attend`` over one shard of the cache, for the
+    flash-decoding merge (``sharding.merge_partials``): q1 [B,H,hd];
+    shards [B,S,KV,hd] holding the global slots ``offset .. offset+S-1``
+    of a cache of ``total`` slots (``S`` by default).  Validity is reckoned
+    on the global slot, the ring-buffer rule included.  Returns the
+    shard's float32 partials: the running max m [B,KV,G], the denominator
+    l [B,KV,G] and the unnormalised numerator o [B,KV,G,hd].  The scores
+    are formed in the model dtype and scaled in float32, as in
+    ``decode_attend``; the numerator stays float32 until the merge, where
+    ``decode_attend`` casts the softmax to the model dtype before ``p v``
+    (in bfloat16 the two differ by that rounding, ~2^-8 of a term)."""
+    B, S, KV, hd = k_shard.shape
+    total = total or S
+    H = q1.shape[1]
+    qg = q1.reshape(B, KV, H // KV, hd)
+    s = torch.einsum("bngd,btnd->bngt", qg, k_shard).to(torch.float32)
+    s *= hd ** -0.5
+    if window and pos + 1 >= total:
+        valid = torch.ones(S, dtype=torch.bool, device=q1.device)
+    else:
+        valid = torch.arange(offset, offset + S, device=q1.device) <= pos
+    s = _where_masked(s, valid[None, None, None])
+    m = s.amax(-1)
+    p = torch.exp(s - m[..., None])
+    o = torch.einsum("bngt,btnd->bngd", p, v_shard.to(torch.float32))
+    return m, p.sum(-1), o
+
+
 def cache_write(cache, new, pos: int):
     """Write ``new`` [B,L,KV,hd] into ``cache`` [B,S,KV,hd] at slots
     ``pos .. pos+L-1``, in place (the reference's ``dynamic_update_slice``
-    returns a new array).  The caller handles the ring modulo; a write that
-    would run off the end raises instead of being clamped."""
+    returns a new array).  The caller handles the ring modulo and, for a
+    shard of a cache split over ``model``, the shard's offset (``pos`` is
+    local); a write that would run off the end raises instead of being
+    clamped."""
     L, S = new.shape[1], cache.shape[1]
     if not 0 <= pos <= S - L:
         raise IndexError(f"cache_write: slots {pos}..{pos + L - 1} outside a "

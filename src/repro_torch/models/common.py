@@ -38,12 +38,19 @@ class ParamBuilder:
     is an empty tensor of its shape and dtype, so nothing is allocated or
     drawn (``generator`` may be None).  Each call site declares the
     parameter's logical sharding; ``specs`` collects them in a tree
-    parallel to ``params``, so init and sharding cannot drift apart."""
+    parallel to ``params``, so init and sharding cannot drift apart.
 
-    def __init__(self, generator: torch.Generator | None, dtype, device):
+    ``keep(tensor, logical) -> tensor``, where given, is applied to each
+    leaf as soon as it is drawn and only what it returns is held (a
+    rank's share of the leaf: ``launch.specs.shard_leaf``), so the whole
+    tree is never allocated."""
+
+    def __init__(self, generator: torch.Generator | None, dtype, device,
+                 keep: Callable | None = None):
         self.generator = generator
         self.dtype = dtype
         self.device = torch.device(device)
+        self.keep = keep
         self.params: dict = {}
         self.specs: dict = {}
 
@@ -70,6 +77,8 @@ class ParamBuilder:
             val = init(self.generator, shape).to(self.device, self.dtype)
         else:
             raise ValueError(init)
+        if self.keep is not None:
+            val = self.keep(val, tuple(logical))
         node, snode = self.params, self.specs
         for k in path[:-1]:
             node = node.setdefault(k, {})

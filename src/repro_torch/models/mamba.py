@@ -13,17 +13,19 @@ scan.  The reference's default (``use_kernel=False``) scans each chunk
 associatively, which rounds differently from the sequential scan: the two
 agree to about 1e-6 relative.
 
-Under a ``model`` axis larger than 1 (train mode; ``models.sharding``) the
-``d_inner`` channels split over ``model``.  ``in_proj`` is held at rest as
-its spec's contiguous share of the ``2 * d_inner`` columns ``[x | z]``,
-which is not the rank's channels of both halves, so the forward gathers it
-(``gather_to_model``: its backward sums the ranks' cotangents and cuts the
-share) and takes the rank's columns of ``x`` and of ``z``.  ``conv_w``,
-``conv_b``, ``dt_proj``, ``dt_bias``, ``A_log`` and ``D`` are
-channel-local; ``x_proj`` contracts the channels (its partial products
-summed over ``model``, then fed to every rank's channels), and
-``out_proj`` is row-parallel.  The scan and its backward run on the rank's
-``[B, L, d_inner / m, N]``.
+Under a ``model`` axis larger than 1 (``models.sharding``), in every mode,
+the ``d_inner`` channels split over ``model``.  ``in_proj`` is held at rest
+as its spec's contiguous share of the ``2 * d_inner`` columns ``[x | z]``,
+which is not the rank's channels of both halves, so each rank multiplies
+its share and the products are gathered and cut to the rank's channels of
+``x`` and of ``z`` (``sharding.pair_shares``).  ``conv_w``, ``conv_b``,
+``dt_proj``, ``dt_bias``, ``A_log`` and ``D`` are channel-local;
+``x_proj`` contracts the channels (its partial products summed over
+``model``, then fed to every rank's channels), and ``out_proj`` is
+row-parallel.  The scan and its backward run on the rank's ``[B, L,
+d_inner / m, N]``, and the decode state (``conv`` [B, d_conv-1, di/m], ``h``
+[B, di/m, N]) holds the same channels, the share its spec
+``(None, BATCH, None, MODEL)`` / ``(None, BATCH, MODEL, None)`` cuts.
 """
 from __future__ import annotations
 
@@ -126,16 +128,10 @@ def mamba_apply(p, x, *, cfg: MambaConfig, mode: str = "train",
     N = cfg.d_state
     m = sh.model_split(di)
     if m > 1:
-        # the rank's channels of x and of z, from in_proj gathered whole
-        w = sh.gather_to_model(p["in_proj"], -1)            # [D, 2di]
-        dl, r = di // m, sh.model_index()
-        w = torch.cat([w[:, r * dl:(r + 1) * dl],
-                       w[:, di + r * dl:di + (r + 1) * dl]], dim=-1)
-        xz = sh.copy_to_model(x) @ w                        # [B,S,2di/m]
-        di = dl
+        xin, z = sh.pair_shares(x, p["in_proj"], di)        # [B,S,di/m] each
+        di //= m
     else:
-        xz = x @ p["in_proj"]                               # [B,S,2di]
-    xin, z = xz.chunk(2, dim=-1)
+        xin, z = (x @ p["in_proj"]).chunk(2, dim=-1)        # [B,S,di] each
     xin = sh.shard(xin, sh.BATCH, None, sh.MODEL)
 
     if mode in ("train", "prefill"):
@@ -168,9 +164,11 @@ def mamba_apply(p, x, *, cfg: MambaConfig, mode: str = "train",
     window = torch.cat([conv_state, x1[:, None]], dim=1)    # [B,dc,di]
     conv = torch.einsum("bcd,cd->bd", window, p["conv_w"]) + p["conv_b"]
     conv = F.silu(conv)[:, None]                            # [B,1,di]
-    a, b, Cc = _ssm_coeffs(conv, p, cfg)
+    a, b, Cc = _ssm_coeffs(conv, p, cfg, tp=m > 1)
     h_new = a[:, 0] * h + b[:, 0]                           # [B,di,N]
     y = torch.einsum("bdn,bn->bd", h_new, Cc[:, 0].to(h_new.dtype))
     y = y.to(x.dtype)[:, None] + conv * p["D"]
     out = (F.silu(z) * y) @ p["out_proj"]
+    if m > 1:
+        out = sh.reduce_from_model(out)
     return out, {"conv": window[:, 1:], "h": h_new}

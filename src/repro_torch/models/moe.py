@@ -16,10 +16,11 @@ and sums the ranks' outputs over ``model`` (``reduce_from_model``); the
 tokens and gates enter the expert split through ``copy_to_model``, so the
 router and the tokens take the whole gradient.  The aux loss is computed
 whole on every rank, the reference's ``pmean`` over ``model`` of equal
-values.  ``gather_tokens`` (decode) all-gathers the tokens over the axes
-they are split over, routes them all and keeps the process's share; it
-serves only, and a ``model`` axis larger than 1 raises there
-(``sharding.MULTI_DEVICE``).
+values.  ``gather_tokens`` (decode; it serves only) all-gathers the tokens
+over the axes that split the batch, routes them all with the whole
+router, dispatches them to the rank's experts with the capacity from the
+gathered count, as the reference's ``shard_map`` computes it, sums the
+ranks' outputs over ``model`` and keeps the process's rows.
 
 Dispatch is sort-based with a fixed capacity per expert: the token
 assignments are stably sorted by expert, each keeps its rank within its
@@ -149,16 +150,14 @@ def moe_apply(p, x, *, cfg: MoEConfig, act: str, mode: str = "gather_weights"):
     computation."""
     if mode not in ("gather_weights", "gather_tokens"):
         raise ValueError(mode)
-    mesh = sh.get_mesh()
-    if mesh is not None and mode == "gather_tokens":
-        sh.check_model_axis("the MoE's gather_tokens (decode) layout")
-        tok_axes = sh.batch_split_axes()
-        if tok_axes:
-            B = x.shape[0]
-            xg = sh.all_gather(x, tok_axes, 0)
-            out, aux = _moe_local(xg, p["router"], p["w1"], p["w3"], p["w2"],
-                                  cfg=cfg, act=act)
-            i = sh.shard_index(tok_axes)
-            return out[i * B:(i + 1) * B], aux
+    tp = sh.model_split(cfg.num_experts) > 1
+    tok_axes = sh.batch_split_axes() if mode == "gather_tokens" else ()
+    if tok_axes:
+        B = x.shape[0]
+        xg = sh.all_gather(x, tok_axes, 0)
+        out, aux = _moe_local(xg, p["router"], p["w1"], p["w3"], p["w2"],
+                              cfg=cfg, act=act, tp=tp)
+        i = sh.shard_index(tok_axes)
+        return out[i * B:(i + 1) * B], aux
     return _moe_local(x, p["router"], p["w1"], p["w3"], p["w2"], cfg=cfg,
-                      act=act, tp=sh.model_split(cfg.num_experts) > 1)
+                      act=act, tp=tp)

@@ -37,8 +37,10 @@ through the conjugate collectives below (``copy_to_model``,
 ``gather_to_model``), each an ``autograd.Function`` with a ``vmap`` rule,
 so they run inside the round's ``torch.func`` transforms.  So
 ``shard(x, *logical)`` is the identity: a tensor already is its rank's
-share.  Serving (prefill and decode) with a ``model`` axis larger than 1
-raises (``check_model_axis``, ``MULTI_DEVICE``: ROADMAP item 9c).  The
+share.  Serving holds the decode state as ``state_logical_specs`` cuts it
+(the attention cache's sequence over ``model`` where the axis divides it,
+``model_slice``), and decode attention joins the shards' partial softmaxes
+with one gather over ``model`` (``merge_partials``: flash-decoding).  The
 rounds reduce gradients between the transforms (``core/round.py``), and
 the commit exchanges its rows between the client split and the row split
 (``kernels/ops.py``).
@@ -66,11 +68,6 @@ BATCH = "__batch__"   # data-parallel batch axis (pod+data in multi-pod)
 DATA = "data"
 MODEL = "model"
 POD = "pod"
-
-MULTI_DEVICE = ("serving (prefill and decode) over a `model` mesh axis "
-                "larger than 1 (the cache's sequence over `model`: ROADMAP "
-                "item 9c) is not ported")
-
 
 class PartitionSpec(tuple):
     """One entry per dim: a mesh axis name, a tuple of names, or None.  A
@@ -267,14 +264,6 @@ def model_live() -> bool:
             and mesh.shape.get(MODEL, 1) > 1)
 
 
-def check_model_axis(what: str) -> None:
-    """Raise (``MULTI_DEVICE``) where ``what``, a serving mode, would run
-    over a ``model`` axis larger than 1 (``model_live``)."""
-    if model_live():
-        raise NotImplementedError(f"{what} on a {get_mesh().shape} mesh: "
-                                  f"{MULTI_DEVICE}")
-
-
 def shard(x, *logical):
     """The sharding constraint of ``x`` against the active mesh.  Under the
     SPMD convention a tensor already is its rank's share along the batch
@@ -300,6 +289,14 @@ def model_index() -> int:
     if mesh is None or mesh.shape.get(MODEL, 1) == 1:
         return 0
     return mesh.coords[MODEL]
+
+
+def model_slice(size: int) -> tuple:
+    """(offset, length) of this process's share of a dim of whole size
+    ``size`` cut over ``model`` (``model_split``): ``(0, size)`` where the
+    dim stays whole."""
+    n = model_split(size)
+    return (model_index() * (size // n), size // n) if n > 1 else (0, size)
 
 
 def axis_size(name: str) -> int:
@@ -471,6 +468,32 @@ def all_to_all(x, axes, split_dim: int, concat_dim: int):
         return torch.cat([recv[j].movedim(0, split_dim) for j in range(n)],
                          concat_dim)
     return _run("all_to_all", x, op)
+
+
+def combine_partials(m, l, o):
+    """The softmax-weighted sum from the partials of its shards, stacked on
+    a leading dim: each shard's running max ``m`` [n, ...], denominator
+    ``l = sum exp(s - m)`` [n, ...] and unnormalised numerator ``o = sum
+    exp(s - m) v`` [n, ..., d], all float32.  Each shard is rescaled by
+    ``exp(m - max m)``, the shards summed in order, and the numerator
+    divided once.  A shard with no valid score has ``m`` at the mask's
+    finite -1e30, so its weight underflows to 0 (an infinite mask would
+    give NaN)."""
+    w = torch.exp(m - m.amax(0))
+    return (o * w[..., None]).sum(0) / (l * w).sum(0)[..., None]
+
+
+def merge_partials(m, l, o):
+    """Flash-decoding's merge over ``model``: every rank's partials
+    gathered (one ``all_gather``) and ``combine_partials`` run on them, in
+    shard order, so every rank holds the same bits.  Serving only: no
+    gradient passes."""
+    flat = torch.cat([m.reshape(-1), l.reshape(-1), o.reshape(-1)])
+    parts = all_gather(flat[None], MODEL, 0)
+    n, k = parts.shape[0], m.numel()
+    return combine_partials(parts[:, :k].reshape(n, *m.shape),
+                            parts[:, k:2 * k].reshape(n, *l.shape),
+                            parts[:, 2 * k:].reshape(n, *o.shape))
 
 
 def replica_checksums(tree: dict, axes=None, chunk: int = 1 << 24) -> dict:
@@ -694,3 +717,17 @@ def gather_to_model(x, dim: int = -1):
     of each rank's own (a weight held split, used whole): backward the
     ranks' cotangents summed and cut to the share."""
     return _GatherToModel.apply(x, _neg(x, dim)) if model_live() else x
+
+
+def pair_shares(x, w, n: int):
+    """The rank's channels of both halves of ``x @ w``, where ``w``'s
+    columns are two halves ``[a | b]`` of ``n`` channels each and ``w`` is
+    held as its spec's contiguous share over ``model``, which is not the
+    rank's channels of each half (Mamba's ``in_proj``, the mLSTM's
+    ``up``).  Each rank multiplies its share of the columns, the products
+    are gathered (``gather_to_model``: backward, the ranks' cotangents
+    summed and cut to the share) and each half is cut to the rank's
+    ``model_slice(n)``.  Returns (a, b)."""
+    y = gather_to_model(copy_to_model(x) @ w, -1)
+    off, dl = model_slice(n)
+    return y[..., off:off + dl], y[..., n + off:n + off + dl]

@@ -1,6 +1,5 @@
 """Composable decoder LM, mirroring ``repro/models/transformer.py``:
-training (``loss_fn``) and serving (prefill and batched decode) on one
-card.
+training (``loss_fn``) and serving (prefill and batched decode).
 
 A config is compiled to a *block pattern* (list of slots, each slot =
 mixer + optional FFN); the ``n_layers / len(pattern)`` groups keep
@@ -26,14 +25,20 @@ order, the layout the round, the update pipeline and the checkpoints use)
 and writes nothing in place, so the parallel round can run it under
 ``vmap(grad_and_value)`` over the clients' stacked params.
 
-Under a ``model`` mesh axis larger than 1 (train mode; ``models.sharding``)
-the params are the rank's shares as their specs cut them, and each layer
-splits over the axis where it divides: the MLPs column- then
-row-parallel, the embedding over D and the unembedding over the padded
-vocab (its logits gathered for the cross-entropy), attention over its
-query heads where ``attn_tp`` holds (``wk``/``wv`` whole, each rank's heads
-meeting their own KV heads), and the mixers as their modules say.
-Prefill and decode raise there (ROADMAP item 9c).
+Under a ``model`` mesh axis larger than 1 (``models.sharding``) the params
+are the rank's shares as their specs cut them, and each layer splits over
+the axis where it divides: the MLPs column- then row-parallel, the
+embedding over D and the unembedding over the padded vocab (its logits
+gathered whole), attention over its query heads where ``attn_tp`` holds
+(``wk``/``wv`` whole, each rank's heads meeting their own KV heads), and
+the mixers as their modules say.  Serving there holds the decode state as
+``state_logical_specs`` cuts it (``init_decode_state``): each attention
+cache holds the rank's contiguous share of its slots where the axis
+divides them, prefill writes the rank's slots (a sliding window's ring
+reckoned whole, then cut), decode writes the new token's K and V on the
+rank that owns its slot, attends every query head over the rank's slots
+(the rank's heads gathered first where ``attn_tp`` splits them) and joins
+the shards' partial softmaxes (``sharding.merge_partials``).
 
 Decode states are written in place: ``prefill`` fills the state that
 ``init_decode_state`` made, and ``decode_step`` updates the state it is
@@ -127,6 +132,17 @@ class _GroupRemat(torch.autograd.Function):
         return (None, g_in[0], g_in[1], None, None) + g_in[2:]
 
 
+class DecodeState(dict):
+    """The decode state, ``{slot: {leaf: tensor}}``, with ``cache_len``,
+    the whole length of its attention caches: a cache split over ``model``
+    holds a share of its slots, and decode reckons slots on the whole
+    ring."""
+
+    def __init__(self, slots: dict, cache_len: int):
+        super().__init__(slots)
+        self.cache_len = cache_len
+
+
 def _tree_index(tree, g):
     return {k: _tree_index(v, g) if isinstance(v, dict) else v[g]
             for k, v in tree.items()}
@@ -147,11 +163,13 @@ class LM:
         self.dtype = DTYPES[cfg.dtype]
 
     # ------------------------------------------------------------------ init
-    def init(self, generator: torch.Generator, device="cpu") -> dict:
+    def init(self, generator: torch.Generator, device="cpu",
+             keep=None) -> dict:
         """Random params with the reference's shapes, scales and init rules,
         drawn from ``generator`` (on its own device) in the reference's
-        order and cast to the config's dtype on ``device``."""
-        return self._build(ParamBuilder(generator, self.dtype, device))
+        order and cast to the config's dtype on ``device``; ``keep``, where
+        given, cuts each leaf as it is drawn (``ParamBuilder``)."""
+        return self._build(ParamBuilder(generator, self.dtype, device, keep))
 
     def param_specs(self) -> dict:
         """The params' tree with every leaf an empty tensor of its shape
@@ -291,7 +309,8 @@ class LM:
         out = out.reshape(B, S, H // m * hd) @ p["wo"]
         return sh.reduce_from_model(out) if m > 1 else out
 
-    def _attn(self, p, x, *, positions, window, mode, cache, pos=None):
+    def _attn(self, p, x, *, positions, window, mode, cache, pos=None,
+              cache_len=None):
         cfg = self.cfg
         B, S, D = x.shape
         H, KV, hd = cfg.n_heads, cfg.kv_heads, cfg.hd
@@ -306,14 +325,8 @@ class LM:
         k = apply_rope(k, positions, cfg.rope_theta)
 
         if mode == "decode":
-            S_c = cache["k"].shape[1]
-            slot = pos % S_c if window else pos
-            kc = sh.shard(attn.cache_write(cache["k"], k, slot),
-                          sh.BATCH, sh.MODEL, None, None)
-            vc = sh.shard(attn.cache_write(cache["v"], v, slot),
-                          sh.BATCH, sh.MODEL, None, None)
-            out = attn.decode_attend(q[:, 0], kc, vc, pos, window=window)
-            out = out[:, None]                       # [B,1,H,hd]
+            out = self._decode_attend(q[:, 0], k, v, cache, pos, window,
+                                      cache_len, m)[:, None]  # [B,1,H/m,hd]
         else:
             m_ax = sh.MODEL if self.attn_tp else None
             q = sh.shard(q, sh.BATCH, None, m_ax, None)
@@ -322,22 +335,58 @@ class LM:
             out = attn.attend(q, ke, ve, causal=True, window=window)
             del ke, ve
         if mode == "prefill":
-            S_max = cache["k"].shape[1]
-            if window:
-                # fill the ring buffer with the last `window` positions,
-                # placed so that slot = pos % S_max lines up
-                start = S - S_max if S >= S_max else 0
-                n = S - start
-                roll = start % S_max
-                for c, src in ((cache["k"], k), (cache["v"], v)):
-                    c.zero_()
-                    c[:, :n] = src[:, start:].to(c.dtype)
-                    c.copy_(torch.roll(c, roll, dims=1))
-            else:
-                attn.cache_write(cache["k"], k, 0)
-                attn.cache_write(cache["v"], v, 0)
+            self._fill_cache(cache, k, v, window, cache_len)
         out = out.reshape(B, S, H // m * hd) @ p["wo"]
         return sh.reduce_from_model(out) if m > 1 else out
+
+    @staticmethod
+    def _fill_cache(cache, k, v, window, cache_len):
+        """Prefill's write of the prompt's K and V [B, S, KV, hd] into the
+        rank's slots ``model_slice(cache_len)`` of the caches: positions in
+        order, or with a sliding window the last ``cache_len`` of them on
+        the ring, placed so that slot = pos % cache_len (the ring reckoned
+        whole, then cut)."""
+        S = k.shape[1]
+        off, n = sh.model_slice(cache_len)
+        for c, src in ((cache["k"], k), (cache["v"], v)):
+            if window:
+                start = S - cache_len if S >= cache_len else 0
+                ring = torch.zeros((c.shape[0], cache_len) + c.shape[2:],
+                                   dtype=c.dtype, device=c.device)
+                ring[:, :S - start] = src[:, start:].to(c.dtype)
+                c.copy_(torch.roll(ring, start % cache_len,
+                                   dims=1)[:, off:off + n])
+            elif S > off:
+                attn.cache_write(c, src[:, off:off + n], 0)
+
+    def _decode_attend(self, q1, k, v, cache, pos, window, cache_len, m):
+        """One decode step's attention: the new token's K and V [B,1,KV,hd]
+        written at slot ``pos`` (``pos % cache_len`` on a ring) by the rank
+        that owns that slot, then q1 [B, H/m, hd] (the rank's query heads)
+        against the cache.  With the heads split (``m`` > 1) the heads are
+        gathered and every rank attends all of them over its slots, then
+        keeps its own for the row-parallel ``wo``.  A cache split over
+        ``model`` gives each rank its shard's partial softmax, joined by
+        ``sharding.merge_partials`` and cast to the model dtype once."""
+        B, H, hd = q1.shape[0], self.cfg.n_heads, self.cfg.hd
+        off, n = sh.model_slice(cache_len)
+        slot = pos % cache_len if window else pos
+        if not 0 <= slot < cache_len:
+            raise IndexError(f"decode at position {pos} past a cache of "
+                             f"{cache_len}")
+        if off <= slot < off + n:
+            attn.cache_write(cache["k"], k, slot - off)
+            attn.cache_write(cache["v"], v, slot - off)
+        if m > 1:
+            q1 = sh.gather_to_model(q1, 1)
+        if n == cache_len:
+            out = attn.decode_attend(q1, cache["k"], cache["v"], pos,
+                                     window=window)
+        else:
+            out = sh.merge_partials(*attn.decode_partials(
+                q1, cache["k"], cache["v"], pos, window=window, offset=off,
+                total=cache_len)).reshape(B, H, hd).to(q1.dtype)
+        return sh.scatter_to_model(out, 1) if m > 1 else out
 
     def _ffn(self, slot, p, x, mode):
         cfg = self.cfg
@@ -352,7 +401,7 @@ class LM:
                                  mode=moe_mode)
 
     def _apply_slot(self, slot: Slot, p, x, *, mode, positions=None,
-                    cache=None, pos=None, patches=None):
+                    cache=None, pos=None, patches=None, cache_len=None):
         """One slot.  ``cache`` is this slot's decode state for this group,
         updated in place; in ``mode="train"`` there is none."""
         cfg = self.cfg
@@ -360,7 +409,7 @@ class LM:
         if slot.mixer == "attn":
             out = self._attn(p, h, positions=positions,
                              window=cfg.sliding_window, mode=mode,
-                             cache=cache, pos=pos)
+                             cache=cache, pos=pos, cache_len=cache_len)
         elif slot.mixer == "cross":
             out = self._cross(p, h, mode=mode, cache=cache, patches=patches)
         else:
@@ -390,7 +439,7 @@ class LM:
 
     # ---------------------------------------------------------------- forward
     def _group(self, gp, x, aux, *, mode, positions, gc=None, pos=None,
-               patches=None):
+               patches=None, cache_len=None):
         """One layer group: its slots in order, each slot's aux added to
         ``aux``.  Returns (x, aux)."""
         for si, slot in enumerate(self.pattern):
@@ -398,13 +447,14 @@ class LM:
             x, a = self._apply_slot(slot, gp[key], x, mode=mode,
                                     positions=positions,
                                     cache=None if gc is None else gc.get(key),
-                                    pos=pos, patches=patches)
+                                    pos=pos, patches=patches,
+                                    cache_len=cache_len)
             aux = aux + a
             x = sh.shard(x, sh.BATCH, None, None)
         return x, aux
 
     def _backbone(self, params, x, *, mode, positions, caches, pos=None,
-                  patches=None, remat=True):
+                  patches=None, remat=True, cache_len=None):
         """Loop over layer groups, updating ``caches`` in place (``{}`` in
         ``mode="train"``, which writes nothing in place).  Returns (x, aux
         mean).  In ``mode="train"`` with ``remat`` each group runs
@@ -428,7 +478,7 @@ class LM:
                 x, aux = self._group(gp, x, aux, mode=mode,
                                      positions=positions,
                                      gc=_tree_index(caches, g), pos=pos,
-                                     patches=patches)
+                                     patches=patches, cache_len=cache_len)
         return x, aux / self.cfg.n_layers
 
     # ------------------------------------------------------------------ train
@@ -525,19 +575,29 @@ class LM:
         return specs
 
     def init_decode_state(self, B: int, s_max: int, dtype=None,
-                          device="cpu") -> dict:
-        return {key: {name: torch.zeros(shape, dtype=dt, device=device)
-                      for name, (shape, dt) in leaves.items()}
-                for key, leaves in self.decode_state_specs(
-                    B, s_max, dtype).items()}
+                          device="cpu") -> DecodeState:
+        """The zeroed decode state of ``B`` sequences (this process's share
+        of the batch) and ``s_max`` positions.  Each leaf is the rank's
+        share as ``state_logical_specs`` cuts it over ``model`` (the
+        attention cache's slots, Mamba's channels) where the axis divides
+        the dim (``sharding.model_split``, the reference's
+        ``sanitize_entry`` rule), whole otherwise."""
+        logical = self.state_logical_specs(B, s_max)
+        slots = {}
+        for key, leaves in self.decode_state_specs(B, s_max, dtype).items():
+            slots[key] = {}
+            for name, (shape, dt) in leaves.items():
+                shape = tuple(d // sh.model_split(d) if e == sh.MODEL else d
+                              for d, e in zip(shape, logical[key][name]))
+                slots[key][name] = torch.zeros(shape, dtype=dt, device=device)
+        return DecodeState(slots, self.cache_len(s_max))
 
     def prefill(self, params, batch, s_max: int):
         """batch: {"tokens": [B, S] integer ([B, S, n_cb] with codebooks),
         and for the VLM "patches" [B, n_patches, D]}.  Returns
         (last-position logits [B, vocab] ([B, n_cb, vocab]), decode
-        state)."""
+        state).  Under a mesh ``batch`` is this process's share."""
         cfg = self.cfg
-        sh.check_model_axis(f"{cfg.name}'s prefill")
         tokens = batch["tokens"]
         B, S = tokens.shape[0], tokens.shape[1]
         if S > s_max:
@@ -547,7 +607,8 @@ class LM:
         positions = torch.arange(S, device=device)
         caches = self.init_decode_state(B, s_max, device=device)
         x, _ = self._backbone(params, x, mode="prefill", positions=positions,
-                              caches=caches, patches=batch.get("patches"))
+                              caches=caches, patches=batch.get("patches"),
+                              cache_len=caches.cache_len)
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
         lg = self.logits(params, x[:, -1:])[:, 0]
         return lg[..., :cfg.vocab], caches
@@ -557,13 +618,15 @@ class LM:
         position.  Returns (logits [B, vocab] ([B, n_cb, vocab]), state),
         the state updated in place.  ``patches`` is taken as the reference
         takes it, and unused: the cross-attention K and V are read from
-        the state that prefill wrote."""
+        the state that prefill wrote.  ``state`` is a ``DecodeState``
+        (``init_decode_state``, ``prefill``): its ``cache_len`` places the
+        slots of a cache split over ``model``."""
         cfg = self.cfg
-        sh.check_model_axis(f"{cfg.name}'s decode")
+        cache_len = state.cache_len
         x = self.embed(params, token[:, None])      # [B,1,D] ([B,1,n_cb])
         positions = torch.tensor([pos], device=x.device)
         x, _ = self._backbone(params, x, mode="decode", positions=positions,
-                              caches=state, pos=pos)
+                              caches=state, pos=pos, cache_len=cache_len)
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
         lg = self.logits(params, x[:, 0])
         return lg[..., :cfg.vocab], state

@@ -11,22 +11,25 @@ Python loop over the steps, where the reference runs ``lax.scan``.
 Exponential gating is stabilised with the max-state m as in the paper.
 
 The reference runs the sLSTM block under ``shard_map``, heads split over
-``model``, when ``_head_shard_mesh`` finds a mesh whose ``model`` axis is
-larger than 1, not excluded, and divides the heads; otherwise it takes the
-unsharded path.  The port does the same in train mode on the process's
-share of the batch (``models.sharding``'s SPMD convention): the gate
-projections ``w{i,f,z,o}`` are column-parallel, and their contiguous share
-is the rank's heads; ``r*``, ``b*`` and the carry hold ``H / m`` heads;
-the loop over time runs on them, and ``down`` is row-parallel.  Where the
-axis divides ``D`` but not the heads, the split weights are gathered
+``model``, in train and prefill mode when ``_head_shard_mesh`` finds a
+mesh whose ``model`` axis is larger than 1, not excluded, and divides the
+heads; otherwise it takes the unsharded path.  The port does the same on
+the process's share of the batch (``models.sharding``'s SPMD convention),
+in decode mode too: the gate projections ``w{i,f,z,o}`` are
+column-parallel, and their contiguous share is the rank's heads; ``r*``,
+``b*`` and the carry hold ``H / m`` heads; the loop over time runs on
+them, and ``down`` is row-parallel.  The decode state stays whole over
+``model`` (its spec ``(None, BATCH, None, None)``): a rank starts from its
+heads' share of it and gathers the final carry whole.  Where the axis
+divides ``D`` but not the heads, the split weights are gathered
 (``gather_from_model``) and the block runs whole on every rank.  The
 mLSTM's ``up`` is held as its spec's contiguous share of ``[u | z]``, so
-it is gathered (``gather_to_model``) and cut to the rank's channels of
-``u`` and ``z``; ``wq``/``wk``/``wv``/``wi``/``wf`` contract the channels
-(their partial products summed over ``model``), the cell runs whole on
-every rank, and its output enters the row-parallel ``down`` cut to the
-rank's channels (``scatter_to_model``).  Prefill and decode with a
-``model`` axis larger than 1 raise (``sharding.MULTI_DEVICE``).
+each rank's product is gathered and cut to its channels of ``u`` and
+``z`` (``sharding.pair_shares``); ``wq``/``wk``/``wv``/``wi``/``wf``
+contract the channels (their partial products summed over ``model``), the
+cell runs whole on every rank in every mode (its state ``C``, ``n``,
+``m`` whole, as its specs say), and its output enters the row-parallel
+``down`` cut to the rank's channels (``scatter_to_model``).
 
 Nothing is written in place, so ``LM.loss_fn`` runs these mixers under the
 round's ``vmap(grad_and_value)``.  Gate pre-activations, states and the
@@ -115,14 +118,9 @@ def mlstm_apply(p, x, *, n_heads: int, cfg: XLSTMConfig, mode="train",
     B, S, _ = x.shape
     du = p["wq"].shape[1]
     hd = du // n_heads
-    tp = sh.model_split(du) if mode == "train" else 1
+    tp = sh.model_split(du)
     if tp > 1:
-        # the rank's channels of u and of z, from `up` gathered whole
-        w = sh.gather_to_model(p["up"], -1)                # [D, 2du]
-        dl, r = du // tp, sh.model_index()
-        w = torch.cat([w[:, r * dl:(r + 1) * dl],
-                       w[:, du + r * dl:du + (r + 1) * dl]], dim=-1)
-        u, z = (sh.copy_to_model(x) @ w).chunk(2, dim=-1)  # [B,S,du/m]
+        u, z = sh.pair_shares(x, p["up"], du)              # [B,S,du/m] each
         proj = lambda w: sh.reduce_from_model(u @ w)
     else:
         u, z = (x @ p["up"]).chunk(2, dim=-1)             # [B,S,du]
@@ -174,7 +172,11 @@ def mlstm_apply(p, x, *, n_heads: int, cfg: XLSTMConfig, mode="train",
     den = torch.maximum(torch.abs(torch.einsum("bhd,bhd->bh", nrm, qs)),
                         torch.exp(-m_new))
     y = (num / den[..., None]).reshape(B, 1, du).to(x.dtype)
+    if tp > 1:
+        y = sh.scatter_to_model(y, -1)
     out = (F.silu(z) * y) @ p["down"]
+    if tp > 1:
+        out = sh.reduce_from_model(out)
     return out, {"C": C, "n": nrm, "m": m_new}
 
 
@@ -245,12 +247,13 @@ def slstm_apply(p, x, *, n_heads: int, mode="train", state=None):
     """x [B,S,D].  ``state`` (prefill: the zeroed decode state, decode: the
     running one) is {"c", "n", "h", "m"}, each [B,H,hd] f32; with none
     (train) the carry starts at zero with n = 1e-6.  Returns (out, state),
-    state None in train mode.  In train mode under a ``model`` axis the
-    heads split over it (``_head_shard_mesh``)."""
+    state None in train mode.  Under a ``model`` axis the heads split over
+    it (``_head_shard_mesh``): the rank starts from its heads' share of a
+    given state and returns the final state gathered whole."""
     B, S, D = x.shape
     H, hd = n_heads, D // n_heads
-    m = _head_shard_mesh(n_heads, D) if mode == "train" else 1
-    split = mode == "train" and m == 1 and sh.model_split(D) > 1
+    m = _head_shard_mesh(n_heads, D)
+    split = m == 1 and sh.model_split(D) > 1
     if split:
         # the weights are split over `model` at rest but the heads are not
         # whole in a share: gathered, and the block runs whole everywhere
@@ -263,6 +266,8 @@ def slstm_apply(p, x, *, n_heads: int, mode="train", state=None):
     if state is None:
         z0 = torch.zeros((B, H, hd), dtype=F32, device=x.device)
         state = {"c": z0, "n": z0 + 1e-6, "h": z0, "m": z0}
+    elif m > 1:
+        state = {k: sh.scatter_to_model(v, 1) for k, v in state.items()}
     carry0 = (state["c"], state["n"], state["h"], state["m"])
     rp = {k: p[k].to(F32) for k in ("ri", "rf", "rz", "ro")}
     gates = tuple(x @ p[f"w{g}"] + p[f"b{g}"] for g in "ifzo")
@@ -278,5 +283,8 @@ def slstm_apply(p, x, *, n_heads: int, mode="train", state=None):
     out = y @ p["down"]
     if m > 1:
         out = sh.reduce_from_model(out)
-    st = dict(zip("cnhm", carry))
-    return out, (None if mode == "train" else st)
+    if mode == "train":
+        return out, None
+    if m > 1:
+        carry = tuple(sh.gather_from_model(c, 1) for c in carry)
+    return out, dict(zip("cnhm", carry))

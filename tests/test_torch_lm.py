@@ -407,7 +407,7 @@ def test_training_is_not_ported():
     reduced Jamba's ``loss_fn`` (Mamba's train mode through the scan's
     backward, attention, the MoE) and every gradient against the
     reference's, from the same params and tokens; the gradients to
-    tests/test_torch_lm_train.py's 1e-5."""
+    tests/test_torch_lm_train_loss.py's 1e-5."""
     jcfg, cfg = configs("jamba-1.5-large-398b")
     jm, model = jbuild(jcfg), build_model(cfg)
     jp = jm.init(jax.random.PRNGKey(0))

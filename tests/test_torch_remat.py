@@ -8,7 +8,7 @@ attention, the audio LM's codebooks), one round of C=4 clients and 2 local
 steps:
 
 * against the reference's ``build_fl_round_step`` (which remats too), to
-  1e-5 as ``tests/test_torch_lm_train.py`` holds a round;
+  1e-5 as ``tests/test_torch_lm_train_*.py`` hold a round;
 * against the port's own round without remat, bit for bit
   (``torch.equal``), in the parallel mode for every family and in the
   sequential mode for the hybrid and the VLM: the recompute runs the same
@@ -34,8 +34,8 @@ from repro_torch.models import transformer
 from repro_torch.optim import get_client_optimizer, get_server_optimizer
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
-from test_torch_lm_train import (STEP_TOL, _assert_tree,  # noqa: E402
-                                 _round_setup, rel_err)
+from test_torch_lm_train_rounds import (STEP_TOL,  # noqa: E402
+                                        _assert_tree, _round_setup, rel_err)
 
 FAMILIES = ["granite-3-2b", "qwen3-moe-235b-a22b", "jamba-1.5-large-398b",
             "xlstm-125m", "llama-3.2-vision-90b", "musicgen-medium"]

@@ -43,6 +43,20 @@ K = 5
 PARTICIPATION = np.array([1, 1, 0, 1, 1], np.float32)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_intra_op_thread():
+    """torch on one intra-op thread for this module, restored after it.  The
+    plain secure commit hashes [K, rows, block] grids of int64 words a slot
+    at a time; split over OpenMP threads those grids ran ~130x slower than
+    on one thread on an 8-core x86 host (mask sums over 257 peers, 3.46 s
+    against 0.026 s for 20 slots), and the 1025-slot case took minutes.
+    The module's checks hold on either thread count."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def t(a):
     return torch.from_numpy(np.array(a))
 

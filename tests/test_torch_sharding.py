@@ -7,8 +7,8 @@ read only ``axis_names`` and ``shape``.  Each is compared under every
 ``exclude_axes`` set the rounds use.  Then ``shard``: the identity without
 a mesh, on a 1x1 mesh and, under the SPMD convention (a tensor already is
 its rank's share), on every spec, a ``model`` axis larger than 1 included,
-where ``model_split`` splits what the axis divides and serving raises
-naming its item (ROADMAP 9c); the mesh seen from another thread;
+where ``model_split`` splits what the axis divides and ``model_slice``
+keeps whole what it does not; the mesh seen from another thread;
 ``flat_shard_index`` row-major; the production and test meshes' shapes;
 and the round's guard: parallel mode under a mesh without
 ``client_spmd_axes`` raises as the reference does."""
@@ -77,12 +77,12 @@ def test_shard_is_the_identity_on_one_device():
             assert sh.shard(x, sh.BATCH, sh.MODEL) is x
             m = sh.axis_size("model")
             assert sh.model_split(m * 3) == m and sh.model_split(m + 1) == 1
-            with pytest.raises(NotImplementedError, match="item 9c"):
-                sh.check_model_axis("serving")
+            # a dim the axis does not divide stays whole
+            assert sh.model_slice(m + 1) == (0, m + 1)
             with sh.exclude_axes(sh.MODEL):
                 assert sh.shard(x, sh.BATCH, sh.MODEL) is x
                 assert sh.model_split(m * 3) == 1
-                sh.check_model_axis("serving")
+                assert sh.model_slice(m * 3) == (0, m * 3)
     with sh.use_mesh(sh.Mesh(("pod", "data", "model"), (2, 2, 1),
                              tuple(range(4)))):
         assert sh.shard(x, sh.BATCH, sh.MODEL) is x

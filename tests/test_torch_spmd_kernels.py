@@ -15,8 +15,8 @@ masks cancel from each rank's global base: the results are the unsharded
 ones, not only the unmasked sum.  Then the collectives against their
 definitions, a rank that raises failing the run within its timeout, and a
 ``model`` 2 mesh that builds and runs what used to raise there (serving
-alone still raises, naming its item); and the MoE's decode layout over a
-split batch, each rank's output its share of the unsplit layer's."""
+included); and the MoE's decode layout over a split batch, each rank's
+output its share of the unsplit layer's."""
 import time
 
 import numpy as np
@@ -228,8 +228,8 @@ def test_a_failing_rank_fails_the_run(tmp_path):
 
 def _model_axis_cases(mesh):
     """Everything a ``model`` 2 mesh runs, on this rank's shares, and the
-    same calls with no mesh on whole values: {name: (split, unsplit)};
-    serving's refusal, naming the serving item."""
+    same calls with no mesh on whole values: {name: (split, unsplit)},
+    serving's prefill logits among them."""
     from repro_torch.configs import get_config, reduced
     from repro_torch.core import FLConfig, build_fl_round_step
     from repro_torch.models import build_model, moe, xlstm
@@ -275,13 +275,14 @@ def _model_axis_cases(mesh):
                                       act="swiglu")[0],
                  "slstm": xlstm.slstm_apply(p_sl, xm, n_heads=4)[0]}
     out.update({k: (split[k], whole[k]) for k in split})
+    from repro_torch.launch import specs
     model = build_model(reduced(get_config("granite-3-2b")))
-    try:
-        model.prefill(model.init(torch.Generator().manual_seed(0)),
-                      {"tokens": torch.zeros(1, 4, dtype=torch.long)}, 8)
-        out["serving"] = None
-    except NotImplementedError as e:
-        out["serving"] = str(e)
+    params = model.init(torch.Generator().manual_seed(0))
+    prompt = {"tokens": torch.arange(4)[None] % 7}
+    out["serving"] = (model.prefill(specs.shard_params(
+        params, model.logical_specs), prompt, 8)[0],)
+    with sh.use_mesh(None):
+        out["serving"] += (model.prefill(params, prompt, 8)[0],)
     return out
 
 
@@ -289,7 +290,8 @@ def test_a_model_axis_mesh_builds_and_raises(tmp_path):
     """A ``model`` 2 mesh builds, and what used to raise there runs: the
     round, the commit, the MoE on the rank's experts and the sLSTM on its
     heads equal their unsplit results (the round and the commit bit for
-    bit); serving alone still raises, naming its item."""
+    bit); serving, which raised on such a mesh before, runs and equals
+    it too."""
     got = spmd.run(_model_axis_cases, sizes=(1, 1, 2), device="cpu",
                    init_method=spmd.init_file(tmp_path), all_ranks=True,
                    verbose=False)
@@ -299,11 +301,8 @@ def test_a_model_axis_mesh_builds_and_raises(tmp_path):
         assert out["slstm heads"] == 2
         for name in ("round", "commit"):
             assert torch.equal(*out[name]), name
-        for name in ("moe", "slstm"):
+        for name in ("moe", "slstm", "serving"):
             torch.testing.assert_close(*out[name], rtol=1e-5, atol=1e-6)
-        assert out["serving"] is not None
-        assert "`model` mesh axis" in out["serving"], out["serving"]
-        assert "item 9c" in out["serving"], out["serving"]
 
 
 @pytest.mark.parametrize("mesh", sorted(MESHES))
