@@ -8,6 +8,7 @@ training rounds, and the host's cost of a kernel launch.
     python3 chip_compare.py --xlstm-gaps SEED [SEED ...]
     python3 chip_compare.py --spmd
     python3 chip_compare.py --spmd-references
+    python3 chip_compare.py --gather
 
 ``--parent DIR``: DIR is another checkout of the repository (for example a
 ``git archive`` of the parent commit unpacked into a git-ignored
@@ -37,6 +38,15 @@ calls) of each piece of a kernel wrapper's path into CUDA (its checks, the
 output's allocation, the stream's handle, the ctypes launch), of the whole
 ``fused_accum`` wrapper, and of the ``einsum`` that computes the same sum,
 on a small stack.
+
+``--gather``: the mesh layer's collectives over gloo between ranks that
+share the card, as FSDP's weight gathers use them: a 512 MiB bf16 share a
+rank gathered over ``data`` by ``sharding.all_gather`` (a list of
+outputs, then a concatenation), by ``all_gather_into_tensor`` and by
+staging it through the host, and summed by ``sharding.psum``, on two
+ranks (``data`` 2) and on four (two ``data`` groups at once); each the
+mean of three calls after one, synchronised, and checked against the
+gather.
 
 ``--paths DIR [DIR ...]``: the host-bound training paths of this tree and
 the other checkouts in turns (this tree, each DIR, the DIRs again in
@@ -592,6 +602,55 @@ def spmd_reference_algorithms() -> None:
     torch.backends.cudnn.deterministic = False
 
 
+def gather_rank(mesh, n):
+    """``--gather`` on one rank: {variant: (seconds a call, equal to the
+    port's gather)}."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.models import sharding as sh
+    dev = mesh.device
+    x = torch.randn(n, device=dev, dtype=torch.bfloat16)
+    group = mesh.group(("data",))
+
+    def into():
+        out = torch.empty(group.size() * n, device=dev, dtype=x.dtype)
+        dist.all_gather_into_tensor(out, x, group=group)
+        return out
+
+    def staged():
+        out = torch.empty(group.size() * n, dtype=x.dtype)
+        dist.all_gather_into_tensor(out, x.cpu(), group=group)
+        return out.to(dev)
+
+    want = sh.all_gather(x, "data", 0)
+    out = {}
+    for name, fn in (("sharding.all_gather", lambda: sh.all_gather(
+            x, "data", 0)), ("all_gather_into_tensor", into),
+            ("staged through the host", staged),
+            ("sharding.psum", lambda: sh.psum(x, "data"))):
+        same = name.endswith("psum") or torch.equal(fn(), want)
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize(dev)
+        out[name] = ((time.perf_counter() - t0) / 3, same)
+    return out
+
+
+def gather_readings() -> None:
+    from repro_torch.launch import spmd
+    n = 1 << 28                       # 512 MiB of bf16 a rank
+    for sizes in ((1, 2, 1), (2, 2, 1)):
+        got = spmd.run(gather_rank, (n,), sizes=sizes, device="cuda",
+                       threads=None, verbose=False)
+        print(f"gather over data, {sizes} mesh, a 512 MiB bf16 share a "
+              f"rank (the gather's output 1 GiB): " + "; ".join(
+                  f"{k} {v[0]:.4f} s (equal {v[1]})" for k, v in got.items()),
+              flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", type=Path, help="another checkout to compare")
@@ -602,6 +661,7 @@ def main(argv=None) -> int:
     ap.add_argument("--xlstm-gaps", type=int, nargs="+", metavar="SEED")
     ap.add_argument("--spmd", action="store_true")
     ap.add_argument("--spmd-references", action="store_true")
+    ap.add_argument("--gather", action="store_true")
     args = ap.parse_args(argv)
     sys.path.insert(0, str(ROOT))
     import torch
@@ -625,6 +685,8 @@ def main(argv=None) -> int:
         spmd_readings()
     if args.spmd_references:
         spmd_reference_algorithms()
+    if args.gather:
+        gather_readings()
     print(f"nvidia-smi: {cs.nvidia_smi()}")
     return 0
 

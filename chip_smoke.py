@@ -136,7 +136,7 @@ it happened; any failure ends the run with a non-zero exit code:
      wall, the peak memory and the scan's and its backward's launches
      (8 chunks x steps x clients a round, the scan twice: forward and
      recompute) exact; (c) xlstm-125m whole in
-     bf16: 2 parallel rounds of 4 clients, 2 local steps, batch 4 of 256
+     bf16: a parallel round of 4 clients, 2 local steps, batch 4 of 128
      tokens, with the round wall, the peak memory and the sLSTM's share
      of a local step; then serving a 512-token prompt at batch 2 and 16
      greedy decode steps through ``serve.run``, decoding held against
@@ -159,11 +159,12 @@ it happened; any failure ends the run with a non-zero exit code:
      without ``client_spmd_axes`` is refused as in the reference; (b)
      ``python -m repro_torch.launch.dryrun`` for a dense, an MoE and a
      hybrid arch over every input shape on both production meshes, one
-     line a tag, on the meta device: the card's allocated memory is held
-     unchanged;
+     line a tag, on the meta device, one process an arch with no card
+     visible, started after ``round_parity`` so that it runs beside the
+     card's phases (it needs no card and can allocate nothing there);
  10. the round across processes (``spmd``): (a), with a ``model`` axis of 1,
      four gloo ranks sharing the card (NCCL takes one rank a GPU) on a
-     pod 2 x data 2 mesh run the full-width CIFAR round (20 clients, 5
+     pod 2 x data 2 mesh run the full-width CIFAR round (20 clients, 2
      local steps, batch 16) in the parallel (clients over pod and data),
      sequential (each client's batch over data) and pod_sequential (2 pods
      over pod, the batch over data) modes: each rank's deltas within 1e-5
@@ -172,7 +173,8 @@ it happened; any failure ends the run with a non-zero exit code:
      counted alone; the
      default, q8 + top-k and secure q8 commits of this process's deltas,
      each rank on its share, bit for bit; the secure async buffer commit
-     bit for bit; the reduced Jamba's sequential round, its scan and
+     bit for bit; the reduced Jamba's sequential round (its params cut
+     over data at rest and gathered a layer at a time: FSDP), its scan and
      backward launched exactly on each rank's batch share, the loss
      within 1e-3 and the params within 1e-4 of no mesh (its MoE routes
      each rank's tokens; the bounds from readings, SPMD_JAMBA_TOL); every
@@ -184,28 +186,32 @@ it happened; any failure ends the run with a non-zero exit code:
      under the deterministic ones (the default ones' rounding at a rank's
      half batch is beyond 1e-5); (b)
      MusicGen-medium whole in bf16, one
-     sequential round of 2 clients x 2 steps, batch 2 x 512 frames x 4
+     sequential round of 2 clients x 1 step, batch 2 x 512 frames x 4
      codebooks split over two ranks sharing the card, against the same
-     round with no mesh (loss within 5e-3, params within 3e-2), every
-     rank reducing each gradient leaf and the loss at every local step of
-     every client, with each rank's peak, the round's wall and its
-     gradient reductions' time; (c)
+     round with no mesh (loss within 5e-3, params within 3e-2), the
+     params and a FedAdam state's bytes on each rank the dry run's (cut
+     over data: FSDP), every rank reducing each gradient leaf (a leaf cut
+     over data in its gather's backward, once a layer) and the loss at
+     every local step of every client, with each rank's peak, the round's
+     wall and its gradient reductions' and weight gathers' time; (c)
      the CIFAR parallel round as a one-rank NCCL group, bit for bit
      against no mesh under deterministic algorithms; (d) eight gloo ranks
      on the reference test's pod 2 x data 2 x model 2 mesh, the params
-     held at rest as their sanitised specs cut them, run the reduced
+     held at rest as their sanitised specs cut them (over data and model:
+     their bytes and a FedAdam state's the dry run's), run the reduced
      granite (sequential, pod_sequential), Qwen3-MoE (sequential), xLSTM
      (parallel, sequential) and Jamba (parallel: the scan and its backward
      on the rank's channels, the experts over model) rounds, each in the
      reference test's stochastic q8 against the same round with no mesh
      (loss within 5e-3, params within 3e-2) and uncompressed with the
      fused FedProx update within 1e-5 of the same round with ``model``
-     dropped (deterministic algorithms), the shares bit for bit on the
-     ranks that hold them; the main path's parallel CIFAR round against no
+     dropped (its params cut over data alone; deterministic algorithms),
+     the shares bit for bit on the ranks that hold them; the main path's
+     parallel CIFAR round against no
      mesh, launching fused_accum once a rank; every commit kernel's entry
      point with ``model`` among the fusion axes bit for bit; (e)
      granite-3-2b whole (bf16, 40 layers, every published width), one
-     sequential round of 2 clients x 2 steps x batch 1 x 1024 tokens with
+     sequential round of 1 client x 2 steps x batch 1 x 1024 tokens with
      no mesh, then on data 1 x model 2, two ranks sharing the card: each
      rank's param bytes equal to the dry run's, its round peak held
      against no mesh's (GRANITE_PEAK_RATIO), the loss and the params
@@ -229,7 +235,21 @@ it happened; any failure ends the run with a non-zero exit code:
      bound at every step; 112 scan launches a rank on its 8192 of 16384
      channels, prefill s, decode ms a token and each rank's peak printed;
      then the scan at a rank's chunk [1, 128, 8192, 16] bit for bit
-     against its plain version and timed beside its bound.
+     against its plain version and timed beside its bound; (g) FSDP over
+     data: granite-3-2b whole, one sequential round of 2 clients x 2
+     steps x batch 2 x 1024 tokens with no mesh, then on data 2 x model 2,
+     four ranks sharing the card, each layer's weights gathered over data
+     just before it runs: each rank's param and FedAdam state bytes equal
+     to the dry run's, the loss and the params against no mesh (5e-3,
+     3e-2), the shares bit for bit on the ranks that hold them, each
+     rank's peak and the collectives' time printed; (h) (f) (ii)'s cut
+     with no routing choice served on data 2 x model 2, one row of the
+     batch a data rank, fed the no-mesh run's tokens: its param and
+     decode-state bytes the dry run's, the experts' F held cut over data
+     and, in decode, their partial sums added over data once a MoE layer
+     a step, the logits within SERVE_DECODE_TOL of no mesh's at every
+     step, 112 scans a rank on 8192 channels, each rank's peak, prefill s
+     and decode ms a token printed.
 The last lines are the kernels' JSON record, the nvidia-smi line, and
 ``{"ok": true, "device": {...}}``.
 """
@@ -268,6 +288,8 @@ from repro_torch.core import (AdaptiveStalenessController,  # noqa: E402
                               build_buffer_commit_step,
                               build_chunked_commit_steps, build_fl_round_step)
 from repro_torch.core import secure_agg as sec  # noqa: E402
+from repro_torch.core.pipeline import (cuts_over, cuts_share,  # noqa: E402
+                                       cuts_whole)
 from repro_torch.core.round import ParallelRound  # noqa: E402
 from repro_torch.kernels import launches, ref  # noqa: E402
 from repro_torch.kernels.fedprox_update import fedprox_update_flat  # noqa: E402
@@ -569,7 +591,10 @@ JAMBA_TRAIN_CUTS = ("depth 72 -> 2 (attn_every 8 -> 2: [mamba + mlp, attn + "
 # serving a 512-token prompt at batch 2 with 16 greedy decode steps.
 XLSTM = "xlstm-125m"
 XLSTM_PARAMS = 162_402_096
-XLSTM_TRAIN = dict(rounds=2, C=4, H=2, B=4, S=256)
+# one round of one local step on 256-token sequences: the sLSTM's loop
+# over time is host-bound (0.907 of a local step on an H100), and the
+# script's time limit is shared
+XLSTM_TRAIN = dict(rounds=1, C=4, H=1, B=4, S=256)
 XLSTM_SERVE = dict(batch=2, prompt_len=512, gen=16)
 # xLSTM decoding against teacher-forced prefill, held in float32 on the
 # bf16 model's weights.  The two paths differ in the last position's form
@@ -2627,13 +2652,21 @@ def forced_routes(want):
         moe_mod._route = orig
 
 
-def route_flips(routes, want, per_step, B) -> list:
+def route_flips(routes, want, per_step, B, first=0) -> list:
     """Per step (prefill, then each decode step), per batch row: the tokens
     whose set of experts differs between two runs' routings, summed over
     the step's ``per_step`` MoE layers (a call's tokens are its ``B`` rows
-    in order)."""
-    flips = [(torch.sort(a.cpu(), -1).values != torch.sort(b, -1).values)
-             .any(-1).view(B, -1).sum(-1) for a, b in zip(routes, want)]
+    in order; a call that holds fewer, a prefill of a rank's rows from
+    ``first`` on, is held against those rows of ``want``)."""
+    flips = []
+    for a, b in zip(routes, want):
+        rows = a.shape[0] * B // b.shape[0]
+        lo = first if rows < B else 0
+        b = b.view(B, -1, b.shape[-1])[lo:lo + rows].reshape(a.shape)
+        f = (torch.sort(a.cpu(), -1).values != torch.sort(b, -1).values
+             ).any(-1).view(rows, -1).sum(-1)
+        flips.append(torch.cat([torch.zeros(lo, dtype=f.dtype), f,
+                                torch.zeros(B - lo - rows, dtype=f.dtype)]))
     return [torch.stack(flips[i:i + per_step]).sum(0).tolist()
             for i in range(0, len(flips), per_step)]
 
@@ -3229,7 +3262,7 @@ def lm_train():
     MusicGen-medium whole; (e) the VLM's [attn, cross] cut at full
     width.  Every round rematerialises each layer group."""
     for arch, modes in LM_TRAIN_PARITY:
-        check_lm_round_parity(C=4, H=2, B=2, S=64, cfg=reduced(
+        check_lm_round_parity(C=4, H=1, B=2, S=64, cfg=reduced(
             get_config(arch)), n_params=None, modes=modes)
     totals = dict(train_jamba_full_width())
     add_counts(totals, xlstm_whole())
@@ -3277,11 +3310,87 @@ def mesh_rounds(label, loss_fn, params, fl, batches, w, m, mesh, device):
     return counts
 
 
-def mesh_phase(device="cuda", archs=DRYRUN_ARCHS, cnn_round=MESH_ROUND):
-    """Phase mesh: (a) the 1x1 test mesh's rounds against no mesh; (b) the
-    dry run of ``archs``, every shape, both production meshes, on the meta
-    device."""
-    from repro_torch.launch import dryrun
+def start_dry_run(archs=DRYRUN_ARCHS) -> dict:
+    """The dry run of ``archs`` (every shape, both production meshes, on
+    the meta device) started in background processes, one an arch, at
+    the lowest priority and one thread each, so that the script's own
+    work comes first: it needs no card, and each process runs with none
+    visible (``CUDA_VISIBLE_DEVICES`` empty), so it can allocate nothing
+    there.  Each writes its JSON records and its output to a directory of
+    its own.  Returns the job for ``finish_dry_run``."""
+    out = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1",
+               MKL_NUM_THREADS="1", PYTHONPATH=os.pathsep.join(
+                   [str(ROOT / "src")] + [p for p in (
+                       os.environ.get("PYTHONPATH"),) if p]))
+    procs = {}
+    for arch in archs:
+        with open(os.path.join(out, f"{arch}.log"), "w") as log:
+            procs[arch] = subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+                 arch, "--shape", "all", "--mesh", "both", "--out",
+                 os.path.join(out, arch)], env=env, stdout=log,
+                stderr=subprocess.STDOUT)
+            os.setpriority(os.PRIO_PROCESS, procs[arch].pid, 19)
+    return dict(procs=procs, out=out, t0=time.perf_counter(),
+                started=time.time())
+
+
+def stop_dry_run(job) -> None:
+    """Stop the job's processes that still run and remove its files."""
+    if not job:
+        return
+    for p in job["procs"].values():
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+    shutil.rmtree(job["out"], ignore_errors=True)
+
+
+def finish_dry_run(job, timeout_s: float = 600.0) -> None:
+    """Wait for ``start_dry_run``'s processes; print each one's lines and
+    check that every tag of its arch wrote a record with flops (or was
+    skipped)."""
+    from repro_torch.configs import INPUT_SHAPES
+    t0 = time.perf_counter()
+    for arch, p in job["procs"].items():
+        rc = p.wait(timeout=timeout_s)
+        print(Path(job["out"], f"{arch}.log").read_text(), end="")
+        recs = [json.loads(f.read_text())
+                for f in sorted(Path(job["out"], arch).glob("*.json"))]
+        check(rc == 0 and len(recs) == 2 * len(INPUT_SHAPES)
+              and all("skipped" in r or r["cost_analysis"]["flops"] > 0
+                      for r in recs),
+              f"mesh: dry run of {arch}: exit {rc}, records {recs}")
+    ended = max((f.stat().st_mtime for f in Path(job["out"]).rglob("*")),
+                default=job["started"])
+    print(f"mesh: the dry run of {', '.join(job['procs'])} over every "
+          f"shape and both meshes, one process an arch with no card "
+          f"visible, at the lowest priority: its last output "
+          f"{ended - job['started']:.1f} s after its start (the start of "
+          f"round_parity), joined after "
+          f"{time.perf_counter() - job['t0']:.1f} s, "
+          f"{time.perf_counter() - t0:.1f} s of it waited for here")
+
+
+def mesh_phase(device="cuda", cnn_round=MESH_ROUND, dry=None):
+    """Phase mesh: (a) the CNN's and the reduced Jamba's rounds under the
+    1x1 test mesh, each against the same round with no mesh; (b) the dry
+    run of DRYRUN_ARCHS, every shape, both production meshes, on the meta
+    device: ``dry``, the job ``start_dry_run`` began at the start of
+    ``round_parity``, or one started here."""
+    job = dry or start_dry_run()
+    try:
+        totals = mesh_rounds_1x1(device, cnn_round)
+        finish_dry_run(job)
+    finally:
+        stop_dry_run(job)
+    return totals
+
+
+def mesh_rounds_1x1(device, cnn_round) -> dict:
+    """Phase mesh (a): the CNN's and the reduced Jamba's rounds under the
+    1x1 test mesh, each against the same round with no mesh."""
     from repro_torch.launch.mesh import make_test_mesh
     cuda = torch.device(device).type == "cuda"
     mesh = make_test_mesh(device=torch.device(device).type)
@@ -3314,21 +3423,6 @@ def mesh_phase(device="cuda", archs=DRYRUN_ARCHS, cnn_round=MESH_ROUND):
     check(not cuda or counts == expect, f"mesh jamba: launches {counts}, "
                                         f"expected {expect}")
     add_counts(totals, counts)
-    del lparams, params
-    sync(device)
-    held = torch.cuda.memory_allocated() if cuda else 0
-    t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory() as tmp:
-        for arch in archs:
-            out = dryrun.main(["--arch", arch, "--shape", "all", "--mesh",
-                               "both", "--out", tmp])
-            check(all("skipped" in r or r["cost_analysis"]["flops"] > 0
-                      for r in out), f"mesh: dry run of {arch}: {out}")
-    after = torch.cuda.memory_allocated() if cuda else 0
-    print(f"mesh: the dry run of {', '.join(archs)} over every shape "
-          f"and both meshes took {time.perf_counter() - t0:.1f} s; "
-          f"memory_allocated on the card {held} bytes before, {after} after")
-    check(after == held, "mesh: the dry run allocated on the card")
     return totals
 
 
@@ -3339,7 +3433,9 @@ def mesh_phase(device="cuda", archs=DRYRUN_ARCHS, cnn_round=MESH_ROUND):
 # collective through the host: the phase checks the ranks' results and
 # memory, and measures no collective's speed.
 SPMD_SIZES = (2, 2, 1)                    # pod x data x model, 4 ranks
-SPMD_ROUND = dict(C=20, H=5, B=16)        # the main path's round
+# the main path's round (20 clients of batch 16), 2 local steps of its 5: the
+# script's time limit is shared
+SPMD_ROUND = dict(C=20, H=2, B=16)
 SPMD_MODES = (("parallel", ("pod", "data")), ("sequential", None),
               ("pod_sequential", ("pod",)))
 SPMD_COMMITS = ("default", "q8_topk_deterministic", "secure_q8_stochastic")
@@ -3356,9 +3452,12 @@ SPMD_JAMBA_TOL = (1e-3, 1e-4)
 # (b) against the unsharded round: tests/test_mesh_small.py's bounds for a
 # sharded round, the loss and the params
 SPMD_SHARDED_TOL = (5e-3, 3e-2)
-# (b): MusicGen-medium whole, sequential, 2 clients x 2 steps, batch 2 x
-# 512 frames x 4 codebooks split over data 2, one round
-AUDIO_SPMD = dict(C=2, H=2, B=2, S=512)
+# (b): MusicGen-medium whole, sequential, 1 client x 1 step, batch 2 x
+# 512 frames x 4 codebooks split over data 2, one round: one client of one
+# local step, since each step gathers the weights' data shares over gloo
+# twice (forward and recompute) and the script's time limit is shared; (g)
+# commits two clients on data shares
+AUDIO_SPMD = dict(C=1, H=1, B=2, S=512)
 AUDIO_SPMD_SIZES, AUDIO_SPMD_AXES = (2, 1), ("data", "model")
 SPMD_LIMIT_BYTES = 76e9                   # what both ranks may hold
 
@@ -3371,7 +3470,9 @@ SPMD_MAIN_LAUNCHES = {"fused_accum": 1}
 # their sanitised specs cut them (launch.specs.shard_params): 8 gloo ranks
 # sharing the card
 MODEL_SIZES = (2, 2, 2)
-MODEL_SHAPE = dict(C=4, H=2, B=2, S=16)   # tests/test_mesh_small.py's round
+# tests/test_mesh_small.py's round (C=4, H=2, B=2, S=16), one local step
+# of its two: the script's time limit is shared
+MODEL_SHAPE = dict(C=4, H=1, B=2, S=16)
 MODEL_CASES = (("granite-3-2b", "sequential"),
                ("granite-3-2b", "pod_sequential"),
                ("qwen3-moe-235b-a22b", "sequential"),
@@ -3383,10 +3484,12 @@ MODEL_AXES = {"parallel": ("pod", "data"), "pod_sequential": ("pod",),
 # model dropped (the same batch split, every layer whole)
 MODEL_OWN_TOL = 1e-5
 # (e): granite-3-2b whole (bf16, every published width, 40 layers), one
-# sequential round of 2 clients x 2 steps x batch 1 x 1024 tokens, on data
-# 1 x model 2; a rank's round peak over the no-mesh round's at most
+# sequential round of 1 client x 2 steps x batch 1 x 1024 tokens (one client:
+# the collectives over gloo take most of the round, and the script's time
+# limit is shared), on data 1 x model 2; a rank's round peak over the
+# no-mesh round's at most
 GRANITE = "granite-3-2b"
-GRANITE_MODEL = dict(C=2, H=2, B=1, S=1024)
+GRANITE_MODEL = dict(C=1, H=2, B=1, S=1024)
 GRANITE_MODEL_SIZES, GRANITE_MODEL_AXES = (1, 2), ("data", "model")
 GRANITE_PEAK_RATIO = 0.75
 # (f): serving on a `model` axis through serve.run under the mesh.  (i) The
@@ -3428,6 +3531,17 @@ SERVE_NO_CHOICE = "2 experts, top 2 of 2: no routing choice"
 SERVE_MODEL_SIZES, SERVE_MODEL_AXES = (1, 2), ("data", "model")
 SERVE_MODEL = dict(batch=SERVE_BATCH, prompt_len=SERVE_PROMPT,
                    gen=SERVE_GEN)
+# (g): FSDP over data: granite-3-2b whole, one sequential round of
+# 2 clients x 2 steps x batch 2 x 1024 tokens (batch 2, so that data splits
+# it) on data 2 x model 2, four ranks sharing the card, each layer's
+# weights gathered over data just before it runs, held to (e)'s
+# SPMD_SHARDED_TOL of the same round with no mesh
+GRANITE_FSDP = dict(C=2, H=2, B=2, S=1024)
+FSDP_SIZES, FSDP_AXES = (2, 2), ("data", "model")
+# (h): the SERVE_NO_CHOICE cut served on data 2 x model 2, one row of the
+# batch a data rank, fed the no-mesh run's tokens: its decode's MoE sums
+# the partial products of its expert F shares over data, and its logits
+# are held to SERVE_DECODE_TOL of no mesh's at every step
 
 
 def spmd_launches_expected(n_leaves=8, C=SPMD_ROUND["C"]) -> dict:
@@ -3596,16 +3710,22 @@ def spmd_async_commit(args, params, a_in, device):
 
 
 def spmd_jamba_round(lm, params, batches_np, C, H, device):
+    """The reduced Jamba's sequential round on the rank's shares of the
+    whole ``params`` (cut over data: FSDP; the whole params off a mesh):
+    (the new params gathered whole, the loss)."""
     fl = FLConfig(num_clients=C, local_steps=H, client_lr=0.05,
                   client_exec="sequential")
     step = build_fl_round_step(lm.loss_fn, get_client_optimizer("sgd"),
                                get_server_optimizer("fedavg"), fl)
-    new, _, met = step(params, (), {k: torch.from_numpy(v).to(device)
-                                    for k, v in batches_np.items()},
+    specs = lm.logical_specs
+    new, _, met = step(sp.shard_params(params, specs), (),
+                       {k: torch.from_numpy(v).to(device)
+                        for k, v in batches_np.items()},
                        torch.ones(C, device=device),
                        torch.ones(C, device=device),
                        torch.Generator().manual_seed(2))
-    return new, float(met["client_loss"])
+    return (sp.gather_params(new, specs, lm.param_specs()),
+            float(met["client_loss"]))
 
 
 def spmd_rank_setup():
@@ -3633,6 +3753,83 @@ def deterministic_algorithms():
     warnings.filterwarnings("ignore", message=".*deterministic.*")
 
 
+@dataclasses.dataclass(frozen=True)
+class Ranks:
+    """What one part of the spmd phase asks of a spawn of ranks:
+    ``fn(mesh, *args)`` on every rank of a mesh of ``sizes`` over
+    ``axes``."""
+    label: str
+    fn: object
+    args: tuple
+    sizes: tuple
+    axes: tuple = ("pod", "data", "model")
+    timeout_s: float = 900.0
+
+
+def chain_rank(mesh, parts, inits):
+    """On one rank, each (fn, args, sizes, axes) of ``parts`` in turn: the
+    first on ``mesh``, each later one on a mesh of its own over the same
+    processes (its rendezvous ``inits[i]``) where its layout differs.
+    Between two parts the rank lets go of the first one's memory and of
+    deterministic algorithms.  Returns each part's result (on the CPU)
+    and the seconds it took."""
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch import spmd
+    outs, walls = [], []
+    for i, (fn, args, sizes, axes) in enumerate(parts):
+        if i:
+            torch.use_deterministic_algorithms(False)
+            torch.backends.cudnn.deterministic = False
+            free_cache(mesh.device)
+            if (tuple(sizes), tuple(axes)) != (mesh.sizes, mesh.axis_names):
+                torch.distributed.barrier()
+                mesh_mod.close_mesh()
+                mesh = mesh_mod.init_mesh(
+                    init_method=inits[i], rank=mesh.rank,
+                    world_size=mesh.size, sizes=tuple(sizes),
+                    axes=tuple(axes), device=mesh.device.split(":")[0])
+        t0 = time.perf_counter()
+        with shd.use_mesh(mesh):
+            outs.append(spmd._to_cpu(fn(mesh, *args)))
+        walls.append(time.perf_counter() - t0)
+    return outs, walls
+
+
+def spawn_together(kind, *parts) -> list:
+    """Run ``parts`` with one spawn of ranks for all of them: each part is
+    a generator that does its work here up to ``yield Ranks(...)``, is
+    sent its ranks' results (one a rank) and returns its launches.  Each
+    spawn pays its ranks' start (importing torch, joining their groups)
+    before any work; a switch of mesh inside one costs a rendezvous.
+    Every part asks for the same number of ranks."""
+    from repro_torch.launch import spmd
+    asks = [next(p) for p in parts]
+    world = math.prod(asks[0].sizes)
+    check(all(math.prod(a.sizes) == world for a in asks),
+          f"spmd: one spawn for {[(a.label, a.sizes) for a in asks]}")
+    t0 = time.perf_counter()
+    per_rank = spmd.run(
+        chain_rank, ([(a.fn, a.args, a.sizes, a.axes) for a in asks],
+                     [spmd.free_tcp_init() for _ in asks]),
+        sizes=asks[0].sizes, axes=asks[0].axes, device=kind,
+        all_ranks=True, timeout_s=sum(a.timeout_s for a in asks),
+        threads=None)
+    walls = [[round(w[i], 1) for _, w in per_rank] for i in range(len(asks))]
+    print(f"spmd: one spawn of {world} ranks for "
+          f"{', '.join(a.label for a in asks)}: "
+          f"{time.perf_counter() - t0:.1f} s; each part's seconds on the "
+          f"ranks {walls}")
+    results = []
+    for i, part in enumerate(parts):
+        try:
+            part.send([outs[i] for outs, _ in per_rank])
+        except StopIteration as done:
+            results.append(done.value)
+        else:
+            raise RuntimeError(f"spmd: {asks[i].label} asked twice")
+    return results
+
+
 def max_gap(got: dict, want: dict) -> float:
     return max(float((got[k].float() - want[k].to(got[k].device).float())
                      .abs().max()) for k in want)
@@ -3645,6 +3842,43 @@ def same_bits(got: dict, want: dict) -> bool:
 def replicas_equal(tree) -> bool:
     return all(len(set(v)) == 1 for v in
                shd.replica_checksums(tree).values())
+
+
+def shares_agree(tree, cuts) -> bool:
+    """Every leaf of ``tree`` (the rank's shares) bit for bit the same on
+    the ranks that hold the same share of it: its checksums gathered over
+    the mesh axes that do not cut it."""
+    mesh, groups = shd.get_mesh(), {}
+    for k, v in tree.items():
+        axes = tuple(a for a in mesh.axis_names if a not in cuts.get(k, {}))
+        groups.setdefault(axes, {})[k] = v
+    return all(len(set(v)) == 1 for axes, sub in groups.items()
+               for v in shd.replica_checksums(sub, axes).values())
+
+
+def rest_bytes(model, params, record) -> dict:
+    """The rank's param bytes and a FedAdam server state's of its shares
+    (made on ``meta``: m and v in float32), each beside the dry run's on
+    the mesh record ``record``: {"params": (held, dry), "state": (held,
+    dry)}."""
+    from repro_torch.launch import dryrun
+    metas = {k: torch.empty(v.shape, dtype=v.dtype, device="meta")
+             for k, v in flat_dict(params).items()}
+    state = get_server_optimizer("fedadam").init(metas)
+    whole = flat_dict(model.param_specs())
+    logical = sp.flat_logical(model.logical_specs)
+    f32 = {k: torch.empty(v.shape, dtype=torch.float32, device="meta")
+           for k, v in whole.items()}
+    return {"params": (sp.param_bytes(metas), dryrun.per_device_bytes(
+                whole, logical, record)),
+            "state": (sp.param_bytes(state["m"]) + sp.param_bytes(
+                state["v"]), 2 * dryrun.per_device_bytes(f32, logical,
+                                                          record))}
+
+
+def mesh_record(mesh):
+    """The mesh of processes ``mesh`` as a record, for the dry run."""
+    return shd.Mesh(mesh.axis_names, mesh.sizes, tuple(range(mesh.size)))
 
 
 def spmd_rank_main(mesh, ref_path):
@@ -3796,23 +4030,33 @@ def spmd_rank_main(mesh, ref_path):
 
 
 def audio_spmd_rank(mesh, ref_path, reference_loss, cfg, sh_):
-    """(b) on one rank: MusicGen-medium's sequential round, each client's
-    batch split over data, the gradient reductions timed; rank 0 then
-    holds the new params against the no-mesh round's."""
+    """(b) on one rank: MusicGen-medium drawn leaf by leaf, its share over
+    data kept (FSDP), its bytes and a FedAdam state's against the dry
+    run's; the sequential round, each client's batch split over data, the
+    gradient reductions timed; then the new params against the no-mesh
+    round's."""
     spmd_rank_setup()
     dev = mesh.device
-    model, nested = serve.build(cfg, dev, seed=0)
+    model, nested = serve.build(cfg, dev, seed=0, shard=True)
     params = flat_dict(nested)
     del nested
+    sizes = rest_bytes(model, params, mesh_record(mesh))
+    cuts = model.leaf_cuts()
     fl = FLConfig(num_clients=sh_["C"], local_steps=sh_["H"], client_lr=0.01,
                   client_exec="sequential")
     batches = round_batches(cfg, 1, sh_["C"], sh_["H"], sh_["B"], sh_["S"],
                             4, dev)(0)
     step = build_fl_round_step(model.loss_fn, get_client_optimizer("sgd"),
                                get_server_optimizer("fedavg"), fl)
-    # each local step of each client reduces every gradient leaf and the
-    # loss over data: the split ran where this many reductions did
-    expect_red = sh_["H"] * sh_["C"] * (len(params) + 1)
+    # each local step of each client reduces over data every gradient leaf
+    # held whole there and the loss, and every share of a leaf cut there
+    # in its gather's backward (a layer's leaf once a layer); the delta's
+    # norm sums the cut leaves' squares once: the split ran where this
+    # many reductions did
+    per_step = 1 + sum(
+        1 if shd.DATA not in cuts.get(k, {}) else
+        model.n_groups if k.startswith("layers/") else 1 for k in params)
+    expect_red = sh_["H"] * sh_["C"] * per_step + 1
     cuda = dev.startswith("cuda")
     if cuda:
         torch.cuda.reset_peak_memory_stats(dev)
@@ -3828,23 +4072,28 @@ def audio_spmd_rank(mesh, ref_path, reference_loss, cfg, sh_):
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated(dev) if cuda else 0
     red = (float(stats["seconds"]["psum"]), int(stats["calls"]["psum"]))
+    gathers = (float(stats["seconds"]["all_gather"]),
+               int(stats["calls"]["all_gather"]))
     del params, batches
-    same = replicas_equal(new)
+    same = shares_agree(new, cuts)
     finite = math.isfinite(loss) and all(bool(torch.isfinite(v).all())
                                          for v in new.values())
     print(f"spmd (b) rank {mesh.rank}: MusicGen-medium sequential round "
           f"round_wall_s={wall:.4f} client_loss={loss:.6f} "
           f"max_memory_allocated={peak} ({peak / 1e9:.2f} GB), gradient "
           f"reductions {red[1]} (expected {expect_red}) taking "
-          f"{red[0]:.4f} s", flush=True)
-    gap = None
-    if mesh.rank == 0:
-        want = torch.load(ref_path, weights_only=False)
-        gap = max(float((new[k].float() - want[k].to(dev).float()).abs()
-                        .max()) for k in want)
+          f"{red[0]:.4f} s, weight gathers {gathers[1]} taking "
+          f"{gathers[0]:.4f} s; param bytes {sizes['params'][0]} (dry run "
+          f"{sizes['params'][1]}), a FedAdam state's {sizes['state'][0]} "
+          f"(dry run {sizes['state'][1]})", flush=True)
+    want = sp.shard_params(torch.load(ref_path, mmap=True,
+                                      weights_only=False),
+                           model.logical_specs)
+    gap = max(float((new[k].float() - want[k].to(dev).float()).abs()
+                    .max()) for k in want)
     return dict(loss=loss, wall=wall, peak=peak, reduction_s=red[0],
                 reductions=red[1], expected_reductions=expect_red,
-                replicas_equal=same, finite=finite,
+                replicas_equal=same, finite=finite, sizes=sizes,
                 gap=gap, loss_gap=abs(loss - reference_loss))
 
 
@@ -3880,7 +4129,7 @@ def nccl_rank(mesh, ref_path):
 def spmd_phase(device="cuda", sizes=SPMD_ROUND, jamba=SPMD_JAMBA,
                audio_cfg=None, audio_shape=AUDIO_SPMD, granite_cfg=None,
                granite_shape=GRANITE_MODEL, serve_cfg=None,
-               serve_shape=SERVE_MODEL):
+               serve_shape=SERVE_MODEL, fsdp_shape=GRANITE_FSDP):
     """Phase spmd: (a) four gloo ranks sharing the card on a pod 2 x data
     2 x model 1 mesh run the CIFAR rounds, the async commit, the reduced
     Jamba and every commit kernel against the same work with no mesh here;
@@ -3890,8 +4139,9 @@ def spmd_phase(device="cuda", sizes=SPMD_ROUND, jamba=SPMD_JAMBA,
     rounds split over model, the main path's CIFAR round and every commit
     kernel with model among the fusion axes; (e) granite-3-2b whole over
     model 2; (f) serving over model: the reduced zoo on the (2, 2, 2)
-    mesh and the Jamba cut on data 1 x model 2."""
-    from repro_torch.launch import spmd
+    mesh and the Jamba cut on data 1 x model 2; (g) granite-3-2b whole
+    over data 2 x model 2 (FSDP); (h) the Jamba cut with no routing
+    choice served on data 2 x model 2."""
     kind = torch.device(device).type
     totals = {}
     with tempfile.TemporaryDirectory() as tmp:
@@ -3921,38 +4171,50 @@ def spmd_phase(device="cuda", sizes=SPMD_ROUND, jamba=SPMD_JAMBA,
         free_cache(device)
         print(f"spmd: the no-mesh references took "
               f"{time.perf_counter() - t0:.1f} s")
-        t0 = time.perf_counter()
-        per_rank = spmd.run(spmd_rank_main, (path,), sizes=SPMD_SIZES,
-                            device=kind, all_ranks=True, timeout_s=900,
-                            threads=None)
-        wall = time.perf_counter() - t0
-        for rank, (checks, walls, counts) in enumerate(per_rank):
-            failed = [c for c in checks if not c[1]]
-            print(f"spmd (a) rank {rank}: {len(checks) - len(failed)} of "
-                  f"{len(checks)} checks passed; walls {walls}; launches "
-                  f"{counts}")
-            for label, _, detail in failed:
-                print(f"spmd (a) rank {rank}: FAILED {label} {detail}")
-            check(not failed, f"spmd (a) rank {rank}: {failed[0][0]} "
-                              f"{failed[0][2]}" if failed else "")
-            lm = build_model(reduced(get_config(JAMBA)))
-            expect = dict(spmd_launches_expected(C=sizes["C"]))
-            add_counts(expect, train_launches(
-                lm, "sequential", jamba["C"], jamba["H"], jamba["S"]))
-            check(kind != "cuda" or counts == expect,
-                  f"spmd (a) rank {rank}: launches {counts}, expected "
-                  f"{expect}")
-            add_counts(totals, counts)
-        print(f"spmd (a): 4 ranks, the spawn and every rank's work "
-              f"{wall:.1f} s; launches over the ranks {totals}")
-        totals_c = spmd_nccl(path, kind)
-        add_counts(totals, totals_c)
-        add_counts(totals, spmd_model(path, kind))
-    add_counts(totals, spmd_audio(device, kind, audio_cfg, audio_shape))
-    add_counts(totals, spmd_granite(device, kind, granite_cfg,
-                                    granite_shape))
-    add_counts(totals, spmd_serve(device, kind, jamba_cfg=serve_cfg,
-                                  jamba_shape=serve_shape))
+        add_counts(totals, spmd_nccl(path, kind))
+        # one spawn for each count of ranks (spawn_together)
+        for t in spawn_together(kind, spmd_federated(path, kind, sizes,
+                                                     jamba),
+                                spmd_fsdp(device, kind, granite_cfg,
+                                          fsdp_shape, serve_cfg,
+                                          serve_shape)):
+            add_counts(totals, t)
+        for t in spawn_together(kind, spmd_model(path, kind),
+                                serve_zoo(device, kind)):
+            add_counts(totals, t)
+    for t in spawn_together(kind,
+                            spmd_audio(device, kind, audio_cfg, audio_shape),
+                            spmd_granite(device, kind, granite_cfg,
+                                         granite_shape),
+                            serve_jamba_model(device, kind, serve_cfg,
+                                              serve_shape)):
+        add_counts(totals, t)
+    return totals
+
+
+def spmd_federated(path, kind, sizes, jamba):
+    """(a): four gloo ranks on a pod 2 x data 2 x model 1 mesh against the
+    no-mesh references at ``path``."""
+    per_rank = yield Ranks("(a)", spmd_rank_main, (path,), SPMD_SIZES)
+    totals = {}
+    for rank, (checks, walls, counts) in enumerate(per_rank):
+        failed = [c for c in checks if not c[1]]
+        print(f"spmd (a) rank {rank}: {len(checks) - len(failed)} of "
+              f"{len(checks)} checks passed; walls {walls}; launches "
+              f"{counts}")
+        for label, _, detail in failed:
+            print(f"spmd (a) rank {rank}: FAILED {label} {detail}")
+        check(not failed, f"spmd (a) rank {rank}: {failed[0][0]} "
+                          f"{failed[0][2]}" if failed else "")
+        lm = build_model(reduced(get_config(JAMBA)))
+        expect = dict(spmd_launches_expected(C=sizes["C"]))
+        add_counts(expect, train_launches(
+            lm, "sequential", jamba["C"], jamba["H"], jamba["S"]))
+        check(kind != "cuda" or counts == expect,
+              f"spmd (a) rank {rank}: launches {counts}, expected "
+              f"{expect}")
+        add_counts(totals, counts)
+    print(f"spmd (a): 4 ranks; launches over the ranks {totals}")
     return totals
 
 
@@ -3976,7 +4238,6 @@ def spmd_nccl(path, kind):
 def spmd_audio(device, kind, cfg=None, shape=AUDIO_SPMD):
     """(b): MusicGen-medium's sequential round with no mesh here, then on
     two ranks sharing the card."""
-    from repro_torch.launch import spmd
     cfg = cfg or get_config(AUDIO)
     C, H, B, S = (shape[k] for k in "CHBS")
     n = param_bytes(cfg)
@@ -4020,15 +4281,14 @@ def spmd_audio(device, kind, cfg=None, shape=AUDIO_SPMD):
         torch.save(cpu_tree(new), path)
         del model, params, batches, new, step
         free_cache(device)
-        t0 = time.perf_counter()
-        out = spmd.run(audio_spmd_rank, (path, loss, cfg, dict(shape, S=S)),
-                       sizes=AUDIO_SPMD_SIZES,
-                       axes=AUDIO_SPMD_AXES, device=kind, all_ranks=True,
-                       timeout_s=900, threads=None)
-    lead = out[0]
-    print(f"spmd (b): 2 ranks, {time.perf_counter() - t0:.1f} s with the "
-          f"spawn; loss {lead['loss']:.6f} against {loss:.6f}; params max "
-          f"|diff| {lead['gap']:.3g}; per-rank peaks "
+        out = yield Ranks("(b)", audio_spmd_rank,
+                          (path, loss, cfg, dict(shape, S=S)),
+                          AUDIO_SPMD_SIZES, AUDIO_SPMD_AXES)
+    lead = dict(out[0], gap=max(o["gap"] for o in out))
+    print(f"spmd (b): 2 ranks; loss {lead['loss']:.6f} against "
+          f"{loss:.6f}; params max "
+          f"|diff| {lead['gap']:.3g}; (held, dry-run) bytes of the params "
+          f"and a FedAdam state {[o['sizes'] for o in out]}; per-rank peaks "
           f"{[round(o['peak'] / 1e9, 2) for o in out]} GB; round walls "
           f"{[round(o['wall'], 4) for o in out]} s; gradient reductions "
           f"{[o['reductions'] for o in out]} taking "
@@ -4036,7 +4296,9 @@ def spmd_audio(device, kind, cfg=None, shape=AUDIO_SPMD):
     check(all(o["finite"] for o in out), "spmd (b): a non-finite loss or "
                                          "params")
     check(all(o["replicas_equal"] for o in out),
-          "spmd (b): params differ between the ranks")
+          "spmd (b): params differ between the ranks that hold a share")
+    check(all(v[0] == v[1] for o in out for v in o["sizes"].values()),
+          f"spmd (b): (held, dry-run) bytes {[o['sizes'] for o in out]}")
     check(all(o["reductions"] == o["expected_reductions"] for o in out),
           f"spmd (b): gradient reductions {[o['reductions'] for o in out]}, "
           f"expected {out[0]['expected_reductions']} on every rank (is the "
@@ -4090,13 +4352,6 @@ def model_reference(device):
     return out
 
 
-def same_share_bits(tree) -> bool:
-    """Every leaf bit for bit the same on the ranks that hold the same
-    share: its checksums gathered over the axes other than model."""
-    return all(len(set(v)) == 1 for v in shd.replica_checksums(
-        tree, ("pod", "data")).values())
-
-
 def model_rank_main(mesh, ref_path):
     """(d) on one rank of the (2, 2, 2) mesh, under deterministic
     algorithms: each reduced case's q8 round against no mesh, its
@@ -4120,11 +4375,17 @@ def model_rank_main(mesh, ref_path):
                   f"{detail}", flush=True)
 
     s = MODEL_SHAPE
+    record = mesh_record(mesh)
     for (arch, mode), want in ref_in["model_cases"].items():
         lm = build_model(reduced(get_config(arch)))
         specs = lm.logical_specs
+        cuts = lm.leaf_cuts()
         whole = tree(want["params"])
         local = sp.shard_params(whole, specs)
+        sizes = rest_bytes(lm, local, record)
+        note(f"{arch} {mode}: the rank's param and FedAdam state bytes "
+             f"against the dry run's", all(a == b for a, b in sizes.values()),
+             f"(held, dry run) {sizes}")
         batches = {k: on(torch.from_numpy(v)) for k, v in
                    want["batches"].items()}
         axes, label = MODEL_AXES[mode], f"{arch} {mode}"
@@ -4141,21 +4402,25 @@ def model_rank_main(mesh, ref_path):
              f"loss {loss:.6f} against {want['loss']:.6f}, params max "
              f"|diff| {gap:.3g}, round_wall_s={walls[label]:.4f}")
         note(f"{label}: q8 round's shares bit for bit across ranks",
-             same_share_bits(new))
+             shares_agree(new, cuts))
         new_u, loss_u = model_round(lm, local, batches, mode, False, axes)
         per_case[label] = dict(launches.KERNEL_LAUNCHES)
         add_counts(counts, per_case[label])
+        # the same round with model dropped: the params cut over data
+        # alone, every layer whole over model
+        over_data = cuts_over(cuts, (shd.DATA,))
         with shd.exclude_axes(shd.MODEL):
-            new_x, loss_x = model_round(lm, whole, batches, mode, False,
-                                        axes)
+            new_x, loss_x = model_round(
+                lm, cuts_share(whole, over_data), batches, mode, False, axes)
         launches.reset()
-        gap = max_gap(new_u, sp.shard_params(new_x, specs))
+        gap = max_gap(cuts_whole(new_u, over_data), cuts_share(
+            cuts_whole(new_x, over_data), cuts_over(cuts, (shd.MODEL,))))
         note(f"{label}: uncompressed round against model dropped",
              abs(loss_u - loss_x) <= MODEL_OWN_TOL and gap <= MODEL_OWN_TOL,
              f"loss {loss_u:.7f} against {loss_x:.7f}, params max |diff| "
              f"{gap:.3g}")
         note(f"{label}: uncompressed shares bit for bit across ranks",
-             same_share_bits(new_u))
+             shares_agree(new_u, cuts))
         if arch == JAMBA:
             expect = train_launches(lm, mode, s["C"], s["H"], s["S"])
             got = {k: per_case[label].get(k, 0) // 2 for k in expect}
@@ -4206,12 +4471,7 @@ def model_rank_main(mesh, ref_path):
 
 def spmd_model(path, kind):
     """(d): the (2, 2, 2) mesh's ranks on the card."""
-    from repro_torch.launch import spmd
-    t0 = time.perf_counter()
-    per_rank = spmd.run(model_rank_main, (path,), sizes=MODEL_SIZES,
-                        device=kind, all_ranks=True, timeout_s=900,
-                        threads=None)
-    wall = time.perf_counter() - t0
+    per_rank = yield Ranks("(d)", model_rank_main, (path,), MODEL_SIZES)
     totals = {}
     for rank, (checks, walls, counts, per_case) in enumerate(per_rank):
         failed = [c for c in checks if not c[1]]
@@ -4224,9 +4484,8 @@ def spmd_model(path, kind):
         check(not failed, f"spmd (d) rank {rank}: {failed[0][0]} "
                           f"{failed[0][2]}" if failed else "")
         add_counts(totals, counts)
-    print(f"spmd (d): 8 ranks on a pod 2 x data 2 x model 2 mesh, the "
-          f"spawn and every rank's work {wall:.1f} s; the split rounds' "
-          f"launches over the ranks {totals}")
+    print(f"spmd (d): 8 ranks on a pod 2 x data 2 x model 2 mesh; the "
+          f"split rounds' launches over the ranks {totals}")
     return totals
 
 
@@ -4284,7 +4543,6 @@ def granite_model_rank(mesh, ref_path, cfg, sh_):
 def spmd_granite(device, kind, cfg=None, shape=GRANITE_MODEL):
     """(e): granite-3-2b's sequential round with no mesh here, then on
     data 1 x model 2, two ranks sharing the card."""
-    from repro_torch.launch import spmd
     cfg = cfg or get_config(GRANITE)
     C, H, B, S = (shape[k] for k in "CHBS")
     free_cache(device)
@@ -4316,14 +4574,11 @@ def spmd_granite(device, kind, cfg=None, shape=GRANITE_MODEL):
         torch.save(cpu_tree(new), path)
         del model, params, batches, new, step
         free_cache(device)
-        t0 = time.perf_counter()
-        out = spmd.run(granite_model_rank, (path, cfg, shape),
-                       sizes=GRANITE_MODEL_SIZES, axes=GRANITE_MODEL_AXES,
-                       device=kind, all_ranks=True, timeout_s=900,
-                       threads=None)
+        out = yield Ranks("(e)", granite_model_rank, (path, cfg, shape),
+                          GRANITE_MODEL_SIZES, GRANITE_MODEL_AXES)
     ratios = [o["peak"] / peak if peak else 0.0 for o in out]
-    print(f"spmd (e): 2 ranks, {time.perf_counter() - t0:.1f} s with the "
-          f"spawn; losses {[round(o['loss'], 6) for o in out]} against "
+    print(f"spmd (e): 2 ranks; losses "
+          f"{[round(o['loss'], 6) for o in out]} against "
           f"{loss:.6f}; params max |diff| {[o['gap'] for o in out]}; rank "
           f"peaks {[o['peak'] for o in out]} against no mesh's {peak} "
           f"(ratios {[round(r, 4) for r in ratios]}); param bytes "
@@ -4344,6 +4599,166 @@ def spmd_granite(device, kind, cfg=None, shape=GRANITE_MODEL):
           f"spmd (e): rank peaks over no mesh's {ratios}, above "
           f"{GRANITE_PEAK_RATIO}")
     return {}
+
+
+def granite_fsdp_rank(mesh, ref_path, cfg, sh_):
+    """(g) on one rank of data 2 x model 2: granite-3-2b drawn leaf by
+    leaf, its share over data and model kept, its bytes and a FedAdam
+    state's against the dry run's; the sequential round, each client's
+    batch split over data and each layer's weights gathered over data
+    just before it runs, the collectives timed; its share against no
+    mesh's and its replicas'."""
+    spmd_rank_setup()
+    dev = mesh.device
+    model, nested = serve.build(cfg, dev, seed=0, shard=True)
+    specs = model.logical_specs
+    params = flat_dict(nested)
+    del nested
+    free_cache(dev)
+    sizes = rest_bytes(model, params, mesh_record(mesh))
+    cuts = model.leaf_cuts()
+    C, H, B, S = (sh_[k] for k in "CHBS")
+    batches = round_batches(cfg, 1, C, H, B, S, 4, dev)(0)
+    step = build_fl_round_step(model.loss_fn, get_client_optimizer("sgd"),
+                               get_server_optimizer("fedavg"), FLConfig(
+                                   num_clients=C, local_steps=H,
+                                   client_lr=0.01, client_exec="sequential"))
+    cuda = dev.startswith("cuda")
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    sync(dev)
+    t0 = time.perf_counter()
+    with shd.timed_collectives() as stats:
+        new, _, met = step(params, (), batches, torch.ones(C, device=dev),
+                           torch.ones(C, device=dev),
+                           torch.Generator().manual_seed(7))
+        loss = float(met["client_loss"])
+        sync(dev)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev) if cuda else 0
+    del params, batches
+    want = sp.shard_params(torch.load(ref_path, mmap=True,
+                                      weights_only=False), specs)
+    gap = max(float((new[k].float() - want[k].to(dev).float()).abs().max())
+              for k in want)
+    finite = math.isfinite(loss) and all(bool(torch.isfinite(v).all())
+                                         for v in new.values())
+    same = shares_agree(new, cuts)
+    coll = {k: (round(float(stats["seconds"][k]), 4),
+                int(stats["calls"][k])) for k in stats["calls"]}
+    print(f"spmd (g) rank {mesh.rank} {mesh.coords}: {GRANITE} over data 2 "
+          f"x model 2: param bytes {sizes['params'][0]} (dry run "
+          f"{sizes['params'][1]}), a FedAdam state's {sizes['state'][0]} "
+          f"(dry run {sizes['state'][1]}); round_wall_s={wall:.4f} "
+          f"client_loss={loss:.6f} max_memory_allocated={peak} "
+          f"({peak / 1e9:.2f} GB); collectives (s, calls) {coll}",
+          flush=True)
+    return dict(sizes=sizes, loss=loss, wall=wall, peak=peak, gap=gap,
+                finite=finite, same=same, collectives=coll)
+
+
+def fsdp_ranks(mesh, granite, served):
+    """(g) then (h) on one rank of data 2 x model 2, in one spawn:
+    ``granite_fsdp_rank`` of ``granite`` (reference path, config, shape),
+    its memory freed, then ``jamba_model_rank`` of ``served`` (reference
+    path, config, shape).  Returns (g's result, h's)."""
+    g = granite_fsdp_rank(mesh, *granite)
+    free_cache(mesh.device)
+    path, cfg, shape = served
+    h = jamba_model_ranks(mesh, [(path, cfg)], shape, "spmd (h)", False)[0]
+    return g, h
+
+
+def granite_no_mesh(cfg, device, kind, shape, path) -> tuple:
+    """(g)'s sequential round with no mesh here, its new params saved to
+    ``path`` for the ranks: (loss, peak, param bytes)."""
+    C, H, B, S = (shape[k] for k in "CHBS")
+    free_cache(device)
+    model, nested = serve.build(cfg, device, seed=0)
+    params = flat_dict(nested)
+    del nested
+    batches = round_batches(cfg, 1, C, H, B, S, 4, device)(0)
+    step = build_fl_round_step(model.loss_fn, get_client_optimizer("sgd"),
+                               get_server_optimizer("fedavg"), FLConfig(
+                                   num_clients=C, local_steps=H,
+                                   client_lr=0.01, client_exec="sequential"))
+    if kind == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    sync(device)
+    t0 = time.perf_counter()
+    new, _, met = step(params, (), batches, torch.ones(C, device=device),
+                       torch.ones(C, device=device),
+                       torch.Generator().manual_seed(7))
+    loss = float(met["client_loss"])
+    sync(device)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() if kind == "cuda" else 0
+    n = sp.param_bytes(params)
+    print(f"spmd (g): {GRANITE} whole ({n} param bytes) sequential round of "
+          f"batch {B} x {S} with no mesh round_wall_s={wall:.4f} "
+          f"client_loss={loss:.6f} max_memory_allocated={peak} "
+          f"({peak / 1e9:.2f} GB)")
+    torch.save(cpu_tree(new), path)
+    del model, params, batches, new, step
+    free_cache(device)
+    return loss, peak, n
+
+
+def check_granite_fsdp(out, loss, peak, n) -> None:
+    """(g)'s checks over its ranks' results."""
+    peaks = [o["peak"] for o in out]
+    print(f"spmd (g): losses {[round(o['loss'], 6) for o in out]} against "
+          f"{loss:.6f}; params max |diff| {[o['gap'] for o in out]}; rank "
+          f"peaks {peaks} ({sum(peaks) / 1e9:.2f} GB together) against no "
+          f"mesh's {peak}; (held, dry-run) bytes of the params and a FedAdam "
+          f"state {[o['sizes'] for o in out]}, whole {n}; round walls "
+          f"{[round(o['wall'], 4) for o in out]} s")
+    check(all(o["finite"] for o in out), "spmd (g): a non-finite loss or "
+                                         "params")
+    check(all(v[0] == v[1] for o in out for v in o["sizes"].values()),
+          f"spmd (g): (held, dry-run) bytes {[o['sizes'] for o in out]}")
+    check(all(o["same"] for o in out),
+          "spmd (g): params differ between the ranks that hold a share")
+    check(all(abs(o["loss"] - loss) < SPMD_SHARDED_TOL[0]
+              and o["gap"] < SPMD_SHARDED_TOL[1] for o in out),
+          f"spmd (g): against no mesh, losses "
+          f"{[o['loss'] for o in out]} ({loss}), params "
+          f"{[o['gap'] for o in out]}")
+
+
+def spmd_fsdp(device, kind, granite_cfg=None, granite_shape=GRANITE_FSDP,
+              serve_cfg=None, serve_shape=SERVE_MODEL) -> dict:
+    """(g) and (h), FSDP over data on data 2 x model 2, four ranks sharing
+    the card in one spawn: granite-3-2b's sequential round and the
+    SERVE_NO_CHOICE Jamba cut served, each first with no mesh here."""
+    granite_cfg = granite_cfg or get_config(GRANITE)
+    cfg = no_choice_cut(serve_cfg or jamba_cut())
+    cfg_all = build_model(cfg)
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = [os.path.join(tmp, f) for f in ("granite.pt", "served.pt")]
+        loss, peak, n = granite_no_mesh(granite_cfg, device, kind,
+                                        granite_shape, paths[0])
+        serve_no_mesh(cfg, device, kind, serve_shape, paths[1])
+        # the ranks' draws map and unmap pages (expandable segments), as
+        # in (f) (ii)
+        prev = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+        os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+        try:
+            out = yield Ranks("(g) and (h)", fsdp_ranks,
+                              ((paths[0], granite_cfg, granite_shape),
+                               (paths[1], cfg, serve_shape)),
+                              FSDP_SIZES, FSDP_AXES)
+        finally:
+            if prev is None:
+                del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
+            else:
+                os.environ["PYTORCH_CUDA_ALLOC_CONF"] = prev
+    check_granite_fsdp([g for g, _ in out], loss, peak, n)
+    n_moe = sum(s.ffn == "moe" for s in cfg_all.pattern)
+    di = cfg.mamba.expand * cfg.d_model // FSDP_SIZES[1]
+    return check_served_fsdp(cfg, [h for _, h in out], serve_shape,
+                             scan_chunks(cfg_all, serve_shape["prompt_len"]),
+                             n_moe, di, kind == "cuda")
 
 
 def zoo_config(arch, changes):
@@ -4388,17 +4803,15 @@ def serve_zoo_rank(mesh, ref_path, shape):
 def serve_zoo(device, kind, sizes=SERVE_ZOO_SIZES, shape=SERVE_ZOO_SHAPE):
     """(f) (i): the reduced zoo with no mesh here, then on the ranks of a
     ``sizes`` mesh."""
-    from repro_torch.launch import spmd
-    t0 = time.perf_counter()
     ref = {label: serve_forced(zoo_config(arch, changes), device, shape,
                                False)[0]
            for label, arch, changes in SERVE_ZOO}
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "serve_zoo.pt")
         torch.save(ref, path)
-        out = spmd.run(serve_zoo_rank, (path, shape), sizes=sizes,
-                       device=kind, all_ranks=True, timeout_s=600,
-                       threads=None)
+        del ref
+        out = yield Ranks("(f) (i)", serve_zoo_rank, (path, shape), sizes,
+                          timeout_s=600)
     n_scan = scan_chunks(build_model(reduced(get_config(JAMBA))),
                          shape["prompt_len"])
     totals = {}
@@ -4423,9 +4836,7 @@ def serve_zoo(device, kind, sizes=SERVE_ZOO_SIZES, shape=SERVE_ZOO_SHAPE):
               f"{[o[label]['launches'] for o in out]}, expected {expect}")
         for o in out:
             add_counts(totals, o[label]["launches"])
-    print(f"spmd (f) (i): {len(SERVE_ZOO)} families on a {sizes} mesh, "
-          f"{time.perf_counter() - t0:.1f} s with the references and the "
-          f"spawn")
+    print(f"spmd (f) (i): {len(SERVE_ZOO)} families on a {sizes} mesh")
     return totals
 
 
@@ -4434,26 +4845,29 @@ def no_choice_cut(cfg):
     return cfg.replace(moe=dataclasses.replace(cfg.moe, num_experts=2))
 
 
-def jamba_model_ranks(mesh, runs, shape):
-    """(f) (ii) on one rank of data 1 x model 2: ``jamba_model_rank`` for
-    each (reference file, config) of ``runs``, the first also routed as the
-    no-mesh run routed; each run's params freed before the next."""
+def jamba_model_ranks(mesh, runs, shape, label="spmd (f) (ii)",
+                      routed_first=True):
+    """(f) (ii) on one rank of data 1 x model 2, or (h) on one of data 2
+    x model 2: ``jamba_model_rank`` for each (reference file, config) of
+    ``runs``, with ``routed_first`` the first also routed as the no-mesh
+    run routed; each run's params freed before the next."""
     spmd_rank_setup()
     outs = []
     for i, (path, cfg) in enumerate(runs):
-        outs.append(jamba_model_rank(mesh, path, cfg, shape,
-                                     routed_alike=i == 0))
+        outs.append(jamba_model_rank(mesh, path, cfg, shape, label,
+                                     routed_alike=routed_first and i == 0))
         free_cache(mesh.device)
     return outs
 
 
-def jamba_model_rank(mesh, ref_path, cfg, shape, routed_alike):
+def jamba_model_rank(mesh, ref_path, cfg, shape, label, routed_alike):
     """One cut on one rank: drawn leaf by leaf, only the rank's share kept
     (the ranks in turn, so that one whole leaf is drawn at a time on the
     card), its bytes against the dry run's; then ``serve.run`` fed the
-    no-mesh run's tokens, the scan's calls and channels and the routings
-    recorded; with ``routed_alike`` the run again with every token sent to
-    the experts the no-mesh run chose."""
+    no-mesh run's tokens, the scan's calls and channels, the routings and
+    the MoE's sums of F partials over data recorded; with
+    ``routed_alike`` the run again with every token sent to the experts
+    the no-mesh run chose."""
     from repro_torch.launch import dryrun
     dev = mesh.device
     ref = torch.load(ref_path, weights_only=False)
@@ -4462,13 +4876,13 @@ def jamba_model_rank(mesh, ref_path, cfg, shape, routed_alike):
 
     def memory(when):
         if cuda:
-            print(f"spmd (f) (ii) rank {mesh.rank} {when}: memory_allocated "
+            print(f"{label} rank {mesh.rank} {when}: memory_allocated "
                   f"{torch.cuda.memory_allocated(dev)} reserved "
                   f"{torch.cuda.memory_reserved(dev)}; the card's free and "
                   f"total bytes {torch.cuda.mem_get_info(dev)}", flush=True)
 
-    for turn in range(mesh.shape["model"]):
-        if shd.model_index() == turn:
+    for turn in range(mesh.size):
+        if mesh.rank == turn:
             memory(f"before its draw of {cfg.moe.num_experts} experts")
             model, params = serve.build(cfg, dev, seed=0, shard=True)
             sync(dev)
@@ -4477,7 +4891,7 @@ def jamba_model_rank(mesh, ref_path, cfg, shape, routed_alike):
         torch.distributed.barrier()
     build_s = time.perf_counter() - t0
     B, S0, T = (shape[k] for k in ("batch", "prompt_len", "gen"))
-    record = shd.Mesh(SERVE_MODEL_AXES, SERVE_MODEL_SIZES, tuple(range(2)))
+    record = mesh_record(mesh)
     with shd.use_mesh(None):
         whole_state = model.init_decode_state(B, S0 + T, device="meta")
     dry = (dryrun.per_device_bytes(model.param_specs(), model.logical_specs,
@@ -4485,21 +4899,27 @@ def jamba_model_rank(mesh, ref_path, cfg, shape, routed_alike):
            dryrun.per_device_bytes(whole_state, model.state_logical_specs(
                B, S0 + T), record))
     channels, orig = [], kops.selective_scan_chunk
+    partials, reduce = [], shd.reduce_from_data
 
     def scan(a, b, h0):
         channels.append(a.shape[2])
         return orig(a, b, h0)
 
+    def summed(x):
+        if shd.data_live():
+            partials.append(x.shape)
+        return reduce(x)
+
     if cuda:
         torch.cuda.reset_peak_memory_stats(dev)
     launches.reset()
-    kops.selective_scan_chunk = scan
+    kops.selective_scan_chunk, shd.reduce_from_data = scan, summed
     try:
         with recorded_routes() as routes:
             res = serve.run(model, params, ref["prompt"], T, 0.0,
                             torch.Generator(dev), forced=ref["ids"])
     finally:
-        kops.selective_scan_chunk = orig
+        kops.selective_scan_chunk, shd.reduce_from_data = orig, reduce
     sync(dev)
     counts = dict(launches.KERNEL_LAUNCHES)
     launches.reset()
@@ -4513,7 +4933,10 @@ def jamba_model_rank(mesh, ref_path, cfg, shape, routed_alike):
         return ((g - w).abs().flatten(1).amax(1)
                 / w.abs().max().clamp_min(1e-30)).tolist()
 
+    f_cut = [v.shape[-1] for k, v in flat_dict(params).items()
+             if k.endswith("moe/w1")]
     out = dict(held=held, dry=dry, counts=counts, peak=peak,
+               partials=len(partials), f_cut=sorted(set(f_cut)),
                build_s=build_s, prefill_s=res.prefill_s,
                decode_ms=res.decode_s / T * 1e3,
                channels=sorted(set(channels)), n_scans=len(channels),
@@ -4526,7 +4949,10 @@ def jamba_model_rank(mesh, ref_path, cfg, shape, routed_alike):
                       for g, w in zip(res.logits, ref["logits"])],
                routings=sum(r.shape[0] for r in routes),
                flips=route_flips(routes, ref["routes"],
-                                 len(ref["routes"]) // (T + 1), B))
+                                 len(ref["routes"]) // (T + 1), B,
+                                 first=shd.shard_index(
+                                     shd.batch_split_axes()) * B
+                                 // shd.shard_count(shd.batch_split_axes())))
     finite = all(bool(torch.isfinite(g).all()) for g in res.logits)
     del res, routes
     if routed_alike:
@@ -4539,8 +4965,10 @@ def jamba_model_rank(mesh, ref_path, cfg, shape, routed_alike):
         finite = finite and all(bool(torch.isfinite(g).all())
                                 for g in same.logits)
     out["finite"] = finite
-    print(f"spmd (f) (ii) rank {mesh.rank}: {cfg.name} cut, "
-          f"{cfg.moe.num_experts} experts, over model 2: "
+    print(f"{label} rank {mesh.rank}: {cfg.name} cut, "
+          f"{cfg.moe.num_experts} experts, over {mesh.shape}: "
+          f"the experts' F held {out['f_cut']} of {cfg.moe.d_expert}, the "
+          f"F partials summed over data {len(partials)} times; "
           f"param bytes {held[0]} (dry run {dry[0]}), decode-state bytes "
           f"{held[1]} (dry run {dry[1]}); built in {build_s:.1f} s with "
           f"the other rank's turn; prefill_s={out['prefill_s']:.4f} decode "
@@ -4583,7 +5011,6 @@ def serve_jamba_model(device, kind, cfg=None, shape=SERVE_MODEL):
     (SERVE_NO_CHOICE), each served greedily with no mesh here, then on
     data 1 x model 2 fed the same tokens; and the scan at a rank's chunk,
     timed against its plain version and its bound."""
-    from repro_torch.launch import spmd
     cfg = cfg or jamba_cut()
     cfgs = (cfg, no_choice_cut(cfg))
     B, S0, T = (shape[k] for k in ("batch", "prompt_len", "gen"))
@@ -4605,20 +5032,15 @@ def serve_jamba_model(device, kind, cfg=None, shape=SERVE_MODEL):
         # draws
         prev = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
         os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
-        t0 = time.perf_counter()
         try:
-            outs = spmd.run(jamba_model_ranks, (list(zip(paths, cfgs)),
-                                                shape),
-                            sizes=SERVE_MODEL_SIZES, axes=SERVE_MODEL_AXES,
-                            device=kind, all_ranks=True, timeout_s=900,
-                            threads=None)
+            outs = yield Ranks("(f) (ii)", jamba_model_ranks,
+                               (list(zip(paths, cfgs)), shape),
+                               SERVE_MODEL_SIZES, SERVE_MODEL_AXES)
         finally:
             if prev is None:
                 del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
             else:
                 os.environ["PYTORCH_CUDA_ALLOC_CONF"] = prev
-    print(f"spmd (f) (ii): 2 ranks, {time.perf_counter() - t0:.1f} s with "
-          f"the spawn")
     n_scan = scan_chunks(build_model(cfg), S0)
     n_moe = sum(s.ffn == "moe" for s in build_model(cfg).pattern)
     di = cfg.mamba.expand * cfg.d_model // SERVE_MODEL_SIZES[1]
@@ -4682,6 +5104,52 @@ def serve_jamba_model(device, kind, cfg=None, shape=SERVE_MODEL):
     return totals
 
 
+def check_served_fsdp(cfg, out, shape, n_scan, n_moe, di, cuda) -> dict:
+    """(h)'s checks over its ranks' results: the bytes the dry run's, the
+    experts' F held cut over data and its partials summed over data once
+    a MoE layer a decode step, the logits within SERVE_DECODE_TOL of no
+    mesh's at every step with no routing flipped, the scans on the rank's
+    channels.  Returns the launches summed over the ranks."""
+    T = shape["gen"]
+    label = f"spmd (h) {SERVE_NO_CHOICE} on data 2 x model 2"
+    worst = [round(max(o["gaps"][i] for o in out), 5) for i in range(T + 1)]
+    # a rank's prefill routes its own rows only: flips and routings are
+    # summed over every rank's
+    flips = sum(sum(map(sum, o["flips"])) for o in out)
+    routings = sum(o["routings"] for o in out)
+    peaks = [o["peak"] for o in out]
+    print(f"{label}: max |diff| / max |logit| against no mesh, prefill and "
+          f"each decode step, worst rank {worst}; argmax agreement "
+          f"{[min(o['agree'][i] for o in out) for i in range(T + 1)]}; "
+          f"routings flipped {flips} of {routings} (all ranks'); the F "
+          f"partials summed over data {[o['partials'] for o in out]} times "
+          f"a rank (expected {n_moe * T}); the experts' F held "
+          f"{[o['f_cut'] for o in out]} of {cfg.moe.d_expert}; prefill_s "
+          f"{[round(o['prefill_s'], 4) for o in out]}, decode ms/token "
+          f"{[round(o['decode_ms'], 2) for o in out]}; rank peaks {peaks} "
+          f"({sum(peaks) / 1e9:.2f} GB together)")
+    totals = {}
+    for o in out:
+        check(o["finite"], f"{label}: non-finite logits")
+        check(o["held"] == o["dry"], f"{label}: (param, state) bytes "
+                                     f"{o['held']} against the dry run's "
+                                     f"{o['dry']}")
+        check(o["f_cut"] == [cfg.moe.d_expert // FSDP_SIZES[0]]
+              and o["partials"] == n_moe * T,
+              f"{label}: the experts' F {o['f_cut']}, F partials summed "
+              f"{o['partials']} times, expected {n_moe * T}")
+        check(flips == 0 and max(o["gaps"]) <= SERVE_DECODE_TOL,
+              f"{label}: {max(o['gaps']):.4g} from no mesh with {flips} "
+              f"routings flipped")
+        check(o["n_scans"] == n_scan and o["channels"] == [di],
+              f"{label}: {o['n_scans']} scan calls on {o['channels']} "
+              f"channels, expected {n_scan} on [{di}]")
+        check(not cuda or o["counts"] == {"selective_scan": n_scan},
+              f"{label}: launches {o['counts']}, expected {n_scan} scans")
+        add_counts(totals, o["counts"])
+    return totals
+
+
 def time_rank_chunk(cfg, device, seed=4):
     """The scan at a rank's prefill chunk of the cut over model 2 ([1,
     chunk, d_inner / 2, d_state] f32): bit for bit against its plain
@@ -4709,17 +5177,6 @@ def time_rank_chunk(cfg, device, seed=4):
                 "plain version")
 
 
-def spmd_serve(device, kind, zoo_sizes=SERVE_ZOO_SIZES,
-               zoo_shape=SERVE_ZOO_SHAPE, jamba_cfg=None,
-               jamba_shape=SERVE_MODEL):
-    """(f): serving on a ``model`` axis, (i) the reduced zoo and (ii) the
-    Jamba cut at every published width."""
-    totals = serve_zoo(device, kind, zoo_sizes, zoo_shape)
-    add_counts(totals, serve_jamba_model(device, kind, jamba_cfg,
-                                         jamba_shape))
-    return totals
-
-
 def param_bytes(cfg) -> int:
     """The params' bytes in the config's dtype, from the meta tree."""
     return sum(v.numel() * v.element_size() for v in
@@ -4741,6 +5198,7 @@ def main() -> int:
           "computes in float32 as the CPU does; bf16 matmuls reduce in "
           "float32, as the launchers set them (train.resolve_device)")
     t_start = time.perf_counter()
+    dry = {}
     try:
         smi = nvidia_smi()
         print(f"nvidia-smi: {smi}")
@@ -4753,7 +5211,13 @@ def main() -> int:
                            ("async_path", async_path),
                            ("fleet_path", fleet_path),
                            ("lm_serve", lm_serve), ("lm_train", lm_train),
-                           ("mesh", mesh_phase), ("spmd", spmd_phase)):
+                           ("mesh", lambda: mesh_phase(dry=dry.pop("job"))),
+                           ("spmd", spmd_phase)):
+            if phase == "round_parity":
+                # the dry run needs no card: its processes, at the lowest
+                # priority, run from here (a phase that prints no time)
+                # until the mesh phase joins them
+                dry["job"] = start_dry_run()
             t0 = time.perf_counter()
             phases[phase] = run()
             print(f"phase {phase}: {time.perf_counter() - t0:.1f} s")
@@ -4770,6 +5234,8 @@ def main() -> int:
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
+    finally:
+        stop_dry_run(dry.get("job"))
     print(f"total: {time.perf_counter() - t_start:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "queued_ms", "plain_ms", "bound_ms", "bound_by",

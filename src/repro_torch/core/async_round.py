@@ -39,10 +39,11 @@ Under a mesh of processes (``models.sharding``) every process calls the
 commit with the same whole buffer: the K slots stay whole on every
 process, and the commit kernels split the bucket's rows over the mesh's
 fusion axes, each process on its rows, the rows then gathered
-(``kernels/ops.rows_reduce``).  Where the params are split over a
-``model`` axis at rest, so are the buffer's deltas, and ``model_dims``
-(``launch.specs.model_dims``) says how: the commit runs on the shares
-(``pipeline.model_commit``) and returns the rank's share.
+(``kernels/ops.rows_reduce``).  Where the params are cut over ``data``
+and ``model`` at rest, so are the buffer's deltas, and ``cuts``
+(``launch.specs.leaf_cuts``' ``{leaf: {axis: dim}}``) says how: the
+commit runs on the shares (``pipeline.model_commit``) and returns the
+rank's share.
 """
 from __future__ import annotations
 
@@ -200,7 +201,7 @@ def build_client_update_step(loss_fn: Callable, client_opt: Optimizer,
 
 
 def build_buffer_commit_step(server_opt: ServerOptimizer, cfg: FLConfig,
-                             async_cfg: AsyncConfig, model_dims=None):
+                             async_cfg: AsyncConfig, cuts=None):
     """The server commit over a fixed-size buffer of K client deltas:
 
     commit(params, server_state, deltas, weights, staleness, losses, mask,
@@ -212,9 +213,8 @@ def build_buffer_commit_step(server_opt: ServerOptimizer, cfg: FLConfig,
     the discount's ``a`` (a float).  Padding slots carry mask 0: their
     deltas and their masks never contribute.  ``losses`` feeds
     aggregation='weighted' as in the sync round; 'trimmed_mean' is refused
-    here, when the step is built.  ``model_dims``: the split dim of each
-    leaf split over ``model`` at rest (the deltas are the rank's
-    shares)."""
+    here, when the step is built.  ``cuts``: ``{leaf: {axis: dim}}`` of
+    each leaf cut at rest (the deltas are the rank's shares)."""
     _refuse_trimmed_mean(cfg)
     pipe = build_update_pipeline(cfg)
 
@@ -223,10 +223,10 @@ def build_buffer_commit_step(server_opt: ServerOptimizer, cfg: FLConfig,
         delta, w_eff, _, _ = pipe.model_commit(
             lambda d: pipe.combine(
                 d, weights, mask, losses, generator, ids=ids,
-                staleness=staleness, exponent=exponent), deltas, model_dims)
+                staleness=staleness, exponent=exponent), deltas, cuts)
         new_params, new_state = server_opt.apply(params, delta, server_state)
         metrics = {
-            "delta_norm": global_norm(delta, model_dims),
+            "delta_norm": global_norm(delta, cuts),
             "n_updates": mask.sum(),
             "mean_staleness": (staleness * mask).sum()
             / torch.clamp(mask.sum(), min=1),
@@ -238,7 +238,7 @@ def build_buffer_commit_step(server_opt: ServerOptimizer, cfg: FLConfig,
 
 
 def build_chunked_commit_steps(server_opt: ServerOptimizer, cfg: FLConfig,
-                               async_cfg: AsyncConfig, model_dims=None):
+                               async_cfg: AsyncConfig, cuts=None):
     """(accumulate, finalize): the buffer commit split into C-sized chunks.
 
     ``accumulate(acc, wsum, deltas[C, ...], weights, staleness, losses,
@@ -250,7 +250,7 @@ def build_chunked_commit_steps(server_opt: ServerOptimizer, cfg: FLConfig,
     concatenated slots in exact arithmetic (float sums in another order:
     ~1e-5).  Each chunk draws its own randomness and mask key from the
     generator and uses its own arange ids, so secure-aggregation masks
-    cancel chunk by chunk.  ``model_dims`` as in
+    cancel chunk by chunk.  ``cuts`` as in
     ``build_buffer_commit_step``."""
     _refuse_trimmed_mean(cfg)
     pipe = build_update_pipeline(cfg)
@@ -260,14 +260,13 @@ def build_chunked_commit_steps(server_opt: ServerOptimizer, cfg: FLConfig,
         summed, _, w_raw, _ = pipe.model_commit(
             lambda d: pipe.combine_unnormalised(
                 d, weights, mask, losses, generator, ids=ids,
-                staleness=staleness, exponent=exponent), deltas, model_dims)
+                staleness=staleness, exponent=exponent), deltas, cuts)
         acc = {k: a + summed[k].to(a.dtype) for k, a in acc.items()}
         return acc, wsum + w_raw.sum()
 
     def finalize(params, server_state, acc, wsum):
         delta = pipe.normalise(acc, wsum)
         new_params, new_state = server_opt.apply(params, delta, server_state)
-        return new_params, new_state, {"delta_norm": global_norm(delta,
-                                                                 model_dims)}
+        return new_params, new_state, {"delta_norm": global_norm(delta, cuts)}
 
     return accumulate, finalize

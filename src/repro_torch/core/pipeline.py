@@ -74,16 +74,17 @@ added to the process's own slots, and the masked slots are gathered and
 summed in slot order; trimming and the hierarchical pod combine gather the
 slots whole first.  The streaming stages take whole (replicated) values.
 
-Where the params are split over a ``model`` axis at rest
+Where the params are cut over ``data`` and ``model`` at rest
 (``launch.specs.shard_params``), so are the deltas: ``model_commit`` runs
 a stage on them.  An elementwise commit (no compression, no secure masks:
 ``fused_accum``, the plain weighted sum, the streaming sum, the trimmed
-mean) runs on each rank's shares, ``model`` dropped from the fusion axes.
-A blockwise one (quantize, top-k, dropout, the secure commits: blocks run
-along a leaf's last dim, draws and masks follow its element order) first
-gathers each split leaf whole over ``model``, runs as above with
-``model`` among the fusion axes, and keeps the rank's share: so a split
-commit equals the unsplit commit of the same deltas bit for bit.
+mean) runs on each rank's shares, the cutting axes dropped from the
+fusion axes.  A blockwise one (quantize, top-k, dropout, the secure
+commits: blocks run along a leaf's last dim, which ``wo``, ``w2``,
+``out_proj`` and ``down`` cut over ``data``, and draws and masks follow
+its element order) first gathers each cut leaf whole over its axes, runs
+as above with them among the fusion axes, and keeps the rank's share: so
+a cut commit equals the uncut commit of the same deltas bit for bit.
 """
 from __future__ import annotations
 
@@ -103,18 +104,32 @@ if TYPE_CHECKING:                       # avoid circular import with round.py
     from repro_torch.core.round import FLConfig
 
 
-def model_whole(tree: dict, model_dims: dict, lead: int = 0) -> dict:
-    """Each leaf of ``tree`` that ``model_dims`` splits over ``model``
-    (after ``lead`` leading slot dims) gathered whole; the rest as they
-    are."""
-    return {k: v if model_dims.get(k) is None else sh.all_gather(
-        v, sh.MODEL, model_dims[k] + lead) for k, v in tree.items()}
+def cuts_over(cuts: dict, axes) -> dict:
+    """``cuts`` (``{leaf: {axis: dim}}``) restricted to ``axes``."""
+    out = {k: {a: d for a, d in c.items() if a in axes}
+           for k, c in cuts.items()}
+    return {k: c for k, c in out.items() if c}
 
 
-def model_share(tree: dict, model_dims: dict, lead: int = 0) -> dict:
-    """``model_whole``'s inverse: this rank's share of each split leaf."""
-    return {k: v if model_dims.get(k) is None else sh.local_share(
-        v, sh.MODEL, model_dims[k] + lead, k) for k, v in tree.items()}
+def cuts_whole(tree: dict, cuts: dict, lead: int = 0) -> dict:
+    """Each leaf of ``tree`` that ``cuts`` cuts (after ``lead`` leading
+    slot dims) gathered whole over its axes; the rest as they are."""
+    out = {}
+    for k, v in tree.items():
+        for a, d in cuts.get(k, {}).items():
+            v = sh.all_gather(v, a, d + lead)
+        out[k] = v
+    return out
+
+
+def cuts_share(tree: dict, cuts: dict, lead: int = 0) -> dict:
+    """``cuts_whole``'s inverse: this rank's share of each cut leaf."""
+    out = {}
+    for k, v in tree.items():
+        for a, d in cuts.get(k, {}).items():
+            v = sh.local_share(v, a, d + lead, k)
+        out[k] = v
+    return out
 
 
 def staleness_weights(staleness, exponent):
@@ -160,26 +175,27 @@ class UpdatePipeline:
         element order) or secure masks (indexed by element)."""
         return self.cfg.compression.enabled or self.cfg.secure_agg
 
-    def model_commit(self, fn: Callable, tree: dict, model_dims=None,
+    def model_commit(self, fn: Callable, tree: dict, cuts=None,
                      lead: int = 1):
         """``fn(tree)``, a commit stage whose result is a dict of leaves
         (or a tuple led by one), on a ``tree`` of this rank's shares over
-        ``model``: ``model_dims`` gives each leaf's split dim (None where
-        it is whole), after ``lead`` leading slot dims.  Elementwise
-        stages run on the shares with ``model`` out of the fusion axes;
-        blockwise ones (``blockwise``) on the split leaves gathered whole,
-        their result cut back to the shares."""
-        dims = {k: d for k, d in (model_dims or {}).items()
-                if d is not None}
-        if not dims or not sh.model_live():
+        ``data`` and ``model``: ``cuts`` gives each cut leaf's dims
+        (``{leaf: {axis: dim}}``, ``launch.specs.leaf_cuts``' form), after
+        ``lead`` leading slot dims.  Elementwise stages run on the shares
+        with the cutting axes out of the fusion axes; blockwise ones
+        (``blockwise``) on the cut leaves gathered whole, their result cut
+        back to the shares."""
+        cuts = cuts_over(cuts or {}, [a for a in (sh.DATA, sh.MODEL)
+                                      if sh.axis_live(a)])
+        if not cuts:
             return fn(tree)
         if not self.blockwise:
-            with sh.exclude_axes(sh.MODEL):
+            with sh.exclude_axes(*{a for c in cuts.values() for a in c}):
                 return fn(tree)
-        out = fn(model_whole(tree, dims, lead))
+        out = fn(cuts_whole(tree, cuts, lead))
         if isinstance(out, tuple):
-            return (model_share(out[0], dims),) + out[1:]
-        return model_share(out, dims)
+            return (cuts_share(out[0], cuts),) + out[1:]
+        return cuts_share(out, cuts)
 
     # ------------------------------------------------------------- slots
     @staticmethod

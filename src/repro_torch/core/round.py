@@ -36,12 +36,14 @@ client body drop those axes (``exclude_axes``), the sequential body drops
 step runs SPMD, the reference's shardings executed: every process calls
 it with the same whole batches, weights and mask, the same generator
 state, and the params (and server state) as it holds them at rest: its
-share over ``model`` (``launch.specs.shard_params``), whole along the
-other axes.  It returns the new params as it holds them.
+share over ``data`` and ``model`` (``launch.specs.shard_params``), whole
+along ``pod``.  It returns the new params as it holds them.
   * parallel: the clients split over ``client_spmd_axes`` (C/n a process,
     contiguous, in ``flat_shard_index`` order), their batches over the
     batch axes left; the commit exchanges the client split for a row split
-    (``core.pipeline``'s ``slot_axes``).
+    (``core.pipeline``'s ``slot_axes``).  A client dim that owns ``data``
+    trains on the params gathered whole over it, once a round, and the
+    server step runs on the commit's result cut back to the shares.
   * sequential: every process streams every client, each client's batch
     split over ``data`` (``pod`` dropped: processes in different pods
     repeat the same work, as in the reference, and the gradients' mean
@@ -54,25 +56,30 @@ other axes.  It returns the new params as it holds them.
     its layers over ``model`` (tensor, expert and head parallelism,
     ``models.sharding``'s conjugate collectives, which run inside the
     transforms); the commit runs on the shares (``pipeline.model_commit``).
+  * ``data`` (FSDP): where the client's batch splits over ``data``, each
+    layer gathers its weights' ``data`` shares just before it runs and
+    lets them go after it (``transformer.LM``); the gather's backward
+    sums the gradient over ``data`` and cuts it to the rank's share.
 Gradients are taken on the local batch; their mean over the processes that
 split it (``sharding.batch_split_axes``) and those that repeat it
 (``replica_axes``) sits between ``grad_and_value`` and the optimizer step,
 outside every ``torch.func`` transform.  A leaf held whole over ``model``
 is averaged over ``model`` too (its ranks hold equal values, and the mean
 hands them the same bits whatever their algorithms do); a split leaf's
-gradient is the rank's own.  The loss is averaged over all of these axes
-(an MoE's aux loss enters that mean per
-shard, where the reference's ``shard_map`` returns it unchecked,
-``out_specs=P()``).  A batch or a client count that its split does not
+gradient is the rank's own; a leaf cut over ``data`` takes the gather's
+sum over ``data`` divided by its count.  The loss is averaged over all of
+these axes (an MoE's aux loss enters that mean per shard, where the
+reference's ``shard_map`` returns it unchecked, ``out_specs=P()``).  A batch or a client count that its split does not
 divide raises.  Params and server state end each round bit for bit the
 same on every process that holds the same share
 (``sharding.replica_checksums`` shows it): every process that holds a
 client takes the same all-reduced gradient bits, and the commit's result
-is gathered whole along every axis but ``model``.
+is gathered whole along every axis but ``data`` and ``model``.
 
-Which leaves are split over ``model`` (``ModelLayout``): the sanitised
-specs of the model whose bound ``loss_fn`` the round gets (``LM``), or the
-``model_dims`` given; a model without specs (the CNN) is whole.
+Which leaves are cut over ``data`` and ``model`` (``ModelLayout``): the
+sanitised specs of the model whose bound ``loss_fn`` the round gets
+(``LM.leaf_cuts``), or the ``cuts`` given; a model without specs (the
+CNN) is whole.
 """
 from __future__ import annotations
 
@@ -83,11 +90,12 @@ import torch
 from torch.func import grad_and_value, vmap
 
 from repro_torch.core.compression import CompressionConfig
-from repro_torch.core.pipeline import build_update_pipeline
+from repro_torch.core.pipeline import (build_update_pipeline, cuts_over,
+                                      cuts_share, cuts_whole)
 from repro_torch.models import sharding as shd
 from repro_torch.models.common import lane_exact
 from repro_torch.optim import Optimizer, ServerOptimizer
-from repro_torch.pytree import flat_dict, ordered
+from repro_torch.pytree import ordered
 
 
 @dataclass(frozen=True)
@@ -118,47 +126,40 @@ class FLConfig:
 MIN_LANES = 2
 
 
-def global_norm(tree: dict, model_dims: Optional[dict] = None):
-    """The L2 norm of ``tree``'s leaves; where ``model_dims`` marks leaves
-    as this rank's shares over ``model``, of the whole tree (their squares
-    summed over ``model``)."""
+def global_norm(tree: dict, cuts: Optional[dict] = None):
+    """The L2 norm of ``tree``'s leaves; where ``cuts`` (``ModelLayout``'s
+    ``{leaf: {axis: dim}}``) marks leaves as this rank's shares, of the
+    whole tree (each leaf's squares summed over the active axes that cut
+    it)."""
     sq = lambda k: torch.sum(tree[k].to(torch.float32).square())
-    split = {k for k, d in (model_dims or {}).items() if d is not None}
-    if not split or not shd.model_live():
-        return torch.sqrt(sum(sq(k) for k in ordered(tree)))
-    whole = sum(sq(k) for k in ordered(tree) if k not in split)
-    shares = shd.psum(sum(sq(k) for k in ordered(tree) if k in split),
-                      shd.MODEL)
-    return torch.sqrt(whole + shares)
+    by_axes = {}
+    for k in ordered(tree):
+        axes = tuple(a for a in (cuts or {}).get(k, {}) if shd.axis_live(a))
+        by_axes.setdefault(tuple(sorted(axes)), []).append(k)
+    total = sum(sq(k) for k in by_axes.pop((), []))
+    for axes, keys in by_axes.items():
+        total = total + shd.psum(sum(sq(k) for k in keys), axes)
+    return torch.sqrt(total)
 
 
 class ModelLayout:
-    """Which param leaves are split over ``model`` at rest, and along which
-    dim: ``layout()`` -> ``{leaf: dim or None}`` (flat names) on the
-    active mesh, empty off a ``model`` axis larger than 1.  From
-    ``model_dims`` where given, else from the sanitised specs of the model
-    that ``loss_fn`` is bound to (one with ``param_specs`` and
-    ``logical_specs``); a model without them has every leaf whole."""
+    """Which param leaves are cut at rest, over which of ``data`` and
+    ``model`` and along which dims: ``layout()`` -> ``{leaf: {axis:
+    dim}}`` (flat names, the cut leaves only) on the active mesh, the
+    layout at rest whatever body asks.  From ``cuts`` where given, else
+    from the model that ``loss_fn`` is bound to (``LM.leaf_cuts``); a
+    model without it has every leaf whole."""
 
-    def __init__(self, loss_fn: Callable, model_dims: Optional[dict] = None):
+    def __init__(self, loss_fn: Callable, cuts: Optional[dict] = None):
         self.owner = getattr(loss_fn, "__self__", None)
-        self.model_dims = model_dims
-        self._cache = {}
+        self.cuts = cuts
 
     def __call__(self) -> dict:
-        if self.model_dims is not None:
-            return self.model_dims
-        mesh = shd.get_mesh()
-        if not shd.model_live() or not hasattr(self.owner, "param_specs"):
+        if self.cuts is not None:
+            return self.cuts
+        if not hasattr(self.owner, "leaf_cuts"):
             return {}
-        key = tuple(mesh.shape.items())
-        if key not in self._cache:
-            from repro_torch.launch.specs import model_dims
-            shapes = {k: tuple(v.shape) for k, v in
-                      flat_dict(self.owner.param_specs()).items()}
-            self._cache[key] = model_dims(shapes, self.owner.logical_specs,
-                                          mesh)
-        return self._cache[key]
+        return self.owner.leaf_cuts()
 
 
 def build_local_train(loss_fn: Callable, client_opt: Optimizer,
@@ -179,10 +180,13 @@ def build_local_train(loss_fn: Callable, client_opt: Optimizer,
     Under a mesh of processes the gradients and the loss are averaged over
     the batch split and over ``replica_axes``, the axes whose processes
     repeat this client's work: the mean of equal values, which hands every
-    one of them the same bits.  Over a ``model`` axis the params are the
-    rank's shares (``layout``: ``ModelLayout`` of ``loss_fn`` by default);
-    a leaf held whole there, and the loss, are averaged over ``model``
-    too.
+    one of them the same bits.  The params are the rank's shares at rest
+    (``layout``: ``ModelLayout`` of ``loss_fn`` by default).  A leaf held
+    whole over ``model``, and the loss, are averaged over ``model`` too.
+    A leaf cut over an active ``data`` axis takes its gradient from the
+    gather's backward already summed over ``data`` (the batch split's
+    ranks) and cut to the rank's share: it is divided by the ``data``
+    count and averaged over the other axes only.
 
     FedProx (mu>0): the proximal term mu/2 ||w - w0||^2 enters as the exact
     gradient correction mu (w - w0).  With ``use_fused_update`` and the sgd
@@ -196,14 +200,25 @@ def build_local_train(loss_fn: Callable, client_opt: Optimizer,
 
     def local_train(global_params: dict, batches: dict):
         # the processes that split this client's batch or repeat its work
-        # (none off a mesh), and with them those of `model` for a leaf
-        # every rank of it holds whole
+        # (none off a mesh); with them those of `model` for a leaf every
+        # rank of it holds whole, and without `data` for a leaf cut over
+        # it, whose gather's backward summed its gradient there
         mesh = shd.get_mesh()
         split = () if mesh is None else mesh.live(
             shd.batch_split_axes() + tuple(replica_axes))
-        dims = layout()
-        whole_axes = mesh.live(split + (shd.MODEL,)) if shd.model_live() \
+        cuts = layout()
+        n_data = shd.shard_count(shd.DATA) if shd.data_live() else 1
+        loss_axes = mesh.live(split + (shd.MODEL,)) if shd.model_live() \
             else split
+
+        def reduce(k, g):
+            c = cuts.get(k, {})
+            axes = split if shd.MODEL in c else loss_axes
+            if n_data > 1 and shd.DATA in c:
+                return shd.pmean(g / n_data, tuple(a for a in axes
+                                                   if a != shd.DATA))
+            return shd.pmean(g, axes)
+
         if stacked:
             x0 = next(iter(batches.values()))
             C = x0.shape[0]
@@ -222,14 +237,12 @@ def build_local_train(loss_fn: Callable, client_opt: Optimizer,
         loss_sum = 0.0
         for h in range(cfg.local_steps):
             grads, (loss, _) = step_grad(w, step_batch(h))
-            if whole_axes:
+            if loss_axes:
                 # the gradient of the whole batch's mean loss: the mean of
                 # the shares' gradients (and of the replicas' equal ones),
                 # reduced between the transforms
-                grads = {k: shd.pmean(g, whole_axes if dims.get(k) is None
-                                      else split)
-                         for k, g in grads.items()}
-                loss = shd.pmean(loss, whole_axes)
+                grads = {k: reduce(k, g) for k, g in grads.items()}
+                loss = shd.pmean(loss, loss_axes)
             if fused:
                 from repro_torch.kernels import ops as kops
                 w = {k: kops.fedprox_update(w[k], grads[k], global_params[k],
@@ -250,12 +263,19 @@ def build_local_train(loss_fn: Callable, client_opt: Optimizer,
     return local_train
 
 
-def _metrics(delta: dict, loss_sum, mask, model_dims=None) -> dict:
+def _metrics(delta: dict, loss_sum, mask, cuts=None) -> dict:
     return {
         "client_loss": loss_sum / torch.clamp(mask.sum(), min=1),
-        "delta_norm": global_norm(delta, model_dims),
+        "delta_norm": global_norm(delta, cuts),
         "participation": mask.mean(),
     }
+
+
+def _held(cuts: dict, owned) -> dict:
+    """The cut of the deltas a client dim that owns ``owned`` trains:
+    ``cuts`` without those axes (the leaves are whole over them)."""
+    return cuts_over(cuts, [a for a in (shd.DATA, shd.MODEL)
+                            if a not in owned])
 
 
 def _spmd_axes(client_spmd_axes) -> tuple:
@@ -280,22 +300,31 @@ class ParallelRound:
     mesh of processes both halves take this process's clients
     (``client_share``): ``train_clients`` their whole batches,
     ``commit`` their deltas, weights, mask and losses; the commit's result
-    is whole (the rank's share of a leaf split over ``model``)."""
+    is whole (the rank's share of a leaf split over ``model``).  Where the
+    client dim owns ``data`` (the reference's ``exclude_axes``), the
+    clients train on the global params gathered whole over ``data``, once
+    a round, their deltas come back whole over it, and the commit's
+    result is cut back to the rank's ``data`` shares for the server step,
+    which runs on the shares as the params and the server state rest."""
 
     def __init__(self, loss_fn: Callable, client_opt: Optimizer,
                  server_opt: ServerOptimizer, cfg: FLConfig, n_pods: int = 1,
-                 client_spmd_axes=(), model_dims=None):
+                 client_spmd_axes=(), cuts=None):
         self.server_opt = server_opt
         self.client_spmd_axes = client_spmd_axes
         self.pipe = build_update_pipeline(cfg, n_pods=n_pods)
-        self.layout = ModelLayout(loss_fn, model_dims)
+        self.layout = ModelLayout(loss_fn, cuts)
         stacked = build_local_train(loss_fn, client_opt, cfg, stacked=True,
                                     layout=self.layout)
 
         def train_clients(global_params, client_batches):
             # the stacked client dim owns client_spmd_axes: constraints in
-            # the vmapped body may not name them; each client's batch
-            # [C, H, B, ...] is split over the batch axes left
+            # the vmapped body may not name them, and a leaf cut over one
+            # of them is taken whole; each client's batch [C, H, B, ...] is
+            # split over the batch axes left
+            if shd.DATA in self.owned():
+                global_params = cuts_whole(global_params, cuts_over(
+                    self.layout(), (shd.DATA,)))
             with shd.exclude_axes(*client_spmd_axes):
                 return stacked(global_params,
                                _batch_share(client_batches, 2))
@@ -307,17 +336,24 @@ class ParallelRound:
         mesh)."""
         return shd.local_share(x, _spmd_axes(self.client_spmd_axes), 0, what)
 
+    def owned(self) -> tuple:
+        """The active mesh's axes (size > 1) that the client dim owns."""
+        return _spmd_axes(self.client_spmd_axes)
+
     def commit(self, global_params: dict, server_state, deltas: dict, losses,
                weights, mask, generator):
-        axes = _spmd_axes(self.client_spmd_axes)
-        dims = self.layout()
+        axes = self.owned()
+        cuts = self.layout()
+        held = _held(cuts, axes)             # the deltas' cut
         delta, _, _, (mask, losses) = self.pipe.model_commit(
             lambda d: self.pipe.combine(d, weights, mask, losses, generator,
-                                        slot_axes=axes), deltas, dims)
+                                        slot_axes=axes), deltas, held)
+        metrics = _metrics(delta, (losses * mask).sum(), mask, held)
+        if shd.DATA in axes:
+            delta = cuts_share(delta, cuts_over(cuts, (shd.DATA,)))
         new_params, new_state = self.server_opt.apply(global_params, delta,
                                                       server_state)
-        return new_params, new_state, _metrics(delta, (losses * mask).sum(),
-                                               mask, dims)
+        return new_params, new_state, metrics
 
     def __call__(self, global_params: dict, server_state,
                  client_batches: dict, weights, mask, generator):
@@ -341,11 +377,11 @@ class SequentialRound:
 
     def __init__(self, loss_fn: Callable, client_opt: Optimizer,
                  server_opt: ServerOptimizer, cfg: FLConfig, n_pods: int = 1,
-                 client_spmd_axes=(), model_dims=None):
+                 client_spmd_axes=(), cuts=None):
         self.cfg = cfg
         self.server_opt = server_opt
         self.pipe = build_update_pipeline(cfg, n_pods=n_pods)
-        self.layout = ModelLayout(loss_fn, model_dims)
+        self.layout = ModelLayout(loss_fn, cuts)
         # the pods repeat every client's work
         local_train = build_local_train(loss_fn, client_opt, cfg,
                                         replica_axes=(shd.POD,),
@@ -363,7 +399,7 @@ class SequentialRound:
     def commit(self, global_params: dict, server_state, updates, weights,
                mask, generator):
         pipe, C = self.pipe, self.cfg.num_clients
-        dims = self.layout()
+        cuts = self.layout()
         acc = pipe.accum_init(global_params)
         key = pipe.mask_key(generator) if self.cfg.secure_agg else None
         ids = torch.arange(C, dtype=torch.int32)
@@ -374,13 +410,13 @@ class SequentialRound:
             acc = pipe.accum_add(acc, pipe.model_commit(
                 lambda d: pipe.contribution(
                     d, wt, generator, idx=c, ids=ids, participation=mask,
-                    key=key), delta, dims, lead=0))
+                    key=key), delta, cuts, lead=0))
             wsum = wsum + wt
             loss_sum = loss_sum + loss * mask[c]
         delta = pipe.normalise(acc, wsum)
         new_params, new_state = self.server_opt.apply(global_params, delta,
                                                       server_state)
-        return new_params, new_state, _metrics(delta, loss_sum, mask, dims)
+        return new_params, new_state, _metrics(delta, loss_sum, mask, cuts)
 
     def __call__(self, global_params: dict, server_state,
                  client_batches: dict, weights, mask, generator):
@@ -400,16 +436,17 @@ class PodSequentialRound:
     ``secure_agg``), sums and normalises across pods.  Under a mesh of
     processes the pods split over ``client_spmd_axes``; each process
     streams its pods' clients, each client's batch split over the batch
-    axes left."""
+    axes left.  Pods that own ``data`` train on the params gathered whole
+    over it, as ``ParallelRound``'s clients do."""
 
     def __init__(self, loss_fn: Callable, client_opt: Optimizer,
                  server_opt: ServerOptimizer, cfg: FLConfig, n_pods: int = 1,
-                 client_spmd_axes=(), model_dims=None):
+                 client_spmd_axes=(), cuts=None):
         self.cfg = cfg
         self.n_pods = n_pods
         self.server_opt = server_opt
         self.pipe = build_update_pipeline(cfg, n_pods=n_pods)
-        self.layout = ModelLayout(loss_fn, model_dims)
+        self.layout = ModelLayout(loss_fn, cuts)
         self.local_train = build_local_train(loss_fn, client_opt, cfg,
                                              layout=self.layout)
         self.client_spmd_axes = client_spmd_axes
@@ -424,9 +461,15 @@ class PodSequentialRound:
                              f"{axes} ({n} shards)")
         pods = range(shd.shard_index(axes) * (P // n),
                      (shd.shard_index(axes) + 1) * (P // n))
+        # pods over `data` train on the params gathered whole over it
+        cuts = self.layout()
+        held = _held(cuts, axes)
+        train_params = (cuts_whole(global_params, cuts_over(
+            cuts, (shd.DATA,))) if shd.DATA in axes else global_params)
         with shd.exclude_axes(*self.client_spmd_axes):
             accs, wsums, loss_sums = self._pods(
-                global_params, client_batches, weights, mask, pods)
+                train_params, client_batches, weights, mask, pods)
+            del train_params
             # the sums move into the stack leaf by leaf, so the uncompressed
             # sums are held once, then beside their compressed copy
             stacked = {k: torch.stack([a.pop(k) for a in accs])
@@ -447,12 +490,14 @@ class PodSequentialRound:
             return pipe.combine_pods(pod_sums, wsum, generator,
                                      compressed=True, slot_axes=axes)
 
-        dims = self.layout()
-        delta = pipe.model_commit(cross_pod, stacked, dims)
+        delta = pipe.model_commit(cross_pod, stacked, held)
         del stacked
+        metrics = _metrics(delta, loss_sum, mask, held)
+        if shd.DATA in axes:
+            delta = cuts_share(delta, cuts_over(cuts, (shd.DATA,)))
         new_params, new_state = self.server_opt.apply(global_params, delta,
                                                       server_state)
-        return new_params, new_state, _metrics(delta, loss_sum, mask, dims)
+        return new_params, new_state, metrics
 
     def _pods(self, global_params, client_batches, weights, mask, pods):
         """Each of ``pods`` streams its clients into a plain weighted sum:
@@ -486,14 +531,15 @@ ROUNDS = {"parallel": ParallelRound, "sequential": SequentialRound,
 def build_fl_round_step(loss_fn: Callable, client_opt: Optimizer,
                         server_opt: ServerOptimizer, cfg: FLConfig,
                         n_pods: int = 1, client_spmd_axes=None,
-                        model_dims: Optional[dict] = None):
+                        cuts: Optional[dict] = None):
     """The round step of ``cfg.client_exec``.  ``n_pods`` splits the
     clients into pods for pod_sequential and the hierarchical combine.
     ``client_spmd_axes``: the mesh axis name(s) the stacked client (or pod)
     dim is sharded over; parallel mode under an active mesh requires it,
-    as the reference's does.  ``model_dims``: ``{leaf: dim}`` of the params
-    split over ``model`` at rest (``launch.specs.model_dims``), where
-    ``loss_fn`` is not an ``LM``'s, whose specs give it."""
+    as the reference's does.  ``cuts``: ``{leaf: {axis: dim}}`` of the
+    params cut at rest (``launch.specs.leaf_cuts``' form), where
+    ``loss_fn`` is not an ``LM``'s, which gives its own
+    (``LM.leaf_cuts``)."""
     if (cfg.client_exec == "parallel" and client_spmd_axes is None
             and shd.get_mesh() is not None):
         raise ValueError(
@@ -505,4 +551,4 @@ def build_fl_round_step(loss_fn: Callable, client_opt: Optimizer,
         else tuple(client_spmd_axes or ())
     return ROUNDS[cfg.client_exec](loss_fn, client_opt, server_opt, cfg,
                                    n_pods=n_pods, client_spmd_axes=axes,
-                                   model_dims=model_dims)
+                                   cuts=cuts)

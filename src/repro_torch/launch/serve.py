@@ -19,10 +19,12 @@ the cross-attention caches.
 
 Under a mesh of processes (``launch.spmd.run``, no launcher flag, as in
 the reference) each rank calls ``build(..., shard=True)`` (or holds its
-params' shares, ``specs.shard_params``) and ``run`` with the whole prompt:
-the rank serves its process's share of the batch, its decode state cut as
-its specs say, and the logits are gathered whole each step, so every rank
-samples the same tokens from its own generator of the same seed::
+params' shares over ``data`` and ``model``, ``specs.shard_params``) and
+``run`` with the whole prompt: the rank serves its process's share of the
+batch, each layer's weights gathered over ``data`` as it runs (the MoE's
+experts left cut in decode), its decode state cut as its specs say, and
+the logits are gathered whole each step, so every rank samples the same
+tokens from its own generator of the same seed::
 
     def serve_rank(mesh, cfg):
         model, params = serve.build(cfg, mesh.device, seed=0, shard=True)
@@ -64,9 +66,9 @@ def build_parser() -> argparse.ArgumentParser:
 def build(cfg, device, seed: int, shard: bool = False):
     """(model, params): random params drawn on ``device`` from a generator
     seeded with ``seed``.  With ``shard``, under a mesh, each leaf is drawn
-    whole and only this rank's share kept (``specs.shard_leaf``), leaf by
-    leaf: the no-mesh model's bits, cut as ``specs.shard_params`` cuts
-    them."""
+    whole and only this rank's share over ``data`` and ``model`` kept
+    (``specs.shard_leaf``), leaf by leaf: the no-mesh model's bits, cut as
+    ``specs.shard_params`` cuts them."""
     device = torch.device(device)
     model = build_model(cfg)
     params = model.init(torch.Generator(device).manual_seed(seed), device,

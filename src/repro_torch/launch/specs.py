@@ -10,14 +10,17 @@ reference's hold ``NamedSharding``s of the same specs.
 
 Params at rest on a mesh of processes: ``shard_params`` cuts each leaf to
 this rank's contiguous share along the dim its sanitised spec puts on
-``model`` (the reference's placement by ``sanitize_specs``), and
-``gather_params`` puts the shares back together, bit for bit.  ``data``
-entries stay whole (FSDP over ``data`` is ROADMAP item 9c).  The trees may
-be nested or the flat ``/``-joined view; the specs are the model's
-``logical_specs``, nested or flat.  Server optimizer state of the
+``model`` and along the one it puts on ``data`` (the reference's placement
+by ``sanitize_specs``: ``wq`` [G, D, H*hd] is held [G, D/data,
+H*hd/model]; FSDP over ``data``), whole along ``pod``, and
+``gather_params`` puts the shares back together, bit for bit.  The layout
+is the one at rest whatever client body asks (``sharding.at_rest``).  The
+trees may be nested or the flat ``/``-joined view; the specs are the
+model's ``logical_specs``, nested or flat.  Server optimizer state of the
 sharded params (``server_opt.init`` of them) is sharded alike.
 ``shard_leaf`` cuts one leaf as it is drawn (``LM.init``'s ``keep``), so a
-rank never holds the whole model.
+rank never holds the whole model.  A rank's bytes are
+``launch.dryrun.per_device_bytes`` of the params on its mesh.
 
 The decode state at rest: ``shard_state`` cuts a whole state by
 ``state_logical_specs`` after ``sanitize_specs``, the batch over the batch
@@ -86,51 +89,58 @@ def flat_logical(tree, prefix: str = "") -> dict:
     return out
 
 
-def model_dim(shape, logical, mesh):
-    """The dim of a whole ``shape`` that its sanitised spec splits over
-    ``model`` on ``mesh``, or None."""
-    if mesh is None or mesh.shape.get(sh.MODEL, 1) == 1:
-        return None
-    out = None
-    for dim, e in enumerate(sanitize_entry(tuple(shape), logical, mesh)):
-        if sh.MODEL in ((e,) if isinstance(e, str) else tuple(e or ())):
-            out = dim
+SPLIT_AXES = (sh.DATA, sh.MODEL)     # the axes params are cut over at rest
+
+
+def leaf_cut(shape, logical, mesh) -> dict:
+    """``{axis: dim}``: the dim of a whole ``shape`` that its sanitised
+    spec cuts over each of ``data`` and ``model`` on ``mesh`` (axes of
+    size 1 left out), at rest."""
+    if mesh is None:
+        return {}
+    with sh.at_rest():
+        spec = sanitize_entry(tuple(shape), logical, mesh)
+    out = {}
+    for dim, e in enumerate(spec):
+        for a in ((e,) if isinstance(e, str) else tuple(e or ())):
+            if a in SPLIT_AXES and mesh.shape[a] > 1:
+                out[a] = dim
     return out
 
 
 def shard_leaf(v, logical, mesh=None):
     """This rank's share of the whole leaf ``v`` under its logical spec:
-    cut along the dim its sanitised spec puts on ``model`` to share
-    ``model`` index of ``model`` size, or ``v`` itself where nothing is
-    split.  The share is a copy with storage of its own: a cut that is
-    contiguous as it stands (the experts of a [1, E, D, F] leaf) would
-    otherwise be a view that keeps the whole leaf alive."""
+    cut along the dims its sanitised spec puts on ``data`` and ``model``
+    to the share at this rank's index along each, or ``v`` itself where
+    nothing is cut.  The share is a copy with storage of its own: a cut
+    that is contiguous as it stands (the experts of a [1, E, D, F] leaf)
+    would otherwise be a view that keeps the whole leaf alive."""
     mesh = mesh or sh.get_mesh()
-    d = model_dim(v.shape, logical, mesh)
-    if d is None:
+    cut = leaf_cut(v.shape, logical, mesh)
+    if not cut:
         return v
-    n = v.shape[d] // mesh.shape[sh.MODEL]
-    return v.narrow(d, mesh.coords[sh.MODEL] * n, n).clone(
-        memory_format=torch.contiguous_format)
+    for a, d in cut.items():
+        n = v.shape[d] // mesh.shape[a]
+        v = v.narrow(d, mesh.coords[a] * n, n)
+    return v.clone(memory_format=torch.contiguous_format)
 
 
-def model_dims(shapes: dict, logical: dict, mesh=None) -> dict:
-    """``{leaf: the dim its sanitised spec splits over model, or None}``
-    for the flat ``{leaf: shape}`` dict ``shapes`` (whole shapes) and the
-    logical specs (nested or flat), on ``mesh`` (the active one by
-    default).  Without a ``model`` axis larger than 1 every entry is
-    None."""
+def leaf_cuts(shapes: dict, logical: dict, mesh=None) -> dict:
+    """``{leaf: {axis: dim}}`` for the flat ``{leaf: shape}`` dict
+    ``shapes`` (whole shapes) and the logical specs (nested or flat), on
+    ``mesh`` (the active one by default): ``leaf_cut`` of each leaf that
+    is cut at rest (the rest left out)."""
     mesh = mesh or sh.get_mesh()
     logical = flat_logical(logical)
-    return {name: model_dim(shape, logical[name], mesh)
-            for name, shape in shapes.items()}
+    out = {name: leaf_cut(shape, logical[name], mesh)
+           for name, shape in shapes.items()}
+    return {k: c for k, c in out.items() if c}
 
 
 def shard_params(whole, specs, mesh=None):
     """This rank's share of ``whole`` (nested or flat) under ``specs`` (the
-    logical tree): each leaf cut along the dim its sanitised spec puts on
-    ``model`` to share ``model`` index of ``model`` size, the rest whole.
-    Returns the same structure; a leaf not split is the tensor itself."""
+    logical tree): each leaf cut as ``shard_leaf`` cuts it.  Returns the
+    same structure; a leaf not cut is the tensor itself."""
     mesh = mesh or sh.get_mesh()
     logical = flat_logical(specs)
     return _like(whole, {k: shard_leaf(v, logical[k], mesh)
@@ -139,15 +149,18 @@ def shard_params(whole, specs, mesh=None):
 
 def gather_params(local, specs, whole_shapes, mesh=None):
     """``shard_params``' inverse: every rank's shares of ``local`` gathered
-    over ``model`` along their split dims.  ``whole_shapes``: the params'
-    tree of whole tensors (``LM.param_specs()``, on ``meta``), from which
-    the split is decided as ``shard_params`` decided it."""
+    over ``data`` and ``model`` along their cut dims.  ``whole_shapes``:
+    the params' tree of whole tensors (``LM.param_specs()``, on ``meta``),
+    from which the cut is decided as ``shard_params`` decided it."""
     mesh = mesh or sh.get_mesh()
     flat = flat_dict(local)
     shapes = {k: tuple(v.shape) for k, v in flat_dict(whole_shapes).items()}
-    dims = model_dims(shapes, specs, mesh)
-    out = {k: v if dims[k] is None else sh.all_gather(v, sh.MODEL, dims[k])
-           for k, v in flat.items()}
+    cuts = leaf_cuts(shapes, specs, mesh)
+    out = {}
+    for k, v in flat.items():
+        for a, d in cuts.get(k, {}).items():
+            v = sh.all_gather(v, a, d)
+        out[k] = v
     return _like(local, out)
 
 

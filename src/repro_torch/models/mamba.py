@@ -26,6 +26,12 @@ row-parallel.  The scan and its backward run on the rank's ``[B, L,
 d_inner / m, N]``, and the decode state (``conv`` [B, d_conv-1, di/m], ``h``
 [B, di/m, N]) holds the same channels, the share its spec
 ``(None, BATCH, None, MODEL)`` / ``(None, BATCH, MODEL, None)`` cuts.
+
+Under a ``data`` axis larger than 1 the block takes its weights already
+gathered over ``data`` (``in_proj``'s and ``out_proj``'s ``d_model``
+dims; ``transformer.LM`` gathers a layer at a time), so every size read
+from a leaf (``dt_proj``'s rank) is the gathered one, and the ``model``
+logic above is unchanged.
 """
 from __future__ import annotations
 

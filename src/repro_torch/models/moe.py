@@ -7,20 +7,31 @@ tokens over whichever batch axes divide the batch, with weight or token
 gathers and ``psum`` combines.  Under the port's SPMD convention
 (``models.sharding``) ``x`` is the process's share of the batch, whole on
 every ``model`` rank, and the expert weights are held at rest as their
-spec cuts them: the rank's ``E / model`` experts, F whole (``data``
-entries stay whole, so the reference's F gather is the identity).  The
-``gather_weights`` layout (train) then routes the process's own tokens
-with the whole router on every rank, the capacity from the local token
-count, dispatches them to the rank's experts (ids offset by ``e_lo``),
-and sums the ranks' outputs over ``model`` (``reduce_from_model``); the
-tokens and gates enter the expert split through ``copy_to_model``, so the
-router and the tokens take the whole gradient.  The aux loss is computed
-whole on every rank, the reference's ``pmean`` over ``model`` of equal
-values.  ``gather_tokens`` (decode; it serves only) all-gathers the tokens
-over the axes that split the batch, routes them all with the whole
-router, dispatches them to the rank's experts with the capacity from the
-gathered count, as the reference's ``shard_map`` computes it, sums the
-ranks' outputs over ``model`` and keeps the process's rows.
+spec cuts them: the rank's ``E / model`` experts and its ``F / data``
+share of their hidden dim, where the axes divide them.  The reference's
+two layouts:
+
+* ``gather_weights`` (train and prefill): the expert F dim is gathered
+  over ``data`` inside the layer, once a layer (a transient ZeRO-3
+  gather, ``sharding.gather_from_data``, whose backward sums the
+  gradient over ``data`` and keeps the rank's share).  The process's own
+  tokens are routed with the whole router on every rank, the capacity
+  from the local token count, dispatched to the rank's experts (ids
+  offset by ``e_lo``), and the ranks' outputs summed over ``model``
+  (``reduce_from_model``); the tokens and gates enter the expert split
+  through ``copy_to_model``, so the router and the tokens take the whole
+  gradient.  The aux loss is computed whole on every rank, the
+  reference's ``pmean`` over ``model`` of equal values.
+* ``gather_tokens`` (decode; it serves only): the tokens are all-gathered
+  over the axes that split the batch and routed with the whole router,
+  with the capacity from the gathered count, as the reference's
+  ``shard_map`` computes it; F stays cut, so each rank's experts give
+  partial sums over its F share.  The output is summed over ``model``,
+  then over ``data`` (``reduce_from_data``: the F partials), and the
+  process's rows kept; the aux loss takes its ``pmean`` over ``data``.
+
+A client body whose client dim owns ``data`` (``exclude_axes``) holds the
+experts whole over it, and both layouts run with F whole.
 
 Dispatch is sort-based with a fixed capacity per expert: the token
 assignments are stably sorted by expert, each keeps its rank within its
@@ -140,24 +151,34 @@ def _moe_local(x, router, w1, w3, w2, *, cfg: MoEConfig, act: str,
 
 
 def moe_apply(p, x, *, cfg: MoEConfig, act: str, mode: str = "gather_weights"):
-    """x [B, S, D]; p has router/w1/w3/w2 (already sliced to this layer).
+    """x [B, S, D]; p has router/w1/w3/w2 (already sliced to this layer),
+    the experts as the rank holds them at rest.
 
-    Both of the reference's modes, ``gather_weights`` (train/prefill) and
+    The reference's two modes, ``gather_weights`` (train/prefill) and
     ``gather_tokens`` (decode), differ only in which operand their mesh
-    gathers: ``gather_weights`` routes the local tokens to the rank's
-    experts and ``gather_tokens`` the tokens gathered over the axes that
-    split the batch; off a mesh, or on one device, they are the same
-    computation."""
+    gathers: ``gather_weights`` gathers the experts' F over ``data`` and
+    routes the local tokens to the rank's experts, ``gather_tokens``
+    gathers the tokens over the axes that split the batch and sums the
+    F partials over ``data``; off a mesh, or on one device, they are the
+    same computation."""
     if mode not in ("gather_weights", "gather_tokens"):
         raise ValueError(mode)
     tp = sh.model_split(cfg.num_experts) > 1
-    tok_axes = sh.batch_split_axes() if mode == "gather_tokens" else ()
-    if tok_axes:
-        B = x.shape[0]
-        xg = sh.all_gather(x, tok_axes, 0)
-        out, aux = _moe_local(xg, p["router"], p["w1"], p["w3"], p["w2"],
-                              cfg=cfg, act=act, tp=tp)
-        i = sh.shard_index(tok_axes)
-        return out[i * B:(i + 1) * B], aux
-    return _moe_local(x, p["router"], p["w1"], p["w3"], p["w2"], cfg=cfg,
-                      act=act, tp=tp)
+    f_cut = sh.data_split(cfg.d_expert) > 1
+    w1, w3, w2 = p["w1"], p["w3"], p["w2"]
+    if mode == "gather_weights":
+        if f_cut:
+            # the transient ZeRO-3 gather of the expert F dim, once a layer
+            w1, w3 = (sh.gather_from_data(w, -1) for w in (w1, w3))
+            w2 = sh.gather_from_data(w2, -2)
+        return _moe_local(x, p["router"], w1, w3, w2, cfg=cfg, act=act,
+                          tp=tp)
+    tok_axes = sh.batch_split_axes()
+    B = x.shape[0]
+    out, aux = _moe_local(sh.all_gather(x, tok_axes, 0), p["router"], w1,
+                          w3, w2, cfg=cfg, act=act, tp=tp)
+    if f_cut:
+        out = sh.reduce_from_data(out)          # the F partials summed
+        aux = sh.pmean(aux, sh.DATA)
+    i = sh.shard_index(tok_axes)
+    return out[i * B:(i + 1) * B], aux

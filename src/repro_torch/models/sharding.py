@@ -27,15 +27,20 @@ the same program.  Inside a client's computation a tensor is the rank's
 local share along the batch axes that ``exclude_axes`` has not dropped
 (``batch_split_axes``).  A parameter (and its optimizer and server state)
 is held at rest as ``launch.specs.shard_params`` cuts it: its contiguous
-share along each dim whose sanitised spec names ``model`` (``model_split``
-decides, as ``sanitize_entry`` does: a dim the axis does not divide stays
-whole), whole along every other axis.  Activations are whole along
-``model``, the same bits on every rank of a ``model`` group, except where
-a layer splits them explicitly: tensor, expert and head parallelism run
-through the conjugate collectives below (``copy_to_model``,
-``reduce_from_model``, ``gather_from_model``, ``scatter_to_model``,
-``gather_to_model``), each an ``autograd.Function`` with a ``vmap`` rule,
-so they run inside the round's ``torch.func`` transforms.  So
+share along the dim whose sanitised spec names ``model`` and along the one
+that names ``data`` (``model_split`` and ``data_split`` decide, as
+``sanitize_entry`` does: a dim the axis does not divide stays whole),
+whole along ``pod``.  Activations are whole along ``model``, the same bits
+on every rank of a ``model`` group, except where a layer splits them
+explicitly: tensor, expert and head parallelism run through the conjugate
+collectives below (``copy_to_model``, ``reduce_from_model``,
+``gather_from_model``, ``scatter_to_model``, ``gather_to_model``), each an
+``autograd.Function`` with a ``vmap`` rule, so they run inside the round's
+``torch.func`` transforms.  A weight's ``data`` shares are gathered just
+before the layer that uses it and let go after it (FSDP:
+``gather_from_data``, whose backward is the reduce-scatter); a client
+body whose client dim owns ``data`` (``exclude_axes``) takes the weights
+whole over it.  So
 ``shard(x, *logical)`` is the identity: a tensor already is its rank's
 share.  Serving holds the decode state as ``state_logical_specs`` cuts it
 (the attention cache's sequence over ``model`` where the axis divides it,
@@ -58,6 +63,7 @@ import contextlib
 import math
 import time
 import types
+import weakref
 from collections import Counter
 from dataclasses import dataclass, field
 from typing import Optional, Sequence
@@ -256,12 +262,37 @@ def pspec(*logical) -> PartitionSpec:
     return P(*(resolve(e, mesh) for e in logical))
 
 
+@contextlib.contextmanager
+def at_rest():
+    """No axis excluded inside the block: the layout that params and
+    server state keep at rest (``launch.specs.shard_params``), whatever
+    client body the caller runs in."""
+    prev = excluded_axes()
+    _state.exclude = frozenset()
+    try:
+        yield
+    finally:
+        _state.exclude = prev
+
+
+def axis_live(axis: str) -> bool:
+    """Whether ``axis`` is larger than 1 on the active mesh and not
+    dropped by ``exclude_axes``."""
+    mesh = get_mesh()
+    return (mesh is not None and axis not in excluded_axes()
+            and mesh.shape.get(axis, 1) > 1)
+
+
 def model_live() -> bool:
     """Whether a ``model`` axis larger than 1 is active here (not dropped
     by ``exclude_axes``)."""
-    mesh = get_mesh()
-    return (mesh is not None and MODEL not in excluded_axes()
-            and mesh.shape.get(MODEL, 1) > 1)
+    return axis_live(MODEL)
+
+
+def data_live() -> bool:
+    """Whether a ``data`` axis larger than 1 is active here (not dropped
+    by ``exclude_axes``: a parallel round's client dim owns it)."""
+    return axis_live(DATA)
 
 
 def shard(x, *logical):
@@ -277,18 +308,37 @@ def model_split(*sizes) -> int:
     is cut into over ``model``: the active ``model`` axis's size where it
     is larger than 1, not excluded, and divides every size; else 1 (the
     dim stays whole, as ``launch.specs.sanitize_entry`` decides)."""
-    if not model_live():
+    return _split(MODEL, sizes)
+
+
+def data_split(*sizes) -> int:
+    """``model_split`` for ``data``: the shards a dim of whole size
+    ``sizes`` is cut into over an active ``data`` axis, else 1."""
+    return _split(DATA, sizes)
+
+
+def _split(axis: str, sizes) -> int:
+    if not axis_live(axis):
         return 1
-    m = get_mesh().shape[MODEL]
-    return m if all(s % m == 0 for s in sizes) else 1
+    n = get_mesh().shape[axis]
+    return n if all(s % n == 0 for s in sizes) else 1
+
+
+def _index(axis: str) -> int:
+    mesh = get_mesh()
+    if mesh is None or mesh.shape.get(axis, 1) == 1:
+        return 0
+    return mesh.coords[axis]
 
 
 def model_index() -> int:
     """This process's index along ``model`` (0 without one)."""
-    mesh = get_mesh()
-    if mesh is None or mesh.shape.get(MODEL, 1) == 1:
-        return 0
-    return mesh.coords[MODEL]
+    return _index(MODEL)
+
+
+def data_index() -> int:
+    """This process's index along ``data`` (0 without one)."""
+    return _index(DATA)
 
 
 def model_slice(size: int) -> tuple:
@@ -538,10 +588,10 @@ def replica_checksums(tree: dict, axes=None, chunk: int = 1 << 24) -> dict:
 # sums the ranks' cotangents.  The wrong pair scales a gradient by the
 # axis size.  Off a ``model`` axis larger than 1 each is the identity.
 
-def _own(x, dim):
-    n = shard_count(MODEL)
+def _own(x, dim, axis=MODEL):
+    n = shard_count(axis)
     m = x.shape[dim] // n
-    return x.narrow(dim, model_index() * m, m).contiguous()
+    return x.narrow(dim, _index(axis) * m, m).contiguous()
 
 
 def _batched(cls, in_dims, x, *rest):
@@ -717,6 +767,123 @@ def gather_to_model(x, dim: int = -1):
     of each rank's own (a weight held split, used whole): backward the
     ranks' cotangents summed and cut to the share."""
     return _GatherToModel.apply(x, _neg(x, dim)) if model_live() else x
+
+
+# ---------------------------------------------------------------------------
+# collectives over ``data`` inside torch.func transforms: FSDP
+# ---------------------------------------------------------------------------
+#
+# A weight held cut over ``data`` at rest is gathered whole just before the
+# layer that uses it (``gather_from_data``).  Each ``data`` rank feeds the
+# gathered weight its own share of the batch, so the backward sums the
+# ranks' cotangents over ``data`` and keeps the rank's share: the reduce is
+# the ``psum`` before the cut, so a gradient share carries the bits of the
+# summed whole gradient, cut.  The MoE's decode sums its partial products
+# over the expert F dim it holds cut (``reduce_from_data``).
+
+def _note_gather(out):
+    stats = getattr(_state, "gathers", None)
+    if stats is not None:
+        size = out.numel() * out.element_size()
+        stats["calls"] += 1
+        stats["live"] += size
+        stats["peak"] = max(stats["peak"], stats["live"])
+
+        def freed(stats=stats, size=size):
+            stats["live"] -= size
+        weakref.finalize(out, freed)
+    return out
+
+
+@contextlib.contextmanager
+def count_gathers():
+    """Count ``gather_from_data``'s gathers inside the block: yields
+    ``{"calls", "live", "peak"}``, the gathers made, the bytes of gathered
+    weights alive now and the most alive at once (a gathered tensor is
+    dead once nothing holds it: not a caller, a view nor autograd)."""
+    prev = getattr(_state, "gathers", None)
+    stats = {"calls": 0, "live": 0, "peak": 0}
+    _state.gathers = stats
+    try:
+        yield stats
+    finally:
+        _state.gathers = prev
+
+
+class _GatherFromData(torch.autograd.Function):
+    """Forward the ranks' shares concatenated along ``dim`` over ``data``;
+    backward the ranks' cotangents summed and cut to the rank's share."""
+
+    @staticmethod
+    def forward(x, dim):
+        return _note_gather(all_gather(x, DATA, dim))
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.dim = inputs[1]
+
+    @staticmethod
+    def backward(ctx, g):
+        return _ReduceScatterData.apply(g, ctx.dim), None
+
+    @staticmethod
+    def vmap(info, in_dims, x, dim):
+        return _batched(_GatherFromData, in_dims, x, dim)
+
+
+class _ReduceScatterData(torch.autograd.Function):
+    """The sum over ``data`` cut to the rank's share along ``dim``:
+    ``_GatherFromData``'s backward (its own backward is the gather)."""
+
+    @staticmethod
+    def forward(x, dim):
+        return _own(psum(x, DATA), dim, DATA)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.dim = inputs[1]
+
+    @staticmethod
+    def backward(ctx, g):
+        return _GatherFromData.apply(g, ctx.dim), None
+
+    @staticmethod
+    def vmap(info, in_dims, x, dim):
+        return _batched(_ReduceScatterData, in_dims, x, dim)
+
+
+class _ReduceFromData(torch.autograd.Function):
+    """Forward the sum over ``data``; backward the identity: partial sums
+    joined for a computation that every ``data`` rank repeats."""
+
+    @staticmethod
+    def forward(x):
+        return psum(x, DATA)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, g):
+        return g
+
+    @staticmethod
+    def vmap(info, in_dims, x):
+        return _batched(_ReduceFromData, in_dims, x)
+
+
+def gather_from_data(x, dim: int):
+    """A weight's shares along ``dim`` gathered over ``data`` (FSDP's
+    gather): backward, the ranks' cotangents summed and cut to the
+    rank's share.  The identity off an active ``data`` axis."""
+    return _GatherFromData.apply(x, _neg(x, dim)) if data_live() else x
+
+
+def reduce_from_data(x):
+    """The sum over ``data`` of partial sums (the MoE's decode over its
+    expert F shares), for a computation every rank repeats."""
+    return _ReduceFromData.apply(x) if data_live() else x
 
 
 def pair_shares(x, w, n: int):

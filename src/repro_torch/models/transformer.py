@@ -40,6 +40,19 @@ rank that owns its slot, attends every query head over the rank's slots
 (the rank's heads gathered first where ``attn_tp`` splits them) and joins
 the shards' partial softmaxes (``sharding.merge_partials``).
 
+FSDP over ``data``: where ``data`` is larger than 1 the params are held
+cut over it too, as their specs say (``unembed``, ``wq``/``wk``/``wv``/
+``wo``, the MLP's ``w1``/``w3``/``w2``, Mamba's ``in_proj``/``out_proj``,
+the xLSTM's ``up``/``down`` and gate projections on their ``d_model``
+dims; the experts on their F dim).  Each slot's leaves (one layer) are
+gathered over ``data`` just before the slot runs and held by nothing
+after it (``_gathered``), in training, prefill and decode; in training
+the remat unit is then the slot, so its saved inputs are the shares and
+its recompute gathers again (``_backbone``).  The MoE gathers its experts
+itself (``moe.moe_apply``), and ``unembed`` is gathered once before the
+logits.  A client body whose client dim owns ``data`` (``exclude_axes``)
+takes the params whole over it and gathers nothing.
+
 Decode states are written in place: ``prefill`` fills the state that
 ``init_decode_state`` made, and ``decode_step`` updates the state it is
 given and returns it (JAX's arrays are immutable; a caller that needs the
@@ -161,6 +174,7 @@ class LM:
         # across `model` (the MLP stays tensor parallel)
         self.attn_tp = cfg.n_heads % 16 == 0
         self.dtype = DTYPES[cfg.dtype]
+        self._cuts = {}                 # mesh shape -> (leaf_cuts, data_cuts)
 
     # ------------------------------------------------------------------ init
     def init(self, generator: torch.Generator, device="cpu",
@@ -241,6 +255,12 @@ class LM:
         else:
             x = take_embedding(params["embed"], tokens, tp=tp)
         return sh.shard(x, sh.BATCH, None, None)
+
+    def _unembed(self, params) -> dict:
+        """``params`` with ``unembed`` gathered over ``data`` where it is
+        cut there (its D, ``(DATA, MODEL)``)."""
+        return dict(params, **self._gathered(
+            {"unembed": params["unembed"]}, ""))
 
     def logits(self, params, x):
         """``x @ unembed``.  An unembedding split over ``model`` (its padded
@@ -438,14 +458,70 @@ class LM:
         return x, aux
 
     # ---------------------------------------------------------------- forward
+    def _rest_cuts(self) -> tuple:
+        """(``leaf_cuts()``, ``data_cuts()``) on the active mesh, worked
+        out once for each mesh shape."""
+        mesh = sh.get_mesh()
+        if mesh is None:
+            return {}, {}
+        key = tuple(mesh.shape.items())
+        if key not in self._cuts:
+            from repro_torch.launch.specs import leaf_cuts
+            shapes = {k: tuple(v.shape)
+                      for k, v in flat_dict(self.param_specs()).items()}
+            cuts = leaf_cuts(shapes, self.logical_specs, mesh)
+            self._cuts[key] = cuts, {k: c[sh.DATA] - len(shapes[k])
+                                     for k, c in cuts.items() if sh.DATA in c}
+        return self._cuts[key]
+
+    def leaf_cuts(self) -> dict:
+        """``{leaf: {axis: dim}}`` (flat names) of the param leaves that
+        their sanitised specs cut over the active mesh's ``data`` and
+        ``model`` axes at rest (``launch.specs.leaf_cuts``); empty where
+        there is no mesh."""
+        return self._rest_cuts()[0]
+
+    def data_cuts(self) -> dict:
+        """``{leaf: dim}`` (negative dims, so they hold on one group's
+        slice) of the leaves that ``leaf_cuts`` cuts over ``data``; empty
+        where ``data`` is 1 or there is no mesh."""
+        return self._rest_cuts()[1]
+
+    def _gathered(self, tree, prefix: str):
+        """``tree`` (a nested slice of the params at ``prefix``) with each
+        leaf that ``data_cuts`` cuts gathered whole over ``data``
+        (``sharding.gather_from_data``: FSDP's per-layer gather, whose
+        backward is the reduce-scatter).  The MoE's experts are left cut:
+        ``moe.moe_apply`` gathers them in train and prefill and keeps them
+        cut in decode.  Where ``data`` is not active (no mesh, or a client
+        dim that owns it) the tree as it is."""
+        cuts = self.data_cuts() if sh.data_live() else {}
+        if not cuts:
+            return tree
+        out = {}
+        for k, v in tree.items():
+            path = f"{prefix}/{k}" if prefix else k
+            if isinstance(v, dict):
+                out[k] = v if k == "moe" else self._gathered(v, path)
+            elif path in cuts:
+                out[k] = sh.gather_from_data(v, cuts[path])
+            else:
+                out[k] = v
+        return out
+
     def _group(self, gp, x, aux, *, mode, positions, gc=None, pos=None,
                patches=None, cache_len=None):
-        """One layer group: its slots in order, each slot's aux added to
-        ``aux``.  Returns (x, aux)."""
+        """One layer group, or the slots of it that ``gp`` holds: its slots
+        in order, each slot's aux added to ``aux``.  Each slot's weights
+        are gathered over ``data`` just before the slot runs and held by
+        nothing after it (``_gathered``).  Returns (x, aux)."""
         for si, slot in enumerate(self.pattern):
             key = f"slot{si}"
-            x, a = self._apply_slot(slot, gp[key], x, mode=mode,
-                                    positions=positions,
+            if key not in gp:
+                continue
+            x, a = self._apply_slot(slot, self._gathered(gp[key],
+                                                         f"layers/{key}"),
+                                    x, mode=mode, positions=positions,
                                     cache=None if gc is None else gc.get(key),
                                     pos=pos, patches=patches,
                                     cache_len=cache_len)
@@ -460,20 +536,29 @@ class LM:
         mean).  In ``mode="train"`` with ``remat`` each group runs
         rematerialised, as the reference's ``jax.checkpoint(group_fn)``:
         its forward keeps only the group's inputs, and the backward runs
-        the group again (``_GroupRemat``)."""
+        the group again (``_GroupRemat``).  Where ``data`` is active the
+        unit is one slot (a layer): its inputs are the weights' ``data``
+        shares, and the recompute gathers them again, so one layer's
+        gathered weights are alive at a time in the recompute too."""
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        per_slot = sh.data_live() and bool(self.data_cuts())
         for g in range(self.n_groups):
             gp = _tree_index(params["layers"], g)
             if remat and mode == "train":
-                flat = flat_dict(gp)
+                units = ([[f"slot{i}"] for i in range(len(self.pattern))]
+                         if per_slot else [list(gp)])
+                for keys in units:
+                    flat = flat_dict({k: gp[k] for k in keys})
 
-                def run(x, aux, positions, patches, leaves, keys=tuple(flat)):
-                    return self._group(nest(dict(zip(keys, leaves))), x, aux,
-                                       mode="train", positions=positions,
-                                       patches=patches)
+                    def run(x, aux, positions, patches, leaves,
+                            keys=tuple(flat)):
+                        return self._group(nest(dict(zip(keys, leaves))), x,
+                                           aux, mode="train",
+                                           positions=positions,
+                                           patches=patches)
 
-                x, aux = _GroupRemat.apply(run, x, aux, positions, patches,
-                                           *flat.values())
+                    x, aux = _GroupRemat.apply(run, x, aux, positions,
+                                               patches, *flat.values())
             else:
                 x, aux = self._group(gp, x, aux, mode=mode,
                                      positions=positions,
@@ -496,9 +581,11 @@ class LM:
         x, aux = self._backbone(params, x, mode="train", positions=positions,
                                 caches={}, patches=batch.get("patches"))
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-        # chunked CE fused with the unembedding (bounds the f32 workspace)
+        # chunked CE fused with the unembedding (bounds the f32 workspace);
+        # the unembedding gathered over `data` once, for every chunk
         chunk = 512 if S * cfg.vocab_padded > (1 << 24) else 0
-        loss = self._ce_from_hidden(params, x, batch["targets"], chunk)
+        loss = self._ce_from_hidden(self._unembed(params), x,
+                                    batch["targets"], chunk)
         if cfg.moe is not None:
             loss = loss + cfg.moe.load_balance_coef * aux
         return loss, {"ce": loss, "aux": aux}
@@ -610,7 +697,7 @@ class LM:
                               caches=caches, patches=batch.get("patches"),
                               cache_len=caches.cache_len)
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-        lg = self.logits(params, x[:, -1:])[:, 0]
+        lg = self.logits(self._unembed(params), x[:, -1:])[:, 0]
         return lg[..., :cfg.vocab], caches
 
     def decode_step(self, params, state, token, pos: int, patches=None):
@@ -628,7 +715,7 @@ class LM:
         x, _ = self._backbone(params, x, mode="decode", positions=positions,
                               caches=state, pos=pos, cache_len=cache_len)
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-        lg = self.logits(params, x[:, 0])
+        lg = self.logits(self._unembed(params), x[:, 0])
         return lg[..., :cfg.vocab], state
 
 

@@ -29,7 +29,12 @@ each rank's product is gathered and cut to its channels of ``u`` and
 contract the channels (their partial products summed over ``model``), the
 cell runs whole on every rank in every mode (its state ``C``, ``n``,
 ``m`` whole, as its specs say), and its output enters the row-parallel
-``down`` cut to the rank's channels (``scatter_to_model``).
+``down`` cut to the rank's channels (``scatter_to_model``).  Under a
+``data`` axis larger than 1 both blocks take their weights already
+gathered over ``data`` (``up``, ``down`` and the sLSTM's ``w*`` cut on
+their ``d_model`` dims at rest; ``transformer.LM`` gathers a layer at a
+time), so the sizes read from the leaves (the mLSTM's ``du``) are the
+gathered ones and the ``model`` logic is unchanged.
 
 Nothing is written in place, so ``LM.loss_fn`` runs these mixers under the
 round's ``vmap(grad_and_value)``.  Gate pre-activations, states and the

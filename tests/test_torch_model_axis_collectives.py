@@ -12,7 +12,8 @@ reference's ``make_test_mesh`` of 4 devices), spawned once for the file.
     gradient by the axis size, so the test would see one.
   * Params at rest: ``shard_params`` then ``gather_params`` bit for bit,
     a FedAdam server step on the shares equal to the whole one's share,
-    and the dry run's per-device bytes equal to what a rank holds.
+    and the dry run's per-device bytes equal to what a rank holds (the
+    params cut over ``data`` as well as ``model``: FSDP).
   * Every commit configuration on deltas split over ``model`` (and, in the
     parallel commit, the clients over ``data``) bit for bit against the
     same commit of the whole deltas with no mesh: the fused and unfused
@@ -41,8 +42,8 @@ SIZES = (1, 2, 2)
 M = 2                                     # the model axis
 C, D, F = 3, 8, 6                         # clients (vmap), width, hidden
 TOL = 1e-6
-# the commit's tree: each leaf's dim split over model, or None
-DIMS = {"a": 1, "b": 0, "c": None, "d": 2}
+# the commit's tree: the dim of each leaf split over model ("c" is whole)
+CUTS = {"a": {"model": 1}, "b": {"model": 0}, "d": {"model": 2}}
 SHAPES = {"a": (6, 300), "b": (8, 64, 40), "c": (17,), "d": (3, 5, 512)}
 K = 4                                     # clients of the commit
 DET = dict(quantize_bits=8, topk_frac=0.1, stochastic_rounding=False)
@@ -226,8 +227,8 @@ def commit_inputs(seed=5):
 
 
 def share(tree, lead=0):
-    return {k: v if DIMS[k] is None else sh.local_share(
-        v, sh.MODEL, DIMS[k] + lead) for k, v in tree.items()}
+    return {k: v if k not in CUTS else sh.local_share(
+        v, sh.MODEL, CUTS[k][sh.MODEL] + lead) for k, v in tree.items()}
 
 
 def run_commits():
@@ -242,7 +243,7 @@ def run_commits():
     for name in COMMITS:
         step = build_fl_round_step(loss_fn, copt, sopt, fl_config(name),
                                    n_pods=2, client_spmd_axes=axes,
-                                   model_dims=DIMS)
+                                   cuts=CUTS)
         cut = step.client_share
         mine = {k: cut(v) for k, v in share(deltas, 1).items()}
         out[name] = step.commit(
@@ -251,7 +252,7 @@ def run_commits():
     for name in SEQUENTIAL:
         step = build_fl_round_step(loss_fn, copt, sopt,
                                    fl_config(name, "sequential"),
-                                   model_dims=DIMS)
+                                   cuts=CUTS)
         ups = ((share({k: v[c] for k, v in deltas.items()}), losses[c])
                for c in range(K))
         out["sequential " + name] = step.commit(
@@ -260,12 +261,12 @@ def run_commits():
     ids = torch.arange(K, dtype=torch.int32)
     for name in ASYNC:
         step = build_buffer_commit_step(sopt, fl_config(name), acfg,
-                                        model_dims=DIMS)
+                                        cuts=CUTS)
         out["async " + name] = step(
             share(params), (), share(deltas, 1), w, stale, losses, m, ids,
             0.5, torch.Generator().manual_seed(7))[0]
     acc_fn, fin = build_chunked_commit_steps(sopt, fl_config("fused"), acfg,
-                                             model_dims=DIMS)
+                                             cuts=CUTS)
     acc = {k: torch.zeros_like(v) for k, v in share(params).items()}
     wsum = torch.zeros(())
     for lo in (0, 2):
@@ -342,9 +343,9 @@ def test_params_at_rest_round_trip_and_server_state(ranks):
             assert same, (arch, rank)
             assert n_split > 0, arch
             model = build_model(reduced(get_config(arch)))
-            # the dry run on a mesh whose data is 1 (data entries whole)
-            mesh = sh.Mesh(("pod", "data", "model"), (1, 1, M),
-                           tuple(range(M)))
+            # the dry run on the ranks' own mesh, data 2 x model 2
+            mesh = sh.Mesh(("pod", "data", "model"), SIZES,
+                           tuple(range(int(np.prod(SIZES)))))
             assert held == dryrun.per_device_bytes(
                 model.param_specs(), model.logical_specs, mesh), arch
         assert got["rest"]["fedadam"], rank
@@ -352,14 +353,15 @@ def test_params_at_rest_round_trip_and_server_state(ranks):
 
 @pytest.mark.parametrize("arch", ASSIGNED_ARCHS)
 def test_rank_bytes_equal_the_dry_run_at_full_width(arch):
-    """On a mesh whose ``data`` is 1 the params a rank holds after
-    ``shard_params`` are the dry run's per-device bytes, for every
-    assigned arch at its published widths (meta tensors, nothing
-    allocated), on every ``model`` rank."""
+    """The params a rank holds after ``shard_params`` are the dry run's
+    per-device bytes, cut over ``data`` and ``model``, for every assigned
+    arch at its published widths (meta tensors, nothing allocated), on
+    the first and the last rank of a 2 x 2 and the production 16 x 16
+    mesh."""
     model = build_model(get_config(arch))
     specs, whole = model.logical_specs, model.param_specs()
-    for sizes, axes in (((1, 2), ("data", "model")),
-                        ((1, 16), ("data", "model"))):
+    for sizes, axes in (((2, 2), ("data", "model")),
+                        ((16, 16), ("data", "model"))):
         n = int(np.prod(sizes))
         want = dryrun.per_device_bytes(whole, specs, sh.Mesh(
             axes, sizes, tuple(range(n))))

@@ -5,15 +5,16 @@ processes: four ``gloo`` ranks on the CPU (``pod`` 1 x ``data`` 2 x
 the model's loss on a seeded batch (the MLPs, the embedding and the
 unembedding tensor-parallel, the experts, the Mamba channels and the
 xLSTM heads split over ``model``; attention whole where the heads are
-fewer than 16), gathers each leaf's gradient with ``gather_params``, and
-holds it within 1e-5 of its largest magnitude against the same loss with
-no mesh (float32, deterministic algorithms); the loss within 1e-6.  The
-zoo: the reduced granite, a 16-head variant of it (so ``attn_tp`` splits
-``wq``/``wo`` over the heads and each rank's heads meet their own KV
-heads), Qwen3-MoE, the reduced Jamba, xlstm-125m (and a 3-head variant,
-whose sLSTM heads the axis does not divide), MusicGen (codebooks) and the
-VLM (cross attention); and the granite under ``vmap`` of the
-gradient, as the parallel round runs it."""
+fewer than 16; each layer's weights gathered over ``data``), gathers each
+leaf's gradient with ``gather_params``, and holds it within 1e-5 of its
+largest magnitude against the same loss with no mesh (float32,
+deterministic algorithms); the loss within 1e-6.  The zoo: the reduced
+granite, a 16-head variant of it (so ``attn_tp`` splits ``wq``/``wo``
+over the heads and each rank's heads meet their own KV heads), Qwen3-MoE,
+the reduced Jamba, xlstm-125m (and a 3-head variant, whose sLSTM heads the
+axis does not divide), MusicGen (codebooks) and the VLM (cross
+attention); and the granite under ``vmap`` of the gradient, as the
+parallel round runs it."""
 import numpy as np
 import pytest
 import torch
@@ -62,6 +63,15 @@ def batch(cfg, lead=()):
     return out
 
 
+def whole_batch_grads(g, model):
+    """The gradient of the loss of the batch that every rank holds whole:
+    a leaf cut over ``data`` (FSDP) comes back from its gather's backward
+    summed over the ``data`` ranks' equal cotangents, so it is divided by
+    their count, as the round divides it."""
+    n = sh.shard_count(sh.DATA)
+    return {k: v / n if k in model.data_cuts() else v for k, v in g.items()}
+
+
 def grads(name):
     """(gradients gathered whole, loss, leaves split) on this rank, and the
     same with no mesh."""
@@ -72,8 +82,12 @@ def grads(name):
     local = sp.shard_params(params, specs)
     step = grad_and_value(model.loss_fn, has_aux=True)
     g, (loss, _) = step(local, batch(cfg))
-    whole = sp.gather_params(g, specs, model.param_specs())
-    split = sorted(k for k in params if local[k].shape != params[k].shape)
+    whole = sp.gather_params(whole_batch_grads(g, model), specs,
+                             model.param_specs())
+    # the leaves split over model (those cut over data are cut anyway)
+    split = sorted(k for k, c in sp.leaf_cuts(
+        {k: tuple(v.shape) for k, v in params.items()}, specs).items()
+        if sh.MODEL in c)
     with sh.use_mesh(None):
         g0, (loss0, _) = step(params, batch(cfg))
     return (whole, float(loss), split), (g0, float(loss0))
@@ -91,8 +105,8 @@ def stacked_grads():
                      for k, v in t.items()}
     step = vmap(grad_and_value(model.loss_fn, has_aux=True))
     g, (loss, _) = step(two(local), two(batch(cfg)))
-    whole = sp.gather_params({k: v[1] for k, v in g.items()}, specs,
-                             model.param_specs())
+    whole = sp.gather_params(whole_batch_grads(
+        {k: v[1] for k, v in g.items()}, model), specs, model.param_specs())
     with sh.use_mesh(None):
         g0, (loss0, _) = grad_and_value(model.loss_fn, has_aux=True)(
             params, batch(cfg))

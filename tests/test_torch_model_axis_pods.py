@@ -24,7 +24,7 @@ from repro_torch.core import (AsyncConfig, CompressionConfig, FLConfig,
 from repro_torch.launch import spmd
 from repro_torch.models import sharding as sh
 from repro_torch.optim import get_client_optimizer, get_server_optimizer
-from test_torch_model_axis_collectives import DIMS, SHAPES, draw, share
+from test_torch_model_axis_collectives import CUTS, SHAPES, draw, share
 from test_torch_model_axis_rounds import run_cases, split_round
 from test_torch_spmd_lm import check_case
 
@@ -70,7 +70,7 @@ def pod_commits():
                       compression=CompressionConfig(**comp))
         step = build_fl_round_step(loss_fn, copt, sopt, fl, n_pods=2,
                                    client_spmd_axes=("pod",) if mesh
-                                   else None, model_dims=DIMS)
+                                   else None, cuts=CUTS)
         it = iter(range(K))
         step.local_train = lambda p, b: (share(deltas[next(it)]),
                                          torch.tensor(1.0))
@@ -90,7 +90,7 @@ def pod_commits():
                           **kw.pop("compression", {})), **kw)
         step = build_fl_round_step(loss_fn, copt, sopt, fl, n_pods=2,
                                    client_spmd_axes=("pod",),
-                                   model_dims=DIMS)
+                                   cuts=CUTS)
         cut = step.client_share
         out["parallel " + name] = step.commit(
             share(params), (), {k: cut(v) for k, v in
@@ -100,7 +100,7 @@ def pod_commits():
         step = build_buffer_commit_step(
             sopt, FLConfig(num_clients=K, secure_agg=secure,
                            compression=CompressionConfig(**comp)),
-            AsyncConfig(), model_dims=DIMS)
+            AsyncConfig(), cuts=CUTS)
         out["async " + name] = step(
             share(params), (), share(stack, 1), w,
             torch.tensor([0.0, 1.0, 3.0, 0.0]), losses, m,

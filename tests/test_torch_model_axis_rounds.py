@@ -10,11 +10,13 @@ local steps of batch 2 x 16, lr 0.05, FedProx 0.01, stochastic q8), the
 params held at rest as ``launch.specs.shard_params`` cuts them by their
 sanitised specs, so every layer the axis divides runs split over
 ``model`` (the MLPs, the embedding and unembedding, the experts, the
-xLSTM's heads and channels).  The port runs the case's mode: sequential
+xLSTM's heads and channels), its weights cut over ``data`` too and
+gathered a layer at a time (FSDP).  The port runs the case's mode: sequential
 (each client's batch over ``data``) and parallel (the clients over
 ``data``).  The bounds are the reference test's: the loss within 5e-3 and
 the params, gathered whole, within 3e-2 (2e-1 for the MoE).  The params
-end bit for bit the same on the ranks that hold the same share.  The
+end bit for bit the same on the ranks that hold the same share (their
+shares gathered whole are the same on every rank).  The
 pod_sequential case, which needs ``pod``, is in
 ``test_torch_model_axis_pods.py``."""
 from concurrent.futures import ThreadPoolExecutor
@@ -91,11 +93,13 @@ def split_round(arch, exec_mode, params_np, n_pods=2):
                                    batches(arch).items()},
                        torch.ones(C), torch.ones(C),
                        torch.Generator().manual_seed(3))
-    same = all(len(set(v)) == 1 for v in sh.replica_checksums(
-        new, ("pod", "data")).values())
     split = sum(1 for k in new if new[k].shape != params_np[k].shape)
-    return (sp.gather_params(new, specs, model.param_specs()),
-            float(met["client_loss"]), same and split > 0)
+    whole = sp.gather_params(new, specs, model.param_specs())
+    # the shares gathered whole are the same on every rank only if every
+    # rank's share is the same as the ranks' that hold it too
+    same = all(len(set(v)) == 1 for v in sh.replica_checksums(
+        whole).values())
+    return whole, float(met["client_loss"]), same and split > 0
 
 
 def rank_rounds(mesh, cases, params):

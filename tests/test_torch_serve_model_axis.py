@@ -23,9 +23,12 @@ within 1e-5 of the largest |logit| of the same run with no mesh here, and
 every decode-state leaf within 1e-5 of the no-mesh state cut as the specs
 say (``specs.shard_state``); granite, the Jamba and the VLM, on the
 reference's own init, within 1e-4 of the JAX reference's ``prefill`` and
-``decode_step``; each rank's decode-state bytes equal to
-``dryrun.per_device_bytes`` of the state on the same mesh, and its param
-bytes too where ``data`` is 1 (``data`` entries stay whole); a sampled run
+``decode_step``; each rank's decode-state bytes and param bytes equal to
+``dryrun.per_device_bytes`` of the state and of the params on the same
+mesh (the params cut over ``data`` too where it is 2: FSDP, each slot's
+weights gathered just before it runs, the MoE's expert F gathered in
+prefill and left cut in decode, whose partial sums are added over
+``data``); a sampled run
 (temperature 1) draws the same tokens on every rank and as no mesh does.
 The MoE's capacity is reckoned from the local token count in prefill and
 from the gathered count in decode, as in the reference; the reduced MoE
@@ -236,9 +239,9 @@ def test_state_and_param_bytes_are_the_dry_runs(ranks):
                        for v in leaves.values())
             assert held == dryrun.per_device_bytes(whole, logical, rm), (
                 mesh, name, rank)
-            if rm.shape["data"] == 1:
-                assert out[name][2] == dryrun.per_device_bytes(
-                    model.param_specs(), model.logical_specs, rm)
+            assert out[name][2] == dryrun.per_device_bytes(
+                model.param_specs(), model.logical_specs, rm), (
+                mesh, name, rank)
     # nothing drops in the MoE configs: capacity >= the tokens routed
     for name in ("qwen3-moe", "jamba"):
         moe = config(name).moe

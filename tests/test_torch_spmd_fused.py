@@ -11,7 +11,8 @@ the fused kernels and with the plain stages, on every rank; the two agree
 within the reference's 5e-5 (it measured 0 to 3.9e-5: a reassociated sum
 can flip an int8 rounding step), the fused and unfused stages each equal
 the same stages with no mesh (bit for bit where no batch is split), and
-the params end bit for bit the same on every rank."""
+the params, held cut over ``data`` at rest (FSDP) and gathered whole after
+the round, end bit for bit the same on every rank."""
 import dataclasses
 
 import numpy as np
@@ -22,6 +23,7 @@ from repro_torch.configs import get_config
 from repro_torch.core import (AsyncConfig, CompressionConfig, FLConfig,
                               build_buffer_commit_step, build_fl_round_step)
 from repro_torch.launch import spmd
+from repro_torch.launch import specs as sp
 from repro_torch.models import build_model
 from repro_torch.models import sharding as sh
 from repro_torch.optim import get_client_optimizer, get_server_optimizer
@@ -56,9 +58,12 @@ def sync_round(label, use_fused):
     step = build_fl_round_step(model.loss_fn, get_client_optimizer("sgd"),
                                get_server_optimizer("fedavg"), fl, n_pods=2,
                                client_spmd_axes=axes)
-    return step(params, (), batches, torch.tensor([1.0, 2.0, 3.0, 4.0]),
-                torch.tensor([1.0, 0.0, 1.0, 1.0]),
-                torch.Generator().manual_seed(2))[0]
+    specs = model.logical_specs
+    new = step(sp.shard_params(params, specs), (), batches,
+               torch.tensor([1.0, 2.0, 3.0, 4.0]),
+               torch.tensor([1.0, 0.0, 1.0, 1.0]),
+               torch.Generator().manual_seed(2))[0]
+    return sp.gather_params(new, specs, model.param_specs())
 
 
 def async_commit(use_fused):

@@ -114,14 +114,38 @@ def moe_layer(seed=6, T=12, D=16):
     return cfg, p, draw(T, 1, D)
 
 
+def f_share(p, j, n):
+    """The experts' share ``j`` of ``n`` along their F dim, as a ``data``
+    rank holds them at rest (FSDP)."""
+    cut = lambda v, d: v.narrow(d, j * (v.shape[d] // n),   # noqa: E731
+                                v.shape[d] // n)
+    return dict(p, w1=cut(p["w1"], 2), w3=cut(p["w3"], 2), w2=cut(p["w2"], 1))
+
+
 def moe_decode(mode="gather_tokens"):
     """The MoE over this process's share of the tokens (all of them off a
-    mesh): gather_tokens routes every process's tokens together, as the
-    reference's decode layout does."""
+    mesh), its experts' F as the rank holds it at rest (cut over ``data``
+    where the axis divides it): gather_tokens routes every process's
+    tokens together, as the reference's decode layout does, and sums the
+    F shares' partial outputs over ``data``; gather_weights gathers F."""
     from repro_torch.models import moe
     cfg, p, x = moe_layer()
     mine = sh.local_share(x, sh.batch_split_axes(), 0)
-    return moe.moe_apply(p, mine, cfg=cfg, act="swiglu", mode=mode)[0]
+    n = sh.data_split(cfg.d_expert)
+    return moe.moe_apply(f_share(p, sh.data_index() % n, n), mine, cfg=cfg,
+                         act="swiglu", mode=mode)[0]
+
+
+def moe_partials(n):
+    """The decode layout with no mesh, its experts cut into ``n`` F shares
+    and the shares' outputs added in order (the sum over ``data`` of a
+    mesh whose ``data`` is ``n``): the whole layer where ``n`` is 1."""
+    from repro_torch.models import moe
+    cfg, p, x = moe_layer()
+    if cfg.d_expert % n:
+        n = 1
+    return sum(moe.moe_apply(f_share(p, j, n), x, cfg=cfg, act="swiglu",
+                             mode="gather_tokens")[0] for j in range(n))
 
 
 def unsharded_cases():
@@ -309,13 +333,15 @@ def test_a_model_axis_mesh_builds_and_raises(tmp_path):
 def test_moe_layouts_over_a_split_batch(ranks, unsharded, mesh):
     """Under a split batch the MoE's decode layout routes all processes'
     tokens at once (the capacity from the whole count): each process's
-    output is its share of the unsplit layer's.  The train layout routes
+    output is its share of the unsplit layer's, whose F shares' partial
+    outputs are added over ``data`` where the axis cuts F (here data 2).  The train layout routes
     the process's own tokens (the capacity from the local count), as the
     reference's ``gather_weights`` shard_map does; here that drops other
     tokens than the whole batch does."""
     from repro_torch.models import moe
     cfg, p, x = moe_layer()
-    want = unsharded["moe decode"]
+    data = MESHES[mesh][1]
+    want = unsharded["moe decode"] if data == 1 else moe_partials(data)
     n = int(np.prod(MESHES[mesh]))
     m = want.shape[0] // n
     differs = False

@@ -12,10 +12,12 @@ from different generators).  The reference side is its unsharded
 sequential round, as in the reference's test; the port runs the case's
 mode under the mesh: sequential (each client's batch split over
 ``data``), pod_sequential (``n_pods=2``, pods over ``pod``, the batch over
-``data``) and parallel (clients over ``pod`` and ``data``).  The bounds
-are the reference test's: the loss within 5e-3 and the params within
-3e-2 (2e-1 for the MoE, whose per-shard capacity and aux loss depend on
-the split).  The params end bit for bit the same on every rank."""
+``data``) and parallel (clients over ``pod`` and ``data``), the params
+held at rest cut over ``data`` (``specs.shard_params``: FSDP) and
+gathered whole after the round.  The bounds are the reference test's: the
+loss within 5e-3 and the params within 3e-2 (2e-1 for the MoE, whose
+per-shard capacity and aux loss depend on the split).  The params end bit
+for bit the same on every rank that holds the same share."""
 import numpy as np
 import pytest
 import torch
@@ -23,6 +25,7 @@ import torch
 from repro_torch.configs import get_config, reduced
 from repro_torch.core import CompressionConfig, FLConfig, build_fl_round_step
 from repro_torch.launch import spmd
+from repro_torch.launch import specs as sp
 from repro_torch.models import build_model, token_shape
 from repro_torch.models import sharding as sh
 from repro_torch.optim import get_client_optimizer, get_server_optimizer
@@ -81,23 +84,30 @@ def reference_params(arch):
 
 
 def port_round(arch, exec_mode, params_np):
+    """The port's round on this rank's shares of the params (cut over
+    ``data``: FSDP): (the new params gathered whole, the loss)."""
     model = build_model(reduced(get_config(arch)))
+    specs = model.logical_specs
     step = build_fl_round_step(model.loss_fn, get_client_optimizer("sgd"),
                                get_server_optimizer("fedavg"),
                                fl_config(exec_mode), n_pods=2,
                                client_spmd_axes=SPMD_AXES[exec_mode])
-    new, _, met = step({k: torch.from_numpy(v) for k, v in params_np.items()},
+    new, _, met = step(sp.shard_params({k: torch.from_numpy(v) for k, v in
+                                        params_np.items()}, specs),
                        (), {k: torch.from_numpy(v).long() for k, v in
                             batches(arch).items()},
                        torch.ones(C), torch.ones(C),
                        torch.Generator().manual_seed(3))
-    return new, float(met["client_loss"])
+    return (sp.gather_params(new, specs, model.param_specs()),
+            float(met["client_loss"]))
 
 
 def rank_rounds(mesh, cases, params):
     out = {}
     for arch, exec_mode, _ in cases:
         new, loss = port_round(arch, exec_mode, params[arch])
+        # gathered whole: the same on every rank only if every rank's
+        # share is its replicas'
         same = all(len(set(v)) == 1 for v in
                    sh.replica_checksums(new).values())
         out[(arch, exec_mode)] = (new, loss, same)

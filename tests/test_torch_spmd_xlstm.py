@@ -5,8 +5,10 @@ heads stay whole, ``model`` being 1) and sequential rounds (each client's
 batch over ``data``) against the JAX reference's unsharded round, with
 ``tests/test_mesh_small.py``'s bounds (``test_torch_spmd_lm.py`` holds the
 setup); and the reduced Jamba's sequential round, its selective scan and
-the scan's backward run on each rank's share of the batch, against the
-port's round with no mesh.  Its MoE layer routes each rank's tokens with
+the scan's backward run on each rank's share of the batch, its params
+held cut over ``data`` (FSDP) and gathered whole after the round, against
+the port's round with no mesh (the same call with no mesh: the shares
+are then the whole params).  Its MoE layer routes each rank's tokens with
 a capacity taken from the local token count and enters its aux loss per
 shard, as the reference's sharded MoE does, so the round is not the
 unsplit one to float rounding.  Its bounds come from readings of this
@@ -15,7 +17,7 @@ in the loss and 8.4e-6 in the params; a doubled gradient (a sum over the
 ``data`` ranks in place of their mean) 0.0198 in the params, and the sum
 over all four ranks 20.3 in the loss and 0.059 in the params.  So the loss
 is held within 1e-3 and the params within 1e-4.  The params end bit for
-bit the same on every rank."""
+bit the same on every rank that holds the same share."""
 import numpy as np
 import pytest
 import torch
@@ -23,6 +25,7 @@ import torch
 from repro_torch.configs import get_config, reduced
 from repro_torch.core import FLConfig, build_fl_round_step
 from repro_torch.launch import spmd
+from repro_torch.launch import specs as sp
 from repro_torch.models import build_model
 from repro_torch.models import sharding as sh
 from repro_torch.optim import get_client_optimizer, get_server_optimizer
@@ -48,10 +51,12 @@ def jamba_round():
     step = build_fl_round_step(model.loss_fn, get_client_optimizer("sgd"),
                                get_server_optimizer("fedavg"), fl)
     w = torch.tensor([1.0, 2.0])
-    new, _, met = step(params, (), {"tokens": toks[..., :-1],
-                                    "targets": toks[..., 1:]}, w,
-                       torch.ones(C), torch.Generator().manual_seed(2))
-    return new, float(met["client_loss"])
+    specs = model.logical_specs
+    new, _, met = step(sp.shard_params(params, specs), (),
+                       {"tokens": toks[..., :-1], "targets": toks[..., 1:]},
+                       w, torch.ones(C), torch.Generator().manual_seed(2))
+    return (sp.gather_params(new, specs, model.param_specs()),
+            float(met["client_loss"]))
 
 
 def rank_cases(mesh, params):
