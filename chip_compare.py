@@ -7,6 +7,7 @@ training rounds, and the host's cost of a kernel launch.
     python3 chip_compare.py --paths DIR [DIR ...]
     python3 chip_compare.py --xlstm-gaps SEED [SEED ...]
     python3 chip_compare.py --spmd
+    python3 chip_compare.py --model-rounds DIR
     python3 chip_compare.py --spmd-references
     python3 chip_compare.py --gather
 
@@ -85,6 +86,14 @@ with no mesh here and on four gloo ranks sharing the card: sound, with the
 ranks' mean doubled, and with the mean replaced by a sum over the ranks
 (two controls that a wrong gradient reduction must fail): each one's loss
 and params gap to no mesh.  Then the phase itself, alone.
+
+``--model-rounds DIR``: ``chip_smoke.py``'s ``spmd`` (d) q8 rounds (the
+reduced LMs' ``MODEL_CASES``, stochastic q8, on ``MODEL_SIZES`` ranks
+sharing the card, under deterministic algorithms) in DIR and in this
+tree, each in a process of its own that imports only its own tree's
+``repro_torch``, on the same batches: each rank's new params hashed, its
+gap to the same tree's round with no mesh, and whether the two trees'
+rounds end bit for bit alike, rank by rank.
 
 ``--spmd-references``: the phase's (a) ranks against no-mesh references
 made under cuDNN's default algorithms, then under the deterministic ones
@@ -602,6 +611,161 @@ def spmd_reference_algorithms() -> None:
     torch.backends.cudnn.deterministic = False
 
 
+MODEL_ROUNDS = """
+import sys
+sys.path[:0] = [{src!r}, {root!r}]
+import chip_compare
+chip_compare.model_rounds({cases!r}, {shape!r}, {axes!r}, {sizes!r},
+                          {path!r}, {device!r})
+"""
+
+
+def _round_setup():
+    import torch
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+
+
+def _model_round(arch, mode, shape, axes, batches, device):
+    """(d)'s q8 round of the reduced ``arch`` in ``mode`` from its params
+    drawn from seed 0, held at rest as the active mesh cuts them
+    (``chip_smoke.model_round``'s config): (the model, new params,
+    loss)."""
+    import torch
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.core import (CompressionConfig, FLConfig,
+                                  build_fl_round_step)
+    from repro_torch.launch import specs as sp
+    from repro_torch.models import build_model
+    from repro_torch.optim import get_client_optimizer, get_server_optimizer
+    from repro_torch.pytree import flat_dict
+    lm = build_model(reduced(get_config(arch)))
+    params = sp.shard_params({k: v.to(device) for k, v in flat_dict(
+        lm.init(torch.Generator().manual_seed(0))).items()},
+        lm.logical_specs)
+    C = shape["C"]
+    step = build_fl_round_step(
+        lm.loss_fn, get_client_optimizer("sgd"),
+        get_server_optimizer("fedavg"), FLConfig(
+            num_clients=C, local_steps=shape["H"], client_lr=0.05,
+            fedprox_mu=0.01, client_exec=mode,
+            compression=CompressionConfig(quantize_bits=8)), n_pods=2,
+        client_spmd_axes=axes)
+    ones = torch.ones(C, device=device)
+    new, _, met = step(params, (), {
+        k: torch.from_numpy(v).to(device) for k, v in batches.items()},
+        ones, ones, torch.Generator().manual_seed(3))
+    return lm, new, float(met["client_loss"])
+
+
+def _digest(tree) -> str:
+    import hashlib
+
+    import torch
+    h = hashlib.sha256()
+    for k in sorted(tree):
+        h.update(tree[k].detach().cpu().contiguous().view(-1).view(
+            torch.uint8).numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def model_rounds_rank(mesh, cases, shape, axes, path):
+    import torch
+
+    from repro_torch.launch import specs as sp
+    _round_setup()
+    data = torch.load(path, weights_only=False)
+    out = {}
+    for arch, mode in cases:
+        label = f"{arch} {mode}"
+        lm, new, loss = _model_round(arch, mode, shape, axes[mode],
+                                     data["batches"][label], mesh.device)
+        want = sp.shard_params({k: v.to(mesh.device) for k, v in
+                                data["new"][label].items()},
+                               lm.logical_specs)
+        out[label] = {"digest": _digest(new), "loss": loss, "gap": max(
+            float((new[k].float() - want[k].float()).abs().max())
+            for k in want)}
+    return out
+
+
+def model_rounds(cases, shape, axes, sizes, path, device="cuda") -> None:
+    """The no-mesh rounds, then the ranks', in this process's tree: one
+    ``ROUNDS`` line."""
+    import torch
+
+    from repro_torch.kernels import _build
+    from repro_torch.launch import spmd
+    if device == "cuda":
+        _build.build_all()
+    _round_setup()
+    data = torch.load(path, weights_only=False)
+    data["new"], ref = {}, {}
+    for arch, mode in cases:
+        label = f"{arch} {mode}"
+        _, new, loss = _model_round(arch, mode, shape, None,
+                                    data["batches"][label], device)
+        data["new"][label] = {k: v.cpu() for k, v in new.items()}
+        ref[label] = {"digest": _digest(new), "loss": loss}
+    torch.save(data, path)
+    ranks = spmd.run(model_rounds_rank, (cases, shape, axes, path),
+                     sizes=sizes, device=device, all_ranks=True,
+                     verbose=False)
+    print("ROUNDS " + json.dumps({"no mesh": ref, "ranks": ranks}))
+
+
+def compare_model_rounds(other: Path, device: str = "cuda") -> None:
+    import os
+    import tempfile
+
+    import torch
+
+    import chip_smoke as cs
+    cases = [list(c) for c in cs.MODEL_CASES]
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for tree, label in ((other, "parent"), (ROOT, "this")):
+            path = os.path.join(tmp, f"{label}.pt")
+            torch.save({"batches": {
+                f"{arch} {mode}": cs.lm_batches(
+                    cs.reduced(cs.get_config(arch)),
+                    tuple(cs.MODEL_SHAPE[k] for k in "CHB"),
+                    cs.MODEL_SHAPE["S"], 1) for arch, mode in cases}}, path)
+            script = MODEL_ROUNDS.format(
+                src=str(tree / "src"), root=str(ROOT), cases=cases,
+                shape=cs.MODEL_SHAPE, axes=cs.MODEL_AXES,
+                sizes=cs.MODEL_SIZES, path=path, device=device)
+            proc = subprocess.run(
+                [sys.executable, "-c", script], cwd=ROOT,
+                capture_output=True, text=True, timeout=1200,
+                env=dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8"))
+            if proc.returncode:
+                raise SystemExit(f"{label}: exit {proc.returncode}\n"
+                                 f"{proc.stdout[-3000:]}"
+                                 f"{proc.stderr[-3000:]}")
+            line = [x for x in proc.stdout.splitlines()
+                    if x.startswith("ROUNDS ")][-1]
+            runs[label] = json.loads(line[7:])
+    for label in runs["this"]["no mesh"]:
+        same_ref = len({r["no mesh"][label]["digest"]
+                        for r in runs.values()}) == 1
+        ranks = {name: [rank[label] for rank in r["ranks"]]
+                 for name, r in runs.items()}
+        same = all(a["digest"] == b["digest"] for a, b in
+                   zip(ranks["parent"], ranks["this"]))
+        gaps = {name: " ".join(f"{r['gap']:.3g}" for r in rs)
+                for name, rs in ranks.items()}
+        print(f"model round {label}: no mesh bit for bit across the trees "
+              f"{same_ref}; every rank's shares bit for bit across the "
+              f"trees {same}; the ranks' gaps to no mesh, parent "
+              f"[{gaps['parent']}], this [{gaps['this']}]", flush=True)
+    print("MODEL_ROUNDS " + json.dumps(runs))
+
+
 def gather_rank(mesh, n):
     """``--gather`` on one rank: {variant: (seconds a call, equal to the
     port's gather)}."""
@@ -660,6 +824,8 @@ def main(argv=None) -> int:
                     help="other checkouts whose training paths to time")
     ap.add_argument("--xlstm-gaps", type=int, nargs="+", metavar="SEED")
     ap.add_argument("--spmd", action="store_true")
+    ap.add_argument("--model-rounds", type=Path, metavar="DIR",
+                    help="another checkout whose (d) q8 rounds to compare")
     ap.add_argument("--spmd-references", action="store_true")
     ap.add_argument("--gather", action="store_true")
     args = ap.parse_args(argv)
@@ -683,6 +849,8 @@ def main(argv=None) -> int:
         profile_rounds()
     if args.spmd:
         spmd_readings()
+    if args.model_rounds:
+        compare_model_rounds(args.model_rounds.resolve())
     if args.spmd_references:
         spmd_reference_algorithms()
     if args.gather:

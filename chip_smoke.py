@@ -30,7 +30,10 @@ it happened; any failure ends the run with a non-zero exit code:
      k=block, ties across the k-th value with all-zero rows, subnormals, one
      exponent, other block widths and the small leaves as the main path
      pads them; the secure commit past its register path, with
-     non-cancelling and random coefficients under asymmetric seeds, at 4
+     non-cancelling coefficients (also through a row table that places
+     each row at its own block-row of a bucket twice as long, as a
+     share's rows of a cut leaf are placed), random coefficients under
+     asymmetric seeds, at 4
      bits, with a noise operand and with a zero-weight slot), and the secure
      commit's mask-word fold against its plain version; the scan and its
      backward under ``vmap`` (2 clients folded into the batch of the
@@ -206,8 +209,12 @@ it happened; any failure ends the run with a non-zero exit code:
      (loss within 5e-3, params within 3e-2) and uncompressed with the
      fused FedProx update within 1e-5 of the same round with ``model``
      dropped (its params cut over data alone; deterministic algorithms),
-     the shares bit for bit on the ranks that hold them; the main path's
-     parallel CIFAR round against no
+     the shares bit for bit on the ranks that hold them; on the first
+     case's round deltas (a 2-slot stack of the delta and half of it) the
+     q8 + top-k and secure q8 + top-k commits on the shares
+     (``model_commit``), each bit for bit the gathered composition, the
+     leaves it gathered printed; the main path's parallel CIFAR round
+     against no
      mesh, launching fused_accum once a rank; every commit kernel's entry
      point with ``model`` among the fusion axes bit for bit; (e)
      granite-3-2b whole (bf16, 40 layers, every published width), one
@@ -242,7 +249,13 @@ it happened; any failure ends the run with a non-zero exit code:
      just before it runs: each rank's param and FedAdam state bytes equal
      to the dry run's, the loss and the params against no mesh (5e-3,
      3e-2), the shares bit for bit on the ranks that hold them, each
-     rank's peak and the collectives' time printed; (h) (f) (ii)'s cut
+     rank's peak and the collectives' time printed; then, on a 2-slot
+     stack of each rank's delta shares, the q8 + top-k and secure q8 +
+     top-k commits on the shares, the ranks in two turns over data: the
+     leaves gathered (``unembed`` alone), each commit's wall and the
+     rank's commit peak, every other leaf bit for bit the commit with no
+     mesh on the shares, beside the reckoned bytes of the gathered form;
+     (h) (f) (ii)'s cut
      with no routing choice served on data 2 x model 2, one row of the
      batch a data rank, fed the no-mesh run's tokens: its param and
      decode-state bytes the dry run's, the experts' F held cut over data
@@ -288,8 +301,9 @@ from repro_torch.core import (AdaptiveStalenessController,  # noqa: E402
                               build_buffer_commit_step,
                               build_chunked_commit_steps, build_fl_round_step)
 from repro_torch.core import secure_agg as sec  # noqa: E402
-from repro_torch.core.pipeline import (cuts_over, cuts_share,  # noqa: E402
-                                       cuts_whole)
+from repro_torch.core.pipeline import (block_aligned,  # noqa: E402
+                                       build_update_pipeline, cuts_over,
+                                       cuts_share, cuts_whole)
 from repro_torch.core.round import ParallelRound  # noqa: E402
 from repro_torch.kernels import launches, ref  # noqa: E402
 from repro_torch.kernels.fedprox_update import fedprox_update_flat  # noqa: E402
@@ -888,17 +902,20 @@ def kernel_specs(device, k_slots=K_SLOTS, rows=BUCKET_ROWS,
                        1).to(device)
     w_sec = (w * part).contiguous()
 
-    def secure_case(label, x, wv, sd, c, *, bits=8, k=TOPK_K, noise=None):
+    def secure_case(label, x, wv, sd, c, *, bits=8, k=TOPK_K, noise=None,
+                    table=None):
         """(label, kernel, plain, bytes, f32 operations, integer operations)
-        of the secure commit on the stack ``x``."""
+        of the secure commit on the stack ``x`` (``table``: its rows'
+        global block-rows)."""
         K, R, B = x.shape
         nbytes = (4 * (x.numel() * (1 if noise is None else 2) + K + R * B)
-                  + 8 * K * K)
+                  + 8 * K * K + (0 if table is None else 4 * R))
         return (label,
                 lambda: secure_commit_blocks(x, wv, sd, c, 0, bits=bits, k=k,
-                                             noise=noise),
+                                             noise=noise, rows=table),
                 lambda: ref.fused_secure_commit_ref(x, wv[:, None], sd, c, 0,
-                                                    bits, k=k, noise=noise),
+                                                    bits, k=k, noise=noise,
+                                                    rows=table),
                 nbytes, 7 * x.numel(),
                 SELECT_INT_OPS * x.numel()
                 + OPS_PER_MASK_WORD * R * B * mask_words(sd, c))
@@ -921,9 +938,16 @@ def kernel_specs(device, k_slots=K_SLOTS, rows=BUCKET_ROWS,
         # that are zero in every slot (a zero scale)
         ties = torch.round(xb * 200) / 200
         ties[:, :8] = 0.0
+        # a share's rows of a bucket twice as long, in no affine order,
+        # from a generator of their own
+        table = torch.randperm(2 * rows, generator=torch.Generator(
+            device=device).manual_seed(seed + 2), device=device)[:rows]
         return [
             secure_case("upper-triangle coefficients", xb, w_sec, seeds,
                         upper),
+            secure_case("upper-triangle coefficients, a row table of "
+                        f"{rows} of {2 * rows} rows", xb, w_sec, seeds,
+                        upper, table=table),
             secure_case(f"K={k64}, past the register path", x64, w64, s64,
                         c64),
             secure_case("random coefficients, asymmetric seeds", xb, w_sec,
@@ -1974,7 +1998,6 @@ def compare_slot_weights(label, fl, w, m, losses, stal, alpha, device):
     pipeline's ``client_weights``: each device's own ``pow``) computed on
     the card and on the CPU from the same inputs, compared bitwise: the
     slots whose weights differ and by how many float32 steps."""
-    from repro_torch.core.pipeline import build_update_pipeline
     pipe = build_update_pipeline(fl)
     got = {dev: pipe.client_weights(w.to(dev), m.to(dev), losses.to(dev),
                                     stal.to(dev), alpha)[0].cpu()
@@ -3856,6 +3879,54 @@ def shares_agree(tree, cuts) -> bool:
                for v in shd.replica_checksums(sub, axes).values())
 
 
+# The commits that (d) and (g) run on a rank's delta shares
+# (``pipeline.model_commit``): each leaf a share but those whose blocks
+# straddle one, which the commit gathers whole; on a 2-slot stack, the
+# round's delta and half of it, as the buffer commit would take them.
+SHARE_COMMITS = ("q8_topk_deterministic", "secure_q8_topk_deterministic")
+SHARE_SLOTS = 2
+
+
+def share_stack(params, new) -> dict:
+    """The 2-slot stack of the round's delta shares: the delta and half of
+    it, in the params' dtype."""
+    out = {}
+    for k in new:
+        d = new[k] - params[k]
+        out[k] = torch.stack([d, 0.5 * d])
+    return out
+
+
+def share_commit_stage(cname, device):
+    """The buffer commit of CONFIGS[cname]'s launcher config on a 2-slot
+    stack: unit weights, no staleness, the spmd generator's draws."""
+    args = train.build_parser().parse_args(MAIN_ARGS + CONFIGS[cname][0])
+    pipe = build_update_pipeline(dataclasses.replace(
+        train.fl_config(args), num_clients=SHARE_SLOTS))
+    ones = torch.ones(SHARE_SLOTS, device=device)
+    return pipe, lambda t: pipe.combine(t, ones, ones, torch.zeros_like(ones),
+                                        spmd_gen())
+
+
+def share_commit(cname, stack, cuts, device) -> tuple:
+    """CONFIGS[cname]'s commit on the rank's shares ``stack`` through
+    ``model_commit``: (the summed shares, the leaves it gathered whole,
+    its wall s, its peak bytes above what was allocated before it)."""
+    pipe, stage = share_commit_stage(cname, device)
+    cuda = torch.device(device).type == "cuda"
+    sync(device)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(device)
+        before = torch.cuda.memory_allocated(device)
+    t0 = time.perf_counter()
+    with shd.count_commit_gathers() as names:
+        out = pipe.model_commit(stage, stack, cuts)[0]
+    sync(device)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(device) - before if cuda else 0
+    return out, list(names), wall, peak
+
+
 def rest_bytes(model, params, record) -> dict:
     """The rank's param bytes and a FedAdam server state's of its shares
     (made on ``meta``: m and v in float32), each beside the dry run's on
@@ -4421,6 +4492,10 @@ def model_rank_main(mesh, ref_path):
              f"{gap:.3g}")
         note(f"{label}: uncompressed shares bit for bit across ranks",
              shares_agree(new_u, cuts))
+        if (arch, mode) == MODEL_CASES[0]:
+            share_commit_checks(note, label, share_stack(local, new_u), cuts,
+                                dev)
+            launches.reset()
         if arch == JAMBA:
             expect = train_launches(lm, mode, s["C"], s["H"], s["S"])
             got = {k: per_case[label].get(k, 0) // 2 for k in expect}
@@ -4467,6 +4542,23 @@ def model_rank_main(mesh, ref_path):
     per_case["commit kernels"] = dict(launches.KERNEL_LAUNCHES)
     launches.reset()
     return checks, walls, counts, per_case
+
+
+def share_commit_checks(note, label, stack, cuts, dev) -> None:
+    """(d): SHARE_COMMITS on the rank's 2-slot stack of a round's delta
+    shares, each bit for bit the gathered composition (the cut leaves
+    gathered whole, every axis a fusion axis, the result cut back), the
+    leaves it gathered printed."""
+    live = cuts_over(cuts, [a for a in (shd.DATA, shd.MODEL)
+                            if shd.axis_live(a)])
+    for cname in SHARE_COMMITS:
+        got, names, wall, _ = share_commit(cname, stack, cuts, dev)
+        _, stage = share_commit_stage(cname, dev)
+        want = cuts_share(stage(cuts_whole(stack, live, 1))[0], live)
+        note(f"{label}: {cname} commit on the delta shares against the "
+             f"gathered composition, bit for bit", same_bits(got, want),
+             f"gathered {len(names)} of {len(live)} cut leaves {names}, "
+             f"commit_wall_s={wall:.4f}")
 
 
 def spmd_model(path, kind):
@@ -4636,6 +4728,7 @@ def granite_fsdp_rank(mesh, ref_path, cfg, sh_):
         sync(dev)
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated(dev) if cuda else 0
+    stack = share_stack(params, new)
     del params, batches
     want = sp.shard_params(torch.load(ref_path, mmap=True,
                                       weights_only=False), specs)
@@ -4653,8 +4746,52 @@ def granite_fsdp_rank(mesh, ref_path, cfg, sh_):
           f"client_loss={loss:.6f} max_memory_allocated={peak} "
           f"({peak / 1e9:.2f} GB); collectives (s, calls) {coll}",
           flush=True)
+    del want
+    commits = fsdp_share_commits(mesh, stack, cuts, dev)
     return dict(sizes=sizes, loss=loss, wall=wall, peak=peak, gap=gap,
-                finite=finite, same=same, collectives=coll)
+                finite=finite, same=same, collectives=coll, commits=commits)
+
+
+def fsdp_share_commits(mesh, stack, cuts, dev) -> dict:
+    """(g)'s SHARE_COMMITS on the rank's 2-slot stack of granite's delta
+    shares, one after the other, with each commit's wall and its peak
+    above what the rank held before; each leaf that the commit did not
+    gather held bit for bit against the same commit with the mesh dropped
+    on the shares taken as whole leaves (exact where no block straddles a
+    shard).  The ranks take turns, so that the card holds fewer ranks'
+    commits at once: the ranks of a turn differ along the axes that cut
+    a straddling leaf's last dim (its gather runs over them; at
+    granite-3-2b's widths ``unembed``'s over model: two turns of two)."""
+    import torch.distributed as dist
+    pipe, _ = share_commit_stage(SHARE_COMMITS[0], dev)
+    block = pipe.cfg.compression.block
+    together = {a for k, c in cuts.items()
+                if not block_aligned(stack[k].shape[1:], c, block)
+                for a, d in c.items() if d == stack[k].ndim - 2}
+    turn_axes = tuple(a for a in mesh.axis_names if a not in together)
+    out = {}
+    for turn in range(shd.shard_count(turn_axes)):
+        if shd.shard_index(turn_axes) == turn:
+            for cname in SHARE_COMMITS:
+                got, names, wall, peak = share_commit(cname, stack, cuts, dev)
+                _, stage = share_commit_stage(cname, dev)
+                with shd.use_mesh(None):
+                    alone = stage(stack)[0]
+                kept = [k for k in got if k not in names]
+                out[cname] = dict(
+                    names=names, wall=wall, peak=peak, kept=len(kept),
+                    same=all(torch.equal(got[k], alone[k]) for k in kept))
+                print(f"spmd (g) rank {mesh.rank} {mesh.coords}: {cname} "
+                      f"commit of {SHARE_SLOTS} slots on the delta shares: "
+                      f"gathered {names}, the {len(kept)} other leaves bit "
+                      f"for bit the commit with no mesh on the shares: "
+                      f"{out[cname]['same']}; commit_wall_s={wall:.4f} "
+                      f"commit_peak_bytes={peak} ({peak / 1e9:.2f} GB)",
+                      flush=True)
+                del got, alone
+                free_cache(dev)
+        dist.barrier()
+    return out
 
 
 def fsdp_ranks(mesh, granite, served):
@@ -4704,8 +4841,31 @@ def granite_no_mesh(cfg, device, kind, shape, path) -> tuple:
     return loss, peak, n
 
 
-def check_granite_fsdp(out, loss, peak, n) -> None:
-    """(g)'s checks over its ranks' results."""
+def straddling(cfg, sizes, axes) -> list:
+    """The leaves of ``cfg``'s params cut at rest on a ``sizes`` mesh of
+    ``axes`` whose blocks straddle a shard at SHARE_COMMITS' block: the
+    leaves their commits gather."""
+    model = build_model(cfg)
+    shapes = {k: tuple(v.shape) for k, v in
+              flat_dict(model.param_specs()).items()}
+    record = shd.Mesh(tuple(axes), tuple(sizes),
+                      tuple(range(math.prod(sizes))))
+    block = share_commit_stage(SHARE_COMMITS[0], "cpu")[0].cfg.compression \
+        .block
+    out = []
+    for k, c in sp.leaf_cuts(shapes, model.logical_specs, record).items():
+        share = list(shapes[k])
+        for a, d in c.items():
+            share[d] //= record.shape[a]
+        if not block_aligned(share, c, block):
+            out.append(k)
+    return sorted(out)
+
+
+def check_granite_fsdp(out, loss, peak, n, item, expect) -> None:
+    """(g)'s checks over its ranks' results (``n`` the whole params'
+    bytes, ``item`` the bytes of an element, ``expect`` the leaves whose
+    blocks straddle a shard)."""
     peaks = [o["peak"] for o in out]
     print(f"spmd (g): losses {[round(o['loss'], 6) for o in out]} against "
           f"{loss:.6f}; params max |diff| {[o['gap'] for o in out]}; rank "
@@ -4724,6 +4884,25 @@ def check_granite_fsdp(out, loss, peak, n) -> None:
           f"spmd (g): against no mesh, losses "
           f"{[o['loss'] for o in out]} ({loss}), params "
           f"{[o['gap'] for o in out]}")
+    # the parent's gathered form: each slot's delta gathered whole in the
+    # params' dtype, its f32 pack, and the f32 sum
+    whole = n // item
+    gathered = SHARE_SLOTS * whole * (item + 4) + 4 * whole
+    for cname in SHARE_COMMITS:
+        got = [o["commits"][cname] for o in out]
+        print(f"spmd (g): {cname} on the delta shares: gathered leaves "
+              f"{[g['names'] for g in got]}; commit walls "
+              f"{[round(g['wall'], 4) for g in got]} s; rank commit peaks "
+              f"{[g['peak'] for g in got]} bytes, against the "
+              f"{gathered} ({gathered / 1e9:.2f} GB) a rank of the gathered "
+              f"form (reckoned: {SHARE_SLOTS} slots of {whole} elements "
+              f"gathered, packed as f32 and summed)")
+        check(all(sorted(g["names"]) == expect for g in got),
+              f"spmd (g): {cname} gathered {[g['names'] for g in got]}, "
+              f"not {expect}")
+        check(all(g["same"] for g in got),
+              f"spmd (g): {cname}: a leaf that no block straddles differs "
+              f"from the commit with no mesh on the shares")
 
 
 def spmd_fsdp(device, kind, granite_cfg=None, granite_shape=GRANITE_FSDP,
@@ -4753,7 +4932,13 @@ def spmd_fsdp(device, kind, granite_cfg=None, granite_shape=GRANITE_FSDP,
                 del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
             else:
                 os.environ["PYTORCH_CUDA_ALLOC_CONF"] = prev
-    check_granite_fsdp([g for g, _ in out], loss, peak, n)
+    expect = straddling(granite_cfg, FSDP_SIZES, FSDP_AXES)
+    # at granite-3-2b's widths: unembed alone, its 49408 columns in two
+    # shares of 96.5 blocks
+    check(granite_cfg != get_config(GRANITE) or expect == ["unembed"],
+          f"spmd (g): granite-3-2b's straddling leaves {expect}")
+    check_granite_fsdp([g for g, _ in out], loss, peak, n, torch.finfo(
+        getattr(torch, granite_cfg.dtype)).bits // 8, expect)
     n_moe = sum(s.ffn == "moe" for s in cfg_all.pattern)
     di = cfg.mamba.expand * cfg.d_model // FSDP_SIZES[1]
     return check_served_fsdp(cfg, [h for _, h in out], serve_shape,

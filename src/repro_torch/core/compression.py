@@ -16,7 +16,12 @@ Randomness comes from a ``torch.Generator``: each draw is made on the
 generator's own device and moved to the data's, so a CPU generator gives
 the same compression on the CPU and on the card.  ``batch_dims`` leading
 dims are slots of a stacked update: blocks and top-k are per row anyway,
-and federated dropout draws one column mask per slot.
+and federated dropout draws one column mask per slot.  A stack whose slots
+are a share of a longer one (split over a mesh), or a leaf that is a share
+of a whole one (cut over ``data`` and ``model`` at rest, its blocks whole:
+``core.pipeline.block_aligned``), draws over the whole and keeps its share
+(a cut, ``models.sharding.shard_cut``'s form), so that a split commit
+draws what the unsplit one does.
 """
 from __future__ import annotations
 
@@ -28,6 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ref as _ref
+from repro_torch.models import sharding as sh
 from repro_torch.pytree import ordered
 
 
@@ -54,20 +60,16 @@ class CompressionConfig:
         return max(1, int(np.ceil(self.topk_frac * self.block)))
 
 
-def _rand(shape, generator: torch.Generator, device, split=None):
-    """Uniform [0, 1) draws made on the generator's device.  ``split`` =
-    (index, count) marks ``shape``'s leading dim as share ``index`` of
-    ``count`` (slots split over a mesh): the whole [count * shape[0], ...]
-    is drawn, as every process of the split draws it, and the share kept,
-    so each process holds its share of the unsplit draws."""
-    if split is None or split[1] == 1:
-        return torch.rand(shape, generator=generator,
-                          device=generator.device).to(device)
-    i, n = split
-    m = shape[0]
-    whole = torch.rand((n * m,) + tuple(shape[1:]), generator=generator,
+def _rand(shape, generator: torch.Generator, device, cut=()):
+    """Uniform [0, 1) draws made on the generator's device.  ``cut``
+    (``sharding.shard_cut``'s form) marks ``shape`` as a share of a whole
+    (slots split over a mesh, a leaf cut at rest): the whole is drawn, as
+    every process of the split draws it, and the share kept before it
+    moves to ``device``, so each process holds its share of the unsplit
+    draws."""
+    whole = torch.rand(sh.whole_shape(shape, cut), generator=generator,
                        device=generator.device)
-    return whole[i * m:(i + 1) * m].to(device)
+    return sh.take_share(whole, cut).to(device)
 
 
 # ---------------------------------------------------------------------------
@@ -93,9 +95,10 @@ def _from_blocks(blocks, pad, shape, dtype):
 
 def quantize_dequant(x, bits: int, block: int = 256, generator=None,
                      stochastic: bool = True, use_kernel: bool = False,
-                     split=None):
-    """Blockwise symmetric quantization round-trip (``split``: ``_rand``'s,
-    for stochastic rounding of slots split over a mesh)."""
+                     cut=()):
+    """Blockwise symmetric quantization round-trip (``cut``: ``_rand``'s,
+    in ``x``'s dims, for the stochastic rounding of a share: a cut of the
+    last dim cuts whole blocks)."""
     if use_kernel and not stochastic:
         from repro_torch.kernels import ops as kops
         return kops.quantize_dequant(x, bits=bits, block=block)
@@ -104,7 +107,7 @@ def quantize_dequant(x, bits: int, block: int = 256, generator=None,
     scale = _ref.block_scale(b, qmax)
     y = b / scale
     if stochastic and generator is not None:
-        y = torch.floor(y + _rand(y.shape, generator, y.device, split))
+        y = torch.floor(y + _rand(y.shape, generator, y.device, cut))
     else:
         y = torch.round(y)
     y = torch.clamp(y, -qmax - 1, qmax) * scale
@@ -122,15 +125,17 @@ def topk_sparsify(x, frac: float, block: int = 256, use_kernel: bool = False):
 
 
 def federated_dropout(x, frac: float, generator, batch_dims: int = 0,
-                      split=None):
+                      cut=()):
     """Drop a random ``frac`` of output neurons (last dim), rescale the
     rest; one mask per slot over ``batch_dims`` leading slot dims
-    (``split``: ``_rand``'s, for slots split over a mesh)."""
+    (``cut``: ``_rand``'s, in ``x``'s dims, for a share; the mask has only
+    the slot dims and the last)."""
     if x.ndim - batch_dims < 2:
         return x
     shape = (tuple(x.shape[:batch_dims]) + (1,) * (x.ndim - batch_dims - 1)
              + (x.shape[-1],))
-    keep = _rand(shape, generator, x.device, split) < (1.0 - frac)
+    cut = tuple(c for c in cut if c[0] < batch_dims or c[0] == x.ndim - 1)
+    keep = _rand(shape, generator, x.device, cut) < (1.0 - frac)
     return torch.where(keep, x / (1.0 - frac), torch.zeros_like(x)).to(x.dtype)
 
 
@@ -139,19 +144,26 @@ def federated_dropout(x, frac: float, generator, batch_dims: int = 0,
 # ---------------------------------------------------------------------------
 
 def compress_tree(tree: dict, cfg: CompressionConfig, generator,
-                  batch_dims: int = 0, split=None) -> dict:
-    """Straight-through compression of an update dict.  ``split`` =
-    (index, count): the leading slot dim is this process's share of slots
-    split over a mesh, and each draw is its share of the unsplit draw."""
+                  batch_dims: int = 0, cut=(), shares=None) -> dict:
+    """Straight-through compression of an update dict.  ``cut``: the slot
+    dims' share of a longer stack (slots split over a mesh,
+    ``sharding.shard_cut``); ``shares``: ``{leaf: cut}`` in the leaf's own
+    dims for the leaves that are shares of whole ones
+    (``sharding.leaf_shares``).  Each draw is made one leaf at a time over
+    the whole and cut to the share, so it is the share of the unsplit
+    draw."""
     if not cfg.enabled:
         return tree
+    shares = shares or {}
     out = {}
     for name in ordered(tree):
         leaf = tree[name]
         y = leaf
+        share = tuple(cut) + tuple((batch_dims + d, i, n)
+                                   for d, i, n in shares.get(name, ()))
         if cfg.dropout_frac:
             y = federated_dropout(y, cfg.dropout_frac, generator, batch_dims,
-                                  split)
+                                  share)
         if cfg.topk_frac:
             y = topk_sparsify(y, cfg.topk_frac, cfg.block,
                               use_kernel=cfg.use_kernels)
@@ -159,7 +171,7 @@ def compress_tree(tree: dict, cfg: CompressionConfig, generator,
             y = quantize_dequant(y, cfg.quantize_bits, cfg.block,
                                  generator=generator,
                                  stochastic=cfg.stochastic_rounding,
-                                 use_kernel=cfg.use_kernels, split=split)
+                                 use_kernel=cfg.use_kernels, cut=share)
         out[name] = y.to(leaf.dtype)
     return out
 

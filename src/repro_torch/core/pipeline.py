@@ -72,19 +72,30 @@ random draw made whole on every process and cut to its share, so a split
 commit draws what the unsplit one does; float-domain secure masks are
 added to the process's own slots, and the masked slots are gathered and
 summed in slot order; trimming and the hierarchical pod combine gather the
-slots whole first.  The streaming stages take whole (replicated) values.
+slots whole first.  The streaming stages take whole (replicated) slots.
 
 Where the params are cut over ``data`` and ``model`` at rest
 (``launch.specs.shard_params``), so are the deltas: ``model_commit`` runs
-a stage on them.  An elementwise commit (no compression, no secure masks:
+a stage on each rank's shares, the cutting axes dropped from the fusion
+axes.  An elementwise commit (no compression, no secure masks:
 ``fused_accum``, the plain weighted sum, the streaming sum, the trimmed
-mean) runs on each rank's shares, the cutting axes dropped from the
-fusion axes.  A blockwise one (quantize, top-k, dropout, the secure
-commits: blocks run along a leaf's last dim, which ``wo``, ``w2``,
-``out_proj`` and ``down`` cut over ``data``, and draws and masks follow
-its element order) first gathers each cut leaf whole over its axes, runs
-as above with them among the fusion axes, and keeps the rank's share: so
-a cut commit equals the uncut commit of the same deltas bit for bit.
+mean) needs nothing more.  A blockwise one (quantize, top-k, dropout, the
+secure commits) runs blocks along each leaf's last dim, and its draws and
+masks follow the whole leaf's element order.  A share whose blocks are
+whole blocks of the whole leaf (``block_aligned``: a leading dim cut, or
+a last dim cut into shares that are multiples of the block) runs as it
+is: the row kernels are block-local, every random draw (rounding noise,
+dropout columns, float-domain pair masks) is made over the whole leaf,
+one leaf at a time, and cut to the share, and the integer secure commit
+masks each element at its index in the whole bucket (a row table,
+``kernels.ops.row_table``).  A leaf whose blocks straddle a shard (a last
+dim cut into shares that are not multiples of the block) is gathered
+whole along its last dim first, over the axes that cut it, and its result
+cut back to the rank's share (``sharding.count_commit_gathers`` counts
+these leaves); a cut of another of its dims stays a share.  So a cut
+commit equals the uncut commit of the same deltas bit for bit, and a
+rank's commit transient is its share of the model, the straddling leaves
+whole along their last dims.
 """
 from __future__ import annotations
 
@@ -113,10 +124,12 @@ def cuts_over(cuts: dict, axes) -> dict:
 
 def cuts_whole(tree: dict, cuts: dict, lead: int = 0) -> dict:
     """Each leaf of ``tree`` that ``cuts`` cuts (after ``lead`` leading
-    slot dims) gathered whole over its axes; the rest as they are."""
+    slot dims) gathered whole over its axes; the rest as they are.  The
+    axes are gathered in the reverse of the order ``cuts_share`` cuts
+    them, so that a dim cut over two axes comes back in order."""
     out = {}
     for k, v in tree.items():
-        for a, d in cuts.get(k, {}).items():
+        for a, d in reversed(list(cuts.get(k, {}).items())):
             v = sh.all_gather(v, a, d + lead)
         out[k] = v
     return out
@@ -130,6 +143,30 @@ def cuts_share(tree: dict, cuts: dict, lead: int = 0) -> dict:
             v = sh.local_share(v, a, d + lead, k)
         out[k] = v
     return out
+
+
+def share_cut(cut: dict) -> tuple:
+    """A leaf's ``{axis: dim}`` cut as this rank's share, in
+    ``sharding.shard_cut``'s form (``(dim, index, count)``): the axes that
+    cut one dim combined in the order ``launch.specs.shard_leaf`` cuts
+    them (``cuts_share`` too)."""
+    mesh = sh.get_mesh()
+    out = {}
+    for a, d in cut.items():
+        i, n = out.get(d, (0, 1))
+        out[d] = (i * mesh.shape[a] + mesh.coords[a], n * mesh.shape[a])
+    return tuple((d, i, n) for d, (i, n) in out.items())
+
+
+def block_aligned(shape, cut: dict, block: int) -> bool:
+    """Whether every block of a leaf's share is a whole block of the whole
+    leaf: ``shape`` the share's (no slot dims), ``cut`` its ``{axis:
+    dim}``.  Blocks run along the last dim, so a cut of another dim moves
+    whole blocks; a cut of the last dim does where the share's length
+    there is a multiple of ``block``: the share then starts on a block
+    boundary of the whole leaf, and no padding falls inside it."""
+    last = len(shape) - 1
+    return all(d != last or shape[last] % block == 0 for d in cut.values())
 
 
 def staleness_weights(staleness, exponent):
@@ -170,8 +207,8 @@ class UpdatePipeline:
     # ------------------------------------------------------- model shares
     @property
     def blockwise(self) -> bool:
-        """Whether a commit stage needs each leaf whole: compression
-        (blocks along the last dim, dropout's columns, rounding draws in
+        """Whether a commit stage works in blocks along each leaf's last
+        dim: compression (blocks, dropout's columns, rounding draws in
         element order) or secure masks (indexed by element)."""
         return self.cfg.compression.enabled or self.cfg.secure_agg
 
@@ -181,21 +218,41 @@ class UpdatePipeline:
         (or a tuple led by one), on a ``tree`` of this rank's shares over
         ``data`` and ``model``: ``cuts`` gives each cut leaf's dims
         (``{leaf: {axis: dim}}``, ``launch.specs.leaf_cuts``' form), after
-        ``lead`` leading slot dims.  Elementwise stages run on the shares
-        with the cutting axes out of the fusion axes; blockwise ones
-        (``blockwise``) on the cut leaves gathered whole, their result cut
-        back to the shares."""
+        ``lead`` leading slot dims.  The stage runs with the cutting axes
+        out of the fusion axes, on the shares (``sharding.leaf_shares``:
+        its draws and masks follow the whole leaves), but for a blockwise
+        stage's leaves whose blocks straddle a shard (not
+        ``block_aligned``): those go in gathered whole along their last
+        dim, over the axes that cut it (a cut of another dim stays a
+        share), and their result comes out cut back.  The result is the
+        uncut stage's on the whole leaves, cut, bit for bit."""
         cuts = cuts_over(cuts or {}, [a for a in (sh.DATA, sh.MODEL)
                                       if sh.axis_live(a)])
         if not cuts:
             return fn(tree)
-        if not self.blockwise:
-            with sh.exclude_axes(*{a for c in cuts.values() for a in c}):
-                return fn(tree)
-        out = fn(cuts_whole(tree, cuts, lead))
+        block = self.cfg.compression.block
+        gather, shares = {}, {}
+        for k, c in cuts.items():
+            if k not in tree:
+                continue
+            shape = tree[k].shape[lead:]
+            if self.blockwise and not block_aligned(shape, c, block):
+                # whole along the last dim; a cut of another dim stays
+                gather[k] = {a: d for a, d in c.items()
+                             if d == len(shape) - 1}
+                sh.note_commit_gather(k)
+            rest = {a: d for a, d in c.items() if a not in gather.get(k, {})}
+            if rest:
+                shares[k] = share_cut(rest)
+        tree = cuts_whole(tree, gather, lead)
+        with sh.exclude_axes(*{a for c in cuts.values() for a in c}), \
+                sh.leaf_shares(shares):
+            out = fn(tree)
+        if not gather:
+            return out
         if isinstance(out, tuple):
-            return (cuts_share(out[0], cuts),) + out[1:]
-        return cuts_share(out, cuts)
+            return (cuts_share(out[0], gather),) + out[1:]
+        return cuts_share(out, gather)
 
     # ------------------------------------------------------------- slots
     @staticmethod
@@ -212,7 +269,8 @@ class UpdatePipeline:
 
     # ------------------------------------------------------------- stage 1
     def compress(self, tree: dict, generator) -> dict:
-        return compress_tree(tree, self.cfg.compression, generator)
+        return compress_tree(tree, self.cfg.compression, generator,
+                             shares=sh.current_shares())
 
     def compress_each(self, stacked: dict, generator, slot_axes=()) -> dict:
         """The compress stage over every slot of a [K, ...] stack at once:
@@ -221,8 +279,8 @@ class UpdatePipeline:
         split over the axes the slots are whole along."""
         with sh.exclude_axes(*slot_axes):
             return compress_tree(stacked, self.cfg.compression, generator,
-                                 batch_dims=1,
-                                 split=sh.shard_split(slot_axes))
+                                 batch_dims=1, cut=sh.shard_cut(slot_axes),
+                                 shares=sh.current_shares())
 
     # ------------------------------------------------------------- stage 2
     def client_weights(self, weights, mask, losses=None, staleness=None,
@@ -254,7 +312,7 @@ class UpdatePipeline:
     def secure_mask(self, weighted_stack: dict, key: int, ids,
                     participation, first: int = 0) -> dict:
         return sec.mask_batch(weighted_stack, key, ids, participation,
-                              first)
+                              first, shares=sh.current_shares())
 
     # --------------------------------------------------------- stages 4/5
     def weighted_sum(self, stacked: dict, w, slot_axes=()) -> dict:
@@ -294,7 +352,8 @@ class UpdatePipeline:
         d = self.compress(delta, generator)
         pre = {k: wt.to(dt) * x.to(dt) for k, x in d.items()}
         if self.cfg.secure_agg:
-            pre = sec.mask_slot(key, ids, participation, idx, pre)
+            pre = sec.mask_slot(key, ids, participation, idx, pre,
+                                shares=sh.current_shares())
         return pre
 
     def accum_add(self, acc: dict, contrib: dict) -> dict:
@@ -381,6 +440,7 @@ class UpdatePipeline:
         seeds = sec.pair_seeds(key, ids)
         coef = sec.pair_coef_int(ids, participation)
         stacked, k_in = deltas, comp.topk_k
+        shares = sh.current_shares()
         if comp.dropout_frac:
             # dropout draws per-slot randomness and must precede top-k, so
             # both run as per-slot pre-stages (the quantize stays in the
@@ -389,7 +449,8 @@ class UpdatePipeline:
             with sh.exclude_axes(*slot_axes):
                 stacked = compress_tree(stacked, pre, generator,
                                         batch_dims=1,
-                                        split=sh.shard_split(slot_axes))
+                                        cut=sh.shard_cut(slot_axes),
+                                        shares=shares)
             k_in = 0
         names = ordered(stacked)
         out = kops.fused_secure_commit_tree(
@@ -397,7 +458,7 @@ class UpdatePipeline:
             bits=comp.quantize_bits, k=k_in, block=comp.block,
             use_kernel=self.fused,
             noise_generator=generator if comp.stochastic_rounding else None,
-            slot_axes=slot_axes)
+            slot_axes=slot_axes, cuts=[shares.get(n, ()) for n in names])
         return dict(zip(names, out))
 
     def combine(self, deltas: dict, weights, mask, losses, generator,

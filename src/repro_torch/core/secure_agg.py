@@ -25,6 +25,12 @@ The same seeds drive both mask domains:
     data's device.  The masks cancel, so the result depends on the draws
     only through float32 cancellation error.
 
+A leaf that is a share of a whole one (cut over ``data`` and ``model`` at
+rest: ``shares``, ``sharding.leaf_shares``' form) takes the share of each
+whole-leaf mask, one pair's draw at a time, and the integer domain's mask
+words follow the whole leaf's element index (``kernels.ops.row_table``):
+a split commit masks as the unsplit one does.
+
 The Diffie-Hellman key agreement and Shamir sharing of the real protocol
 are out of scope: the keyed PRF stands in for the agreed pair keys and the
 participation vector for the reveal round.
@@ -35,6 +41,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.ref import U32, hash_u32
+from repro_torch.models import sharding as sh
 from repro_torch.pytree import ordered
 
 MASK_DOMAIN_TAG = 0x5EC_A66   # domain separator: secure-agg mask keys
@@ -90,55 +97,63 @@ def _pair_coef(ids, participation):
     return sign * p[None, :] * p[:, None]
 
 
-def pair_mask(key: int, id_i: int, id_j: int, shape, device="cpu"):
+def pair_mask(key: int, id_i: int, id_j: int, shape, device="cpu", cut=()):
     """The symmetric float pair mask: standard normals from a generator on
-    ``device`` seeded with the pair seed.  Callers apply the sign."""
+    ``device`` seeded with the pair seed.  Callers apply the sign.
+    ``cut``: ``shape`` is that share of the whole mask, which is drawn and
+    cut."""
     dev = torch.device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(pair_seed(key, min(id_i, id_j), max(id_i, id_j)))
-    return torch.randn(tuple(shape), generator=gen, device=dev,
-                       dtype=torch.float32)
+    return sh.take_share(torch.randn(sh.whole_shape(tuple(shape), cut),
+                                     generator=gen, device=dev,
+                                     dtype=torch.float32), cut)
 
 
-def _row_total(key: int, ids, coef_row, id_i: int, shape, device):
+def _row_total(key: int, ids, coef_row, id_i: int, shape, device, cut=()):
     """Slot i's summed pair masks ``sum_j coef[j] * mask(i, j)``, drawing
-    only the pairs whose coefficient is not 0."""
+    only the pairs whose coefficient is not 0 (``cut``: ``pair_mask``'s)."""
     total = torch.zeros(tuple(shape), dtype=torch.float32, device=device)
     for j, c in enumerate(coef_row.tolist()):
         if c:
             total = total + c * pair_mask(key, id_i, int(ids[j]), shape,
-                                          device)
+                                          device, cut)
     return total
 
 
-def mask_slot(key: int, ids, participation, idx: int, tree: dict) -> dict:
+def mask_slot(key: int, ids, participation, idx: int, tree: dict,
+              shares=None) -> dict:
     """Mask ONE slot's update (leaves without a slot dim): the streaming
-    form of the sequential modes."""
+    form of the sequential modes.  ``shares``: ``{leaf: cut}`` of the
+    leaves that are shares of whole ones."""
     coef = _pair_coef(ids, participation)[idx]
     id_i = int(ids[idx])
+    shares = shares or {}
     return {k: (leaf.to(torch.float32)
-                + _row_total(key, ids, coef, id_i, leaf.shape, leaf.device)
-                ).to(leaf.dtype)
+                + _row_total(key, ids, coef, id_i, leaf.shape, leaf.device,
+                             shares.get(k, ()))).to(leaf.dtype)
             for k, leaf in tree.items()}
 
 
 def mask_batch(tree: dict, key: int, ids, participation,
-               first: int = 0) -> dict:
+               first: int = 0, shares=None) -> dict:
     """Mask a stacked batch (leaves [K, ...]), slot by slot, so the peak
     memory stays one slot's mask per leaf.  The leaves may hold slots
     ``first`` to ``first + K`` of a longer batch (a process's share of
     slots split over a mesh); ``ids`` and ``participation`` are the whole
-    batch's."""
+    batch's.  ``shares``: ``{leaf: cut}``, in the leaf's dims after the
+    slot dim, of the leaves that are shares of whole ones."""
     coef = _pair_coef(ids, participation)
+    shares = shares or {}
 
-    def mask_leaf(leaf):
+    def mask_leaf(leaf, cut):
         totals = torch.stack([
             _row_total(key, ids, coef[first + i], int(ids[first + i]),
-                       leaf.shape[1:], leaf.device)
+                       leaf.shape[1:], leaf.device, cut)
             for i in range(leaf.shape[0])])
         return (leaf.to(torch.float32) + totals).to(leaf.dtype)
 
-    return {k: mask_leaf(leaf) for k, leaf in tree.items()}
+    return {k: mask_leaf(leaf, shares.get(k, ())) for k, leaf in tree.items()}
 
 
 def aggregate_masked(masked_updates: dict, participation) -> dict:

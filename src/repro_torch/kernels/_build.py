@@ -53,8 +53,8 @@ SIGNATURES = {
         "topk_rows": [_P, _P, _LL, _I, _I],
     },
     "secure_commit": {
-        "secure_commit": [_P, _P, _P, _P, _U, _P, _P, _P, _P, _I, _LL, _I,
-                          _I, _I],
+        "secure_commit": [_P, _P, _P, _P, _U, _P, _P, _P, _P, _P, _I, _LL,
+                          _I, _I, _I],
         "secure_fold": [_P, _P, _P, _I],
     },
     "fedprox_update": {

@@ -11,13 +11,17 @@
 //      uniform [0, 1) noise operand (stochastic rounding);
 //   5. slot i's wire word q_i + sum_j coef[i,j] * hash_u32(idx * 0x9E3779B9
 //      + seeds[i,j]) in uint32 that wraps, idx = base + r * block + c the
-//      global element index;
+//      global element index, or base + rows[r] * block + c with a row table
+//      (the rows of a share of the whole bucket: each row's global
+//      block-row index, so that a split commit keeps every element's
+//      unsplit mask word);
 //   6. the wire words summed over slots, read as int32, times the scale.
 // Output [R, block] f32.
 //
 // Bound on an H100 SXM.  Bytes: the stack is read once and the rows written
 // once, ~100 MB at the CIFAR CNN's [20, 4671, 256] commit (~30 us at
-// 3.35 TB/s; stochastic rounding adds the same again for the noise).
+// 3.35 TB/s; stochastic rounding adds the same again for the noise, a row
+// table 4 bytes a row).
 // Integer operations: a PRF word costs 10 (the seed add, three shift-xor
 // pairs, two multiplies, the coefficient multiply-add; idx*G once per
 // element).  The function needs one word per seed whose coefficients do
@@ -191,6 +195,7 @@ template <int NV4>
 __global__ void __launch_bounds__(kSecureThreads, kSecureMinBlocks)
 secure_commit_kernel(const float* __restrict__ x, const float* __restrict__ w,
                      const unsigned* __restrict__ words, unsigned base,
+                     const unsigned* __restrict__ rows,
                      const float* __restrict__ noise,
                      unsigned* __restrict__ thresh, float* __restrict__ out,
                      int K, long long R, int bits, int k, int staged) {
@@ -261,8 +266,9 @@ secure_commit_kernel(const float* __restrict__ x, const float* __restrict__ w,
   const unsigned n_words = words[0];
   if (static_cast<unsigned>(warp) < n_words) {
     unsigned ig[N];                          // idx * golden, per element
-    const unsigned row0 = base + static_cast<unsigned>(row) *
-                                     static_cast<unsigned>(B);
+    const unsigned grow = rows ? __ldg(rows + row)
+                               : static_cast<unsigned>(row);
+    const unsigned row0 = base + grow * static_cast<unsigned>(B);
 #pragma unroll
     for (int i = 0; i < NV4; ++i) {
 #pragma unroll
@@ -300,14 +306,14 @@ secure_commit_kernel(const float* __restrict__ x, const float* __restrict__ w,
 template <int NV4>
 void secure_commit_launch(const float* x, const float* w,
                           const unsigned* words, unsigned base,
-                          const float* noise, unsigned* thresh, float* out,
-                          int K, long long R, int bits, int k,
-                          cudaStream_t st) {
+                          const unsigned* rows, const float* noise,
+                          unsigned* thresh, float* out, int K, long long R,
+                          int bits, int k, cudaStream_t st) {
   const int staged = staged_slots(K, 128 * NV4);
   secure_commit_kernel<NV4>
       <<<static_cast<unsigned>(R), kSecureThreads,
          kSecureWarps * staged * 128 * NV4 * sizeof(float), st>>>(
-          x, w, words, base, noise, thresh, out, K, R, bits, k, staged);
+          x, w, words, base, rows, noise, thresh, out, K, R, bits, k, staged);
 }
 
 }  // namespace
@@ -331,14 +337,17 @@ int secure_fold(const long long* seeds, const int* coef, unsigned* words,
 
 // x: [K, R, block] f32; w: [K] f32 effective slot weights; seeds: [K, K]
 // int64 holding uint32; coef: [K, K] int32; base: the global element index
-// of row 0; noise: [K, R, block] f32 uniform [0, 1) or null (round half to
-// even); words: 1 + 2 K^2 uint32 of scratch for the folded mask words;
-// thresh: [R, K] uint32 of scratch for the per-slot thresholds; out: [R,
-// block] f32.  bits in [2, 16]; 0 <= k <= block (0: no top-k).
+// of row 0; rows: [R] uint32, each row's global block-row index, or null
+// (row r at base + r * block); noise: [K, R, block] f32 uniform [0, 1) or
+// null (round half to even); words: 1 + 2 K^2 uint32 of scratch for the
+// folded mask words; thresh: [R, K] uint32 of scratch for the per-slot
+// thresholds; out: [R, block] f32.  bits in [2, 16]; 0 <= k <= block (0:
+// no top-k).
 int secure_commit(const float* x, const float* w, const long long* seeds,
-                  const int* coef, unsigned base, const float* noise,
-                  unsigned* words, unsigned* thresh, float* out, int K,
-                  long long R, int block, int bits, int k, void* stream) {
+                  const int* coef, unsigned base, const unsigned* rows,
+                  const float* noise, unsigned* words, unsigned* thresh,
+                  float* out, int K, long long R, int block, int bits, int k,
+                  void* stream) {
   if (K < 1 || K > kMaxPairSlots || R < 1 || R > 0x7fffffffLL || k < 0 ||
       k > block || bits < 2 || bits > 16 ||
       (block != 128 && block != 256 && block != 512 && block != 1024))
@@ -348,20 +357,20 @@ int secure_commit(const float* x, const float* w, const long long* seeds,
   if (err) return err;
   switch (block) {
     case 128:
-      secure_commit_launch<1>(x, w, words, base, noise, thresh, out, K, R,
-                              bits, k, st);
+      secure_commit_launch<1>(x, w, words, base, rows, noise, thresh, out,
+                              K, R, bits, k, st);
       break;
     case 256:
-      secure_commit_launch<2>(x, w, words, base, noise, thresh, out, K, R,
-                              bits, k, st);
+      secure_commit_launch<2>(x, w, words, base, rows, noise, thresh, out,
+                              K, R, bits, k, st);
       break;
     case 512:
-      secure_commit_launch<4>(x, w, words, base, noise, thresh, out, K, R,
-                              bits, k, st);
+      secure_commit_launch<4>(x, w, words, base, rows, noise, thresh, out,
+                              K, R, bits, k, st);
       break;
     default:
-      secure_commit_launch<8>(x, w, words, base, noise, thresh, out, K, R,
-                              bits, k, st);
+      secure_commit_launch<8>(x, w, words, base, rows, noise, thresh, out,
+                              K, R, bits, k, st);
       break;
   }
   return static_cast<int>(cudaGetLastError());

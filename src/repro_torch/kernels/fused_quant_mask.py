@@ -17,7 +17,9 @@
   (``secure_fold``; its plain version is ``ref.fold_mask_words``).  Unlike
   the Pallas kernel it also takes stochastic rounding, through a ``noise``
   operand of uniform [0, 1) draws, so both rounding modes launch it on the
-  card.
+  card.  An optional row table places each row at its own block-row of
+  the commit's mask stream, where the rows are a share of the whole
+  bucket (a leaf cut over ``data`` or ``model``).
 
 Both take any number of slots K, as the Pallas kernels do.
 
@@ -70,34 +72,46 @@ def _pair_operands(seeds, coef):
 
 
 def secure_commit_blocks(xb, w_eff, seeds, coef, base: int, *, bits: int,
-                         k: int, noise=None):
+                         k: int, noise=None, rows=None):
     """xb: [K, R, block] f32; w_eff: [K] f32 effective slot weights; seeds:
     [K, K] uint32 values (int64 holding them, or any integer dtype); coef:
     [K, K] integers (in {-1, 0, +1} from ``core.secure_agg``); ``base`` the
     global element index of row 0; ``noise`` None (round half to even) or
-    [K, R, block] uniform [0, 1) f32 (stochastic rounding).  Returns
-    [R, block] f32.  The kernel's scratch: the folded mask words, 1 + 2K^2
-    int32 (134 MB at K = 4096), and the per-slot top-k thresholds, [R, K]
-    int32."""
+    [K, R, block] uniform [0, 1) f32 (stochastic rounding); ``rows`` None
+    (row r at element ``base + r * block`` of the mask stream) or an [R]
+    integer table of each row's global block-row index (row r at ``base +
+    rows[r] * block``: the rows of a share of the whole bucket,
+    ``kernels.ops.row_table``).  Returns [R, block] f32.  The kernel's
+    scratch: the folded mask words, 1 + 2K^2 int32 (134 MB at K = 4096),
+    and the per-slot top-k thresholds, [R, K] int32."""
     launches.check_shapes(SECURE, xb, 3, w_eff)
     K, R, block = xb.shape
     _check_pairs(seeds, coef, K)
     if noise is not None and noise.shape != xb.shape:
         raise ValueError(f"{SECURE}: noise of shape {tuple(noise.shape)} "
                          f"for blocks {tuple(xb.shape)}")
+    if rows is not None and tuple(rows.shape) != (R,):
+        raise ValueError(f"{SECURE}: a row table of shape "
+                         f"{tuple(rows.shape)} for {R} rows")
     extra = () if noise is None else (noise,)
-    if launches.on_cpu(xb, w_eff, seeds, coef, *extra):
+    table = () if rows is None else (rows,)
+    if launches.on_cpu(xb, w_eff, seeds, coef, *extra, *table):
         return ref.fused_secure_commit_ref(xb, w_eff.reshape(K, 1), seeds,
-                                           coef, base, bits, k=k, noise=noise)
+                                           coef, base, bits, k=k, noise=noise,
+                                           rows=rows)
     from repro_torch.kernels import _build
     launches.check_operands(SECURE, xb, w_eff, *extra)
     seeds, coef = _pair_operands(seeds, coef)
+    if rows is not None:
+        # uint32 indices, the same bits as int32
+        rows = rows.to(torch.int32).contiguous()
     # the folded mask words: a count, then (seed, net coefficient) pairs
     words = xb.new_empty(1 + 2 * K * K, dtype=torch.int32)
     thresh = xb.new_empty((R, K), dtype=torch.int32)
     out = xb.new_empty((R, block))            # float32, on xb's device
     _build.launch("secure_commit", SECURE, xb.data_ptr(), w_eff.data_ptr(),
                   seeds.data_ptr(), coef.data_ptr(), int(base) & ref.U32,
+                  rows.data_ptr() if table else None,
                   noise.data_ptr() if extra else None, words.data_ptr(),
                   thresh.data_ptr(),
                   out.data_ptr(), K, R, block, bits, k, device=xb.device)

@@ -13,7 +13,9 @@ launch per commit.  Rows are whole blocks of one leaf each, so per-block
 scales and top-k thresholds are the same as per-leaf calls.
 The secure commit's mask stream is indexed by the bucket's row-major
 element index from 0, which equals the reference's per-leaf ``base``
-accumulation.  ``selective_scan_chunk`` is the Mamba mixer's scan, an
+accumulation; where leaves are shares of whole ones (``cuts``), by the
+WHOLE bucket's, through a table of each local row's global block-row
+(``row_table``).  ``selective_scan_chunk`` is the Mamba mixer's scan, an
 ``autograd.Function`` whose backward is the scan's backward kernel.
 ``KERNEL_LAUNCHES`` counts launches on the card by kernel name.
 
@@ -33,13 +35,18 @@ A row map (quantize, top-k) is row-local: it runs over the axes its input
 is whole along, which ``exclude_axes`` of a client split leaves in
 ``fusion_axes``.  Without a mesh, or on one device, every entry point runs
 one shard, the whole stack.  A ``model`` axis is a fusion axis like any
-other: the stacks these entry points get are whole along it (the
-pipeline's ``model_commit`` gathers split leaves first, or drops
-``model`` for an elementwise commit on the shares).  ``shard_rows_map``
+other.  The leaves of a stack may be shares of leaves cut over ``data``
+and ``model`` at rest (the pipeline's ``model_commit``, which drops the
+cutting axes from the fusion axes): each share's rows are whole blocks of
+the whole leaf, so every row kernel gives the share's rows of the whole
+leaf's result, and the secure commit places them in its mask stream by
+the row table.  ``shard_rows_map``
 and ``shard_rows_reduce`` take a shard count and run the shards one after
 another in one process, so a test can hold them shard by shard.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -128,21 +135,24 @@ def _to_row_split(xb, slot_axes, axes, n, r):
     return got.reshape((-1,) + tuple(got.shape[2:])).contiguous()
 
 
-def rows_reduce(fn, xb, base: int = 0, slot_axes=(), aligned=None):
+def rows_reduce(fn, xb, base: int = 0, slot_axes=(), aligned=None,
+                table=None):
     """A slot-reducing rows kernel ([K, R, block] -> [R, block]) run on
     this process's rows of the fusion axes, the rows then gathered:
-    ``fn(xb_rows, global_base, aligned_rows)``, where ``global_base`` is
-    ``base`` plus the element index of the share's row 0 (the reference's
-    ``flat_shard_index`` offset) and ``aligned`` (None, or a whole
-    [K, R, block] operand such as the rounding noise) comes cut to the
-    same rows.  ``xb``'s slots are whole, or split over ``slot_axes`` (a
-    client split, exchanged to the row split first)."""
+    ``fn(xb_rows, global_base, aligned_rows, table_rows)``, where
+    ``global_base`` is ``base`` plus the element index of the share's row
+    0 (the reference's ``flat_shard_index`` offset), ``aligned`` (None, or
+    a whole [K, R, block] operand such as the rounding noise) comes cut to
+    the same rows, and so does ``table`` (None, or [R]: each row's global
+    block-row, ``row_table``; with one, ``global_base`` stays ``base``).
+    ``xb``'s slots are whole, or split over ``slot_axes`` (a client split,
+    exchanged to the row split first)."""
     axes, n, i = _fusion_shards()
     if n == 1:
         if sh.shard_count(slot_axes) > 1:
             raise ValueError(f"slots split over {slot_axes} with no rows "
                              f"to split")
-        return fn(xb, base, aligned)
+        return fn(xb, base, aligned, table)
     xb, pad = _pad_rows(xb, n, 1)
     r, block = xb.shape[1] // n, xb.shape[2]
     if sh.shard_count(slot_axes) > 1:
@@ -152,7 +162,11 @@ def rows_reduce(fn, xb, base: int = 0, slot_axes=(), aligned=None):
     if aligned is not None:
         aligned = _pad_rows(aligned, n, 1)[0][:, i * r:(i + 1) * r]
         aligned = aligned.contiguous()
-    y = sh.all_gather(fn(xl, base + i * r * block, aligned), axes, 0)
+    if table is not None:
+        table = _pad_rows(table, n, 0)[0][i * r:(i + 1) * r].contiguous()
+    else:
+        base = base + i * r * block
+    y = sh.all_gather(fn(xl, base, aligned, table), axes, 0)
     return y[:-pad] if pad else y
 
 
@@ -245,6 +259,23 @@ def pack_blocks(leaves, block):
     return torch.cat(blocked, dim=1).contiguous(), metas, rows
 
 
+def row_table(leaves, cuts, block):
+    """Each row of ``pack_blocks(leaves, block)``'s bucket as a block-row
+    of the WHOLE bucket, the one the whole leaves would pack into: (an [R]
+    int64 table, the whole bucket's row count).  ``cuts[j]``: leaf j's cut
+    (``sharding.shard_cut``'s form, in its dims after the slot dim), ``()``
+    for a whole leaf, which keeps its own rows; a cut leaf's blocks must be
+    whole blocks of the whole leaf (``core.pipeline.block_aligned``)."""
+    parts, r0 = [], 0
+    for leaf, cut in zip(leaves, cuts):
+        shape = sh.whole_shape(tuple(leaf.shape[1:]) or (1,), cut)
+        rows = shape[:-1] + (-(-shape[-1] // block),)
+        idx = torch.arange(r0, r0 + math.prod(rows), dtype=torch.int64)
+        parts.append(sh.take_share(idx.reshape(rows), cut).reshape(-1))
+        r0 += idx.numel()
+    return torch.cat(parts), r0
+
+
 def unpack_sums(y, metas, rows, dtype=torch.float32):
     """[R_total, block] summed bucket -> the per-leaf summed leaves."""
     out, r0 = [], 0
@@ -269,41 +300,50 @@ def _slot_vectors(w, staleness, K, device):
 
 
 def _secure_rows(xb, w_eff, seeds, coef, base, bits, k, use_kernel,
-                 noise_generator, slot_axes=()):
+                 noise_generator, slot_axes=(), table=None, whole_rows=None):
     """The secure commit of a blocked [K, R, block] stack (its slots whole
     or split over ``slot_axes``): the kernel, or its plain version where
-    the caller turned fusion off, each on this process's rows.  A
-    ``noise_generator`` switches on stochastic rounding: the uniform draws
-    of the whole [K, R, block] stack are made on the generator's device,
-    the same on every process, and moved to the stack's."""
+    the caller turned fusion off, each on this process's rows.  ``table``
+    (``row_table``'s, ``whole_rows`` rows whole) places the rows in the
+    whole bucket's mask stream.  A ``noise_generator`` switches on
+    stochastic rounding: the uniform draws of the whole [K, R, block]
+    stack (of the whole bucket, its rows then taken by the table) are made
+    on the generator's device, the same on every process, and moved to the
+    stack's."""
     wv = _slot_vector(w_eff, torch.as_tensor(w_eff).numel(), xb.device)
     K = wv.shape[0]
     noise = None
     if noise_generator is not None:
-        noise = torch.rand((K,) + tuple(xb.shape[1:]),
-                           generator=noise_generator,
-                           device=noise_generator.device).to(xb.device)
+        rows = xb.shape[1] if table is None else whole_rows
+        noise = torch.rand((K, rows, xb.shape[2]), generator=noise_generator,
+                           device=noise_generator.device)
+        if table is not None:
+            noise = noise.index_select(1, table.to(noise.device))
+        noise = noise.to(xb.device)
     seeds, coef = seeds.to(xb.device), coef.to(xb.device)
+    if table is not None:
+        table = table.to(xb.device)
 
-    def one(xl, b, nz):
+    def one(xl, b, nz, rows):
         if use_kernel:
             return _fqm.secure_commit_blocks(xl, wv, seeds, coef, b,
-                                             bits=bits, k=k, noise=nz)
+                                             bits=bits, k=k, noise=nz,
+                                             rows=rows)
         return ref.fused_secure_commit_ref(xl, wv[:, None], seeds, coef, b,
-                                           bits, k=k, noise=nz)
-    return rows_reduce(one, xb, base, slot_axes, noise)
+                                           bits, k=k, noise=nz, rows=rows)
+    return rows_reduce(one, xb, base, slot_axes, noise, table)
 
 
 def _accum_rows(xb, wv, sv, exponent, slot_axes=()):
     return rows_reduce(
-        lambda xl, _, __: _fa.fused_accum_blocks(xl, wv, sv, exponent), xb,
-        0, slot_axes)
+        lambda xl, *_: _fa.fused_accum_blocks(xl, wv, sv, exponent), xb, 0,
+        slot_axes)
 
 
 def _plain_rows(xb, wv, sv, exponent, bits, k, slot_axes=()):
     return rows_reduce(
-        lambda xl, _, __: _fqm.plain_commit_blocks(xl, wv, sv, exponent,
-                                                   bits=bits, k=k), xb, 0,
+        lambda xl, *_: _fqm.plain_commit_blocks(xl, wv, sv, exponent,
+                                                bits=bits, k=k), xb, 0,
         slot_axes)
 
 
@@ -334,15 +374,21 @@ def fused_plain_commit_tree(leaves, w, staleness, exponent, *, bits: int,
 def fused_secure_commit_tree(leaves, w_eff, seeds, coef, *, bits: int,
                              k: int = 0, block: int = 256,
                              use_kernel: bool = True, noise_generator=None,
-                             slot_axes=()):
+                             slot_axes=(), cuts=None):
     """Bucketed integer-domain secure commit over a flattened leaf list: one
     kernel launch for the whole tree, the mask stream indexed from 0 over
     the bucket.  ``seeds`` [K, K] uint32 values and ``coef`` [K, K] int
-    from ``core.secure_agg``.  Returns the per-leaf f32 sums."""
-    xb, metas, rows = pack_blocks(list(leaves), block)
+    from ``core.secure_agg``.  ``cuts`` (None, or one cut a leaf: ``()``
+    for a whole one): leaves that are shares of whole leaves, each element
+    masked at its index in the whole leaves' bucket (``row_table``).
+    Returns the per-leaf f32 sums."""
+    leaves = list(leaves)
+    xb, metas, rows = pack_blocks(leaves, block)
+    table, whole_rows = (row_table(leaves, cuts, block)
+                         if cuts and any(cuts) else (None, None))
     return unpack_sums(_secure_rows(xb, w_eff, seeds, coef, 0, bits, k,
-                                    use_kernel, noise_generator, slot_axes),
-                       metas, rows)
+                                    use_kernel, noise_generator, slot_axes,
+                                    table, whole_rows), metas, rows)
 
 
 def weighted_sum_tree(leaves, w, *, block: int = 256, slot_axes=()):
@@ -353,7 +399,7 @@ def weighted_sum_tree(leaves, w, *, block: int = 256, slot_axes=()):
     xb, metas, rows = pack_blocks(list(leaves), block)
     wv = _slot_vector(w, torch.as_tensor(w).numel(), xb.device)
     return unpack_sums(rows_reduce(
-        lambda xl, _, __: (xl * wv[:, None, None]).sum(0), xb, 0, slot_axes),
+        lambda xl, *_: (xl * wv[:, None, None]).sum(0), xb, 0, slot_axes),
         metas, rows)
 
 

@@ -166,7 +166,7 @@ def fold_mask_words(seeds, coef):
 
 
 def fused_secure_commit_ref(xb, w_eff, seeds, coef, base, bits: int,
-                            k: int = 0, noise=None):
+                            k: int = 0, noise=None, rows=None):
     """Plain version of the integer-domain secure commit over a blocked
     [K, R, block] stack: per-slot top-k, weighted values quantized onto ONE
     commit-common per-row grid, int32 wire words plus uint32 modular
@@ -174,7 +174,10 @@ def fused_secure_commit_ref(xb, w_eff, seeds, coef, base, bits: int,
     scale.  ``w_eff`` is [K, 1]; ``seeds`` [K, K] uint32 values (any integer
     dtype); ``coef`` [K, K] in {-1, 0, +1}; ``base`` the global element
     index of row 0.  ``noise`` ([K, R, block] uniform [0, 1)) switches
-    ``round`` to stochastic rounding ``floor(y / scale + u)``."""
+    ``round`` to stochastic rounding ``floor(y / scale + u)``.  ``rows``
+    (None, or an [R] integer table of each row's global block-row index)
+    places row r at element ``base + rows[r] * block`` of the mask stream,
+    where it is ``base + r * block`` without one."""
     x = xb.to(torch.float32)
     K, R, block = x.shape
     if k:
@@ -187,8 +190,13 @@ def fused_secure_commit_ref(xb, w_eff, seeds, coef, base, bits: int,
     yq = y / scale
     q = torch.floor(yq + noise) if noise is not None else torch.round(yq)
     qu = to_u32(torch.clamp(q, -qmax - 1, qmax).to(torch.int64))
-    idx = (int(base) + torch.arange(R * block, dtype=torch.int64,
-                                    device=x.device).reshape(R, block)) & U32
+    if rows is None:
+        idx = (int(base) + torch.arange(R * block, dtype=torch.int64,
+                                        device=x.device).reshape(R, block))
+    else:
+        idx = (int(base) + to_u32(rows).to(x.device)[:, None] * block
+               + torch.arange(block, dtype=torch.int64, device=x.device))
+    idx = idx & U32
     seeds, coef = seeds.to(x.device), coef.to(x.device)
     total = torch.zeros((R, block), dtype=torch.int64, device=x.device)
     for i in range(K):

@@ -398,10 +398,74 @@ def shard_index(axes) -> int:
     return flat_shard_index(axes, mesh.coords, mesh) if axes else 0
 
 
-def shard_split(axes) -> tuple:
-    """(``shard_index(axes)``, ``shard_count(axes)``): this process's share
-    of a dim split over ``axes``, as ``core.compression`` takes it."""
-    return shard_index(axes), shard_count(axes)
+def shard_cut(axes, dim: int = 0) -> tuple:
+    """This process's share of ``dim`` split over ``axes`` as a cut,
+    ``((dim, shard_index(axes), shard_count(axes)),)``, or ``()`` on one
+    shard.  A cut is a tuple of ``(dim, index, count)``: a tensor that is
+    share ``index`` of ``count`` along each ``dim`` of a whole one
+    (``whole_shape``, ``take_share``)."""
+    n = shard_count(axes)
+    return ((dim, shard_index(axes), n),) if n > 1 else ()
+
+
+def whole_shape(shape, cut) -> tuple:
+    """The shape of the whole tensor that one of ``shape`` is the share
+    ``cut`` of."""
+    out = list(shape)
+    for d, _, n in cut:
+        out[d] *= n
+    return tuple(out)
+
+
+def take_share(x, cut):
+    """The share ``cut`` of the whole ``x``: along each cut dim, part
+    ``index`` of ``count`` equal parts (a view)."""
+    for d, i, n in cut:
+        m = x.shape[d] // n
+        x = x.narrow(d, i * m, m)
+    return x
+
+
+@contextlib.contextmanager
+def leaf_shares(shares: dict):
+    """Inside the block the commit stages take each leaf named in
+    ``shares`` as a share of the whole leaf: ``shares[name]`` is its cut
+    in the leaf's own dims, after any slot dims.  A random draw over such
+    a leaf is made over the whole leaf and cut to the share, and the
+    secure commit indexes its mask stream by the whole leaf's elements
+    (``core.pipeline.UpdatePipeline.model_commit`` sets it)."""
+    prev = current_shares()
+    _state.shares = dict(shares)
+    try:
+        yield
+    finally:
+        _state.shares = prev
+
+
+def current_shares() -> dict:
+    """The ``leaf_shares`` in force here (empty outside every block)."""
+    return getattr(_state, "shares", {})
+
+
+@contextlib.contextmanager
+def count_commit_gathers():
+    """Record the leaves that ``core.pipeline``'s ``model_commit`` gathers
+    inside the block (whole along their last dim, where its blocks
+    straddle a shard): yields a list of their names, one entry a
+    gather."""
+    prev = getattr(_state, "commit_gathers", None)
+    names = []
+    _state.commit_gathers = names
+    try:
+        yield names
+    finally:
+        _state.commit_gathers = prev
+
+
+def note_commit_gather(name: str) -> None:
+    names = getattr(_state, "commit_gathers", None)
+    if names is not None:
+        names.append(name)
 
 
 def local_share(x, axes, dim: int = 0, what: str = "a tensor"):
