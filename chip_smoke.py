@@ -48,13 +48,14 @@ it happened; any failure ends the run with a non-zero exit code:
      at K=1025 (past the 1024 thresholds kept in shared memory) and K=4096
      under the upper-triangle coefficients;
   3. hold rounds on the card against the CPU from the same params, batches
-     and compression draws, to 1e-4: for each launcher configuration, the
+     and compression draws, to 1e-4 (8 clients, 2 local steps, batch 16;
+     one straggler cut): for each launcher configuration, the
      secure float-mask round and the fused FedProx update, the clients'
      deltas, the commit from the same deltas (the kernels against their
      plain versions in place), and the whole round where the commit has no
      compression; and whole sequential and pod_sequential rounds (TF32 is
      off for convolutions and matmuls, so the card computes in full float32
-     as the CPU does); then paper-charlm at full width (8 clients, 2 local
+     as the CPU does); then paper-charlm at full width (4 clients, 2 local
      steps, batch 16 of 64 tokens): its deltas, its uncompressed, q8 +
      top-k and secure q8 + top-k commits from the same deltas, and its
      uncompressed round;
@@ -67,7 +68,8 @@ it happened; any failure ends the run with a non-zero exit code:
      the same with ``--dataset shakespeare`` at full paper-charlm width;
      a checkpointed CIFAR run cut after 2 rounds and resumed to 3 on the
      card and, from the same checkpoint, on the CPU; and ``python -m
-     repro_torch.worker --once`` on the card against the CPU worker;
+     repro_torch.worker --once`` on the card (its process started before
+     the resumed runs, beside them) against the CPU worker;
   5. the async path (``async_path``): (a) the async buffer commit on the
      card against the CPU from the same full-width CIFAR params and K=8
      deltas, staleness [0, 1, 2, 3, 0, 5, 1, 20], the exponent 0.5 and the
@@ -82,9 +84,9 @@ it happened; any failure ends the run with a non-zero exit code:
      adaptive-exponent-with-timeout and batched-engine configurations,
      each run's launches counted from 0 and held against its commits, every
      commit's wall time and phase_wall printed; then the char-LM at full
-     paper-charlm width; (c) a checkpointed async run cut after 4 commits
-     and resumed to 6 on the card and, from a copy, on the CPU, and against
-     the card's uninterrupted run;
+     paper-charlm width (3 commits); (c) a checkpointed async run cut
+     after 4 commits and resumed to 6 on the card and, from a copy, on the
+     CPU, and against the card's uninterrupted run;
   6. the fleet path (``fleet_path``), at full CIFAR width: (a) ``--engine
      window``, uncompressed and secure q8 + top-k, against ``--engine
      batched`` (equal events and log host fields; params within 1e-5,
@@ -101,10 +103,10 @@ it happened; any failure ends the run with a non-zero exit code:
      async/async with ``--inter-buffer 2``, and sync/sync secure q8 +
      top-k, launches held at the facilities' rounds or commits plus the
      tier-2 commits, with the wall time an epoch and the tier-2 commit
-     step's; (f) a 2-facility hierarchy on the card against the CPU, to
-     1e-4, and a checkpointed async/async hierarchy cut after 2 of 3
-     tier-2 commits and resumed on the card, bit for bit against the
-     card's uninterrupted run;
+     step's; (f) a 2-facility hierarchy (8 clients a round) on the card
+     against the CPU, to 1e-4, and a checkpointed async/async hierarchy
+     cut after 2 of 3 tier-2 commits and resumed on the card, bit for bit
+     against the card's uninterrupted run;
   7. serve an LM (``lm_serve``): (a) the reduced Jamba, Llama-3.2-Vision
      and MusicGen on the card against the CPU (f32: prefill logits, every
      decode-state leaf, the VLM's cross K/V cache included, 4 decode steps,
@@ -139,7 +141,7 @@ it happened; any failure ends the run with a non-zero exit code:
      wall, the peak memory and the scan's and its backward's launches
      (8 chunks x steps x clients a round, the scan twice: forward and
      recompute) exact; (c) xlstm-125m whole in
-     bf16: a parallel round of 4 clients, 2 local steps, batch 4 of 128
+     bf16: a parallel round of 4 clients, 1 local step, batch 4 of 128
      tokens, with the round wall, the peak memory and the sLSTM's share
      of a local step; then serving a 512-token prompt at batch 2 and 16
      greedy decode steps through ``serve.run``, decoding held against
@@ -162,7 +164,9 @@ it happened; any failure ends the run with a non-zero exit code:
      without ``client_spmd_axes`` is refused as in the reference; (b)
      ``python -m repro_torch.launch.dryrun`` for a dense, an MoE and a
      hybrid arch over every input shape on both production meshes, one
-     line a tag, on the meta device, one process an arch with no card
+     line a tag (each tag's ``collective_bytes`` checked: the reference's
+     kinds, a cross-pod entry on every multi-pod train tag and none on a
+     single-pod tag), on the meta device, one process an arch with no card
      visible, started after ``round_parity`` so that it runs beside the
      card's phases (it needs no card and can allocate nothing there);
  10. the round across processes (``spmd``): (a), with a ``model`` axis of 1,
@@ -198,7 +202,8 @@ it happened; any failure ends the run with a non-zero exit code:
      every local step of every client, with each rank's peak, the round's
      wall and its gradient reductions' and weight gathers' time; (c)
      the CIFAR parallel round as a one-rank NCCL group, bit for bit
-     against no mesh under deterministic algorithms; (d) eight gloo ranks
+     against no mesh under deterministic algorithms (its process beside
+     the spawn of (a), (g) and (h)); (d) eight gloo ranks
      on the reference test's pod 2 x data 2 x model 2 mesh, the params
      held at rest as their sanitised specs cut them (over data and model:
      their bytes and a FedAdam state's the dry run's), run the reduced
@@ -233,35 +238,39 @@ it happened; any failure ends the run with a non-zero exit code:
      (every published width, 8 layers, 8 experts) on data 1 x model 2,
      each rank drawing the leaves whole in turn and keeping its share:
      its param and decode-state bytes equal to the dry run's, prefill of
-     2032 tokens and 16 decode steps fed the no-mesh run's greedy tokens,
+     496 tokens and 8 decode steps fed the no-mesh run's greedy tokens,
      the logits within SERVE_DECODE_TOL of no mesh's in each row up to
      its first flipped MoE routing, at most SERVE_FLIP_SHARE of the
      routings flipped, and within the bound at every step when routed as
      no mesh routed (argmax agreement printed); the same cut with 2
      experts, each token sent to both (no routing choice), within the
-     bound at every step; 112 scan launches a rank on its 8192 of 16384
+     bound at every step; 28 scan launches a rank on its 8192 of 16384
      channels, prefill s, decode ms a token and each rank's peak printed;
      then the scan at a rank's chunk [1, 128, 8192, 16] bit for bit
      against its plain version and timed beside its bound; (g) FSDP over
-     data: granite-3-2b whole, one sequential round of 2 clients x 2
-     steps x batch 2 x 1024 tokens with no mesh, then on data 2 x model 2,
+     data: granite-3-2b whole, one sequential round of 2 clients x 1
+     step x batch 2 x 1024 tokens with no mesh, then on data 2 x model 2,
      four ranks sharing the card, each layer's weights gathered over data
      just before it runs: each rank's param and FedAdam state bytes equal
      to the dry run's, the loss and the params against no mesh (5e-3,
      3e-2), the shares bit for bit on the ranks that hold them, each
-     rank's peak and the collectives' time printed; then, on a 2-slot
+     rank's collective bytes by kind equal to the dry run's count of the
+     same round on its rank (``dryrun.count_collectives``), each rank's
+     peak, the collectives' time and gloo's GB/s printed; then, on a 2-slot
      stack of each rank's delta shares, the q8 + top-k and secure q8 +
      top-k commits on the shares, the ranks in two turns over data: the
      leaves gathered (``unembed`` alone), each commit's wall and the
      rank's commit peak, every other leaf bit for bit the commit with no
      mesh on the shares, beside the reckoned bytes of the gathered form;
      (h) (f) (ii)'s cut
-     with no routing choice served on data 2 x model 2, one row of the
-     batch a data rank, fed the no-mesh run's tokens: its param and
-     decode-state bytes the dry run's, the experts' F held cut over data
+     with no routing choice served on data 2 x model 2 (2 decode steps),
+     one row of the batch a data rank, fed the no-mesh run's tokens: its
+     param and decode-state bytes the dry run's, its collective bytes by
+     kind the dry run's count of the same ``serve.run``
+     (``dryrun.serve_collectives``), the experts' F held cut over data
      and, in decode, their partial sums added over data once a MoE layer
      a step, the logits within SERVE_DECODE_TOL of no mesh's at every
-     step, 112 scans a rank on 8192 channels, each rank's peak, prefill s
+     step, 28 scans a rank on 8192 channels, each rank's peak, prefill s
      and decode ms a token printed.
 The last lines are the kernels' JSON record, the nvidia-smi line, and
 ``{"ok": true, "device": {...}}``.
@@ -269,6 +278,7 @@ The last lines are the kernels' JSON record, the nvidia-smi line, and
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import contextlib
 import dataclasses
 import functools
@@ -295,7 +305,8 @@ import torch  # noqa: E402
 
 from repro_torch import worker  # noqa: E402
 from repro_torch.checkpoint import load_pytree, save_pytree  # noqa: E402
-from repro_torch.configs import get_config, reduced  # noqa: E402
+from repro_torch.configs import (INPUT_SHAPES, InputShape,  # noqa: E402
+                                  get_config, reduced)
 from repro_torch.core import (AdaptiveStalenessController,  # noqa: E402
                               CompressionConfig, FLConfig,
                               build_buffer_commit_step,
@@ -315,7 +326,7 @@ from repro_torch.kernels import ops as kops  # noqa: E402
 from repro_torch.kernels.selective_scan import (  # noqa: E402
     selective_scan_chunk_blocks, selective_scan_chunk_bwd_blocks)
 from repro_torch.kernels.topk_sparsify import topk_sparsify_blocks  # noqa: E402
-from repro_torch.launch import serve, train  # noqa: E402
+from repro_torch.launch import dryrun, serve, train  # noqa: E402
 from repro_torch.launch import specs as sp  # noqa: E402
 from repro_torch.models import (build_model, param_count,  # noqa: E402
                                 token_shape)
@@ -464,6 +475,9 @@ ASYNC_ARGS = ["--device", "cuda", "--dataset", "cifar10", "--mode", "async",
               "--max-concurrency", "16", "--local-steps", "5",
               "--batch-size", "16", "--rounds", "6", "--lr", "0.01"]
 LM_ASYNC_ARGS = [a if a != "cifar10" else "shakespeare" for a in ASYNC_ARGS]
+# the char-LM's async run makes 3 commits (6 before the script neared its
+# time limit: ~2.7 s a commit on an H100)
+LM_ASYNC_COMMITS = 3
 # The async launcher configurations and each one's launches per commit: a
 # full buffer under --commit-chunk 4 is two chunks; the adaptive run's
 # --commit-timeout T comes from the default run's attempt times, and each
@@ -532,6 +546,10 @@ AUTO_POOL, MEGA_CLIENTS = 300, 100_000
 # tier-2 commit takes one slot per facility.  Launches per commit kernel:
 # every facility round or commit plus every tier-2 commit.
 N_FACILITIES, LOCAL_ROUNDS, T2_COMMITS = 4, 2, 3
+# (f)'s 2-facility run on the card against the CPU trains 8 clients a round
+# (the main path's 20 before the script neared its time limit: the CPU's
+# side took most of the part)
+HIER_CPU_CLIENTS = 8
 HIER_FLAGS = ["--facilities", str(N_FACILITIES), "--local-rounds",
               str(LOCAL_ROUNDS), "--rounds", str(T2_COMMITS)]
 HIER_CONFIGS = {
@@ -605,10 +623,10 @@ JAMBA_TRAIN_CUTS = ("depth 72 -> 2 (attn_every 8 -> 2: [mamba + mlp, attn + "
 # serving a 512-token prompt at batch 2 with 16 greedy decode steps.
 XLSTM = "xlstm-125m"
 XLSTM_PARAMS = 162_402_096
-# one round of one local step on 256-token sequences: the sLSTM's loop
-# over time is host-bound (0.907 of a local step on an H100), and the
-# script's time limit is shared
-XLSTM_TRAIN = dict(rounds=1, C=4, H=1, B=4, S=256)
+# one round of one local step on 128-token sequences (two mLSTM chunks):
+# the sLSTM's loop over time is host-bound (0.907 of a local step on an
+# H100), and the script's time limit is shared
+XLSTM_TRAIN = dict(rounds=1, C=4, H=1, B=4, S=128)
 XLSTM_SERVE = dict(batch=2, prompt_len=512, gen=16)
 # xLSTM decoding against teacher-forced prefill, held in float32 on the
 # bf16 model's weights.  The two paths differ in the last position's form
@@ -702,6 +720,38 @@ class SmokeFailure(Exception):
 def check(cond, msg):
     if not cond:
         raise SmokeFailure(msg)
+
+
+# The parts of the phases whose wall seconds main prints (``part NAME: S
+# s``), so that a run shows where the script's time limit goes
+TIMED_PARTS = (
+    "check_round_parity", "check_lm_round_parity", "drive_configs",
+    "check_resume", "check_worker", "check_async_commit_parity",
+    "drive_async", "check_async_resume", "drive_window", "check_auto",
+    "check_mega", "check_window_card_cpu", "drive_hier", "check_hier_resume",
+    "check_lm_parity", "serve_full_width", "serve_family", "serve_cli",
+    "train_jamba_full_width", "xlstm_whole", "slstm_share",
+    "train_audio_whole", "train_vlm_full_width", "mesh_rounds_1x1",
+    "finish_dry_run", "spmd_reference", "model_reference", "spmd_nccl",
+    "granite_no_mesh", "serve_no_mesh", "time_rank_chunk")
+
+
+def time_parts(names=TIMED_PARTS) -> None:
+    """Wrap each of the module's functions ``names`` so that a call prints
+    its wall seconds."""
+    for name in names:
+        fn = globals()[name]
+
+        @functools.wraps(fn)
+        def timed(*args, _fn=fn, _name=name, **kw):
+            t0 = time.perf_counter()
+            try:
+                return _fn(*args, **kw)
+            finally:
+                print(f"part {_name}: {time.perf_counter() - t0:.1f} s",
+                      flush=True)
+
+        globals()[name] = timed
 
 
 def memory_rate(name: str) -> float:
@@ -1505,7 +1555,7 @@ def parity_cases():
     return out
 
 
-def check_round_parity(device="cuda", C=20, H=2, B=16, tol=1e-4):
+def check_round_parity(device="cuda", C=8, H=2, B=16, tol=1e-4):
     """Phase 3: rounds on the card against the CPU.
 
     Local training is continuous in its inputs: the clients' deltas from the
@@ -1759,8 +1809,9 @@ def check_lm_round_parity(device="cuda", C=8, H=2, B=16, S=64, tol=1e-4,
 
 
 def round_parity():
-    """Phase 3: the CNN's rounds, then the char-LM's."""
-    return {"cnn": check_round_parity(), "lm": check_lm_round_parity()}
+    """Phase 3: the CNN's rounds, then the char-LM's (4 clients: its CPU
+    side is most of the part)."""
+    return {"cnn": check_round_parity(), "lm": check_lm_round_parity(C=4)}
 
 
 # ---------------------------------------------------------------- phase 4
@@ -1852,28 +1903,39 @@ def check_resume(tmp, base_args=MAIN_ARGS, tol=1e-4):
                                    f"{counts}, expected {RESUME_EXPECT}")
 
 
-def check_worker(tmp, client=3, tol=1e-4):
-    """``python -m repro_torch.worker --once`` on the card for one client,
-    and the same worker in this process on the CPU, from one global model
-    file: their update files agree to ``tol``.  The worker's process runs
-    with NVIDIA_TF32_OVERRIDE=0, so its cuDNN convolutions compute in
-    float32, as this process's do with TF32 turned off."""
+def start_worker(tmp, client=3) -> dict:
+    """Start ``python -m repro_torch.worker --once`` on the card for one
+    client from a global model file under ``tmp`` (its process's start is
+    most of its time, so it runs beside other work); ``check_worker``
+    reads it.  The worker's process runs with NVIDIA_TF32_OVERRIDE=0, so
+    its cuDNN convolutions compute in float32, as this process's do with
+    TF32 turned off."""
     params = CNN(CIFAR_CNN).init(torch.Generator().manual_seed(0))
     dirs = {dev: tmp / f"worker_{dev}" for dev in ("cuda", "cpu")}
     for d in dirs.values():
         d.mkdir()
         save_pytree(d / "global_round_0000.bin", params)
     argv = ["--client-id", str(client), "--once", "--timeout-s", "120"]
-    t0 = time.perf_counter()
-    out = subprocess.run(
+    proc = subprocess.Popen(
         [sys.executable, "-m", "repro_torch.worker", "--device", "cuda",
          "--workdir", str(dirs["cuda"])] + argv,
         env=dict(os.environ, PYTHONPATH=str(ROOT / "src"),
                  NVIDIA_TF32_OVERRIDE="0"),
-        capture_output=True, text=True, timeout=300)
-    wall = time.perf_counter() - t0
-    check(out.returncode == 0, f"worker on the card: exit {out.returncode}: "
-                               f"{out.stderr[-2000:]}")
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    return dict(proc=proc, params=params, dirs=dirs, argv=argv,
+                client=client, t0=time.perf_counter())
+
+
+def check_worker(job, tol=1e-4):
+    """``start_worker``'s process on the card, and the same worker in this
+    process on the CPU, from one global model file: their update files
+    agree to ``tol``."""
+    params, dirs, argv, client = (job[k] for k in ("params", "dirs", "argv",
+                                                   "client"))
+    stdout, stderr = job["proc"].communicate(timeout=300)
+    wall = time.perf_counter() - job["t0"]
+    rc = job["proc"].returncode
+    check(rc == 0, f"worker on the card: exit {rc}: {stderr[-2000:]}")
     worker.main(["--device", "cpu", "--workdir", str(dirs["cpu"])] + argv)
     stem = f"update_0000_client_{client:03d}"
     got = load_pytree(dirs["cuda"] / f"{stem}.bin", params)
@@ -1881,8 +1943,9 @@ def check_worker(tmp, client=3, tol=1e-4):
     err = max((got[k] - want[k]).abs().max().item() for k in want)
     meta = [json.loads((d / f"{stem}.json").read_text())
             for d in dirs.values()]
-    print(f"worker --once on the card ({wall:.1f} s with its start): "
-          f"{out.stdout.strip()}; update max |card - cpu| = {err:.3g}; "
+    print(f"worker --once on the card (done within {wall:.1f} s of its "
+          f"start, beside the resumed runs): {stdout.strip()}; update max "
+          f"|card - cpu| = {err:.3g}; "
           f"metadata {meta}")
     check(err <= tol and meta[0]["data_size"] == meta[1]["data_size"],
           f"worker: the card's update differs from the CPU's by {err:.3g}")
@@ -1896,8 +1959,12 @@ def drive_main_path():
     add_counts(totals, drive_configs(LM_ARGS, LM_CONFIGS,
                                      LM_FUSED_UPDATE_EXPECT))
     with tempfile.TemporaryDirectory() as tmp:
-        check_resume(Path(tmp))
-        check_worker(Path(tmp))
+        job = start_worker(Path(tmp))
+        try:
+            check_resume(Path(tmp))
+            check_worker(job)
+        finally:
+            job["proc"].kill()          # nothing once it has exited
     return totals
 
 
@@ -2023,9 +2090,9 @@ def attempt_times(orch):
             if not failed]
 
 
-def check_async_run(cname, summary, orch, counts, expect, wall):
+def check_async_run(cname, summary, orch, counts, expect, wall, commits=6):
     losses = summary["client_loss"]
-    check(summary["commits"] == len(losses) == 6
+    check(summary["commits"] == len(losses) == commits
           and all(math.isfinite(x) for x in losses),
           f"{cname}: commits {summary['commits']}, losses {losses}")
     if summary["dataset"] == "shakespeare":
@@ -2091,7 +2158,8 @@ def drive_async(base_args, configs, profiled=("async_default",
         counts = dict(launches.KERNEL_LAUNCHES)
         summary = train.summarize(args, orch)
         expect = {kn: n * summary["commits"] for kn, n in per_commit.items()}
-        check_async_run(cname, summary, orch, counts, expect, wall)
+        check_async_run(cname, summary, orch, counts, expect, wall,
+                        commits=args.rounds)
         add_counts(totals, counts)
         if cname == "async_default":
             times = attempt_times(orch)
@@ -2171,7 +2239,8 @@ def async_path():
     check_async_commit_parity()
     totals = drive_async(ASYNC_ARGS, ASYNC_CONFIGS)
     add_counts(totals, drive_async(
-        LM_ASYNC_ARGS, {"lm_async_default": ASYNC_CONFIGS["async_default"]}))
+        LM_ASYNC_ARGS + ["--rounds", str(LM_ASYNC_COMMITS)],
+        {"lm_async_default": ASYNC_CONFIGS["async_default"]}))
     with tempfile.TemporaryDirectory() as tmp:
         add_counts(totals, check_async_resume(Path(tmp)))
     return totals
@@ -2432,7 +2501,7 @@ def check_hier_resume(tmp, tol=1e-4):
     under deterministic algorithms (or within 1e-5 if an op warned)."""
     args = train.build_parser().parse_args(
         MAIN_ARGS + ["--facilities", "2", "--local-rounds", "1", "--rounds",
-                     "2"])
+                     "2", "--clients-per-round", str(HIER_CPU_CLIENTS)])
     launches.reset()
     card, p_card, _ = train.run(args)
     sync(args.device)
@@ -2446,7 +2515,8 @@ def check_hier_resume(tmp, tol=1e-4):
                   for a, b in zip(card.facilities, cpu.facilities)),
           "hier card against CPU: the logs differ")
     check(gap <= tol, f"hier card against CPU: params differ by {gap:.3g}")
-    print(f"hierarchy, 2 facilities, card against CPU: equal tier-2 and "
+    print(f"hierarchy, 2 facilities of {HIER_CPU_CLIENTS} clients a round, "
+          f"card against CPU: equal tier-2 and "
           f"facility host logs, params max |diff| = {gap:.3g}")
 
     base, flags, _ = HIER_CONFIGS["hier_async_async"]
@@ -3370,11 +3440,27 @@ def stop_dry_run(job) -> None:
     shutil.rmtree(job["out"], ignore_errors=True)
 
 
+def collective_keys_ok(rec) -> bool:
+    """Whether a dry-run record's ``collective_bytes`` is a dict of ints
+    under the reference's kinds (each with or without ``/cross_pod``),
+    with a cross-pod entry on a multi-pod train tag (its commit sums over
+    ``pod``) and none on a single-pod tag."""
+    counts = rec["collective_bytes"]
+    kinds = {k.removesuffix("/cross_pod") for k in counts}
+    cross = any(k.endswith("/cross_pod") for k in counts)
+    train = INPUT_SHAPES[rec["shape"]].kind == "train"
+    return (isinstance(counts, dict) and bool(counts)
+            and all(isinstance(v, int) and v > 0 for v in counts.values())
+            and kinds <= set(dryrun.COLLECTIVE_OPS)
+            and (cross if rec["mesh"] == "multi" and train
+                 else rec["mesh"] == "multi" or not cross))
+
+
 def finish_dry_run(job, timeout_s: float = 600.0) -> None:
     """Wait for ``start_dry_run``'s processes; print each one's lines and
-    check that every tag of its arch wrote a record with flops (or was
-    skipped)."""
-    from repro_torch.configs import INPUT_SHAPES
+    check that every tag of its arch wrote a record with flops and its
+    collectives' bytes by kind (``collective_keys_ok``), or was
+    skipped."""
     t0 = time.perf_counter()
     for arch, p in job["procs"].items():
         rc = p.wait(timeout=timeout_s)
@@ -3383,8 +3469,13 @@ def finish_dry_run(job, timeout_s: float = 600.0) -> None:
                 for f in sorted(Path(job["out"], arch).glob("*.json"))]
         check(rc == 0 and len(recs) == 2 * len(INPUT_SHAPES)
               and all("skipped" in r or r["cost_analysis"]["flops"] > 0
-                      for r in recs),
+                      and collective_keys_ok(r) for r in recs),
               f"mesh: dry run of {arch}: exit {rc}, records {recs}")
+        print(f"mesh: dry run of {arch}, each tag's collective GB a device "
+              f"(cross-pod): " + ", ".join(
+                  f"{r['tag']} {dryrun.total_gb(r['collective_bytes']):.2f} "
+                  f"({dryrun.total_gb(r['collective_bytes'], True):.2f})"
+                  for r in recs if "skipped" not in r))
     ended = max((f.stat().st_mtime for f in Path(job["out"]).rglob("*")),
                 default=job["started"])
     print(f"mesh: the dry run of {', '.join(job['procs'])} over every "
@@ -3552,19 +3643,26 @@ SERVE_SPLIT_TOL = 1e-5
 SERVE_FLIP_SHARE = 0.25
 SERVE_NO_CHOICE = "2 experts, top 2 of 2: no routing choice"
 SERVE_MODEL_SIZES, SERVE_MODEL_AXES = (1, 2), ("data", "model")
-SERVE_MODEL = dict(batch=SERVE_BATCH, prompt_len=SERVE_PROMPT,
-                   gen=SERVE_GEN)
+# (f) (ii) serves a 496-token prompt (3 x 128 + 112: the scan's remainder
+# chunk kept) and 8 decode steps (lm_serve's 2032 and 16 before the script
+# neared its time limit on the slower hosts: prefill through gloo took 6-7 s
+# a run of three)
+SERVE_MODEL = dict(batch=SERVE_BATCH, prompt_len=496, gen=8)
 # (g): FSDP over data: granite-3-2b whole, one sequential round of
-# 2 clients x 2 steps x batch 2 x 1024 tokens (batch 2, so that data splits
+# 2 clients x 1 step x batch 2 x 1024 tokens (batch 2, so that data splits
 # it) on data 2 x model 2, four ranks sharing the card, each layer's
 # weights gathered over data just before it runs, held to (e)'s
-# SPMD_SHARDED_TOL of the same round with no mesh
-GRANITE_FSDP = dict(C=2, H=2, B=2, S=1024)
+# SPMD_SHARDED_TOL of the same round with no mesh (2 steps before the
+# script neared its limit on the slower hosts: each gloo-staged step
+# takes ~40 s there)
+GRANITE_FSDP = dict(C=2, H=1, B=2, S=1024)
 FSDP_SIZES, FSDP_AXES = (2, 2), ("data", "model")
 # (h): the SERVE_NO_CHOICE cut served on data 2 x model 2, one row of the
 # batch a data rank, fed the no-mesh run's tokens: its decode's MoE sums
 # the partial products of its expert F shares over data, and its logits
-# are held to SERVE_DECODE_TOL of no mesh's at every step
+# are held to SERVE_DECODE_TOL of no mesh's at every step; (f) (ii)'s
+# prompt and 2 decode steps (each takes ~7 s through gloo)
+SERVE_FSDP = dict(SERVE_MODEL, gen=2)
 
 
 def spmd_launches_expected(n_leaves=8, C=SPMD_ROUND["C"]) -> dict:
@@ -3932,7 +4030,6 @@ def rest_bytes(model, params, record) -> dict:
     (made on ``meta``: m and v in float32), each beside the dry run's on
     the mesh record ``record``: {"params": (held, dry), "state": (held,
     dry)}."""
-    from repro_torch.launch import dryrun
     metas = {k: torch.empty(v.shape, dtype=v.dtype, device="meta")
              for k, v in flat_dict(params).items()}
     state = get_server_optimizer("fedadam").init(metas)
@@ -4200,7 +4297,8 @@ def nccl_rank(mesh, ref_path):
 def spmd_phase(device="cuda", sizes=SPMD_ROUND, jamba=SPMD_JAMBA,
                audio_cfg=None, audio_shape=AUDIO_SPMD, granite_cfg=None,
                granite_shape=GRANITE_MODEL, serve_cfg=None,
-               serve_shape=SERVE_MODEL, fsdp_shape=GRANITE_FSDP):
+               serve_shape=SERVE_MODEL, fsdp_shape=GRANITE_FSDP,
+               fsdp_serve_shape=SERVE_FSDP):
     """Phase spmd: (a) four gloo ranks sharing the card on a pod 2 x data
     2 x model 1 mesh run the CIFAR rounds, the async commit, the reduced
     Jamba and every commit kernel against the same work with no mesh here;
@@ -4242,14 +4340,18 @@ def spmd_phase(device="cuda", sizes=SPMD_ROUND, jamba=SPMD_JAMBA,
         free_cache(device)
         print(f"spmd: the no-mesh references took "
               f"{time.perf_counter() - t0:.1f} s")
-        add_counts(totals, spmd_nccl(path, kind))
-        # one spawn for each count of ranks (spawn_together)
-        for t in spawn_together(kind, spmd_federated(path, kind, sizes,
-                                                     jamba),
-                                spmd_fsdp(device, kind, granite_cfg,
-                                          fsdp_shape, serve_cfg,
-                                          serve_shape)):
-            add_counts(totals, t)
+        # one spawn for each count of ranks (spawn_together); (c)'s one
+        # process runs beside the spawn of four (its start, not its round,
+        # is most of its time)
+        with concurrent.futures.ThreadPoolExecutor(1) as pool:
+            nccl = pool.submit(spmd_nccl, path, kind)
+            for t in spawn_together(kind, spmd_federated(path, kind, sizes,
+                                                         jamba),
+                                    spmd_fsdp(device, kind, granite_cfg,
+                                              fsdp_shape, serve_cfg,
+                                              fsdp_serve_shape)):
+                add_counts(totals, t)
+            add_counts(totals, nccl.result())
         for t in spawn_together(kind, spmd_model(path, kind),
                                 serve_zoo(device, kind)):
             add_counts(totals, t)
@@ -4585,7 +4687,6 @@ def granite_model_rank(mesh, ref_path, cfg, sh_):
     """(e) on one rank of data 1 x model 2: granite-3-2b drawn whole,
     held as its share, its bytes against the dry run's; the sequential
     round with the collectives timed; its share against no mesh's."""
-    from repro_torch.launch import dryrun
     spmd_rank_setup()
     dev = mesh.device
     model, nested = serve.build(cfg, dev, seed=0)
@@ -4711,22 +4812,26 @@ def granite_fsdp_rank(mesh, ref_path, cfg, sh_):
     cuts = model.leaf_cuts()
     C, H, B, S = (sh_[k] for k in "CHBS")
     batches = round_batches(cfg, 1, C, H, B, S, 4, dev)(0)
+    fl = FLConfig(num_clients=C, local_steps=H, client_lr=0.01,
+                  client_exec="sequential")
     step = build_fl_round_step(model.loss_fn, get_client_optimizer("sgd"),
-                               get_server_optimizer("fedavg"), FLConfig(
-                                   num_clients=C, local_steps=H,
-                                   client_lr=0.01, client_exec="sequential"))
+                               get_server_optimizer("fedavg"), fl)
     cuda = dev.startswith("cuda")
     if cuda:
         torch.cuda.reset_peak_memory_stats(dev)
     sync(dev)
     t0 = time.perf_counter()
-    with shd.timed_collectives() as stats:
+    with shd.timed_collectives() as stats, \
+            shd.count_collectives() as moved:
         new, _, met = step(params, (), batches, torch.ones(C, device=dev),
                            torch.ones(C, device=dev),
                            torch.Generator().manual_seed(7))
         loss = float(met["client_loss"])
         sync(dev)
     wall = time.perf_counter() - t0
+    moved = (dict(moved), dryrun.count_collectives(
+        cfg, InputShape("spmd (g)", S, C * B, "train"), mesh, fl=fl),
+        float(sum(stats["seconds"].values())), "of collectives")
     peak = torch.cuda.max_memory_allocated(dev) if cuda else 0
     stack = share_stack(params, new)
     del params, batches
@@ -4744,12 +4849,24 @@ def granite_fsdp_rank(mesh, ref_path, cfg, sh_):
           f"{sizes['params'][1]}), a FedAdam state's {sizes['state'][0]} "
           f"(dry run {sizes['state'][1]}); round_wall_s={wall:.4f} "
           f"client_loss={loss:.6f} max_memory_allocated={peak} "
-          f"({peak / 1e9:.2f} GB); collectives (s, calls) {coll}",
-          flush=True)
+          f"({peak / 1e9:.2f} GB); collectives (s, calls) {coll}; "
+          f"{moved_line(moved)}", flush=True)
     del want
     commits = fsdp_share_commits(mesh, stack, cuts, dev)
     return dict(sizes=sizes, loss=loss, wall=wall, peak=peak, gap=gap,
-                finite=finite, same=same, collectives=coll, commits=commits)
+                finite=finite, same=same, collectives=coll, commits=commits,
+                moved=moved)
+
+
+def moved_line(moved) -> str:
+    """A rank's (live bytes by kind, the dry run's count of the same
+    step, the seconds they took, what those seconds are) as a line: the
+    bytes, and gloo's rate over them."""
+    live, dry, seconds, what = moved
+    total = sum(live.values())
+    return (f"collective bytes {live} (dry run {dry}): {total / 1e9:.3f} GB "
+            f"in {seconds:.2f} s {what}, "
+            f"{total / 1e9 / max(seconds, 1e-9):.3f} GB/s")
 
 
 def fsdp_share_commits(mesh, stack, cuts, dev) -> dict:
@@ -4802,7 +4919,8 @@ def fsdp_ranks(mesh, granite, served):
     g = granite_fsdp_rank(mesh, *granite)
     free_cache(mesh.device)
     path, cfg, shape = served
-    h = jamba_model_ranks(mesh, [(path, cfg)], shape, "spmd (h)", False)[0]
+    h = jamba_model_ranks(mesh, [(path, cfg)], shape, "spmd (h)", False,
+                          count=True)[0]
     return g, h
 
 
@@ -4877,6 +4995,9 @@ def check_granite_fsdp(out, loss, peak, n, item, expect) -> None:
                                          "params")
     check(all(v[0] == v[1] for o in out for v in o["sizes"].values()),
           f"spmd (g): (held, dry-run) bytes {[o['sizes'] for o in out]}")
+    check(all(o["moved"][0] == o["moved"][1] for o in out),
+          f"spmd (g): the ranks' collective bytes against the dry run's "
+          f"{[o['moved'][:2] for o in out]}")
     check(all(o["same"] for o in out),
           "spmd (g): params differ between the ranks that hold a share")
     check(all(abs(o["loss"] - loss) < SPMD_SHARDED_TOL[0]
@@ -4906,7 +5027,7 @@ def check_granite_fsdp(out, loss, peak, n, item, expect) -> None:
 
 
 def spmd_fsdp(device, kind, granite_cfg=None, granite_shape=GRANITE_FSDP,
-              serve_cfg=None, serve_shape=SERVE_MODEL) -> dict:
+              serve_cfg=None, serve_shape=SERVE_FSDP) -> dict:
     """(g) and (h), FSDP over data on data 2 x model 2, four ranks sharing
     the card in one spawn: granite-3-2b's sequential round and the
     SERVE_NO_CHOICE Jamba cut served, each first with no mesh here."""
@@ -5031,29 +5152,32 @@ def no_choice_cut(cfg):
 
 
 def jamba_model_ranks(mesh, runs, shape, label="spmd (f) (ii)",
-                      routed_first=True):
+                      routed_first=True, count=False):
     """(f) (ii) on one rank of data 1 x model 2, or (h) on one of data 2
     x model 2: ``jamba_model_rank`` for each (reference file, config) of
     ``runs``, with ``routed_first`` the first also routed as the no-mesh
-    run routed; each run's params freed before the next."""
+    run routed, and with ``count`` each run's collective bytes beside the
+    dry run's; each run's params freed before the next."""
     spmd_rank_setup()
     outs = []
     for i, (path, cfg) in enumerate(runs):
         outs.append(jamba_model_rank(mesh, path, cfg, shape, label,
-                                     routed_alike=routed_first and i == 0))
+                                     routed_alike=routed_first and i == 0,
+                                     count=count))
         free_cache(mesh.device)
     return outs
 
 
-def jamba_model_rank(mesh, ref_path, cfg, shape, label, routed_alike):
+def jamba_model_rank(mesh, ref_path, cfg, shape, label, routed_alike,
+                     count=False):
     """One cut on one rank: drawn leaf by leaf, only the rank's share kept
     (the ranks in turn, so that one whole leaf is drawn at a time on the
     card), its bytes against the dry run's; then ``serve.run`` fed the
     no-mesh run's tokens, the scan's calls and channels, the routings and
-    the MoE's sums of F partials over data recorded; with
+    the MoE's sums of F partials over data recorded (with ``count``, its
+    collectives' bytes beside the dry run's count of the same run); with
     ``routed_alike`` the run again with every token sent to the experts
     the no-mesh run chose."""
-    from repro_torch.launch import dryrun
     dev = mesh.device
     ref = torch.load(ref_path, weights_only=False)
     t0 = time.perf_counter()
@@ -5100,12 +5224,19 @@ def jamba_model_rank(mesh, ref_path, cfg, shape, label, routed_alike):
     launches.reset()
     kops.selective_scan_chunk, shd.reduce_from_data = scan, summed
     try:
-        with recorded_routes() as routes:
+        with recorded_routes() as routes, shd.count_collectives() as moved:
             res = serve.run(model, params, ref["prompt"], T, 0.0,
                             torch.Generator(dev), forced=ref["ids"])
     finally:
         kops.selective_scan_chunk, shd.reduce_from_data = orig, reduce
     sync(dev)
+    if count:
+        # the collectives are not timed one by one (a synchronise around
+        # each would serialise the decode's gathers with its compute): the
+        # rate is over the served wall, a lower bound on gloo's (with no
+        # mesh a token takes 19-29 ms of the seconds it takes here)
+        moved = (dict(moved), dryrun.serve_collectives(cfg, mesh, B, S0, T),
+                 res.prefill_s + res.decode_s, "of prefill and decode")
     counts = dict(launches.KERNEL_LAUNCHES)
     launches.reset()
     peak = torch.cuda.max_memory_allocated(dev) if cuda else 0
@@ -5137,7 +5268,8 @@ def jamba_model_rank(mesh, ref_path, cfg, shape, label, routed_alike):
                                  len(ref["routes"]) // (T + 1), B,
                                  first=shd.shard_index(
                                      shd.batch_split_axes()) * B
-                                 // shd.shard_count(shd.batch_split_axes())))
+                                 // shd.shard_count(shd.batch_split_axes())),
+               moved=moved if count else None)
     finite = all(bool(torch.isfinite(g).all()) for g in res.logits)
     del res, routes
     if routed_alike:
@@ -5159,7 +5291,8 @@ def jamba_model_rank(mesh, ref_path, cfg, shape, label, routed_alike):
           f"the other rank's turn; prefill_s={out['prefill_s']:.4f} decode "
           f"{out['decode_ms']:.2f} ms/token max_memory_allocated={peak} "
           f"({peak / 1e9:.2f} GB); scan calls {len(channels)} on "
-          f"{out['channels']} channels; launches {counts}", flush=True)
+          f"{out['channels']} channels; launches {counts}"
+          + (f"; {moved_line(moved)}" if count else ""), flush=True)
     return out
 
 
@@ -5319,6 +5452,9 @@ def check_served_fsdp(cfg, out, shape, n_scan, n_moe, di, cuda) -> dict:
         check(o["held"] == o["dry"], f"{label}: (param, state) bytes "
                                      f"{o['held']} against the dry run's "
                                      f"{o['dry']}")
+        check(o["moved"][0] == o["moved"][1],
+              f"{label}: the collective bytes {o['moved'][0]} against the "
+              f"dry run's {o['moved'][1]}")
         check(o["f_cut"] == [cfg.moe.d_expert // FSDP_SIZES[0]]
               and o["partials"] == n_moe * T,
               f"{label}: the experts' F {o['f_cut']}, F partials summed "
@@ -5383,6 +5519,7 @@ def main() -> int:
           "computes in float32 as the CPU does; bf16 matmuls reduce in "
           "float32, as the launchers set them (train.resolve_device)")
     t_start = time.perf_counter()
+    time_parts()
     dry = {}
     try:
         smi = nvidia_smi()

@@ -66,7 +66,10 @@ def _rand(shape, generator: torch.Generator, device, cut=()):
     (slots split over a mesh, a leaf cut at rest): the whole is drawn, as
     every process of the split draws it, and the share kept before it
     moves to ``device``, so each process holds its share of the unsplit
-    draws."""
+    draws.  On ``meta`` (the dry run) the draws are a ``meta`` tensor of
+    the share's shape, and the generator is left as it is."""
+    if torch.device(device).type == "meta":
+        return torch.empty(tuple(shape), device="meta")
     whole = torch.rand(sh.whole_shape(shape, cut), generator=generator,
                        device=generator.device)
     return sh.take_share(whole, cut).to(device)

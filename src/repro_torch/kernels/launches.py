@@ -3,8 +3,8 @@ kernel wrapper runs before it hands pointers to CUDA.
 
 ``KERNEL_LAUNCHES[name]`` goes up by one each time a wrapper launches the
 kernel ``name`` on the card, and nowhere else: the plain PyTorch version a
-CPU tensor takes is not a launch.  A run reads the counts to show which
-kernels its path went through; ``reset()`` zeroes them.
+CPU (or ``meta``) tensor takes is not a launch.  A run reads the counts to
+show which kernels its path went through; ``reset()`` zeroes them.
 """
 from __future__ import annotations
 
@@ -24,14 +24,15 @@ def reset() -> None:
 
 
 def on_cpu(*tensors) -> bool:
-    """True when every operand lies on the CPU (the plain version runs);
+    """True when every operand lies on the CPU (the plain version runs),
+    or on ``meta`` (the plain version runs on shapes alone: the dry run);
     False when every operand lies on one CUDA device (the kernel runs).
     Anything else raises: no operand silently changes device."""
     devices = {t.device for t in tensors}
     if len(devices) != 1:
         raise ValueError(f"kernel operands on several devices: {devices}")
     dev = devices.pop()
-    if dev.type == "cpu":
+    if dev.type in ("cpu", "meta"):
         return True
     if dev.type != "cuda":
         raise ValueError(f"no kernel for device {dev}")

@@ -309,11 +309,13 @@ def _secure_rows(xb, w_eff, seeds, coef, base, bits, k, use_kernel,
     stochastic rounding: the uniform draws of the whole [K, R, block]
     stack (of the whole bucket, its rows then taken by the table) are made
     on the generator's device, the same on every process, and moved to the
-    stack's."""
+    stack's (on ``meta``, a ``meta`` tensor, the generator left alone)."""
     wv = _slot_vector(w_eff, torch.as_tensor(w_eff).numel(), xb.device)
     K = wv.shape[0]
     noise = None
-    if noise_generator is not None:
+    if noise_generator is not None and xb.device.type == "meta":
+        noise = torch.empty(xb.shape, device="meta")
+    elif noise_generator is not None:
         rows = xb.shape[1] if table is None else whole_rows
         noise = torch.rand((K, rows, xb.shape[2]), generator=noise_generator,
                            device=noise_generator.device)

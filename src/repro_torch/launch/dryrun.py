@@ -27,14 +27,38 @@ where they have a counterpart:
   which is slow on meta tensors: its count is linear in the sequence (no
   attention; the mLSTM is quadratic only within its fixed chunk), so it is
   counted at one and at two mLSTM chunks and the difference scaled to the
-  sequence.
+  sequence;
+* ``collective_bytes``: ``{kind: bytes}``, the bytes one device's
+  collectives move in one step, under the reference's kinds
+  (``COLLECTIVE_OPS``: ``all-reduce``, ``all-gather``, ``all-to-all``;
+  the port runs no other), each the op's output bytes on the device
+  (the gathered tensor of a gather), with ``<kind>/cross_pod`` for the
+  ops whose group spans the pod boundary (the reference's
+  ``crosses_pods``, a pod of 256 devices), as the reference's
+  ``collective_bytes`` counts them from the HLO.  Here they are the
+  port's own collectives, counted as they run (``sharding.
+  count_collectives``): the step of device 0 on its ``meta`` shares of
+  the params (``specs.shard_params``), of the batch and of the decode
+  state, under a dry mesh of the production mesh's shape
+  (``launch.mesh.dry_mesh``), whose groups move nothing.  The train step
+  is the round that the reference's ``build_train`` builds (q8
+  compression, FedProx 0.01, bfloat16 accumulation, the plan's client
+  mode, hierarchical where parallel spans pods) with its commit;
+  ``count_collectives`` counts any ``(cfg, shape, mesh, plan)``.  The
+  clients' training is counted at one and two layer groups (and the
+  xLSTM's mLSTM chunks) and scaled, as the flops are; the commit, whose
+  rows are padded to a multiple of the ranks that split them, at the
+  whole depth.  ``serve_collectives`` counts ``launch/serve.py::run``
+  (prefill, decode steps, the logits' gathers) at the whole depth.  Live
+  ranks count the same calls, so a live rank's bytes by kind equal its
+  dry count exactly (the tests on ``gloo`` CPU ranks; ``chip_smoke.py``'s
+  ``spmd`` (g) and (h) on the card).
 
-The reference lowers and compiles each step over 512 placeholder devices
-and parses the HLO's collectives (``split_computations``,
-``collective_bytes`` and their kin).  PyTorch has no AOT lowering of a
-sharded program over devices that do not exist, so those parsers have no
-counterpart: ``collective_bytes`` is written as absent, with the reason,
-not as 0.
+The reference also counts its collective ops in the HLO text
+(``collective_ops_static``); the port's are calls that run, with no
+static program to count, so that key is written as absent, with the
+reason, not as 0.  The reference's ``memory_analysis`` (the compiled
+step's temporary bytes) has no counterpart yet.
 """
 from __future__ import annotations
 
@@ -44,16 +68,21 @@ import functools
 import json
 import math
 import time
+from collections import Counter
 from pathlib import Path
 
 import torch
 from torch.utils.flop_counter import FlopCounterMode
 
 from repro_torch.configs import ASSIGNED_ARCHS, INPUT_SHAPES, get_config
+from repro_torch.core import CompressionConfig, FLConfig, build_fl_round_step
+from repro_torch.core.round import ParallelRound
+from repro_torch.launch import serve
 from repro_torch.launch import specs as sp
-from repro_torch.launch.mesh import make_production_mesh
-from repro_torch.models import build_model, sharding as sh
+from repro_torch.launch.mesh import dry_mesh, make_production_mesh
+from repro_torch.models import build_model, sharding as sh, token_shape
 from repro_torch.models.transformer import block_pattern
+from repro_torch.optim import get_client_optimizer, get_server_optimizer
 from repro_torch.pytree import flat_dict
 
 # Archs small enough to host parallel client replicas (true hierarchical
@@ -61,9 +90,12 @@ from repro_torch.pytree import flat_dict
 PARALLEL_ARCHS = {"xlstm-125m", "gemma-2b", "granite-3-2b", "musicgen-medium",
                   "starcoder2-7b"}
 
-NO_COLLECTIVES = ("not counted: the reference parses them from the HLO of "
-                  "a program lowered over placeholder devices, which "
-                  "PyTorch cannot lower")
+COLLECTIVE_OPS = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+                  "collective-permute")
+NO_STATIC_OPS = ("not counted: the reference counts the collective ops in "
+                 "the HLO text; the port runs its collectives, so each call "
+                 "is counted as it runs (collective_bytes), and there is no "
+                 "static program to count them in")
 
 
 def should_skip(cfg, shape) -> str | None:
@@ -83,6 +115,27 @@ def train_plan(cfg, multi_pod: bool, clients: int, local_steps: int) -> dict:
             "pod_sequential" if multi_pod else "sequential")
     return {"clients": C, "local_steps": local_steps, "client_exec": mode,
             "hierarchical": parallel and multi_pod}
+
+
+def fl_config(plan: dict) -> FLConfig:
+    """The round's ``FLConfig`` for a train plan, as the reference's
+    ``build_train`` builds it: q8 compression, FedProx 0.01, bfloat16
+    accumulation."""
+    return FLConfig(num_clients=plan["clients"],
+                    local_steps=plan["local_steps"], client_lr=0.01,
+                    fedprox_mu=0.01, aggregation="fedavg",
+                    client_exec=plan["client_exec"],
+                    compression=CompressionConfig(quantize_bits=8),
+                    hierarchical=plan["hierarchical"],
+                    accum_dtype="bfloat16")
+
+
+def client_axes(mode: str, mesh):
+    """The mesh axes a round's client (or pod) dim is split over, as the
+    reference's ``build_train`` names them."""
+    if mode == "parallel":
+        return (sh.POD, sh.DATA) if sh.POD in mesh.axis_names else sh.DATA
+    return sh.POD if mode == "pod_sequential" else None
 
 
 def _extent(spec, mesh) -> int:
@@ -158,15 +211,8 @@ def step_flops(cfg, shape, clients: int = 0, local_steps: int = 0) -> int:
     """One step's flops at ``cfg``'s depth and ``shape``'s sequence; a
     train shape's step is ``clients`` x ``local_steps`` client steps.
     Cached: the count does not depend on the mesh."""
-    L = cfg.xlstm.chunk if cfg.xlstm is not None else 0
-    if L and shape.kind != "decode" and shape.seq_len > 2 * L:
-        if shape.seq_len % L:
-            raise ValueError(f"{cfg.name}: a sequence of {shape.seq_len} is "
-                             f"not whole mLSTM chunks of {L}")
-        f1, f2 = (depth_flops(cfg, dataclasses.replace(shape, seq_len=s),
-                              clients, local_steps) for s in (L, 2 * L))
-        return f1 + (shape.seq_len // L - 1) * (f2 - f1)
-    return depth_flops(cfg, shape, clients, local_steps)
+    return _scaled(lambda c, s: Counter(flops=_step_flops(
+        c, s, clients, local_steps)), cfg, shape)["flops"]
 
 
 def depth_flops(cfg, shape, clients: int, local_steps: int) -> int:
@@ -176,6 +222,184 @@ def depth_flops(cfg, shape, clients: int, local_steps: int) -> int:
     f1, f2 = (_step_flops(cfg.replace(n_layers=g * period), shape, clients,
                           local_steps) for g in (1, 2))
     return f1 + (cfg.n_layers // period - 1) * (f2 - f1)
+
+
+def _dry(mesh):
+    """``mesh`` as a dry mesh of its rank (rank 0 of a record)."""
+    return dry_mesh(mesh.sizes, mesh.axis_names, mesh.rank or 0)
+
+
+def _train_collectives(cfg, shape, mesh, plan, fl=None, n_pods=None,
+                       client_spmd_axes=None, commit_only=False) -> Counter:
+    """The bytes of one round step of ``plan`` on the rank of the dry
+    ``mesh``: its shares of the params and the whole batches, on
+    ``meta``.  ``fl``, ``n_pods`` and ``client_spmd_axes`` default to the
+    reference's ``build_train``'s.  ``commit_only``: the clients' local
+    training (with the parallel round's gather of the params over
+    ``data``) is left out, its deltas and losses taken as ``meta``
+    tensors of their shapes."""
+    model = build_model(cfg)
+    fl = fl or fl_config(plan)
+    n_pods = n_pods or mesh.shape.get(sh.POD, 1)
+    if client_spmd_axes is None:
+        client_spmd_axes = client_axes(fl.client_exec, mesh)
+    C = fl.num_clients
+    batches, _, _ = sp.train_client_batch_specs(cfg, shape, C,
+                                                fl.local_steps)
+    vec = sp.meta((C,), torch.float32)
+    with sh.use_mesh(mesh):
+        params = flat_dict(sp.shard_params(model.param_specs(),
+                                           model.logical_specs))
+        step = build_fl_round_step(
+            model.loss_fn, get_client_optimizer("sgd"),
+            get_server_optimizer("fedavg"), fl, n_pods=n_pods,
+            client_spmd_axes=client_spmd_axes)
+        if commit_only:
+            _untrained(step)
+        with sh.count_collectives() as counts:
+            step(params, (), batches, vec, vec, torch.Generator())
+    return counts
+
+
+def _untrained(step) -> None:
+    """``step`` with its local training replaced by ``meta`` deltas and
+    losses of the shapes and dtypes the training gives: each client's
+    delta is its params' (the parallel round's whole over the ``data``
+    its client dim owns), its loss a float32 scalar."""
+    loss = sp.meta((), torch.float32)
+    if not isinstance(step, ParallelRound):
+        step.local_train = lambda params, batches: (
+            {k: torch.empty_like(p) for k, p in params.items()}, loss)
+        return
+    data = sh.DATA in step.owned()
+    cuts = step.layout()
+
+    def train_clients(params, batches):
+        C = next(iter(batches.values())).shape[0]
+        n = sh.shard_count(sh.DATA)
+        whole = {k: sh.whole_shape(p.shape, ((cuts[k][sh.DATA], 0, n),))
+                 if data and sh.DATA in cuts.get(k, {}) else p.shape
+                 for k, p in params.items()}
+        return ({k: sp.meta((C,) + tuple(whole[k]), p.dtype)
+                 for k, p in params.items()},
+                sp.meta((C,), torch.float32))
+    step.train_clients = train_clients
+
+
+def _serve_collectives(cfg, shape, mesh) -> Counter:
+    """The bytes of one prefill (``shape``'s prompt into a cache of its
+    length) or one decode step (at the cache's last position) on the rank
+    of the dry ``mesh``: its shares of the params, of the batch (whole
+    where the batch axes do not divide it, as ``sanitize_specs`` leaves
+    it) and of the decode state, as ``launch/serve.py::run`` holds
+    them."""
+    model = build_model(cfg)
+    inputs = _inputs(cfg, shape, model, {})[0]
+    with sh.use_mesh(mesh), torch.inference_mode():
+        params = sp.shard_params(model.param_specs(), model.logical_specs)
+        n = sh.shard_count(sh.batch_split_axes())
+        B = shape.global_batch // n if shape.global_batch % n == 0 \
+            else shape.global_batch
+        mine = {k: v[:B] for k, v in inputs.items()}
+        with sh.count_collectives() as counts:
+            if shape.kind == "prefill":
+                model.prefill(params, mine, s_max=shape.seq_len)
+            else:
+                model.decode_step(params, model.init_decode_state(
+                    B, shape.seq_len, device="meta"), mine["token"],
+                    shape.seq_len - 1, mine.get("patches"))
+    return counts
+
+
+def _chunked(cfg, shape) -> int:
+    """The xLSTM family's mLSTM chunk where ``shape``'s sequence is more
+    than two of them (counted at one and two, then scaled), else 0."""
+    L = cfg.xlstm.chunk if cfg.xlstm is not None else 0
+    if not L or shape.kind == "decode" or shape.seq_len <= 2 * L:
+        return 0
+    if shape.seq_len % L:
+        raise ValueError(f"{cfg.name}: a sequence of {shape.seq_len} is "
+                         f"not whole mLSTM chunks of {L}")
+    return L
+
+
+def _scaled(count, cfg, shape) -> Counter:
+    """``count(cfg, shape)`` (a Counter linear in the layer groups and,
+    for the xLSTM family, in the mLSTM chunks) at ``cfg``'s depth and
+    ``shape``'s sequence, from the counts at one and at two groups (the
+    groups are identical), each at one and at two chunks where the
+    sequence is longer, as ``step_flops`` counts; counted as it is where
+    it has two groups or fewer and no more than two chunks."""
+    L = _chunked(cfg, shape)
+    if L:
+        return _scale(*(_scaled(count, cfg, dataclasses.replace(
+            shape, seq_len=s)) for s in (L, 2 * L)), shape.seq_len // L)
+    period = len(block_pattern(cfg))
+    if cfg.n_layers <= 2 * period:
+        return count(cfg, shape)
+    return _scale(*(count(cfg.replace(n_layers=g * period), shape)
+                    for g in (1, 2)), cfg.n_layers // period)
+
+
+def _scale(c1: Counter, c2: Counter, n: int) -> Counter:
+    """The count at ``n`` from those at 1 and 2 of a count linear in
+    ``n``."""
+    out = Counter({k: c1[k] + (n - 1) * (c2[k] - c1[k])
+                   for k in set(c1) | set(c2)})
+    return +out
+
+
+def count_collectives(cfg, shape, mesh, plan=None, **round_args) -> dict:
+    """``{kind: bytes}``: the collectives one step of ``cfg`` at ``shape``
+    moves on one rank of ``mesh`` (rank 0 of a mesh record, or the rank a
+    ``dry_mesh`` names), counted from the port's own collectives
+    (``sharding.count_collectives``) on the rank's ``meta`` shares under a
+    dry mesh of the same shape, with ``<kind>/cross_pod`` where the group
+    crosses a pod.  A train shape's step is the round of ``plan``
+    (``train_plan``; ``round_args`` may name the round's ``fl``,
+    ``n_pods`` and ``client_spmd_axes``, else the reference's
+    ``build_train``'s), a prefill shape's one prefill, a decode shape's
+    one decode step.  Counted at one and at two layer groups and scaled
+    to the depth, and the xLSTM family at one and two mLSTM chunks scaled
+    to the sequence, as ``step_flops`` is."""
+    mesh = _dry(mesh)
+    if shape.kind == "train":
+        def step(c, s, commit_only=False):
+            return _train_collectives(c, s, mesh, plan,
+                                      commit_only=commit_only, **round_args)
+        if not _chunked(cfg, shape) and \
+                cfg.n_layers <= 2 * len(block_pattern(cfg)):
+            counts = step(cfg, shape)
+        else:
+            # the clients' training is linear in the depth; the commit is
+            # not (its rows are padded to a multiple of the ranks that
+            # split them), so it is counted at the whole depth
+            counts = _scaled(lambda c, s: step(c, s) - step(c, s, True),
+                             cfg, shape) + step(cfg, shape, True)
+    else:
+        counts = _scaled(lambda c, s: _serve_collectives(c, s, mesh), cfg,
+                         shape)
+    return {k: int(v) for k, v in sorted(counts.items())}
+
+
+def serve_collectives(cfg, mesh, batch: int, prompt_len: int, gen: int
+                      ) -> dict:
+    """``{kind: bytes}`` of ``launch/serve.py::run`` on one rank of
+    ``mesh`` (as ``count_collectives``): a prompt of ``batch`` x
+    ``prompt_len`` tokens (with the VLM's patches) prefilled, then
+    ``gen`` decode steps fed given tokens, each step's logits gathered
+    over the batch axes; at ``cfg``'s whole depth."""
+    model = build_model(cfg)
+    prompt = sp.meta(token_shape(cfg, batch, prompt_len), torch.long)
+    forced = sp.meta(token_shape(cfg, batch, gen), torch.long)
+    patches = (sp.meta((batch, cfg.n_patches, cfg.d_model), model.dtype)
+               if cfg.cross_attn_every else None)
+    with sh.use_mesh(_dry(mesh)):
+        params = sp.shard_params(model.param_specs(), model.logical_specs)
+        with sh.count_collectives() as counts:
+            serve.run(model, params, prompt, gen, 0.0, None, patches,
+                      forced=forced)
+    return {k: int(v) for k, v in sorted(counts.items())}
 
 
 def run_one(arch: str, shape_name: str, multi_pod: bool, out_dir: Path,
@@ -217,7 +441,8 @@ def run_one(arch: str, shape_name: str, multi_pod: bool, out_dir: Path,
                                   plan.get("local_steps", 0))),
         "note": "torch.utils.flop_counter.FlopCounterMode on meta tensors: "
                 "matrix products and attention only"}
-    result["collective_bytes"] = NO_COLLECTIVES
+    result["collective_bytes"] = count_collectives(cfg, shape, mesh, plan)
+    result["collective_ops_static"] = NO_STATIC_OPS
     result["size_s"] = round(time.perf_counter() - t0, 3)
     _write(out_dir, tag, result)
     if verbose:
@@ -226,8 +451,17 @@ def run_one(arch: str, shape_name: str, multi_pod: bool, out_dir: Path,
               + (f" state {nbytes['decode_state'] / 1e9:.3f} GB/dev"
                  if state is not None else "")
               + f" flops {result['cost_analysis']['flops']:.4g} "
-              f"({result['size_s']} s)")
+              f"collectives {total_gb(result['collective_bytes']):.2f} GB "
+              f"cross-pod {total_gb(result['collective_bytes'], True):.2f} "
+              f"GB ({result['size_s']} s)")
     return result
+
+
+def total_gb(counts: dict, cross_pod: bool = False) -> float:
+    """The GB of ``collective_bytes``, of every kind or of the cross-pod
+    entries."""
+    return sum(v for k, v in counts.items()
+               if k.endswith("/cross_pod") == cross_pod) / 1e9
 
 
 def _write(out_dir: Path, tag: str, result: dict):

@@ -13,6 +13,9 @@ the card(s) this process sees; on one card it is 1x1 ("data", "model").
 ``torch.distributed`` process group, then one sub-group for every set of
 axes of size > 1, and returns the mesh with this process's rank (its
 coordinates follow, row-major).  ``launch/spmd.py`` starts such processes.
+``dry_mesh`` is the same mesh as one rank sees it with no processes: its
+groups are placeholders on which the collectives take ``meta`` tensors
+and move nothing (the dry run counts a rank's collectives on it).
 
 Devices and backends are explicit, and nothing falls back: a rank's device
 is ``cuda:{rank % device_count}`` unless the caller asks for the CPU; the
@@ -23,11 +26,12 @@ a lost rank fails the others instead of hanging them.
 """
 from __future__ import annotations
 
+import dataclasses
 import datetime
 import itertools
 import math
 
-from repro_torch.models.sharding import Mesh
+from repro_torch.models.sharding import DryGroup, Mesh, group_members
 
 GROUP_TIMEOUT_S = 180.0
 FEDERATED_AXES = ("pod", "data", "model")
@@ -131,6 +135,23 @@ def init_mesh(init_method: str, rank: int, world_size: int,
                     groups[span] = g
     return Mesh(tuple(axes), tuple(sizes), tuple(devices), rank=rank,
                 groups=groups)
+
+
+def dry_mesh(sizes: tuple, axes: tuple = FEDERATED_AXES, rank: int = 0
+             ) -> Mesh:
+    """The mesh of ``sizes`` over ``axes`` as process ``rank`` of it sees
+    it, with no processes: one placeholder group (``sharding.DryGroup``,
+    its members the ranks ``init_mesh`` would put in it) per set of axes
+    of size > 1.  The collectives on it take ``meta`` tensors and move
+    nothing, so a step run on it under ``sharding.count_collectives``
+    counts the bytes the rank's collectives would move (the dry run's
+    ``collective_bytes``)."""
+    mesh = dataclasses.replace(_mesh(sizes, axes), rank=rank)
+    live = [a for a in mesh.axis_names if mesh.shape[a] > 1]
+    return dataclasses.replace(mesh, groups={
+        span: DryGroup(group_members(mesh, span))
+        for n in range(1, len(live) + 1)
+        for span in itertools.combinations(live, n)})
 
 
 def close_mesh() -> None:

@@ -78,7 +78,8 @@ def build(cfg, device, seed: int, shard: bool = False):
 
 @dataclass
 class ServeResult:
-    ids: np.ndarray          # [B, gen] ([B, gen, n_cb]) generated ids
+    ids: np.ndarray          # [B, gen] ([B, gen, n_cb]) generated ids (a
+    #                          meta tensor of their shape on meta params)
     logits: list             # [B(, n_cb), vocab] logits: the prefill's and
     #                          every decode step (gen + 1 entries)
     prefill_s: float         # wall time of the prefill, synchronised
@@ -153,7 +154,9 @@ def run(model, params, prompt, gen: int, temperature: float,
             out.append(logits)
         _sync(device)
         t_decode = time.perf_counter() - t0
-    ids = torch.stack(toks, dim=1).cpu().numpy()
+    ids = torch.stack(toks, dim=1)
+    if not ids.is_meta:                     # the dry run's shapes stay
+        ids = ids.cpu().numpy()
     return ServeResult(ids, out, t_prefill, t_decode, state)
 
 

@@ -50,6 +50,15 @@ rounds reduce gradients between the transforms (``core/round.py``), and
 the commit exchanges its rows between the client split and the row split
 (``kernels/ops.py``).
 
+Every collective runs through one hook (``_run``), where
+``timed_collectives`` times it and ``count_collectives`` counts its
+output bytes by the reference's kind (``KINDS``), with a cross-pod entry
+where its group spans a pod (``crosses_pods`` of ``group_members``).  On
+a dry mesh (``launch.mesh.dry_mesh``) the groups are ``DryGroup``s: the
+same three ops take ``meta`` tensors and move nothing, so a rank's step
+run there counts what it would move (the dry run's
+``collective_bytes``).
+
 Group order: a group over ``axes`` holds the ranks that share every other
 coordinate; ``torch.distributed.new_group`` sorts its ranks, and on a
 row-major mesh the sorted order is the row-major order over ``axes`` taken
@@ -60,6 +69,8 @@ them in mesh order.
 from __future__ import annotations
 
 import contextlib
+import functools
+import itertools
 import math
 import time
 import types
@@ -502,25 +513,136 @@ def timed_collectives():
         _state.timed = prev
 
 
-def _run(name, x, op):
-    import torch
+# the reference's names of the collectives (``repro/launch/dryrun.py``'s
+# ``COLLECTIVE_OPS``) for the ops here
+KINDS = {"psum": "all-reduce", "all_gather": "all-gather",
+         "all_to_all": "all-to-all"}
+POD_STRIDE = 256      # the reference's: devices in a production pod
+
+
+@contextlib.contextmanager
+def count_collectives():
+    """Count the bytes of every collective run inside the block, live or
+    on a dry mesh (``launch.mesh.dry_mesh``): yields a Counter of
+    ``{kind: bytes}`` under the reference's kinds (``KINDS``), each the
+    op's output bytes on this process (the gathered tensor of a gather,
+    the tensor itself of a reduction or an exchange; under ``vmap`` the
+    batched tensor the op moves), as ``collective_bytes`` of the
+    reference's dry run counts them, with ``<kind>/cross_pod`` beside a
+    kind for the ops whose group crosses a pod (``crosses_pods``).
+    Counting reads shapes only: it neither synchronises nor changes a
+    result."""
+    prev = getattr(_state, "counted", None)
+    counts = Counter()
+    _state.counted = counts
+    try:
+        yield counts
+    finally:
+        _state.counted = prev
+
+
+def crosses_pods(members, pod_stride: int = POD_STRIDE) -> bool:
+    """Whether a group of the row-major device indices ``members`` spans
+    devices ``pod_stride`` or more apart: the reference's rule
+    (``repro/launch/dryrun.py``'s ``crosses_pods``) for traffic that
+    crosses the pod boundary (the data-center network, not the pod's own
+    links)."""
+    return bool(members) and max(members) - min(members) >= pod_stride
+
+
+def pod_stride(mesh: Mesh) -> int:
+    """Devices in one pod of ``mesh``: the devices of the axes after
+    ``pod`` (256 on the production multi-pod mesh), or the whole mesh
+    where it has no ``pod`` axis."""
+    if POD not in mesh.axis_names:
+        return mesh.size
+    return math.prod(mesh.sizes[mesh.axis_names.index(POD) + 1:])
+
+
+@functools.lru_cache(maxsize=1024)
+def group_members(mesh: Mesh, axes: tuple) -> tuple:
+    """The row-major ranks of this process's group over ``axes`` (the
+    ranks that share every other coordinate with it), in order."""
+    span = mesh.live(axes)
+    coords = mesh.coords
+    stride = {a: math.prod(mesh.sizes[i + 1:])
+              for i, a in enumerate(mesh.axis_names)}
+    base = mesh.rank - sum(coords[a] * stride[a] for a in span)
+    return tuple(sorted(base + sum(i * stride[a] for i, a in zip(idx, span))
+                        for idx in itertools.product(
+                            *(range(mesh.shape[a]) for a in span))))
+
+
+def _count(name, axes, out) -> None:
+    counts = getattr(_state, "counted", None)
+    if counts is None:
+        return
+    mesh = get_mesh()
+    kind = KINDS[name]
+    size = out.numel() * out.element_size()
+    counts[kind] += size
+    if crosses_pods(group_members(mesh, mesh.live(axes)), pod_stride(mesh)):
+        counts[kind + "/cross_pod"] += size
+
+
+class DryGroup:
+    """A process group of a dry mesh (``launch.mesh.dry_mesh``): its
+    ``size()`` and member ranks, and no processes.  The collectives on it
+    move nothing: each op's output is a ``meta`` tensor of its shape and
+    dtype, which ``count_collectives`` counts.  A tensor that is not on
+    ``meta`` raises, so a dry mesh never stands in for a live one."""
+
+    def __init__(self, members):
+        self.members = tuple(members)
+
+    def size(self) -> int:
+        return len(self.members)
+
+    def _check(self, *tensors):
+        for t in tensors:
+            if t.device.type != "meta":
+                raise RuntimeError(f"a collective on a dry mesh got a "
+                                   f"tensor on {t.device}: a dry mesh "
+                                   f"counts meta tensors only")
+
+    def all_reduce(self, t, group=None):
+        self._check(t)
+
+    def all_gather(self, parts, t, group=None):
+        self._check(t, *parts)
+
+    def all_to_all_single(self, recv, send, group=None):
+        self._check(recv, send)
+
+
+def _comm(group):
+    """What runs the collectives on ``group``: ``torch.distributed``, or
+    the dry group itself."""
+    if isinstance(group, DryGroup):
+        return group
+    import torch.distributed as dist
+    return dist
+
+
+def _run(name, x, axes, op):
     stats = getattr(_state, "timed", None)
     if stats is None:
-        return op()
-    sync = (torch.cuda.synchronize if x.device.type == "cuda"
-            else (lambda: None))
-    sync()
-    t0 = time.perf_counter()
-    out = op()
-    sync()
-    stats["seconds"][name] += time.perf_counter() - t0
-    stats["calls"][name] += 1
+        out = op()
+    else:
+        sync = (torch.cuda.synchronize if x.device.type == "cuda"
+                else (lambda: None))
+        sync()
+        t0 = time.perf_counter()
+        out = op()
+        sync()
+        stats["seconds"][name] += time.perf_counter() - t0
+        stats["calls"][name] += 1
+    _count(name, axes, out)
     return out
 
 
 def psum(x, axes):
     """The sum of ``x`` over the processes of ``axes`` (``lax.psum``)."""
-    import torch.distributed as dist
     mesh = get_mesh()
     group = mesh.group(axes) if mesh is not None else None
     if group is None:
@@ -528,9 +650,9 @@ def psum(x, axes):
 
     def op():
         y = x.contiguous().clone()
-        dist.all_reduce(y, group=group)
+        _comm(group).all_reduce(y, group=group)
         return y
-    return _run("psum", x, op)
+    return _run("psum", x, axes, op)
 
 
 def pmean(x, axes):
@@ -542,8 +664,6 @@ def pmean(x, axes):
 def all_gather(x, axes, dim: int = 0):
     """``lax.all_gather`` (tiled) over ``axes``: the members' ``x`` in
     shard order, concatenated along ``dim``."""
-    import torch
-    import torch.distributed as dist
     mesh = get_mesh()
     group = mesh.group(axes) if mesh is not None else None
     if group is None:
@@ -552,9 +672,9 @@ def all_gather(x, axes, dim: int = 0):
     def op():
         xc = x.contiguous()
         parts = [torch.empty_like(xc) for _ in range(group.size())]
-        dist.all_gather(parts, xc, group=group)
+        _comm(group).all_gather(parts, xc, group=group)
         return torch.cat(parts, dim)
-    return _run("all_gather", x, op)
+    return _run("all_gather", x, axes, op)
 
 
 def all_to_all(x, axes, split_dim: int, concat_dim: int):
@@ -562,8 +682,6 @@ def all_to_all(x, axes, split_dim: int, concat_dim: int):
     ``split_dim`` into one chunk per member, chunk ``j`` sent to member
     ``j``, and the chunks received concatenated along ``concat_dim`` in
     shard order."""
-    import torch
-    import torch.distributed as dist
     mesh = get_mesh()
     group = mesh.group(axes) if mesh is not None else None
     if group is None:
@@ -578,10 +696,10 @@ def all_to_all(x, axes, split_dim: int, concat_dim: int):
         chunk = tuple(send.shape)
         send = send.reshape((n, chunk[0] // n) + chunk[1:]).contiguous()
         recv = torch.empty_like(send)
-        dist.all_to_all_single(recv, send, group=group)
+        _comm(group).all_to_all_single(recv, send, group=group)
         return torch.cat([recv[j].movedim(0, split_dim) for j in range(n)],
                          concat_dim)
-    return _run("all_to_all", x, op)
+    return _run("all_to_all", x, axes, op)
 
 
 def combine_partials(m, l, o):

@@ -13,7 +13,8 @@
   family's count scaled from one and two mLSTM chunks equals its count at
   the whole sequence;
 * a tag's JSON carries the reference's keys where they have a
-  counterpart, and ``collective_bytes`` says why it is absent."""
+  counterpart: ``collective_bytes`` a dict of bytes under the reference's
+  kinds, and ``collective_ops_static`` says why it is absent."""
 import importlib
 import json
 import math
@@ -54,6 +55,7 @@ def test_should_skip_matches_reference(jdryrun):
             assert dryrun.should_skip(get_config(arch), shape) \
                 == jdryrun.should_skip(jget_config(arch), shape), (arch, name)
     assert dryrun.PARALLEL_ARCHS == jdryrun.PARALLEL_ARCHS
+    assert dryrun.COLLECTIVE_OPS == jdryrun.COLLECTIVE_OPS
 
 
 def ref_bytes(shape_tree, logical_tree, mesh) -> int:
@@ -122,7 +124,7 @@ def test_dense_prefill_flops():
         == 2 * matmul_params * tokens + attention + unembed
 
 
-def test_tag_json(tmp_path):
+def test_tag_json(tmp_path, jdryrun):
     out = dryrun.main(["--arch", "gemma-2b", "--shape", "decode_32k",
                        "--mesh", "both", "--groups", "1", "--out",
                        str(tmp_path)])
@@ -133,7 +135,12 @@ def test_tag_json(tmp_path):
     assert set(data["bytes_per_device"]) == {"params", "inputs",
                                              "decode_state"}
     assert data["cost_analysis"]["flops"] > 0
-    assert "not counted" in data["collective_bytes"]
+    counts = data["collective_bytes"]
+    assert counts and all(isinstance(v, int) and v > 0
+                          for v in counts.values())
+    assert {k.removesuffix("/cross_pod") for k in counts} \
+        <= set(jdryrun.COLLECTIVE_OPS)
+    assert "not counted" in data["collective_ops_static"]
     skipped = dryrun.run_one("gemma-2b", "long_500k", False, tmp_path,
                              verbose=False)
     assert "skipped" in skipped and "n_devices" not in skipped

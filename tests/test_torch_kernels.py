@@ -165,9 +165,18 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     assert sum(launches.KERNEL_LAUNCHES.values()) == 0
 
 
+class Elsewhere(torch.Tensor):
+    """A CPU tensor that reports a device with no kernel and no plain
+    version (not the CPU, ``meta`` or CUDA)."""
+
+    @property
+    def device(self):
+        return torch.device("xpu")
+
+
 def test_other_devices_raise_instead_of_falling_back():
-    x = torch.empty((2, 256), device="meta")
-    with pytest.raises(ValueError, match="no kernel for device meta"):
+    x = torch.zeros((2, 256)).as_subclass(Elsewhere)
+    with pytest.raises(ValueError, match="no kernel for device xpu"):
         tops.quantize_dequant(x, bits=8)
     with pytest.raises(ValueError, match="several devices"):
         tops.fused_accum(torch.zeros(2, 256), torch.ones(2, device="meta"),

@@ -20,6 +20,7 @@ from repro_torch.kernels import launches
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.selective_scan import selective_scan_chunk_blocks
+from test_torch_kernels import Elsewhere
 
 # tests/test_kernels.py's shapes, plus a D that is not a multiple of 128
 # (the Pallas kernel takes it as one tile of D)
@@ -128,8 +129,8 @@ def test_cpu_never_launches_and_other_devices_raise():
     hs, hl = tops.selective_scan_chunk(a, b, h0)
     assert torch.equal(hs, tref_hs) and torch.equal(hl, tref_hl)
     assert launches.KERNEL_LAUNCHES["selective_scan"] == 0
-    with pytest.raises(ValueError, match="no kernel for device meta"):
-        selective_scan_chunk_blocks(a.to("meta"), b.to("meta"),
-                                    h0.to("meta"))
+    with pytest.raises(ValueError, match="no kernel for device xpu"):
+        selective_scan_chunk_blocks(*(x.as_subclass(Elsewhere)
+                                      for x in (a, b, h0)))
     with pytest.raises(ValueError, match="expected a, b"):
         selective_scan_chunk_blocks(a, b[:, :2], h0)

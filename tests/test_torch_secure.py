@@ -38,6 +38,7 @@ from repro_torch.kernels.fedprox_update import fedprox_update_flat
 from repro_torch.kernels.fused_quant_mask import (fold_mask_words,
                                                   secure_commit_blocks)
 from repro_torch.models.cnn import CIFAR_CNN, CNN
+from test_torch_kernels import Elsewhere
 
 K = 5
 PARTICIPATION = np.array([1, 1, 0, 1, 1], np.float32)
@@ -373,8 +374,8 @@ def test_new_wrappers_take_the_plain_version_on_cpu_and_refuse_bad_shapes():
     with pytest.raises(ValueError, match="w0"):
         fedprox_update_flat(torch.ones(2, 8), torch.ones(2, 8),
                             torch.zeros(7), 0.1, 0.0)
-    with pytest.raises(ValueError, match="no kernel for device meta"):
-        fedprox_update_flat(*(torch.empty(s, device="meta")
+    with pytest.raises(ValueError, match="no kernel for device xpu"):
+        fedprox_update_flat(*(torch.zeros(s).as_subclass(Elsewhere)
                               for s in ((2, 8), (2, 8), (8,))), 0.1, 0.0)
 
 

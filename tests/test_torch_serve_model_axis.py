@@ -29,7 +29,9 @@ mesh (the params cut over ``data`` too where it is 2: FSDP, each slot's
 weights gathered just before it runs, the MoE's expert F gathered in
 prefill and left cut in decode, whose partial sums are added over
 ``data``); a sampled run
-(temperature 1) draws the same tokens on every rank and as no mesh does.
+(temperature 1) draws the same tokens on every rank and as no mesh does;
+each rank's collective bytes by kind over ``serve.run`` equal the dry
+run's count of the same run on its rank (``dryrun.serve_collectives``).
 The MoE's capacity is reckoned from the local token count in prefill and
 from the gathered count in decode, as in the reference; the reduced MoE
 configs (4 experts, top 2, capacity factor 2) give every expert a capacity
@@ -102,7 +104,8 @@ def to_plain(tree):
 
 def serve_case(name, weights=None):
     """The case through ``serve.run`` on this process (its mesh, or
-    none): (logits, decode state, param bytes)."""
+    none): (logits, decode state, param bytes, collective bytes by
+    kind)."""
     cfg = config(name)
     _, _, S0, T = CASES[name]
     if weights is None:
@@ -112,9 +115,11 @@ def serve_case(name, weights=None):
         model = build_model(cfg)
         params = sp.shard_params(weights, model.logical_specs)
     toks, patches = inputs(cfg, S0, T)
-    res = serve.run(model, params, toks[:, :S0], T, 0.0, torch.Generator(),
-                    patches, forced=toks[:, S0:])
-    return res.logits, to_plain(res.state), sp.param_bytes(params)
+    with sh.count_collectives() as counts:
+        res = serve.run(model, params, toks[:, :S0], T, 0.0,
+                        torch.Generator(), patches, forced=toks[:, S0:])
+    return (res.logits, to_plain(res.state), sp.param_bytes(params),
+            dict(counts))
 
 
 def sampled_ids():
@@ -129,6 +134,9 @@ def sampled_ids():
 def rank_main(mesh, weights):
     torch.use_deterministic_algorithms(True)
     out = {name: serve_case(name, weights.get(name)) for name in CASES}
+    for name, (_, _, S0, T) in CASES.items():
+        out["dry", name] = dryrun.serve_collectives(config(name), mesh, B,
+                                                    S0, T)
     ids = sampled_ids()
     out["sampled"] = (ids, sh.replica_checksums(
         {"ids": torch.from_numpy(ids)}))
@@ -193,12 +201,12 @@ def rel(got, want):
 @pytest.mark.parametrize("name", list(CASES))
 def test_served_logits_and_state_match_no_mesh(ranks, references, name):
     mesh, got = ranks
-    want_logits, want_state, _ = references["runs"][name]
+    want_logits, want_state, _, _ = references["runs"][name]
     model = build_model(config(name))
     _, _, S0, T = CASES[name]
     logical = model.state_logical_specs(B, S0 + T)
     for rank, out in enumerate(got):
-        logits, state, _ = out[name]
+        logits, state, _, _ = out[name]
         assert len(logits) == T + 1
         for i, (g, w) in enumerate(zip(logits, want_logits)):
             assert g.shape == w.shape and torch.isfinite(g).all()
@@ -254,3 +262,11 @@ def test_sampled_tokens_agree_across_ranks(ranks, references):
         ids, sums = out["sampled"]
         assert len(set(sums["ids"])) == 1, (mesh, rank)
         np.testing.assert_array_equal(ids, references["sampled"])
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_served_collective_bytes_are_the_dry_runs(ranks, name):
+    mesh, got = ranks
+    for rank, out in enumerate(got):
+        live, dry = out[name][3], out["dry", name]
+        assert live and live == dry, (mesh, rank, live, dry)
