@@ -255,7 +255,11 @@ it happened; any failure ends the run with a non-zero exit code:
      to the dry run's, the loss and the params against no mesh (5e-3,
      3e-2), the shares bit for bit on the ranks that hold them, each
      rank's collective bytes by kind equal to the dry run's count of the
-     same round on its rank (``dryrun.count_collectives``), each rank's
+     same round on its rank (``dryrun.count_collectives``), its memory
+     analysis (``launch.memory.count_memory`` over the step: argument,
+     output, temp and alias bytes and the peak) equal to the dry run's
+     (``dryrun.count_memory``) and the allocator's peak over the step
+     within MEMORY_TOL of the dry peak, each rank's
      peak, the collectives' time and gloo's GB/s printed; then, on a 2-slot
      stack of each rank's delta shares, the q8 + top-k and secure q8 +
      top-k commits on the shares, the ranks in two turns over data: the
@@ -267,7 +271,9 @@ it happened; any failure ends the run with a non-zero exit code:
      one row of the batch a data rank, fed the no-mesh run's tokens: its
      param and decode-state bytes the dry run's, its collective bytes by
      kind the dry run's count of the same ``serve.run``
-     (``dryrun.serve_collectives``), the experts' F held cut over data
+     (``dryrun.serve_collectives``), its memory analysis the dry run's
+     (``dryrun.serve_memory``) and the allocator's peak within
+     MEMORY_TOL of the dry peak, the experts' F held cut over data
      and, in decode, their partial sums added over data once a MoE layer
      a step, the logits within SERVE_DECODE_TOL of no mesh's at every
      step, 28 scans a rank on 8192 channels, each rank's peak, prefill s
@@ -326,7 +332,7 @@ from repro_torch.kernels import ops as kops  # noqa: E402
 from repro_torch.kernels.selective_scan import (  # noqa: E402
     selective_scan_chunk_blocks, selective_scan_chunk_bwd_blocks)
 from repro_torch.kernels.topk_sparsify import topk_sparsify_blocks  # noqa: E402
-from repro_torch.launch import dryrun, serve, train  # noqa: E402
+from repro_torch.launch import dryrun, memory, serve, train  # noqa: E402
 from repro_torch.launch import specs as sp  # noqa: E402
 from repro_torch.models import (build_model, param_count,  # noqa: E402
                                 token_shape)
@@ -2710,7 +2716,8 @@ def recorded_routes():
 
     def route(x2d, router, cfg):
         out = orig(x2d, router, cfg)
-        routes.append(out[0].detach().clone())
+        with memory.uncharged():        # the record's, not the run's
+            routes.append(out[0].detach().clone())
         return out
 
     moe_mod._route = route
@@ -3405,12 +3412,15 @@ def mesh_rounds(label, loss_fn, params, fl, batches, w, m, mesh, device):
 
 def start_dry_run(archs=DRYRUN_ARCHS) -> dict:
     """The dry run of ``archs`` (every shape, both production meshes, on
-    the meta device) started in background processes, one an arch, at
-    the lowest priority and one thread each, so that the script's own
-    work comes first: it needs no card, and each process runs with none
-    visible (``CUDA_VISIBLE_DEVICES`` empty), so it can allocate nothing
-    there.  Each writes its JSON records and its output to a directory of
-    its own.  Returns the job for ``finish_dry_run``."""
+    the meta device) started in background processes, one an arch and
+    shape (a train or prefill tag counts its memory at up to four layer
+    groups, and the host has the cores), at the lowest priority and one
+    thread each, so that the script's own work comes first: it needs no
+    card, and each process runs with none visible
+    (``CUDA_VISIBLE_DEVICES`` empty), so it can allocate nothing there.
+    Each arch's processes write their JSON records to a directory of its
+    own, each its output to a file.  Returns the job for
+    ``finish_dry_run``."""
     out = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1",
                MKL_NUM_THREADS="1", PYTHONPATH=os.pathsep.join(
@@ -3418,14 +3428,15 @@ def start_dry_run(archs=DRYRUN_ARCHS) -> dict:
                        os.environ.get("PYTHONPATH"),) if p]))
     procs = {}
     for arch in archs:
-        with open(os.path.join(out, f"{arch}.log"), "w") as log:
-            procs[arch] = subprocess.Popen(
-                [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-                 arch, "--shape", "all", "--mesh", "both", "--out",
-                 os.path.join(out, arch)], env=env, stdout=log,
-                stderr=subprocess.STDOUT)
-            os.setpriority(os.PRIO_PROCESS, procs[arch].pid, 19)
-    return dict(procs=procs, out=out, t0=time.perf_counter(),
+        for shape in INPUT_SHAPES:
+            with open(os.path.join(out, f"{arch}__{shape}.log"), "w") as log:
+                procs[arch, shape] = subprocess.Popen(
+                    [sys.executable, "-m", "repro_torch.launch.dryrun",
+                     "--arch", arch, "--shape", shape, "--mesh", "both",
+                     "--out", os.path.join(out, arch)], env=env, stdout=log,
+                    stderr=subprocess.STDOUT)
+                os.setpriority(os.PRIO_PROCESS, procs[arch, shape].pid, 19)
+    return dict(procs=procs, archs=archs, out=out, t0=time.perf_counter(),
                 started=time.time())
 
 
@@ -3456,31 +3467,54 @@ def collective_keys_ok(rec) -> bool:
                  else rec["mesh"] == "multi" or not cross))
 
 
+# the reference's memory_analysis keys (its compiled step's), less the
+# generated code's size, which the port writes as a note
+MEMORY_KEYS = ("argument_size_in_bytes", "output_size_in_bytes",
+               "temp_size_in_bytes", "alias_size_in_bytes")
+
+
+def memory_keys_ok(rec) -> bool:
+    """Whether a dry-run record's ``memory_analysis`` has the reference's
+    four keys as ints, positive where they must be, and its note."""
+    ma = rec["memory_analysis"]
+    return (all(isinstance(ma[k], int) for k in MEMORY_KEYS)
+            and ma["argument_size_in_bytes"] > 0
+            and ma["output_size_in_bytes"] > 0
+            and ma["temp_size_in_bytes"] > 0
+            and "generated_code_size_in_bytes" in ma["note"])
+
+
 def finish_dry_run(job, timeout_s: float = 600.0) -> None:
     """Wait for ``start_dry_run``'s processes; print each one's lines and
-    check that every tag of its arch wrote a record with flops and its
-    collectives' bytes by kind (``collective_keys_ok``), or was
-    skipped."""
+    check that every tag of each arch wrote a record with flops, its
+    collectives' bytes by kind (``collective_keys_ok``) and its memory
+    analysis (``memory_keys_ok``), or was skipped."""
     t0 = time.perf_counter()
-    for arch, p in job["procs"].items():
-        rc = p.wait(timeout=timeout_s)
-        print(Path(job["out"], f"{arch}.log").read_text(), end="")
+    rcs = {}
+    for (arch, shape), p in job["procs"].items():
+        rcs.setdefault(arch, []).append(p.wait(timeout=timeout_s))
+        print(Path(job["out"], f"{arch}__{shape}.log").read_text(), end="")
+    for arch in job["archs"]:
         recs = [json.loads(f.read_text())
                 for f in sorted(Path(job["out"], arch).glob("*.json"))]
-        check(rc == 0 and len(recs) == 2 * len(INPUT_SHAPES)
+        check(set(rcs[arch]) == {0} and len(recs) == 2 * len(INPUT_SHAPES)
               and all("skipped" in r or r["cost_analysis"]["flops"] > 0
-                      and collective_keys_ok(r) for r in recs),
-              f"mesh: dry run of {arch}: exit {rc}, records {recs}")
+                      and collective_keys_ok(r) and memory_keys_ok(r)
+                      for r in recs),
+              f"mesh: dry run of {arch}: exits {rcs[arch]}, records {recs}")
         print(f"mesh: dry run of {arch}, each tag's collective GB a device "
-              f"(cross-pod): " + ", ".join(
+              f"(cross-pod), argument + temp GB a device: " + ", ".join(
                   f"{r['tag']} {dryrun.total_gb(r['collective_bytes']):.2f} "
-                  f"({dryrun.total_gb(r['collective_bytes'], True):.2f})"
+                  f"({dryrun.total_gb(r['collective_bytes'], True):.2f}), "
+                  + "{argument_size_in_bytes:.3g} + {temp_size_in_bytes:.3g}"
+                  .format(**{k: v / 1e9 for k, v in
+                             r["memory_analysis"].items() if k != "note"})
                   for r in recs if "skipped" not in r))
     ended = max((f.stat().st_mtime for f in Path(job["out"]).rglob("*")),
                 default=job["started"])
-    print(f"mesh: the dry run of {', '.join(job['procs'])} over every "
-          f"shape and both meshes, one process an arch with no card "
-          f"visible, at the lowest priority: its last output "
+    print(f"mesh: the dry run of {', '.join(job['archs'])} over every "
+          f"shape and both meshes, one process an arch and shape with no "
+          f"card visible, at the lowest priority: its last output "
           f"{ended - job['started']:.1f} s after its start (the start of "
           f"round_parity), joined after "
           f"{time.perf_counter() - job['t0']:.1f} s, "
@@ -3566,6 +3600,11 @@ SPMD_JAMBA_TOL = (1e-3, 1e-4)
 # (b) against the unsharded round: tests/test_mesh_small.py's bounds for a
 # sharded round, the loss and the params
 SPMD_SHARDED_TOL = (5e-3, 3e-2)
+# (g) and (h): the allocator's peak over a rank's step against the dry
+# run's (temp plus the outputs the step allocated); the share covers what
+# no dispatched op returns: cuBLAS's workspaces, the few 512-byte blocks
+# of torch.tensor constants, an op's own temporaries
+MEMORY_TOL = 0.05
 # (b): MusicGen-medium whole, sequential, 1 client x 1 step, batch 2 x
 # 512 frames x 4 codebooks split over data 2, one round: one client of one
 # local step, since each step gathers the weights' data shares over gloo
@@ -4817,22 +4856,29 @@ def granite_fsdp_rank(mesh, ref_path, cfg, sh_):
     step = build_fl_round_step(model.loss_fn, get_client_optimizer("sgd"),
                                get_server_optimizer("fedavg"), fl)
     cuda = dev.startswith("cuda")
+    args = (params, (), batches, torch.ones(C, device=dev),
+            torch.ones(C, device=dev))
+    sync(dev)
+    before = torch.cuda.memory_allocated(dev) if cuda else 0
     if cuda:
         torch.cuda.reset_peak_memory_stats(dev)
-    sync(dev)
     t0 = time.perf_counter()
     with shd.timed_collectives() as stats, \
-            shd.count_collectives() as moved:
-        new, _, met = step(params, (), batches, torch.ones(C, device=dev),
-                           torch.ones(C, device=dev),
-                           torch.Generator().manual_seed(7))
+            shd.count_collectives() as moved, \
+            memory.count_memory(torch.device(dev).type) as mem:
+        out = step(*args, torch.Generator().manual_seed(7))
+        new, _, met = out
         loss = float(met["client_loss"])
         sync(dev)
     wall = time.perf_counter() - t0
-    moved = (dict(moved), dryrun.count_collectives(
-        cfg, InputShape("spmd (g)", S, C * B, "train"), mesh, fl=fl),
-        float(sum(stats["seconds"].values())), "of collectives")
     peak = torch.cuda.max_memory_allocated(dev) if cuda else 0
+    dry_moved, dry_mem = dryrun.count_step(
+        cfg, InputShape("spmd (g)", S, C * B, "train"), mesh, fl=fl)
+    moved = (dict(moved), dry_moved, float(sum(stats["seconds"].values())),
+             "of collectives")
+    held = (mem.analysis(args, out), dry_mem,
+            peak - before if cuda else None)
+    del out, args
     stack = share_stack(params, new)
     del params, batches
     want = sp.shard_params(torch.load(ref_path, mmap=True,
@@ -4850,12 +4896,34 @@ def granite_fsdp_rank(mesh, ref_path, cfg, sh_):
           f"(dry run {sizes['state'][1]}); round_wall_s={wall:.4f} "
           f"client_loss={loss:.6f} max_memory_allocated={peak} "
           f"({peak / 1e9:.2f} GB); collectives (s, calls) {coll}; "
-          f"{moved_line(moved)}", flush=True)
+          f"{moved_line(moved)}; {memory_line(held)}", flush=True)
     del want
     commits = fsdp_share_commits(mesh, stack, cuts, dev)
     return dict(sizes=sizes, loss=loss, wall=wall, peak=peak, gap=gap,
                 finite=finite, same=same, collectives=coll, commits=commits,
-                moved=moved)
+                moved=moved, memory=held)
+
+
+def memory_line(held) -> str:
+    """A rank's (live memory analysis, the dry run's of the same step, the
+    allocator's peak over the step above what was allocated before it, or
+    None off the card) as a line."""
+    live, dry, alloc = held
+    return (f"memory analysis {live} (dry run {dry})"
+            + ("" if alloc is None else
+               f"; max_memory_allocated over the step {alloc} against the "
+               f"dry peak {dry['peak_size_in_bytes']}: "
+               f"{alloc / dry['peak_size_in_bytes']:.4f}"))
+
+
+def memory_ok(held) -> bool:
+    """(a) the live count equals the dry one in all four numbers and the
+    peak; (b) on the card the allocator's peak over the step lies within
+    MEMORY_TOL of the dry peak (temp plus the outputs it allocated)."""
+    live, dry, alloc = held
+    return live == dry and (alloc is None or abs(
+        alloc - dry["peak_size_in_bytes"]) <= MEMORY_TOL
+        * dry["peak_size_in_bytes"])
 
 
 def moved_line(moved) -> str:
@@ -4998,6 +5066,9 @@ def check_granite_fsdp(out, loss, peak, n, item, expect) -> None:
     check(all(o["moved"][0] == o["moved"][1] for o in out),
           f"spmd (g): the ranks' collective bytes against the dry run's "
           f"{[o['moved'][:2] for o in out]}")
+    check(all(memory_ok(o["memory"]) for o in out),
+          f"spmd (g): the ranks' memory against the dry run's "
+          f"{[o['memory'] for o in out]}")
     check(all(o["same"] for o in out),
           "spmd (g): params differ between the ranks that hold a share")
     check(all(abs(o["loss"] - loss) < SPMD_SHARDED_TOL[0]
@@ -5183,7 +5254,7 @@ def jamba_model_rank(mesh, ref_path, cfg, shape, label, routed_alike,
     t0 = time.perf_counter()
     cuda = dev.startswith("cuda")
 
-    def memory(when):
+    def show_memory(when):
         if cuda:
             print(f"{label} rank {mesh.rank} {when}: memory_allocated "
                   f"{torch.cuda.memory_allocated(dev)} reserved "
@@ -5192,11 +5263,11 @@ def jamba_model_rank(mesh, ref_path, cfg, shape, label, routed_alike,
 
     for turn in range(mesh.size):
         if mesh.rank == turn:
-            memory(f"before its draw of {cfg.moe.num_experts} experts")
+            show_memory(f"before its draw of {cfg.moe.num_experts} experts")
             model, params = serve.build(cfg, dev, seed=0, shard=True)
             sync(dev)
             free_cache(dev)
-            memory("after its draw")
+            show_memory("after its draw")
         torch.distributed.barrier()
     build_s = time.perf_counter() - t0
     B, S0, T = (shape[k] for k in ("batch", "prompt_len", "gen"))
@@ -5219,17 +5290,25 @@ def jamba_model_rank(mesh, ref_path, cfg, shape, label, routed_alike,
             partials.append(x.shape)
         return reduce(x)
 
+    # the prompt and the given tokens on the card before the run, as the
+    # dry run takes them (arguments, not the run's own copies)
+    prompt, forced = (torch.as_tensor(ref[k]).to(dev, torch.long)
+                      for k in ("prompt", "ids"))
+    sync(dev)
+    before = torch.cuda.memory_allocated(dev) if cuda else 0
     if cuda:
         torch.cuda.reset_peak_memory_stats(dev)
     launches.reset()
     kops.selective_scan_chunk, shd.reduce_from_data = scan, summed
     try:
-        with recorded_routes() as routes, shd.count_collectives() as moved:
-            res = serve.run(model, params, ref["prompt"], T, 0.0,
-                            torch.Generator(dev), forced=ref["ids"])
+        with recorded_routes() as routes, shd.count_collectives() as moved, \
+                memory.count_memory(torch.device(dev).type) as mem:
+            res = serve.run(model, params, prompt, T, 0.0,
+                            torch.Generator(dev), forced=forced)
     finally:
         kops.selective_scan_chunk, shd.reduce_from_data = orig, reduce
     sync(dev)
+    peak = torch.cuda.max_memory_allocated(dev) if cuda else 0
     if count:
         # the collectives are not timed one by one (a synchronise around
         # each would serialise the decode's gathers with its compute): the
@@ -5237,9 +5316,13 @@ def jamba_model_rank(mesh, ref_path, cfg, shape, label, routed_alike,
         # mesh a token takes 19-29 ms of the seconds it takes here)
         moved = (dict(moved), dryrun.serve_collectives(cfg, mesh, B, S0, T),
                  res.prefill_s + res.decode_s, "of prefill and decode")
+        held_memory = (mem.analysis((params, prompt, forced),
+                                    (res.logits, res.state)),
+                       dryrun.serve_memory(cfg, mesh, B, S0, T),
+                       peak - before if cuda else None)
+    del prompt, forced
     counts = dict(launches.KERNEL_LAUNCHES)
     launches.reset()
-    peak = torch.cuda.max_memory_allocated(dev) if cuda else 0
     held = (sp.param_bytes(params), sum(
         v.numel() * v.element_size() for leaves in res.state.values()
         for v in leaves.values()))
@@ -5269,7 +5352,8 @@ def jamba_model_rank(mesh, ref_path, cfg, shape, label, routed_alike,
                                  first=shd.shard_index(
                                      shd.batch_split_axes()) * B
                                  // shd.shard_count(shd.batch_split_axes())),
-               moved=moved if count else None)
+               moved=moved if count else None,
+               memory=held_memory if count else None)
     finite = all(bool(torch.isfinite(g).all()) for g in res.logits)
     del res, routes
     if routed_alike:
@@ -5292,7 +5376,8 @@ def jamba_model_rank(mesh, ref_path, cfg, shape, label, routed_alike,
           f"{out['decode_ms']:.2f} ms/token max_memory_allocated={peak} "
           f"({peak / 1e9:.2f} GB); scan calls {len(channels)} on "
           f"{out['channels']} channels; launches {counts}"
-          + (f"; {moved_line(moved)}" if count else ""), flush=True)
+          + (f"; {moved_line(moved)}; {memory_line(held_memory)}"
+             if count else ""), flush=True)
     return out
 
 
@@ -5423,11 +5508,12 @@ def serve_jamba_model(device, kind, cfg=None, shape=SERVE_MODEL):
 
 
 def check_served_fsdp(cfg, out, shape, n_scan, n_moe, di, cuda) -> dict:
-    """(h)'s checks over its ranks' results: the bytes the dry run's, the
-    experts' F held cut over data and its partials summed over data once
-    a MoE layer a decode step, the logits within SERVE_DECODE_TOL of no
-    mesh's at every step with no routing flipped, the scans on the rank's
-    channels.  Returns the launches summed over the ranks."""
+    """(h)'s checks over its ranks' results: the bytes and the memory the
+    dry run's (``memory_ok``), the experts' F held cut over data and its
+    partials summed over data once a MoE layer a decode step, the logits
+    within SERVE_DECODE_TOL of no mesh's at every step with no routing
+    flipped, the scans on the rank's channels.  Returns the launches
+    summed over the ranks."""
     T = shape["gen"]
     label = f"spmd (h) {SERVE_NO_CHOICE} on data 2 x model 2"
     worst = [round(max(o["gaps"][i] for o in out), 5) for i in range(T + 1)]
@@ -5455,6 +5541,8 @@ def check_served_fsdp(cfg, out, shape, n_scan, n_moe, di, cuda) -> dict:
         check(o["moved"][0] == o["moved"][1],
               f"{label}: the collective bytes {o['moved'][0]} against the "
               f"dry run's {o['moved'][1]}")
+        check(memory_ok(o["memory"]),
+              f"{label}: the memory {o['memory']} against the dry run's")
         check(o["f_cut"] == [cfg.moe.d_expert // FSDP_SIZES[0]]
               and o["partials"] == n_moe * T,
               f"{label}: the experts' F {o['f_cut']}, F partials summed "

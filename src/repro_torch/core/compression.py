@@ -33,6 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ref as _ref
+from repro_torch.launch import memory
 from repro_torch.models import sharding as sh
 from repro_torch.pytree import ordered
 
@@ -70,9 +71,9 @@ def _rand(shape, generator: torch.Generator, device, cut=()):
     the share's shape, and the generator is left as it is."""
     if torch.device(device).type == "meta":
         return torch.empty(tuple(shape), device="meta")
-    whole = torch.rand(sh.whole_shape(shape, cut), generator=generator,
-                       device=generator.device)
-    return sh.take_share(whole, cut).to(device)
+    return memory.drawn(lambda: sh.take_share(torch.rand(
+        sh.whole_shape(shape, cut), generator=generator,
+        device=generator.device), cut), generator, device)
 
 
 # ---------------------------------------------------------------------------

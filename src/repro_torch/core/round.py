@@ -92,6 +92,7 @@ from torch.func import grad_and_value, vmap
 from repro_torch.core.compression import CompressionConfig
 from repro_torch.core.pipeline import (build_update_pipeline, cuts_over,
                                       cuts_share, cuts_whole)
+from repro_torch.launch import memory
 from repro_torch.models import sharding as shd
 from repro_torch.models.common import lane_exact
 from repro_torch.optim import Optimizer, ServerOptimizer
@@ -402,7 +403,8 @@ class SequentialRound:
         cuts = self.layout()
         acc = pipe.accum_init(global_params)
         key = pipe.mask_key(generator) if self.cfg.secure_agg else None
-        ids = torch.arange(C, dtype=torch.int32)
+        with memory.uncharged():     # the host's, as on the card
+            ids = torch.arange(C, dtype=torch.int32)
         wsum = torch.zeros((), dtype=torch.float32, device=mask.device)
         loss_sum = torch.zeros((), dtype=torch.float32, device=mask.device)
         for c, (delta, loss) in enumerate(updates):

@@ -24,12 +24,16 @@ def fedprox_update_flat(w, g, w0, lr: float, mu: float):
         raise ValueError(f"{NAME}: expected w, g [C, N] and w0 [N], got "
                          f"{tuple(w.shape)}, {tuple(g.shape)}, "
                          f"{tuple(w0.shape)}")
+
+    def prepare():
+        launches.check_operands(NAME, w, g, w0)
+        return torch.empty_like(w), ()
     if launches.on_cpu(w, g, w0):
-        return ref.fedprox_update_ref(w, g, w0[None], lr, mu)
+        return launches.plain(w.device, lambda: ref.fedprox_update_ref(
+            w, g, w0[None], lr, mu), prepare)
     from repro_torch.kernels import _build
-    launches.check_operands(NAME, w, g, w0)
     C, N = w.shape
-    out = torch.empty_like(w)
+    out, _ = prepare()
     _build.launch("fedprox_update", NAME, w.data_ptr(),
                   g.data_ptr(), w0.data_ptr(), out.data_ptr(), float(lr),
                   float(mu), C, N, device=w.device)

@@ -18,11 +18,15 @@ def fused_accum_blocks(xb, w, s, alpha: float):
     Returns the [R, block] f32 discounted weighted sum over slots."""
     K = xb.shape[0]
     launches.check_shapes(NAME, xb, 3, w, s)
+
+    def prepare():
+        launches.check_operands(NAME, xb, w, s)
+        return xb.new_empty(xb.shape[1:]), ()  # float32, on xb's device
     if launches.on_cpu(xb, w, s):
-        return ref.fused_accum_ref(xb, w.reshape(K, 1), s.reshape(K, 1), alpha)
+        return launches.plain(xb.device, lambda: ref.fused_accum_ref(
+            xb, w.reshape(K, 1), s.reshape(K, 1), alpha), prepare)
     from repro_torch.kernels import _build
-    launches.check_operands(NAME, xb, w, s)
-    out = xb.new_empty(xb.shape[1:])          # float32, on xb's device
+    out, _ = prepare()
     _build.launch("commit_kernels", NAME, xb.data_ptr(), w.data_ptr(),
                   s.data_ptr(), float(alpha), out.data_ptr(), K, out.numel(),
                   device=xb.device)

@@ -40,12 +40,16 @@ def plain_commit_blocks(xb, w, s, alpha: float, *, bits: int, k: int):
     ``bits`` 0 skips the quantize, ``k`` 0 skips the top-k."""
     launches.check_shapes(NAME, xb, 3, w, s)
     K, R, block = xb.shape
+
+    def prepare():
+        launches.check_operands(NAME, xb, w, s)
+        return torch.empty((R, block), dtype=torch.float32,
+                           device=xb.device), ()
     if launches.on_cpu(xb, w, s):
-        return ref.fused_plain_commit_ref(xb, w.reshape(K, 1), s.reshape(K, 1),
-                                          alpha, bits, k=k)
+        return launches.plain(xb.device, lambda: ref.fused_plain_commit_ref(
+            xb, w.reshape(K, 1), s.reshape(K, 1), alpha, bits, k=k), prepare)
     from repro_torch.kernels import _build
-    launches.check_operands(NAME, xb, w, s)
-    out = torch.empty((R, block), dtype=torch.float32, device=xb.device)
+    out, _ = prepare()
     _build.launch("commit_kernels", NAME, xb.data_ptr(), w.data_ptr(),
                   s.data_ptr(), float(alpha), out.data_ptr(), K, R, block, bits,
                   k, device=xb.device)
@@ -95,20 +99,24 @@ def secure_commit_blocks(xb, w_eff, seeds, coef, base: int, *, bits: int,
                          f"{tuple(rows.shape)} for {R} rows")
     extra = () if noise is None else (noise,)
     table = () if rows is None else (rows,)
-    if launches.on_cpu(xb, w_eff, seeds, coef, *extra, *table):
-        return ref.fused_secure_commit_ref(xb, w_eff.reshape(K, 1), seeds,
-                                           coef, base, bits, k=k, noise=noise,
-                                           rows=rows)
-    from repro_torch.kernels import _build
-    launches.check_operands(SECURE, xb, w_eff, *extra)
-    seeds, coef = _pair_operands(seeds, coef)
-    if rows is not None:
+
+    def prepare():
+        launches.check_operands(SECURE, xb, w_eff, *extra)
+        pairs = _pair_operands(seeds, coef)
         # uint32 indices, the same bits as int32
-        rows = rows.to(torch.int32).contiguous()
-    # the folded mask words: a count, then (seed, net coefficient) pairs
-    words = xb.new_empty(1 + 2 * K * K, dtype=torch.int32)
-    thresh = xb.new_empty((R, K), dtype=torch.int32)
-    out = xb.new_empty((R, block))            # float32, on xb's device
+        index = None if rows is None else rows.to(torch.int32).contiguous()
+        # the folded mask words: a count, then (seed, net coefficient)
+        # pairs; each row's per-slot top-k thresholds
+        words = xb.new_empty(1 + 2 * K * K, dtype=torch.int32)
+        thresh = xb.new_empty((R, K), dtype=torch.int32)
+        out = xb.new_empty((R, block))        # float32, on xb's device
+        return out, (pairs, index, words, thresh)
+    if launches.on_cpu(xb, w_eff, seeds, coef, *extra, *table):
+        return launches.plain(xb.device, lambda: ref.fused_secure_commit_ref(
+            xb, w_eff.reshape(K, 1), seeds, coef, base, bits, k=k,
+            noise=noise, rows=rows), prepare)
+    from repro_torch.kernels import _build
+    out, ((seeds, coef), rows, words, thresh) = prepare()
     _build.launch("secure_commit", SECURE, xb.data_ptr(), w_eff.data_ptr(),
                   seeds.data_ptr(), coef.data_ptr(), int(base) & ref.U32,
                   rows.data_ptr() if table else None,

@@ -5,12 +5,20 @@ kernel wrapper runs before it hands pointers to CUDA.
 kernel ``name`` on the card, and nowhere else: the plain PyTorch version a
 CPU (or ``meta``) tensor takes is not a launch.  A run reads the counts to
 show which kernels its path went through; ``reset()`` zeroes them.
+
+``plain`` is where a wrapper's CPU and ``meta`` operands go: on ``meta``
+(the dry run) the wrapper's CUDA branch runs its operand checks and
+allocations and launches nothing, so the dry run charges what the card
+allocates; on the CPU the plain version runs, charged to an open memory
+count (``launch.memory``) as the CUDA branch allocates.
 """
 from __future__ import annotations
 
 from collections import Counter
 
 import torch
+
+from repro_torch.launch import memory
 
 KERNEL_LAUNCHES: Counter = Counter()
 
@@ -62,3 +70,26 @@ def check_operands(name: str, blocks, *vectors) -> None:
             raise ValueError(f"{name}: operand is not contiguous")
     if blocks.data_ptr() % 16:
         raise ValueError(f"{name}: blocks are not 16-byte aligned")
+
+
+def plain(device, run, prepare):
+    """A wrapper's result off the card.  ``run()`` computes the plain
+    version; ``prepare()`` is the CUDA branch up to its launch (operand
+    checks and allocations): ``(outputs, scratch)``, the tensors the kernel
+    writes (one, or a tuple) and those it holds only while it runs.  On
+    ``meta`` the outputs of ``prepare()`` are the result.  On the CPU the
+    result is ``run()``'s; under an open memory count it is copied into
+    ``prepare()``'s outputs, the plain version's own allocations not
+    charged, so the count is the card's.  No launch is counted."""
+    if device.type == "meta":
+        return prepare()[0]
+    if not memory.counting():
+        return run()
+    outs, scratch = prepare()
+    with memory.uncharged():
+        got = run()
+    for o, g in zip(*(x if isinstance(x, tuple) else (x,)
+                      for x in (outs, got))):
+        o.copy_(g)
+    del scratch
+    return outs

@@ -59,6 +59,7 @@ from repro_torch.kernels import ref
 from repro_torch.kernels import selective_scan as _ss
 from repro_torch.kernels import topk_sparsify as _tk
 from repro_torch.kernels.launches import KERNEL_LAUNCHES  # noqa: F401
+from repro_torch.launch import memory
 from repro_torch.models import sharding as sh
 
 
@@ -316,12 +317,15 @@ def _secure_rows(xb, w_eff, seeds, coef, base, bits, k, use_kernel,
     if noise_generator is not None and xb.device.type == "meta":
         noise = torch.empty(xb.shape, device="meta")
     elif noise_generator is not None:
-        rows = xb.shape[1] if table is None else whole_rows
-        noise = torch.rand((K, rows, xb.shape[2]), generator=noise_generator,
-                           device=noise_generator.device)
-        if table is not None:
-            noise = noise.index_select(1, table.to(noise.device))
-        noise = noise.to(xb.device)
+        def draw():
+            rows = xb.shape[1] if table is None else whole_rows
+            noise = torch.rand((K, rows, xb.shape[2]),
+                               generator=noise_generator,
+                               device=noise_generator.device)
+            if table is not None:
+                noise = noise.index_select(1, table.to(noise.device))
+            return noise
+        noise = memory.drawn(draw, noise_generator, xb.device)
     seeds, coef = seeds.to(xb.device), coef.to(xb.device)
     if table is not None:
         table = table.to(xb.device)
@@ -447,10 +451,12 @@ def fused_secure_commit(x, w_eff, seeds, coef, base, *, bits: int, k: int = 0,
 def _fold(x, bdim, n):
     """A vmapped operand as one kernel operand: the vmapped dim (``bdim``,
     size ``n``) folded into the batch dim, [n * B, ...]; an unbatched
-    operand (``bdim`` None) is expanded first.  A kernel reads
-    ``data_ptr()``, so it never sees a batched tensor."""
-    x = x.expand((n,) + tuple(x.shape)) if bdim is None else x.movedim(bdim,
-                                                                        0)
+    operand (``bdim`` None) is expanded and copied first (folded as a
+    view, a batch of one would keep the expansion's zero stride, which
+    the kernels refuse).  A kernel reads ``data_ptr()``, so it never sees
+    a batched tensor."""
+    x = x.expand((n,) + tuple(x.shape)).contiguous() if bdim is None \
+        else x.movedim(bdim, 0)
     return x.reshape((n * x.shape[1],) + tuple(x.shape[2:]))
 
 
@@ -461,8 +467,6 @@ def _unfold(x, n):
 class _SelectiveScanChunk(torch.autograd.Function):
     @staticmethod
     def forward(a, b, h0):
-        if a.device.type == "meta":      # shapes only: the dry run's sizing
-            return torch.empty_like(a), torch.empty_like(h0)
         return _ss.selective_scan_chunk_blocks(a, b, h0)
 
     @staticmethod
@@ -495,9 +499,6 @@ class _SelectiveScanChunkBwd(torch.autograd.Function):
 
     @staticmethod
     def forward(a, hs, h0, g_hs, g_hl):
-        if a.device.type == "meta":      # shapes only: the dry run's sizing
-            return torch.empty_like(a), torch.empty_like(a), \
-                torch.empty_like(h0)
         if not _ss.rows_contiguous(g_hs):
             g_hs = g_hs.contiguous()
         return _ss.selective_scan_chunk_bwd_blocks(a, hs, h0, g_hs, g_hl)

@@ -18,12 +18,16 @@ def quantize_dequant_blocks(xb, bits: int):
     """xb: [R, block] f32 -> the same shape, each row quantized onto its own
     symmetric int{bits} grid and dequantized."""
     launches.check_shapes(NAME, xb, 2)
+
+    def prepare():
+        launches.check_operands(NAME, xb)
+        return torch.empty_like(xb), ()
     if launches.on_cpu(xb):
-        return ref.quantize_blocks(xb.to(torch.float32), bits)
+        return launches.plain(xb.device, lambda: ref.quantize_blocks(
+            xb.to(torch.float32), bits), prepare)
     from repro_torch.kernels import _build
-    launches.check_operands(NAME, xb)
     R, block = xb.shape
-    out = torch.empty_like(xb)
+    out, _ = prepare()
     _build.launch("commit_kernels", "quantize_rows", xb.data_ptr(),
                   out.data_ptr(), R, block, bits, device=xb.device)
     launches.count(NAME)

@@ -48,15 +48,21 @@ def selective_scan_chunk_blocks(a, b, h0):
         raise ValueError(f"{NAME}: expected a, b [B, L, D, N] and h0 "
                          f"[B, D, N], got {tuple(a.shape)}, "
                          f"{tuple(b.shape)}, {tuple(h0.shape)}")
-    if launches.on_cpu(a, b, h0):
-        return ref.selective_scan_chunk_ref(a, b, h0)
-    from repro_torch.kernels import _build
-    _check_row_major(a, "a")
-    _check_row_major(b, "b")
-    launches.check_operands(NAME, h0)
     B, L, D, N = a.shape
-    hs = torch.empty((B, L, D, N), dtype=torch.float32, device=a.device)
-    h_last = torch.empty((B, D, N), dtype=torch.float32, device=a.device)
+
+    def prepare():
+        _check_row_major(a, "a")
+        _check_row_major(b, "b")
+        launches.check_operands(NAME, h0)
+        return (torch.empty((B, L, D, N), dtype=torch.float32,
+                            device=a.device),
+                torch.empty((B, D, N), dtype=torch.float32,
+                            device=a.device)), ()
+    if launches.on_cpu(a, b, h0):
+        return launches.plain(a.device, lambda: ref.selective_scan_chunk_ref(
+            a, b, h0), prepare)
+    from repro_torch.kernels import _build
+    (hs, h_last), _ = prepare()
     _build.launch("selective_scan", NAME, a.data_ptr(),
                   b.data_ptr(), h0.data_ptr(), hs.data_ptr(),
                   h_last.data_ptr(), B, L, D * N, a.stride(0), b.stride(0),
@@ -78,16 +84,21 @@ def selective_scan_chunk_bwd_blocks(a, hs, h0, g_hs, g_hl=None):
                          f"{tuple(g_hs.shape)}, "
                          f"{None if g_hl is None else tuple(g_hl.shape)}")
     rest = () if g_hl is None else (g_hl,)
-    if launches.on_cpu(a, hs, h0, g_hs, *rest):
-        return ref.selective_scan_chunk_bwd_ref(a, hs, h0, g_hs, g_hl)
-    from repro_torch.kernels import _build
-    for t, what in ((a, "a"), (hs, "hs"), (g_hs, "g_hs")):
-        _check_row_major(t, what, BWD_NAME)
-    launches.check_operands(BWD_NAME, h0, *rest)
     B, L, D, N = a.shape
-    ga = torch.empty((B, L, D, N), dtype=torch.float32, device=a.device)
-    gb = torch.empty((B, L, D, N), dtype=torch.float32, device=a.device)
-    gh0 = torch.empty((B, D, N), dtype=torch.float32, device=a.device)
+
+    def prepare():
+        for t, what in ((a, "a"), (hs, "hs"), (g_hs, "g_hs")):
+            _check_row_major(t, what, BWD_NAME)
+        launches.check_operands(BWD_NAME, h0, *rest)
+        empty = lambda *shape: torch.empty(shape, dtype=torch.float32,
+                                           device=a.device)
+        return (empty(B, L, D, N), empty(B, L, D, N), empty(B, D, N)), ()
+    if launches.on_cpu(a, hs, h0, g_hs, *rest):
+        return launches.plain(
+            a.device, lambda: ref.selective_scan_chunk_bwd_ref(
+                a, hs, h0, g_hs, g_hl), prepare)
+    from repro_torch.kernels import _build
+    (ga, gb, gh0), _ = prepare()
     _build.launch("selective_scan", BWD_NAME, a.data_ptr(), hs.data_ptr(),
                   h0.data_ptr(), g_hs.data_ptr(),
                   None if g_hl is None else g_hl.data_ptr(), ga.data_ptr(),

@@ -24,12 +24,16 @@ NAME = "topk_sparsify"
 def topk_sparsify_blocks(xb, k: int):
     """xb: [R, block] f32 -> the same shape, top-k per row kept."""
     launches.check_shapes(NAME, xb, 2)
+
+    def prepare():
+        launches.check_operands(NAME, xb)
+        return torch.empty_like(xb), ()
     if launches.on_cpu(xb):
-        return ref.topk_blocks(xb.to(torch.float32), k)
+        return launches.plain(xb.device, lambda: ref.topk_blocks(
+            xb.to(torch.float32), k), prepare)
     from repro_torch.kernels import _build
-    launches.check_operands(NAME, xb)
     R, block = xb.shape
-    out = torch.empty_like(xb)
+    out, _ = prepare()
     _build.launch("commit_kernels", "topk_rows", xb.data_ptr(),
                   out.data_ptr(), R, block, k, device=xb.device)
     launches.count(NAME)

@@ -27,7 +27,10 @@ where they have a counterpart:
   which is slow on meta tensors: its count is linear in the sequence (no
   attention; the mLSTM is quadratic only within its fixed chunk), so it is
   counted at one and at two mLSTM chunks and the difference scaled to the
-  sequence;
+  sequence.  A long prefill is counted at one to four PREFILL_UNITs of
+  its prompt and extrapolated on their quadratic (the products linear in
+  the prompt, attention's chunk pairs quadratic) where the fourth lies on
+  it, else at the whole prompt;
 * ``collective_bytes``: ``{kind: bytes}``, the bytes one device's
   collectives move in one step, under the reference's kinds
   (``COLLECTIVE_OPS``: ``all-reduce``, ``all-gather``, ``all-to-all``;
@@ -54,15 +57,41 @@ where they have a counterpart:
   dry count exactly (the tests on ``gloo`` CPU ranks; ``chip_smoke.py``'s
   ``spmd`` (g) and (h) on the card).
 
+* ``memory_analysis``: the reference's ``argument_size_in_bytes``,
+  ``output_size_in_bytes``, ``temp_size_in_bytes`` and
+  ``alias_size_in_bytes`` of the same step on the same rank, with
+  ``peak_size_in_bytes`` (temp plus the outputs the step allocated),
+  counted from the port's own allocations on ``meta`` (``launch.memory``:
+  each new storage charged at the CUDA caching allocator's rounding while
+  it lives; a kernel wrapper charges what its CUDA branch allocates).
+  Argument and output bytes are additive; a peak is not, so a prefill or
+  decode step is scaled from one and two layer groups only where the count
+  at three lies on their line to the byte (else from two and three where
+  four does), else counted at the whole depth (the xLSTM's over its
+  mLSTM chunks likewise), and a round's local training and commit are
+  counted apart: the commit at the whole depth (its packing
+  makes an f32 copy of every slot), the training's peak scaled as a
+  prefill's is, the round's temp the larger phase's.  ``count_memory``
+  and ``serve_memory`` count any configuration, as ``count_collectives``
+  and ``serve_collectives`` do;
+  live ranks that count the same calls (``launch.memory.count_memory``)
+  equal them exactly (the tests on ``gloo`` CPU ranks; ``chip_smoke.py``'s
+  ``spmd`` (g) and (h) on the card, which also hold the card allocator's
+  peak to ``peak_size_in_bytes``).
+
 The reference also counts its collective ops in the HLO text
-(``collective_ops_static``); the port's are calls that run, with no
-static program to count, so that key is written as absent, with the
-reason, not as 0.  The reference's ``memory_analysis`` (the compiled
-step's temporary bytes) has no counterpart yet.
+(``collective_ops_static``) and writes ``generated_code_size_in_bytes``;
+the port's collectives are calls that run and its kernels are libraries
+built at first use, with no static step program to count or size, so
+both are written as absent, with the reason (``memory_analysis``'
+``note``), not as 0.  As the reference's CLI does, a tag that fails
+writes ``{"arch", "shape", "mesh", "tag", "error"}`` and the grid goes
+on; ``run_one`` and the count functions raise.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import functools
 import json
@@ -70,6 +99,7 @@ import math
 import time
 from collections import Counter
 from pathlib import Path
+from types import SimpleNamespace
 
 import torch
 from torch.utils.flop_counter import FlopCounterMode
@@ -79,6 +109,7 @@ from repro_torch.core import CompressionConfig, FLConfig, build_fl_round_step
 from repro_torch.core.round import ParallelRound
 from repro_torch.launch import serve
 from repro_torch.launch import specs as sp
+from repro_torch.launch.memory import count_memory as mem_count
 from repro_torch.launch.mesh import dry_mesh, make_production_mesh
 from repro_torch.models import build_model, sharding as sh, token_shape
 from repro_torch.models.transformer import block_pattern
@@ -96,6 +127,9 @@ NO_STATIC_OPS = ("not counted: the reference counts the collective ops in "
                  "the HLO text; the port runs its collectives, so each call "
                  "is counted as it runs (collective_bytes), and there is no "
                  "static program to count them in")
+NO_CODE_SIZE = ("generated_code_size_in_bytes not counted: the port runs "
+                "its kernels from .so files built on the card at first use, "
+                "and there is no compiled step program to measure")
 
 
 def should_skip(cfg, shape) -> str | None:
@@ -210,9 +244,23 @@ def _step_flops(cfg, shape, C: int, H: int) -> int:
 def step_flops(cfg, shape, clients: int = 0, local_steps: int = 0) -> int:
     """One step's flops at ``cfg``'s depth and ``shape``'s sequence; a
     train shape's step is ``clients`` x ``local_steps`` client steps.
-    Cached: the count does not depend on the mesh."""
-    return _scaled(lambda c, s: Counter(flops=_step_flops(
-        c, s, clients, local_steps)), cfg, shape)["flops"]
+    Cached: the count does not depend on the mesh.  A long prefill
+    (``_prefill_unit``: PREFILL_UNIT) is counted at 1 to 4 units and its
+    quadratic in the units (the products linear in the prompt, attention's
+    chunk pairs quadratic) extrapolated where the fourth lies on it, else
+    counted at its whole length."""
+    def at(s):
+        return _scaled(lambda c, s: Counter(flops=_step_flops(
+            c, s, clients, local_steps)), cfg, s)["flops"]
+    U = _prefill_unit(cfg, shape)
+    if not U:
+        return at(shape)
+    f = [at(dataclasses.replace(shape, seq_len=k * U)) for k in (1, 2, 3, 4)]
+    if f[3] - 3 * f[2] + 3 * f[1] - f[0]:
+        return at(shape)
+    n = shape.seq_len // U
+    return (f[0] + (n - 1) * (f[1] - f[0])
+            + (n - 1) * (n - 2) // 2 * (f[2] - 2 * f[1] + f[0]))
 
 
 def depth_flops(cfg, shape, clients: int, local_steps: int) -> int:
@@ -229,15 +277,18 @@ def _dry(mesh):
     return dry_mesh(mesh.sizes, mesh.axis_names, mesh.rank or 0)
 
 
-def _train_collectives(cfg, shape, mesh, plan, fl=None, n_pods=None,
-                       client_spmd_axes=None, commit_only=False) -> Counter:
-    """The bytes of one round step of ``plan`` on the rank of the dry
-    ``mesh``: its shares of the params and the whole batches, on
-    ``meta``.  ``fl``, ``n_pods`` and ``client_spmd_axes`` default to the
-    reference's ``build_train``'s.  ``commit_only``: the clients' local
-    training (with the parallel round's gather of the params over
-    ``data``) is left out, its deltas and losses taken as ``meta``
-    tensors of their shapes."""
+def _train_pass(cfg, shape, mesh, plan, fl=None, n_pods=None,
+                client_spmd_axes=None, commit_only=False,
+                memory: bool = False) -> tuple:
+    """One round step of ``plan`` on the rank of the dry ``mesh``: its
+    shares of the params and the whole batches, on ``meta``.  ``fl``,
+    ``n_pods`` and ``client_spmd_axes`` default to the reference's
+    ``build_train``'s.  ``commit_only``: the clients' local training
+    (with the parallel round's gather of the params over ``data``) is left
+    out, its deltas and losses taken as ``meta`` tensors of their shapes.
+    Returns (the collective bytes, with ``memory`` the step's memory
+    analysis and under ``"train"`` the peak live bytes while a client
+    trains, else None)."""
     model = build_model(cfg)
     fl = fl or fl_config(plan)
     n_pods = n_pods or mesh.shape.get(sh.POD, 1)
@@ -256,20 +307,61 @@ def _train_collectives(cfg, shape, mesh, plan, fl=None, n_pods=None,
             client_spmd_axes=client_spmd_axes)
         if commit_only:
             _untrained(step)
-        with sh.count_collectives() as counts:
-            step(params, (), batches, vec, vec, torch.Generator())
-    return counts
+        args = (params, (), batches, vec, vec)
+        with sh.count_collectives() as counts, _opened(memory) as mem:
+            train = _watch_training(step, mem)
+            out = step(*args, torch.Generator())
+    if not memory:
+        return counts, None
+    return counts, dict(mem.analysis(args, out), train=train.peak)
+
+
+def _train_collectives(cfg, shape, mesh, plan, **round_args) -> Counter:
+    """The collective bytes of ``_train_pass``."""
+    return _train_pass(cfg, shape, mesh, plan, **round_args)[0]
+
+
+def _serve_collectives(cfg, shape, mesh) -> Counter:
+    """The collective bytes of ``_serve_pass``."""
+    return _serve_pass(cfg, shape, mesh)[0]
+
+
+def _opened(memory: bool):
+    """A memory count of ``meta`` allocations, or none."""
+    return mem_count("meta") if memory else contextlib.nullcontext()
+
+
+def _watch_training(step, count):
+    """``step``'s local training (the parallel round's ``train_clients``,
+    the sequential rounds' ``local_train`` of each client) watched by the
+    memory ``count``: returns an object whose ``peak`` is the most bytes
+    live at once while any client trains (0 without a count)."""
+    watched = SimpleNamespace(peak=0)
+    if count is None:
+        return watched
+    name = "train_clients" if isinstance(step, ParallelRound) else \
+        "local_train"
+    inner = getattr(step, name)
+
+    def train(*args):
+        with count.window() as w:
+            out = inner(*args)
+        watched.peak = max(watched.peak, w.peak)
+        return out
+    setattr(step, name, train)
+    return watched
 
 
 def _untrained(step) -> None:
     """``step`` with its local training replaced by ``meta`` deltas and
     losses of the shapes and dtypes the training gives: each client's
     delta is its params' (the parallel round's whole over the ``data``
-    its client dim owns), its loss a float32 scalar."""
-    loss = sp.meta((), torch.float32)
+    its client dim owns), its loss a float32 scalar, each made afresh by
+    every call, as the training makes them (a memory count holds them)."""
     if not isinstance(step, ParallelRound):
         step.local_train = lambda params, batches: (
-            {k: torch.empty_like(p) for k, p in params.items()}, loss)
+            {k: torch.empty_like(p) for k, p in params.items()},
+            torch.empty((), device="meta"))
         return
     data = sh.DATA in step.owned()
     cuts = step.layout()
@@ -286,13 +378,14 @@ def _untrained(step) -> None:
     step.train_clients = train_clients
 
 
-def _serve_collectives(cfg, shape, mesh) -> Counter:
-    """The bytes of one prefill (``shape``'s prompt into a cache of its
-    length) or one decode step (at the cache's last position) on the rank
-    of the dry ``mesh``: its shares of the params, of the batch (whole
-    where the batch axes do not divide it, as ``sanitize_specs`` leaves
-    it) and of the decode state, as ``launch/serve.py::run`` holds
-    them."""
+def _serve_pass(cfg, shape, mesh, memory: bool = False) -> tuple:
+    """One prefill (``shape``'s prompt into a cache of its length) or one
+    decode step (at the cache's last position) on the rank of the dry
+    ``mesh``: its shares of the params, of the batch (whole where the batch
+    axes do not divide it, as ``sanitize_specs`` leaves it) and of the
+    decode state, as ``launch/serve.py::run`` holds them.  Returns (the
+    collective bytes, with ``memory`` the step's memory analysis, else
+    None)."""
     model = build_model(cfg)
     inputs = _inputs(cfg, shape, model, {})[0]
     with sh.use_mesh(mesh), torch.inference_mode():
@@ -301,14 +394,17 @@ def _serve_collectives(cfg, shape, mesh) -> Counter:
         B = shape.global_batch // n if shape.global_batch % n == 0 \
             else shape.global_batch
         mine = {k: v[:B] for k, v in inputs.items()}
-        with sh.count_collectives() as counts:
+        state = None if shape.kind == "prefill" else \
+            model.init_decode_state(B, shape.seq_len, device="meta")
+        with sh.count_collectives() as counts, _opened(memory) as mem:
             if shape.kind == "prefill":
-                model.prefill(params, mine, s_max=shape.seq_len)
+                out = model.prefill(params, mine, s_max=shape.seq_len)
             else:
-                model.decode_step(params, model.init_decode_state(
-                    B, shape.seq_len, device="meta"), mine["token"],
-                    shape.seq_len - 1, mine.get("patches"))
-    return counts
+                out = model.decode_step(params, state, mine["token"],
+                                        shape.seq_len - 1,
+                                        mine.get("patches"))
+    return counts, (mem.analysis((params, state, mine), out) if memory
+                    else None)
 
 
 def _chunked(cfg, shape) -> int:
@@ -349,6 +445,148 @@ def _scale(c1: Counter, c2: Counter, n: int) -> Counter:
     return +out
 
 
+# A long prefill's flops are counted at 1 to 4 of these tokens (each past
+# attention's full-scores threshold, 2048, so chunked as at the whole
+# length) and extrapolated on their quadratic.  Its memory is not: a peak
+# is the larger of terms that grow with the prompt at different rates
+# (MusicGen-medium's prefill_32k peaks 214 MB above the line through
+# 4096-16384 tokens), so it is counted at the whole prompt
+PREFILL_UNIT = 4096
+
+
+def _prefill_unit(cfg, shape) -> int:
+    """PREFILL_UNIT for a prefill longer than four of them (the xLSTM's
+    aside, which is counted over its mLSTM chunks), else 0."""
+    if shape.kind != "prefill" or _chunked(cfg, shape) \
+            or shape.seq_len % PREFILL_UNIT:
+        return 0
+    return PREFILL_UNIT if shape.seq_len > 4 * PREFILL_UNIT else 0
+
+
+def _checked(count, cfg, shape) -> dict:
+    """``count(cfg, shape)`` (a dict of ints, such as a peak, that need
+    not be linear) at ``cfg``'s depth and ``shape``'s sequence: scaled
+    from the counts at one and at two layer groups only where the count at
+    three equals the extrapolation to the byte in every entry, or from two
+    and three where four does (``_linear``), else counted at the whole
+    depth; counted as it is at three groups or fewer.  The xLSTM family's
+    mLSTM chunks the same way (``_chunked``; its sLSTM steps one token at
+    a time, too slow on ``meta`` at the whole sequence): the chunks checked
+    at one group, then the groups at the two chunk counts the line starts
+    from and the result scaled to the sequence, else counted at the whole
+    sequence."""
+    L = _chunked(cfg, shape)
+    if not L or shape.seq_len <= 3 * L:
+        return _groups_checked(count, cfg, shape)
+    n = shape.seq_len // L
+    one = cfg.replace(n_layers=len(block_pattern(cfg)))
+    line = _line(lambda k: count(one, dataclasses.replace(
+        shape, seq_len=k * L)), n)
+    if line is None:
+        return _groups_checked(count, cfg, shape)
+    k = line[0]
+    return _extended((k,) + tuple(_groups_checked(
+        count, cfg, dataclasses.replace(shape, seq_len=u * L))
+        for u in (k, k + 1)), n)
+
+
+def _groups_checked(count, cfg, shape) -> dict:
+    period = len(block_pattern(cfg))
+    return _linear(lambda g: count(cfg.replace(n_layers=g * period), shape),
+                   cfg.n_layers // period)
+
+
+def _line(at, n: int):
+    """(g, at(g), at(g + 1)) for g = 1 where ``at(1)``, ``at(2)`` and
+    ``at(3)`` lie on a line in every entry; else (the first group's or
+    unit's peak may lie elsewhere than the later ones') for g = 2 where
+    ``at(2)``, ``at(3)`` and ``at(4)`` do; else None (also where the line
+    would reach ``n`` itself)."""
+    for g in (1, 2):
+        if g + 2 >= n:
+            return None
+        v = [at(g + i) for i in range(3)]
+        if all(v[2][e] - v[1][e] == v[1][e] - v[0][e] for e in v[0]):
+            return g, v[0], v[1]
+    return None
+
+
+def _extended(line, n: int) -> dict:
+    """The value at ``n`` on ``_line``'s line."""
+    g, v0, v1 = line
+    return {e: v0[e] + (n - g) * (v1[e] - v0[e]) for e in v0}
+
+
+def _linear(at, n: int) -> dict:
+    """``at(n)``, extrapolated on the line ``_line`` finds, else
+    counted."""
+    line = _line(at, n)
+    return at(n) if line is None else _extended(line, n)
+
+
+def _round_memory(commit: dict, train_peak: int) -> dict:
+    """A round's memory analysis from its commit counted at the whole
+    depth (with the training's deltas and losses as ``meta`` tensors of
+    their shapes, which are all that the training leaves live) and the
+    peak while a client trains: the round's peak is the larger of the
+    two, its outputs are the commit's."""
+    allocated = commit["peak_size_in_bytes"] - commit["temp_size_in_bytes"]
+    peak = max(commit["peak_size_in_bytes"], train_peak)
+    return dict(commit, temp_size_in_bytes=peak - allocated,
+                peak_size_in_bytes=peak)
+
+
+def _count(cfg, shape, mesh, plan, round_args, collectives=True,
+           memory=True) -> dict:
+    """``{"collectives": ..., "memory": ...}`` of one step (the parts
+    asked for), both counted from the same passes where they can."""
+    mesh = _dry(mesh)
+    out = {}
+    if shape.kind != "train":
+        at = functools.lru_cache(maxsize=None)(
+            lambda n, s: _serve_pass(cfg.replace(n_layers=n),
+                                     dataclasses.replace(shape, seq_len=s),
+                                     mesh, memory))
+        if collectives:
+            out["collectives"] = _scaled(
+                lambda c, s: at(c.n_layers, s.seq_len)[0], cfg, shape)
+        if memory:
+            out["memory"] = _checked(
+                lambda c, s: at(c.n_layers, s.seq_len)[1], cfg, shape)
+        return out
+    run = functools.lru_cache(maxsize=None)(
+        lambda n, s, commit_only: _train_pass(
+            cfg.replace(n_layers=n), dataclasses.replace(shape, seq_len=s),
+            mesh, plan, commit_only=commit_only, memory=memory,
+            **round_args))
+
+    def at(c, s, commit_only=False):
+        return run(c.n_layers, s.seq_len, commit_only)
+
+    if not _chunked(cfg, shape) and \
+            cfg.n_layers <= 2 * len(block_pattern(cfg)):
+        counts, mem = at(cfg, shape)
+        out["collectives"], out["memory"] = counts, mem
+    else:
+        # the clients' training is linear in the depth; the commit is
+        # not (its rows are padded to a multiple of the ranks that split
+        # them, and its peak need not lie in the same phase at every
+        # depth), so it is counted at the whole depth
+        commit_counts, commit_mem = at(cfg, shape, True)
+        if collectives:
+            out["collectives"] = _scaled(
+                lambda c, s: at(c, s)[0] - at(c, s, True)[0], cfg,
+                shape) + commit_counts
+        if memory:
+            train = _checked(lambda c, s: {"train": at(c, s)[1]["train"]},
+                             cfg, shape)["train"]
+            out["memory"] = _round_memory(commit_mem, train)
+    if memory:
+        out["memory"] = {k: v for k, v in out["memory"].items()
+                         if k != "train"}
+    return out
+
+
 def count_collectives(cfg, shape, mesh, plan=None, **round_args) -> dict:
     """``{kind: bytes}``: the collectives one step of ``cfg`` at ``shape``
     moves on one rank of ``mesh`` (rank 0 of a mesh record, or the rank a
@@ -362,23 +600,33 @@ def count_collectives(cfg, shape, mesh, plan=None, **round_args) -> dict:
     one decode step.  Counted at one and at two layer groups and scaled
     to the depth, and the xLSTM family at one and two mLSTM chunks scaled
     to the sequence, as ``step_flops`` is."""
-    mesh = _dry(mesh)
-    if shape.kind == "train":
-        def step(c, s, commit_only=False):
-            return _train_collectives(c, s, mesh, plan,
-                                      commit_only=commit_only, **round_args)
-        if not _chunked(cfg, shape) and \
-                cfg.n_layers <= 2 * len(block_pattern(cfg)):
-            counts = step(cfg, shape)
-        else:
-            # the clients' training is linear in the depth; the commit is
-            # not (its rows are padded to a multiple of the ranks that
-            # split them), so it is counted at the whole depth
-            counts = _scaled(lambda c, s: step(c, s) - step(c, s, True),
-                             cfg, shape) + step(cfg, shape, True)
-    else:
-        counts = _scaled(lambda c, s: _serve_collectives(c, s, mesh), cfg,
-                         shape)
+    return _ints(_count(cfg, shape, mesh, plan, round_args,
+                        memory=False)["collectives"])
+
+
+def count_memory(cfg, shape, mesh, plan=None, **round_args) -> dict:
+    """The memory analysis of the step ``count_collectives`` counts, on
+    the same rank: the reference's ``argument_size_in_bytes``,
+    ``output_size_in_bytes``, ``temp_size_in_bytes`` and
+    ``alias_size_in_bytes`` and the step's ``peak_size_in_bytes``
+    (``launch.memory``), counted from the port's own allocations on the
+    rank's ``meta`` shares.  A prefill or decode step is scaled from one
+    and two layer groups (mLSTM chunks) where three lie on their line, else
+    counted whole; a round's training and commit are counted apart (the
+    commit at the whole depth, the training's peak scaled so) and its
+    temp is the larger phase's."""
+    return _ints(_count(cfg, shape, mesh, plan, round_args,
+                        collectives=False)["memory"])
+
+
+def count_step(cfg, shape, mesh, plan=None, **round_args) -> tuple:
+    """(``count_collectives``, ``count_memory``) of the same step, from the
+    same passes."""
+    got = _count(cfg, shape, mesh, plan, round_args)
+    return _ints(got["collectives"]), _ints(got["memory"])
+
+
+def _ints(counts) -> dict:
     return {k: int(v) for k, v in sorted(counts.items())}
 
 
@@ -389,6 +637,19 @@ def serve_collectives(cfg, mesh, batch: int, prompt_len: int, gen: int
     ``prompt_len`` tokens (with the VLM's patches) prefilled, then
     ``gen`` decode steps fed given tokens, each step's logits gathered
     over the batch axes; at ``cfg``'s whole depth."""
+    return _serve_run(cfg, mesh, batch, prompt_len, gen, False)[0]
+
+
+def serve_memory(cfg, mesh, batch: int, prompt_len: int, gen: int) -> dict:
+    """The memory analysis (``count_memory``'s keys) of the
+    ``serve_collectives`` run on the same rank: its arguments the rank's
+    param shares and the whole prompt, given tokens (int64, as
+    ``serve.run`` takes them) and patches on the device; its outputs every
+    step's logits and the last decode state; at ``cfg``'s whole depth."""
+    return _serve_run(cfg, mesh, batch, prompt_len, gen, True)[1]
+
+
+def _serve_run(cfg, mesh, batch, prompt_len, gen, memory) -> tuple:
     model = build_model(cfg)
     prompt = sp.meta(token_shape(cfg, batch, prompt_len), torch.long)
     forced = sp.meta(token_shape(cfg, batch, gen), torch.long)
@@ -396,10 +657,12 @@ def serve_collectives(cfg, mesh, batch: int, prompt_len: int, gen: int
                if cfg.cross_attn_every else None)
     with sh.use_mesh(_dry(mesh)):
         params = sp.shard_params(model.param_specs(), model.logical_specs)
-        with sh.count_collectives() as counts:
-            serve.run(model, params, prompt, gen, 0.0, None, patches,
-                      forced=forced)
-    return {k: int(v) for k, v in sorted(counts.items())}
+        with sh.count_collectives() as counts, _opened(memory) as mem:
+            res = serve.run(model, params, prompt, gen, 0.0, None, patches,
+                            forced=forced)
+    return _ints(counts), (_ints(mem.analysis(
+        (params, prompt, forced, patches), (res.logits, res.state)))
+        if memory else None)
 
 
 def run_one(arch: str, shape_name: str, multi_pod: bool, out_dir: Path,
@@ -441,11 +704,13 @@ def run_one(arch: str, shape_name: str, multi_pod: bool, out_dir: Path,
                                   plan.get("local_steps", 0))),
         "note": "torch.utils.flop_counter.FlopCounterMode on meta tensors: "
                 "matrix products and attention only"}
-    result["collective_bytes"] = count_collectives(cfg, shape, mesh, plan)
+    result["collective_bytes"], memory = count_step(cfg, shape, mesh, plan)
     result["collective_ops_static"] = NO_STATIC_OPS
+    result["memory_analysis"] = dict(memory, note=NO_CODE_SIZE)
     result["size_s"] = round(time.perf_counter() - t0, 3)
     _write(out_dir, tag, result)
     if verbose:
+        temp = result["memory_analysis"]["temp_size_in_bytes"]
         print(f"[dryrun] {tag}: params {nbytes['params'] / 1e9:.3f} GB/dev "
               f"inputs {nbytes['inputs'] / 1e9:.3f} GB/dev"
               + (f" state {nbytes['decode_state'] / 1e9:.3f} GB/dev"
@@ -453,7 +718,7 @@ def run_one(arch: str, shape_name: str, multi_pod: bool, out_dir: Path,
               + f" flops {result['cost_analysis']['flops']:.4g} "
               f"collectives {total_gb(result['collective_bytes']):.2f} GB "
               f"cross-pod {total_gb(result['collective_bytes'], True):.2f} "
-              f"GB ({result['size_s']} s)")
+              f"GB temp {temp / 1e9:.2f} GB ({result['size_s']} s)")
     return result
 
 
@@ -487,9 +752,26 @@ def main(argv=None):
     shapes = list(INPUT_SHAPES) if args.shape == "all" else [args.shape]
     meshes = {"single": [False], "multi": [True],
               "both": [False, True]}[args.mesh]
-    return [run_one(arch, shape, mp, Path(args.out), groups=args.groups,
-                    clients=args.clients, local_steps=args.local_steps)
-            for arch in archs for shape in shapes for mp in meshes]
+    results = []
+    for arch in archs:
+        for shape in shapes:
+            for mp in meshes:
+                try:
+                    results.append(run_one(
+                        arch, shape, mp, Path(args.out), groups=args.groups,
+                        clients=args.clients, local_steps=args.local_steps))
+                except Exception as e:
+                    # the reference's rule: a failing tag writes its error
+                    # and the grid goes on
+                    mesh = "multi" if mp else "single"
+                    tag = f"{arch}__{shape}__{mesh}"
+                    print(f"[dryrun] FAILED {tag}: {type(e).__name__}: {e}")
+                    results.append({"arch": arch, "shape": shape,
+                                    "mesh": mesh, "tag": tag,
+                                    "error": f"{type(e).__name__}: "
+                                             f"{str(e)[:2000]}"})
+                    _write(Path(args.out), tag, results[-1])
+    return results
 
 
 if __name__ == "__main__":

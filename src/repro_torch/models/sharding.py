@@ -81,6 +81,8 @@ from typing import Optional, Sequence
 
 import torch
 
+from repro_torch.launch import memory
+
 BATCH = "__batch__"   # data-parallel batch axis (pod+data in multi-pod)
 DATA = "data"
 MODEL = "model"
@@ -624,6 +626,29 @@ def _comm(group):
     return dist
 
 
+SETTLE_S = 1.0     # the longest a counted collective waits for its release
+
+
+@contextlib.contextmanager
+def _settled(*tensors):
+    """Under an open memory count (``launch.memory``), wait after the
+    block until the backend has dropped the references it took to
+    ``tensors``: gloo releases a finished collective's tensors on its own
+    worker thread, after ``wait`` has returned, so a buffer the caller then
+    drops would otherwise be freed a moment later or not, and a count of
+    live bytes would differ from run to run (a dry mesh drops them at
+    once).  At most ``SETTLE_S`` seconds."""
+    if not memory.counting():
+        yield
+        return
+    held = [t._use_count() for t in tensors]
+    yield
+    deadline = time.perf_counter() + SETTLE_S
+    while any(t._use_count() > n for t, n in zip(tensors, held)) \
+            and time.perf_counter() < deadline:
+        time.sleep(0)
+
+
 def _run(name, x, axes, op):
     stats = getattr(_state, "timed", None)
     if stats is None:
@@ -650,7 +675,8 @@ def psum(x, axes):
 
     def op():
         y = x.contiguous().clone()
-        _comm(group).all_reduce(y, group=group)
+        with _settled(y):
+            _comm(group).all_reduce(y, group=group)
         return y
     return _run("psum", x, axes, op)
 
@@ -672,7 +698,8 @@ def all_gather(x, axes, dim: int = 0):
     def op():
         xc = x.contiguous()
         parts = [torch.empty_like(xc) for _ in range(group.size())]
-        _comm(group).all_gather(parts, xc, group=group)
+        with _settled(xc, *parts):
+            _comm(group).all_gather(parts, xc, group=group)
         return torch.cat(parts, dim)
     return _run("all_gather", x, axes, op)
 
@@ -696,7 +723,8 @@ def all_to_all(x, axes, split_dim: int, concat_dim: int):
         chunk = tuple(send.shape)
         send = send.reshape((n, chunk[0] // n) + chunk[1:]).contiguous()
         recv = torch.empty_like(send)
-        _comm(group).all_to_all_single(recv, send, group=group)
+        with _settled(recv, send):
+            _comm(group).all_to_all_single(recv, send, group=group)
         return torch.cat([recv[j].movedim(0, split_dim) for j in range(n)],
                          concat_dim)
     return _run("all_to_all", x, axes, op)

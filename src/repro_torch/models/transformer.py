@@ -66,6 +66,7 @@ from dataclasses import dataclass
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.launch import memory
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba as mamba_mod
 from repro_torch.models import moe as moe_mod
@@ -188,15 +189,18 @@ class LM:
     def param_specs(self) -> dict:
         """The params' tree with every leaf an empty tensor of its shape
         and dtype on the ``meta`` device: nothing is allocated (the
-        reference's ShapeDtypeStruct tree)."""
-        return self._build(ParamBuilder(None, self.dtype, "meta"))
+        reference's ShapeDtypeStruct tree).  Shapes only: no memory count
+        (``launch.memory``) charges them to a step that asks for them."""
+        with memory.uncharged():
+            return self._build(ParamBuilder(None, self.dtype, "meta"))
 
     @property
     def logical_specs(self) -> dict:
         """The tree of logical-axis tuples, the params' structure (built
         on the ``meta`` device: nothing is allocated)."""
         pb = ParamBuilder(None, self.dtype, "meta")
-        self._build(pb)
+        with memory.uncharged():
+            self._build(pb)
         return pb.specs
 
     def _build(self, pb: ParamBuilder) -> dict:
@@ -690,10 +694,12 @@ class LM:
         if S > s_max:
             raise ValueError(f"prefill of {S} tokens with s_max={s_max}")
         device = params["embed"].device
-        x = self.embed(params, tokens)
         positions = torch.arange(S, device=device)
         caches = self.init_decode_state(B, s_max, device=device)
-        x, _ = self._backbone(params, x, mode="prefill", positions=positions,
+        # the embedding passed, not held here: it is freed once the first
+        # group has run, not kept through the whole backbone
+        x, _ = self._backbone(params, self.embed(params, tokens),
+                              mode="prefill", positions=positions,
                               caches=caches, patches=batch.get("patches"),
                               cache_len=caches.cache_len)
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
@@ -710,9 +716,10 @@ class LM:
         slots of a cache split over ``model``."""
         cfg = self.cfg
         cache_len = state.cache_len
-        x = self.embed(params, token[:, None])      # [B,1,D] ([B,1,n_cb])
-        positions = torch.tensor([pos], device=x.device)
-        x, _ = self._backbone(params, x, mode="decode", positions=positions,
+        positions = torch.tensor([pos], device=params["embed"].device)
+        # [B,1,D] ([B,1,n_cb]), passed, not held here (as in prefill)
+        x, _ = self._backbone(params, self.embed(params, token[:, None]),
+                              mode="decode", positions=positions,
                               caches=state, pos=pos, cache_len=cache_len)
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
         lg = self.logits(self._unembed(params), x[:, 0])

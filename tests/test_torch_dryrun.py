@@ -11,7 +11,8 @@
   tokens``, plus the last position's unembedding and the attention's two
   products (``FlopCounterMode`` counts matrix products only); the xLSTM
   family's count scaled from one and two mLSTM chunks equals its count at
-  the whole sequence;
+  the whole sequence, and a long prefill's, scaled on its quadratic in the
+  prompt, its count at the whole prompt;
 * a tag's JSON carries the reference's keys where they have a
   counterpart: ``collective_bytes`` a dict of bytes under the reference's
   kinds, and ``collective_ops_static`` says why it is absent."""
@@ -144,6 +145,24 @@ def test_tag_json(tmp_path, jdryrun):
     skipped = dryrun.run_one("gemma-2b", "long_500k", False, tmp_path,
                              verbose=False)
     assert "skipped" in skipped and "n_devices" not in skipped
+
+
+@pytest.mark.parametrize("arch", ["granite-3-2b", "jamba-1.5-large-398b"])
+def test_long_prefill_flops_scale_with_the_prompt(arch, monkeypatch):
+    """A long prefill's flops, counted at one to four units of the prompt
+    and extrapolated on their quadratic, equal the count at the whole
+    prompt (here a unit of 256 tokens and a prompt of 6 units)."""
+    monkeypatch.setattr(dryrun, "PREFILL_UNIT", 256)
+    cfg = reduced(get_config(arch))
+    shape = InputShape("scaled_prefill", 6 * 256, 2, "prefill")
+    assert dryrun._prefill_unit(cfg, shape) == 256
+    whole = dryrun._scaled(lambda c, s: dryrun.Counter(
+        flops=dryrun._step_flops(c, s, 0, 0)), cfg, shape)["flops"]
+    seen, count = [], dryrun._step_flops
+    monkeypatch.setattr(dryrun, "_step_flops", lambda c, s, *a: (
+        seen.append(s.seq_len), count(c, s, *a))[1])
+    assert dryrun.step_flops(cfg, shape) == whole
+    assert sorted(set(seen)) == [256, 512, 768, 1024]     # scaled, not whole
 
 
 def test_xlstm_flops_scale_with_the_sequence():

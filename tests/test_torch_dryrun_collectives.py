@@ -22,7 +22,14 @@
   the reduced granite's and the reduced Jamba's rounds (the dry run's own
   round: q8, FedProx 0.01, bfloat16 accumulation; parallel with two
   clients a rank, sequential), a prefill and a decode step, and each
-  equals the dry count of its own rank, exactly.
+  equals the dry count of its own rank, exactly; so does each run's
+  memory analysis (``launch.memory.count_memory`` over the live step:
+  argument, output, temp and alias bytes) against the dry run's
+  ``count_memory`` of its rank.  That holds where no ``models/common.py``
+  ``lane_exact`` branch is taken (two clients a rank train as two lanes
+  here as on the card): that branch is the CPU's own form, and ``meta``
+  follows the card's.  The tokens are int32, the dry run's (the
+  reference's) input dtype.
 
 The JAX package is imported inside the reference fixture, not at the
 top: the spawned ranks import this module, and need only the port."""
@@ -49,6 +56,7 @@ from repro_torch.kernels.selective_scan import (
     selective_scan_chunk_blocks, selective_scan_chunk_bwd_blocks)
 from repro_torch.kernels.topk_sparsify import topk_sparsify_blocks
 from repro_torch.launch import dryrun, serve, spmd
+from repro_torch.launch.memory import count_memory
 from repro_torch.launch.mesh import dry_mesh, make_production_mesh
 from repro_torch.models import build_model, token_shape
 from repro_torch.models import sharding as sh
@@ -269,57 +277,66 @@ def plan_of(mode):
                 hierarchical=False)
 
 
+def tokens(cfg, seed, *lead):
+    return torch.from_numpy(np.random.default_rng(seed).integers(
+        0, cfg.vocab, token_shape(cfg, *lead))).to(torch.int32)
+
+
 def live_round(cfg, mode, mesh):
     """The dry run's round (``dryrun.fl_config``) on this rank's shares:
-    its collective bytes."""
+    its collective bytes and its memory analysis."""
     model = build_model(cfg)
     _, params = serve.build(cfg, "cpu", seed=0, shard=True)
-    toks = torch.from_numpy(np.random.default_rng(5).integers(
-        0, cfg.vocab, token_shape(cfg, C, 1, B, S + 1)))
+    toks = tokens(cfg, 5, C, 1, B, S + 1)
     step = build_fl_round_step(
         model.loss_fn, get_client_optimizer("sgd"),
         get_server_optimizer("fedavg"), dryrun.fl_config(plan_of(mode)),
         client_spmd_axes=dryrun.client_axes(mode, mesh))
-    with sh.count_collectives() as counts:
-        step(flat_dict(params), (), {"tokens": toks[..., :-1],
-                                     "targets": toks[..., 1:]},
-             torch.ones(C), torch.ones(C), torch.Generator().manual_seed(3))
-    return dict(counts)
+    args = (flat_dict(params), (), {"tokens": toks[..., :-1],
+                                    "targets": toks[..., 1:]},
+            torch.ones(C), torch.ones(C))
+    with sh.count_collectives() as counts, count_memory("cpu") as mem:
+        out = step(*args, torch.Generator().manual_seed(3))
+    return dict(counts), mem.analysis(args, out)
 
 
 def live_serve(cfg, kind):
     """One prefill of the rank's rows (a cache of the prompt's length), or
-    one decode step at the cache's last position: its collective
-    bytes."""
+    one decode step at the cache's last position: its collective bytes
+    and its memory analysis."""
     shape = SERVE[kind]
     model, params = serve.build(cfg, "cpu", seed=0, shard=True)
     n = sh.shard_count(sh.batch_split_axes())
-    toks = sh.local_share(torch.from_numpy(np.random.default_rng(6).integers(
-        0, cfg.vocab, token_shape(cfg, shape.global_batch, S))),
-        sh.batch_split_axes())
-    with torch.inference_mode(), sh.count_collectives() as counts:
+    toks = sh.local_share(tokens(cfg, 6, shape.global_batch, S),
+                          sh.batch_split_axes())
+    with torch.inference_mode():
         if kind == "prefill":
-            model.prefill(params, {"tokens": toks}, S)
+            args = (params, {"tokens": toks})
         else:
-            model.decode_step(params, model.init_decode_state(
-                shape.global_batch // n, S), toks[:, 0], S - 1)
-    return dict(counts)
+            args = (params, model.init_decode_state(
+                shape.global_batch // n, S), toks[:, 0])
+        with sh.count_collectives() as counts, count_memory("cpu") as mem:
+            if kind == "prefill":
+                out = model.prefill(*args, S)
+            else:
+                out = model.decode_step(*args, S - 1)
+    return dict(counts), mem.analysis(args, out)
 
 
 def rank_counts(mesh):
-    """Each case's (live bytes, this rank's dry count)."""
+    """Each case's ((live bytes, live memory), (this rank's dry count
+    of both, ``dryrun.count_step``))."""
     torch.use_deterministic_algorithms(True)
     out = {}
     for arch in ARCHS:
         cfg = reduced(get_config(arch))
         for mode in MODES:
             out[(arch, mode)] = (live_round(cfg, mode, mesh),
-                                 dryrun.count_collectives(
-                                     cfg, TRAIN, mesh, plan_of(mode)))
+                                 dryrun.count_step(cfg, TRAIN, mesh,
+                                                   plan_of(mode)))
         for kind in SERVE:
             out[(arch, kind)] = (live_serve(cfg, kind),
-                                 dryrun.count_collectives(cfg, SERVE[kind],
-                                                          mesh))
+                                 dryrun.count_step(cfg, SERVE[kind], mesh))
     return out
 
 
@@ -336,5 +353,15 @@ def ranks(tmp_path_factory):
                          ids=lambda c: "-".join(c))
 def test_live_bytes_equal_the_dry_count(ranks, case):
     for rank, out in enumerate(ranks):
-        live, dry = out[case]
+        (live, _), (dry, _) = out[case]
         assert live and live == dry, (rank, live, dry)
+
+
+@pytest.mark.parametrize("case", [(a, m) for a in ARCHS
+                                  for m in MODES + tuple(SERVE)],
+                         ids=lambda c: "-".join(c))
+def test_live_memory_equals_the_dry_count(ranks, case):
+    for rank, out in enumerate(ranks):
+        (_, live), (_, dry) = out[case]
+        assert live["peak_size_in_bytes"] > 0
+        assert live == dry, (rank, live, dry)
