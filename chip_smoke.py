@@ -20,7 +20,8 @@ it happened; any failure ends the run with a non-zero exit code:
      cases (the fused accumulate at other slot counts and block widths;
      the fused accumulate and the plain commit at the async buffer's
      [8, 4671, 256] under the async phase's staleness, and the fused
-     accumulate at the char-LM's [8, 12681, 256]; the hierarchy's tier-2
+     accumulate at the char-LM's [8, 12681, 256] and at train_100m's
+     commit [8, 707787, 256]; the hierarchy's tier-2
      commit, one slot per facility: the fused accumulate at [4, 4671,
      256], [2, ...] and [1, ...] and the secure commit at K=4; the plain
      commit at K=1
@@ -156,7 +157,26 @@ it happened; any failure ends the run with a non-zero exit code:
      patches, with the round wall, the peak memory and the finite loss (a
      round that does not fit is reported with its peak and the failed
      allocation);
-  9. the mesh layer on one card (``mesh``): (a) a default CIFAR CNN round
+  9. the example drivers (``examples``), each through its own ``main``
+     on the card: ``examples_torch/quickstart.py`` (12 rounds of the CIFAR
+     CNN with channels (8, 16), q8 + top-k 0.25, stochastic),
+     ``async_hybrid_sim.py`` (40 async commits, then sync rounds to the
+     same simulated time) and ``hybrid_hpc_cloud_sim.py`` (the scheduler
+     adapters, 12 rounds with faults and a deadline, 4 scheduler-backed
+     rounds), each run again on the CPU with the same seeds: every host
+     field equal (selections, participation, simulated durations and
+     clocks, the comm ledger, commits, timeouts, updates, job states and
+     artifacts, bytes per site), the accuracy gap printed, the launches
+     exact; ``federated_llm_finetune.py`` at its defaults (reduced
+     gemma-2b, 6 sequential rounds of 4 clients), round 0's client loss
+     against the CPU's to 1e-4, the served logits finite, top-k once per
+     leaf per client a round; ``train_100m.py`` at full width
+     (181,193,472 params) through the sync Orchestrator, cut to 3 of its
+     300 rounds: every loss finite, one fused_accum a round, the round
+     walls, the allocator's peak and the last round's busy share printed,
+     the first client's first batch through the initial params card
+     against CPU to 1e-4;
+ 10. the mesh layer on one card (``mesh``): (a) a default CIFAR CNN round
      at full width (20 clients, 2 local steps, batch 16) and a reduced
      Jamba round under the 1x1 ``make_test_mesh()`` with
      ``client_spmd_axes="data"``, each bit for bit against the same round
@@ -169,7 +189,7 @@ it happened; any failure ends the run with a non-zero exit code:
      single-pod tag), on the meta device, one process an arch with no card
      visible, started after ``round_parity`` so that it runs beside the
      card's phases (it needs no card and can allocate nothing there);
- 10. the round across processes (``spmd``): (a), with a ``model`` axis of 1,
+ 11. the round across processes (``spmd``): (a), with a ``model`` axis of 1,
      four gloo ranks sharing the card (NCCL takes one rank a GPU) on a
      pod 2 x data 2 mesh run the full-width CIFAR round (20 clients, 2
      local steps, batch 16) in the parallel (clients over pod and data),
@@ -345,7 +365,14 @@ from repro_torch.optim import get_client_optimizer, get_server_optimizer  # noqa
 from repro_torch.orchestrator import (BatchedAsyncOrchestrator,  # noqa: E402
                                       EventWindowOrchestrator,
                                       make_mega_fleet)
+from repro_torch.orchestrator.server import to_device  # noqa: E402
 from repro_torch.pytree import flat_dict, nest  # noqa: E402
+
+from examples_torch import async_hybrid_sim as ex_async  # noqa: E402
+from examples_torch import federated_llm_finetune as ex_finetune  # noqa: E402
+from examples_torch import hybrid_hpc_cloud_sim as ex_hybrid  # noqa: E402
+from examples_torch import quickstart as ex_quickstart  # noqa: E402
+from examples_torch import train_100m as ex_train_100m  # noqa: E402
 
 CSRC = "src/repro_torch/kernels/csrc/"
 F32_PEAK = 67e12          # H100 SXM f32 outside the tensor cores, FLOP/s
@@ -692,6 +719,26 @@ AUDIO_TRAIN = dict(rounds=2, C=2, H=2, B=2, S=512)
 # the remat's peak below the other.
 AUDIO_PEAK_NO_REMAT = 55.02e9
 
+# Phase examples: the five example drivers (examples_torch/), each run
+# through its own entry point.  The host examples' launches at their own
+# sizes: quickstart's 12 rounds of q8 + top-k 0.25, stochastic (top-k once
+# per leaf a round, 8 leaves; the quantize plain; one fused accumulate a
+# round), hybrid_hpc_cloud_sim's 12 + 4 rounds of stochastic q8 (one
+# fused accumulate a round); async_hybrid_sim's is one a commit and one a
+# sync round, held in example_async.
+QUICKSTART_EXPECT = {"topk_sparsify": 12 * 8, "fused_accum": 12}
+HYBRID_EXPECT = {"fused_accum": 12 + 4}
+FINETUNE_LOSS_TOL = 1e-4      # round 0's client loss, card against CPU
+# train_100m at full width (12 layers, d_model 768, 12/4 heads, d_ff 3072,
+# vocab 50304 padded to 50432): its commit is one [8, TRAIN_100M_ROWS,
+# 256] stack
+TRAIN_100M_PARAMS = 181_193_472
+TRAIN_100M_ROWS = TRAIN_100M_PARAMS // BLOCK         # 707,787
+TRAIN_100M_SLOTS = 8
+TRAIN_100M_ROUNDS = 3
+TRAIN_100M_CUTS = ("rounds 300 -> 3",)
+TRAIN_100M_LOSS_TOL = 1e-4    # the first batch's loss, card against CPU
+
 # The mesh phase: the 1x1 test mesh's rounds (a default CIFAR CNN round at
 # full width and a reduced-Jamba round, each bit for bit against the same
 # round with no mesh), then the dry run of a dense, an MoE and a hybrid
@@ -739,7 +786,9 @@ TIMED_PARTS = (
     "train_jamba_full_width", "xlstm_whole", "slstm_share",
     "train_audio_whole", "train_vlm_full_width", "mesh_rounds_1x1",
     "finish_dry_run", "spmd_reference", "model_reference", "spmd_nccl",
-    "granite_no_mesh", "serve_no_mesh", "time_rank_chunk")
+    "granite_no_mesh", "serve_no_mesh", "time_rank_chunk",
+    "example_quickstart", "example_async", "example_hybrid",
+    "example_finetune", "example_train_100m")
 
 
 def time_parts(names=TIMED_PARTS) -> None:
@@ -1162,6 +1211,24 @@ def kernel_specs(device, k_slots=K_SLOTS, rows=BUCKET_ROWS,
                                             ASYNC_EXPONENT),
                 4 * (x.numel() + 2 * K + rows * block), 2 * x.numel(), 0)
 
+    # train_100m's commit: 8 clients' deltas of its 181,193,472 params in
+    # one [8, 707787, 256] stack (every leaf a whole number of blocks), from
+    # a generator of its own
+    g4 = torch.Generator(device=device).manual_seed(seed + 3)
+    big_rows = max(1, TRAIN_100M_ROWS * rows // BUCKET_ROWS)
+    k100 = min(TRAIN_100M_SLOTS, k_slots)
+    x100 = torch.randn(k100, big_rows, block, generator=g4,
+                       device=device) * 0.01
+    w100 = torch.rand(k100, generator=g4, device=device) * 1.5 + 0.5
+    s100 = torch.zeros(k100, device=device)
+    label100 = f"train_100m's commit [{k100}, {big_rows}, {block}]"
+    accum_library[label100] = lambda: torch.einsum("k,krb->rb", w100, x100)
+    train_100m_accum = (
+        label100, lambda: fused_accum_blocks(x100, w100, s100, 0.0),
+        lambda: ref.fused_accum_ref(x100, w100[:, None], s100[:, None], 0.0),
+        4 * (x100.numel() + 2 * k100 + big_rows * block), 2 * x100.numel(),
+        0)
+
     kt = min(N_FACILITIES, k_slots)
     t2_seeds, t2_coef, t2_part = secure_pairs(kt, seed, device, out=())
     t2_secure = secure_case(
@@ -1223,7 +1290,8 @@ def kernel_specs(device, k_slots=K_SLOTS, rows=BUCKET_ROWS,
                 2 * xlm.numel(), 0),
                async_accum("the async buffer", x_async),
                async_accum("the char-LM's async buffer", xlm_async),
-               tier2_accum(kt, 0), tier2_accum(1, 1), tier2_accum(2, 1)],
+               tier2_accum(kt, 0), tier2_accum(1, 1), tier2_accum(2, 1),
+               train_100m_accum],
             extra_library=accum_library,
             compare=lambda g, p: check(
                 torch.allclose(g, p, rtol=FUSED_ACCUM_TOL[0],
@@ -3368,6 +3436,259 @@ def lm_train():
     add_counts(totals, xlstm_whole())
     add_counts(totals, train_audio_whole())
     add_counts(totals, train_vlm_full_width())
+    return totals
+
+
+# ---------------------------------------------------------- examples
+def round_host(orch) -> tuple:
+    """A sync run's host fields: each round's selection, participation,
+    simulated duration, uplink bytes and scheduler accounting, the clock
+    and the comm ledger (none depends on a float result of the device)."""
+    return ([(l.rnd, l.selected, l.participated, l.duration_s, l.bytes_up,
+              l.mean_queue_wait_s, l.n_overflow, l.n_preempted)
+             for l in orch.logs], orch.virtual_clock, orch.comm.records)
+
+
+def async_host(anc) -> tuple:
+    """An async run's host fields: the processed events, the comm ledger,
+    each commit's host fields (NaN made comparable) and the counters."""
+    logs = [{k: "nan" if isinstance(v, float) and math.isnan(v) else v
+             for k, v in host_log(l).items()} for l in anc.logs]
+    return (anc.events_processed, anc.comm.records, logs, anc.version,
+            anc.updates_applied, anc.dropped_stale, anc.recovered_updates,
+            anc.lost_to_faults, anc.recovery_time_total, anc.clock)
+
+
+def run_example(label, main, device="cuda"):
+    """An example's ``main`` on ``device``, its launches counted from 0,
+    then once more on the CPU with the same seeds (its output kept
+    apart): (card result, CPU result, launches)."""
+    launches.reset()
+    t0 = time.perf_counter()
+    card = main(["--device", device])
+    sync(device)
+    counts = dict(launches.KERNEL_LAUNCHES)
+    wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        cpu = main(["--device", "cpu"])
+    print(f"example {label}: {device} {wall:.1f} s, cpu "
+          f"{time.perf_counter() - t0:.1f} s, launches {counts}")
+    return card, cpu, counts
+
+
+def accuracy_gap(label, card, cpu):
+    """Printed, not held: stochastic q8 (and top-k) run on every commit,
+    so card and CPU params part at the first commit (ROADMAP.md's
+    discontinuous commits)."""
+    print(f"example {label}: accuracy {card:.4f} against the CPU's "
+          f"{cpu:.4f} (gap {card - cpu:+.4f}, printed only)")
+
+
+def example_quickstart(device="cuda"):
+    (orch, _), (cpu_orch, _), counts = run_example(
+        "quickstart", ex_quickstart.main, device)
+    check(all(math.isfinite(l.client_loss) for l in orch.logs),
+          "example quickstart: a non-finite loss")
+    check(round_host(orch) == round_host(cpu_orch),
+          "example quickstart: host fields differ from the CPU run's")
+    check(counts == QUICKSTART_EXPECT,
+          f"example quickstart: launches {counts}, expected "
+          f"{QUICKSTART_EXPECT}")
+    accuracy_gap("quickstart", orch.logs[-1].eval_metric,
+                 cpu_orch.logs[-1].eval_metric)
+    return counts
+
+
+def example_async(device="cuda"):
+    card, cpu, counts = run_example("async_hybrid_sim", ex_async.main,
+                                    device)
+    anc = card["anc"]
+    check(all(math.isfinite(l.client_loss) for l in anc.logs),
+          "example async_hybrid_sim: a non-finite loss")
+    check(async_host(anc) == async_host(cpu["anc"]),
+          "example async_hybrid_sim: async host fields differ from the CPU "
+          "run's")
+    check(card["rounds"] == cpu["rounds"]
+          and round_host(card["sync"]) == round_host(cpu["sync"]),
+          "example async_hybrid_sim: sync host fields differ from the CPU "
+          "run's")
+    expect = {"fused_accum": anc.version + card["rounds"]}
+    check(counts == expect, f"example async_hybrid_sim: launches {counts}, "
+                            f"expected {expect}")
+    for run in ("p_async", "p_sync"):
+        accuracy_gap(f"async_hybrid_sim {run}",
+                     float(card["acc"](card[run])),
+                     float(cpu["acc"](cpu[run])))
+    return counts
+
+
+def site_bytes(orch, fleet) -> dict:
+    """Uplink bytes and link seconds by site, as the example prints them."""
+    out = {}
+    for site in ("hpc", "cloud"):
+        cids = {c.cid for c in fleet if c.site == site}
+        recs = [r for r in orch.comm.records
+                if r.cid in cids and r.direction == "up"]
+        out[site] = (sum(r.nbytes for r in recs), [r.seconds for r in recs])
+    return out
+
+
+def example_hybrid(device="cuda"):
+    card, cpu, counts = run_example("hybrid_hpc_cloud_sim", ex_hybrid.main,
+                                    device)
+    check(card["states"] == cpu["states"]
+          and [h.artifact for h in card["handles"]]
+          == [h.artifact for h in cpu["handles"]],
+          "example hybrid_hpc_cloud_sim: job states or artifacts differ")
+    check("python -m repro_torch.worker --client-id 0"
+          in card["handles"][0].artifact,
+          "example hybrid_hpc_cloud_sim: the job does not run the port's "
+          "worker")
+    for run in ("orch", "sched_orch"):
+        check(all(math.isfinite(l.client_loss) for l in card[run].logs),
+              f"example hybrid_hpc_cloud_sim {run}: a non-finite loss")
+        check(round_host(card[run]) == round_host(cpu[run]),
+              f"example hybrid_hpc_cloud_sim {run}: host fields differ from "
+              f"the CPU run's")
+    check(site_bytes(card["orch"], card["fleet"])
+          == site_bytes(cpu["orch"], cpu["fleet"]),
+          "example hybrid_hpc_cloud_sim: bytes per site differ")
+    check(counts == HYBRID_EXPECT,
+          f"example hybrid_hpc_cloud_sim: launches {counts}, expected "
+          f"{HYBRID_EXPECT}")
+    accuracy_gap("hybrid_hpc_cloud_sim", card["orch"].logs[-1].eval_metric,
+                 cpu["orch"].logs[-1].eval_metric)
+    return counts
+
+
+def example_finetune(device="cuda", tol=FINETUNE_LOSS_TOL):
+    """federated_llm_finetune at its defaults (reduced gemma-2b, 6 rounds
+    of 4 sequential clients): top-k once per leaf per client a round (the
+    streaming stage; the sequential commit sums in plain PyTorch).  Round
+    0's client loss against a 1-round CPU run (no commit has run before
+    it); the served logits finite."""
+    launches.reset()
+    t0 = time.perf_counter()
+    card = ex_finetune.main(["--device", device])
+    sync(device)
+    counts = dict(launches.KERNEL_LAUNCHES)
+    wall = time.perf_counter() - t0
+    with contextlib.redirect_stdout(io.StringIO()):
+        cpu = ex_finetune.run(device="cpu", rounds=1)
+    got, want = (card["metrics"][0]["client_loss"],
+                 cpu["metrics"][0]["client_loss"])
+    gap = abs(got - want) / abs(want)
+    print(f"example federated_llm_finetune: {device} {wall:.1f} s, round 0 "
+          f"loss {got!r} against the CPU's {want!r} (rel {gap:.3g}), "
+          f"launches {counts}")
+    check(gap <= tol, f"example federated_llm_finetune: round 0 loss "
+                      f"{got} against the CPU's {want}")
+    check(all(math.isfinite(m["client_loss"]) for m in card["metrics"]),
+          "example federated_llm_finetune: a non-finite loss")
+    check(bool(torch.isfinite(card["prefill_logits"]).all())
+          and bool(torch.isfinite(card["decode_logits"]).all()),
+          "example federated_llm_finetune: non-finite served logits")
+    expect = {"topk_sparsify": len(card["metrics"]) * 4 * len(card["params"])}
+    check(counts == expect, f"example federated_llm_finetune: launches "
+                            f"{counts}, expected {expect}")
+    return counts
+
+
+def example_train_100m(device="cuda", cfg=None, n_params=TRAIN_100M_PARAMS,
+                       rounds=TRAIN_100M_ROUNDS, tol=TRAIN_100M_LOSS_TOL):
+    """train_100m at full width through the sync Orchestrator, the rounds
+    cut (TRAIN_100M_CUTS): every round's loss finite, one fused accumulate
+    a round, the round walls, the allocator's peak and the device's busy
+    share over the last round (``torch.profiler``); then the first
+    client's first batch through the initial params, card against CPU.
+    The loss is not held to decrease: the example holds that after 300
+    rounds."""
+    from torch.profiler import ProfilerActivity, profile
+    s = ex_train_100m.setting(ci=False)
+    cfg = cfg or s["cfg"]
+    free_cache(device)
+    model, orch, params = ex_train_100m.build(cfg, s["seq"], s["n_seqs"],
+                                              s["batch"], device)
+    n = sum(v.numel() for v in params.values())
+    print(f"example train_100m: {cfg.name} ({cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.n_heads}/{cfg.kv_heads} heads, d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab}, {cfg.dtype}): {n} params; cut: "
+          f"{'; '.join(TRAIN_100M_CUTS)}")
+    check(n_params is None or n == n_params,
+          f"example train_100m: {n} params, expected {n_params}")
+    first = {}
+    sample = orch.fed_data.sample_round
+
+    def keep_first(*args, **kw):
+        out = sample(*args, **kw)
+        first.setdefault("batch", {k: v[0, 0] for k, v in out.items()})
+        return out
+    orch.fed_data.sample_round = keep_first
+    start = params
+    cuda = torch.device(device).type == "cuda"
+    sync(device)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    launches.reset()
+    params, state = orch.run(params, rounds - 1)
+    sync(device)
+    with profile(activities=[ProfilerActivity.CPU]
+                 + ([ProfilerActivity.CUDA] if cuda else [])) as prof:
+        t0 = time.perf_counter()
+        params, state = orch.run(params, rounds, server_state=state,
+                                 start_round=rounds - 1)
+        sync(device)
+        last_wall = time.perf_counter() - t0
+    counts = dict(launches.KERNEL_LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() if cuda else 0
+    device_us = sum(e.self_device_time_total for e in prof.key_averages()
+                    if str(e.device_type).endswith("CUDA"))
+    losses = [l.client_loss for l in orch.logs]
+    print(f"example train_100m: {rounds} rounds of 8 clients x 4 local "
+          f"steps x batch {s['batch']} x {s['seq']} tokens, losses {losses}, "
+          f"round walls {[l.wall_s for l in orch.logs]} s (the last under "
+          f"the profiler, {last_wall:.4f} s with its sync), "
+          f"max_memory_allocated={peak} ({peak / 1e9:.2f} GB), the last "
+          f"round's device time {device_us / 1e3:.3f} ms (busy share "
+          f"{device_us / 1e6 / last_wall:.3f}), launches={counts}")
+    check(len(losses) == rounds and all(math.isfinite(x) for x in losses),
+          f"example train_100m: losses {losses}")
+    check(all(bool(torch.isfinite(v).all()) for v in params.values()),
+          "example train_100m: non-finite params")
+    check(counts == {"fused_accum": rounds},
+          f"example train_100m: launches {counts}, expected one "
+          f"fused_accum a round")
+    del params, state, orch
+    free_cache(device)
+    batch = first["batch"]
+    with torch.no_grad():
+        got = float(model.loss_fn(start, to_device(batch, device))[0])
+        start = {k: v.cpu() for k, v in start.items()}
+        want = float(model.loss_fn(start, to_device(batch, "cpu"))[0])
+    gap = abs(got - want) / abs(want)
+    print(f"example train_100m: the first client's first batch "
+          f"({list(batch['tokens'].shape)} tokens) through the initial "
+          f"params: loss {got!r} against the CPU's {want!r} (rel "
+          f"{gap:.3g})")
+    check(gap <= tol, f"example train_100m: first-batch loss {got} against "
+                      f"the CPU's {want}")
+    del start, model
+    free_cache(device)
+    return counts
+
+
+def examples_phase(device="cuda", train_cfg=None, train_params=
+                   TRAIN_100M_PARAMS):
+    """Phase examples: the five example drivers of ``examples_torch/``
+    on the card through their own entry points; the host-side ones and
+    the finetune against the CPU; train_100m at full width."""
+    totals = {}
+    for run in (example_quickstart, example_async, example_hybrid,
+                example_finetune):
+        add_counts(totals, run(device))
+    add_counts(totals, example_train_100m(device, cfg=train_cfg,
+                                          n_params=train_params))
     return totals
 
 
@@ -5621,6 +5942,7 @@ def main() -> int:
                            ("async_path", async_path),
                            ("fleet_path", fleet_path),
                            ("lm_serve", lm_serve), ("lm_train", lm_train),
+                           ("examples", examples_phase),
                            ("mesh", lambda: mesh_phase(dry=dry.pop("job"))),
                            ("spmd", spmd_phase)):
             if phase == "round_parity":
@@ -5636,6 +5958,7 @@ def main() -> int:
         add_counts(totals, phases["fleet_path"])
         add_counts(totals, phases["lm_serve"])
         add_counts(totals, phases["lm_train"])
+        add_counts(totals, phases["examples"])
         add_counts(totals, phases["mesh"])
         add_counts(totals, phases["spmd"])
         for kname, row in rows.items():

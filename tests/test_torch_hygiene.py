@@ -1,8 +1,10 @@
-"""Package rules of the PyTorch port: ``repro_torch`` and ``chip_smoke.py``
-import neither JAX nor the JAX package, the launchers (training and
-serving) and the worker refuse to run on the CPU unless asked to, and a
-CPU run, a round or a serve, never reaches the kernel builder."""
+"""Package rules of the PyTorch port: ``repro_torch``, ``chip_smoke.py``
+and the example drivers (``examples_torch/``) import neither JAX nor the
+JAX package, the launchers (training and serving), the worker and the
+examples refuse to run on the CPU unless asked to, and a CPU run, a round
+or a serve, never reaches the kernel builder."""
 import ast
+import importlib.util
 import os
 import subprocess
 import sys
@@ -16,7 +18,8 @@ from repro_torch.launch import serve, train
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+EXAMPLES = sorted((ROOT / "examples_torch").glob("*.py"))
+SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + EXAMPLES
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 BLOCKED_RUN = r"""
@@ -29,6 +32,10 @@ mods = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
 for m in mods:
     importlib.import_module(m)
 import chip_smoke                     # its imports, without running it
+examples = sorted(m.name for m in pkgutil.iter_modules(["examples_torch"]))
+assert len(examples) == 5, examples
+for name in examples:                 # the example drivers, not run
+    importlib.import_module("examples_torch." + name)
 from repro_torch.kernels import _build
 
 
@@ -134,3 +141,37 @@ def test_chip_smoke_refuses_to_run_without_a_card():
                          timeout=300, cwd=ROOT)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+# the function of each example that does its work: main must refuse the
+# card before it is reached
+EXAMPLE_WORK = {"quickstart": ("run",), "async_hybrid_sim": ("run",),
+                "hybrid_hpc_cloud_sim": ("schedule", "train"),
+                "federated_llm_finetune": ("run",),
+                "train_100m": ("setting", "build")}
+
+
+def test_examples_are_the_reference_five():
+    assert sorted(p.stem for p in EXAMPLES) == sorted(EXAMPLE_WORK)
+    assert sorted(p.stem for p in (ROOT / "examples").glob("*.py")) \
+        == sorted(EXAMPLE_WORK)
+
+
+@pytest.mark.parametrize("name", sorted(EXAMPLE_WORK))
+def test_example_refuses_cuda_without_a_card(name, monkeypatch):
+    spec = importlib.util.spec_from_file_location(
+        f"examples_torch_{name}", ROOT / "examples_torch" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    assert f"examples/{name}.py" in mod.__doc__
+    if torch.cuda.is_available():
+        assert mod.resolve_device("cuda").type == "cuda"
+        return
+
+    def refuse(*args, **kwargs):
+        raise AssertionError(f"{name}: work began without a device")
+
+    for fn in EXAMPLE_WORK[name]:
+        monkeypatch.setattr(mod, fn, refuse)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        mod.main([])
